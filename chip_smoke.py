@@ -10,16 +10,25 @@ final line):
   2. build: nvcc compiles nnet_asr_torch/csrc/*.cu for sm_90a into
      build/kernels/;
   3. each CUDA kernel against its plain PyTorch version on the card at the
-     main path's shapes (forward, and gradients for affine_sigmoid), with
-     CUDA-event timings of kernel and plain version;
-  4. the main path: the port's tnet CLI on cuda:0 trains example-01's MLP3
-     (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
+     main paths' shapes (forward, and gradients for affine_sigmoid; the
+     fused wgrad+momentum update with f32 and bf16 velocity), with
+     CUDA-event and profiler timings of kernel and plain version;
+  4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
+     MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
      cross-validates the initial and the trained model, and checks that
-     both kernels were launched; then the first epoch again on the CPU
-     (plain versions) must agree;
-  5. the production-width stack 1024->4096x4->8192 (bunch 1024) through
-     the port's Trainer: frames/s and achieved TFLOP/s.
+     both of its kernels were launched; then the first epoch again on the
+     CPU (plain versions) must agree;
+  5. the momentum newbob path on the same corpus: the port's scheduler
+     runs newbob with momentum (tnet --MOMENTUM per epoch, every weight
+     updated by the fused wgrad+momentum kernel) and must launch that
+     kernel twice per training bunch and raise CV accuracy; the first
+     momentum epoch again on the CPU must agree; tfeacat --LOGPOSTERIOR on
+     the best model and tnorm on the transform must agree between cuda:0
+     and the CPU, and tfeacat --GMMBYPASS must be finite;
+  6. the production-width stack 1024->4096x4->8192 (bunch 1024) through
+     the port's Trainer: frames/s and achieved TFLOP/s of the train step
+     with momentum 0, and with momentum 0.9 (f32 and bf16 velocity).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
@@ -43,6 +52,14 @@ FEAT_DIM, EXT, DCT, CLASSES = 23, 25, 26, 135    # example-01 (CorpusShape defau
 BUNCH, CACHE = 960, 14400
 PROD_DIMS = [1024, 4096, 4096, 4096, 4096, 8192]
 PROD_BUNCH, PROD_CACHE_BUNCHES = 1024, 8
+# the momentum newbob path: tnet divides the summed gradient by the bunch
+# and scales it by 1/(1-m) (TNetCu semantics), so 7.68 = 0.008 * 960 gives
+# the per-step rate of the frame-CE path's -n 0.008 --GRAD-DIV-FRM=F
+MOM, MOM_LR, MOM_ITERS = 0.5, 7.68, 3
+# (B, In, Out, velocity dtypes) of the fused update: MLP3's two weights,
+# then the production stack's 4096->4096 and 4096->8192
+WGRAD_SHAPES = ((BUNCH, 598, 1024, ("f32",)), (BUNCH, 1024, CLASSES, ("f32",)),
+                (1024, 4096, 4096, ("f32", "bf16")), (1024, 4096, 8192, ("f32", "bf16")))
 
 
 def log(*args) -> None:
@@ -177,8 +194,64 @@ def check_softmax_xent(torch, dev, B, C, seed):
     return err_e, ms, plain_ms
 
 
+def bf16_ulp(torch, t):
+    """One bf16 step at each element's magnitude (8 significant bits)."""
+    mag = t.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
+    from nnet_asr_torch.ops.kernels import sgd_fused as SF
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, In), generator=gen, device=dev)
+    e = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)
+    p = torch.randn((In, Out), generator=gen, device=dev)
+    v = torch.randn((In, Out), generator=gen, device=dev).to(
+        torch.bfloat16 if vdt == "bf16" else torch.float32)
+    a, m = 1e-3, 0.9
+    pk, vk, pp, vp = p.clone(), v.clone(), p.clone(), v.clone()
+    SF.wgrad_momentum_update(x, e, pk, vk, a, m)
+    SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
+    torch.cuda.synchronize()
+    what = f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}"
+    check(vk.dtype == vp.dtype == v.dtype, f"{what}: velocity dtype changed")
+    # f32: within 1e-5 of the largest plain value (the bunch sums run in
+    # another order); bf16 velocity: within that plus one bf16 step at the
+    # element (the f32 sum may round to the neighbouring bf16 value; near
+    # zero the sum's own error is larger than a bf16 step)
+    err_p = (pk - pp).abs().max().item()
+    dv = (vk.float() - vp.float()).abs()
+    err_v = dv.max().item()
+    f32_tol = 1e-5 * vp.float().abs().max().item()
+    check(err_p <= 1e-5 * pp.abs().max().item(), f"{what}: max|p - plain| {err_p}")
+    if vdt == "f32":
+        check(err_v <= f32_tol, f"{what}: max|v - plain| {err_v}")
+        v_note = f"max|v-plain| {err_v:.3e}"
+    else:
+        step = bf16_ulp(torch, torch.maximum(vk.float().abs(), vp.float().abs()))
+        worst = ((dv - step) / f32_tol).max().item()
+        check(worst <= 1.0, f"{what}: velocity beyond one bf16 step + {f32_tol}")
+        v_note = (f"max|v-plain| {err_v:.3e}; {int((dv > step).sum())} of {dv.numel()} "
+                  f"elements more than one bf16 step apart, by at most "
+                  f"{max(worst, 0.0) * f32_tol:.3e} (tolerance {f32_tol:.3e})")
+    # timed on the updated copies: each call is one more in-place step
+    ms = cuda_ms(torch, lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m))
+    plain_ms = cuda_ms(torch, lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m))
+    dev_k = device_us(torch, lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m))
+    dev_p = device_us(torch, lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m))
+    check(bool(torch.isfinite(pk).all() and torch.isfinite(vk.float()).all()),
+          f"{what}: non-finite values after the timed steps")
+    tflops = 2.0 * B * In * Out / (ms * 1e-3) / 1e12
+    log(f"kernel {what}: max|p-plain| {err_p:.3e}, {v_note}")
+    log(f"time {what}: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s), plain (cuBLAS f32 "
+        f"x.T@e + elementwise) {plain_ms:.4f} ms; device time per call (profiler) "
+        f"kernel {_us(dev_k)}, plain {_us(dev_p)}")
+    return max(err_p, err_v), ms, plain_ms
+
+
 # ---------------------------------------------------------------------------
-# 4. the main path: tnet on a synthetic example-01-shaped corpus
+# 4. the frame-CE path: tnet on a synthetic example-01-shaped corpus
 # ---------------------------------------------------------------------------
 
 def drained_frames(total: int, cache: int, bunch: int) -> int:
@@ -206,84 +279,248 @@ def run_tnet(d, src, *extra, device=None):
             "log": out}
 
 
-def main_path(torch, card: str):
+def main_path(torch, card: str, d: str, n: dict):
     import numpy as np
 
     from nnet_asr_torch.models.network import Network
     from nnet_asr_torch.ops.kernels import matmul_act as MA
     from nnet_asr_torch.ops.kernels import softmax_ce as SC
-    from nnet_asr_torch.tools.synth_corpus import CorpusShape, make_corpus
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-        t0 = time.perf_counter()
-        n = make_corpus(d, CorpusShape(), seed=SEED)
-        log(f"corpus: {n['train']} training frames, {n['cv']} cv frames "
-            f"({time.perf_counter() - t0:.1f}s to make)")
+    def j(name: str) -> str:
+        return os.path.join(d, name)
 
-        def j(name: str) -> str:
-            return os.path.join(d, name)
+    train = ("-S", j("train.scp"))
+    cv = ("-S", j("cv.scp"), "-c")
 
-        train = ("-S", j("train.scp"))
-        cv = ("-S", j("cv.scp"), "-c")
+    MA.matmul_act.launches = 0
+    SC.softmax_xent.launches = 0
+    e1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('e1.mmf')}")
+    e2 = run_tnet(d, j("e1.mmf"), *train, f"--TARGETMMF={j('e2.mmf')}")
+    cv0 = run_tnet(d, j("init.mmf"), *cv)
+    cv2 = run_tnet(d, j("e2.mmf"), *cv)
+    launches = {"matmul_act": MA.matmul_act.launches,
+                "softmax_xent": SC.softmax_xent.launches}
 
-        MA.matmul_act.launches = 0
-        SC.softmax_xent.launches = 0
-        e1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('e1.mmf')}")
-        e2 = run_tnet(d, j("e1.mmf"), *train, f"--TARGETMMF={j('e2.mmf')}")
-        cv0 = run_tnet(d, j("init.mmf"), *cv)
-        cv2 = run_tnet(d, j("e2.mmf"), *cv)
-        launches = {"matmul_act": MA.matmul_act.launches,
-                    "softmax_xent": SC.softmax_xent.launches}
+    for name, r in (("epoch 1", e1), ("epoch 2", e2), ("cv init", cv0),
+                    ("cv epoch 2", cv2)):
+        log(f"tnet cuda:0 {name}: Xent {r['xent']:.10g} frames {r['frames']} "
+            f"correct {r['acc']:.4f}% FPS {r['fps']}")
+    log(f"main-path launches (4 tnet runs): {json.dumps(launches)}")
+    want_train = drained_frames(n["train"], CACHE, BUNCH)
+    want_cv = drained_frames(n["cv"], CACHE, BUNCH)
+    check(e1["frames"] == e2["frames"] == want_train,
+          f"training frames {e1['frames']}, {e2['frames']} != {want_train}")
+    check(cv0["frames"] == cv2["frames"] == want_cv,
+          f"cv frames {cv0['frames']}, {cv2['frames']} != {want_cv}")
+    check(all(math.isfinite(r["xent"]) for r in (e1, e2, cv0, cv2)), "Xent not finite")
+    check(cv2["acc"] > cv0["acc"], f"cv accuracy did not improve: "
+                                   f"{cv0['acc']}% -> {cv2['acc']}%")
+    check(launches["matmul_act"] > 0 and launches["softmax_xent"] > 0,
+          f"a kernel was not launched on the main path: {launches}")
+    net2 = Network.read(j("e2.mmf"))
+    check([l.tag for l in net2.layers] == ["<biasedlinearity>", "<sigmoid>",
+                                           "<biasedlinearity>", "<softmax>"]
+          and (net2.n_inputs, net2.n_outputs) == (FEAT_DIM * DCT, CLASSES),
+          "written MMF has the wrong structure")
+    check(all(np.isfinite(v).all() for p in net2.to_numpy_params() for v in p.values()),
+          "written MMF has non-finite weights")
+    log(f"MLP3 epoch throughput (tnet, cuda:0, {card}): {e1['fps']} and "
+        f"{e2['fps']} frames/s (epochs 1 and 2, host intake included)")
 
-        for name, r in (("epoch 1", e1), ("epoch 2", e2), ("cv init", cv0),
-                        ("cv epoch 2", cv2)):
-            log(f"tnet cuda:0 {name}: Xent {r['xent']:.10g} frames {r['frames']} "
-                f"correct {r['acc']:.4f}% FPS {r['fps']}")
-        log(f"main-path launches (4 tnet runs): {json.dumps(launches)}")
-        want_train = drained_frames(n["train"], CACHE, BUNCH)
-        want_cv = drained_frames(n["cv"], CACHE, BUNCH)
-        check(e1["frames"] == e2["frames"] == want_train,
-              f"training frames {e1['frames']}, {e2['frames']} != {want_train}")
-        check(cv0["frames"] == cv2["frames"] == want_cv,
-              f"cv frames {cv0['frames']}, {cv2['frames']} != {want_cv}")
-        check(all(math.isfinite(r["xent"]) for r in (e1, e2, cv0, cv2)), "Xent not finite")
-        check(cv2["acc"] > cv0["acc"], f"cv accuracy did not improve: "
-                                       f"{cv0['acc']}% -> {cv2['acc']}%")
-        check(launches["matmul_act"] > 0 and launches["softmax_xent"] > 0,
-              f"a kernel was not launched on the main path: {launches}")
-        net2 = Network.read(j("e2.mmf"))
-        check([l.tag for l in net2.layers] == ["<biasedlinearity>", "<sigmoid>",
-                                               "<biasedlinearity>", "<softmax>"]
-              and (net2.n_inputs, net2.n_outputs) == (FEAT_DIM * DCT, CLASSES),
-              "written MMF has the wrong structure")
-        check(all(np.isfinite(v).all() for p in net2.to_numpy_params() for v in p.values()),
-              "written MMF has non-finite weights")
-        log(f"MLP3 epoch throughput (tnet, cuda:0, {card}): {e1['fps']} and "
-            f"{e2['fps']} frames/s (epochs 1 and 2, host intake included)")
+    # the same first epoch on the CPU through the plain versions
+    t0 = time.perf_counter()
+    c1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('c1.mmf')}", device="cpu")
+    check_cpu_epoch("epoch 1", c1, e1, j("c1.mmf"), j("e1.mmf"), time.perf_counter() - t0)
+    return launches
 
-        # the same first epoch on the CPU through the plain versions
-        t0 = time.perf_counter()
-        c1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('c1.mmf')}", device="cpu")
-        rel = abs(c1["xent"] - e1["xent"]) / abs(e1["xent"])
-        dcorr = abs(c1["acc"] - e1["acc"]) * c1["frames"] / 100.0
-        wdiff = max(float(np.abs(a[k] - b[k]).max())
-                    for a, b in zip(Network.read(j("c1.mmf")).to_numpy_params(),
-                                    Network.read(j("e1.mmf")).to_numpy_params())
-                    for k in a)
-        log(f"epoch 1 cpu vs cuda:0: Xent {c1['xent']:.10g} vs {e1['xent']:.10g} "
-            f"(rel {rel:.2e}), frames {c1['frames']} vs {e1['frames']}, correct differs "
-            f"by {dcorr:.0f} frames, max|w_cpu - w_cuda| {wdiff:.2e} "
-            f"({time.perf_counter() - t0:.1f}s on the CPU)")
-        check(rel <= 1e-4, f"cpu/cuda Xent rel diff {rel} > 1e-4")
-        check(c1["frames"] == e1["frames"], "cpu/cuda frame counts differ")
-        # argmax can flip on a near-tie under another summation order
-        check(dcorr <= 1e-3 * c1["frames"], f"cpu/cuda correct differs by {dcorr} frames")
-        check(wdiff <= 1e-4, f"cpu/cuda weights differ by {wdiff} > 1e-4")
+
+def check_cpu_epoch(what, c, e, c_mmf, e_mmf, cpu_seconds):
+    """The CPU run ``c`` of an epoch agrees with its cuda:0 run ``e``: Xent
+    within 1e-4 relative, weights within 1e-4, correct frames within 0.1%
+    (argmax can flip on a near-tie under another summation order)."""
+    import numpy as np
+
+    from nnet_asr_torch.models.network import Network
+
+    rel = abs(c["xent"] - e["xent"]) / abs(e["xent"])
+    dcorr = abs(c["acc"] - e["acc"]) * c["frames"] / 100.0
+    wdiff = max(float(np.abs(a[k] - b[k]).max())
+                for a, b in zip(Network.read(c_mmf).to_numpy_params(),
+                                Network.read(e_mmf).to_numpy_params())
+                for k in a)
+    log(f"{what} cpu vs cuda:0: Xent {c['xent']:.10g} vs {e['xent']:.10g} "
+        f"(rel {rel:.2e}), frames {c['frames']} vs {e['frames']}, correct differs "
+        f"by {dcorr:.0f} frames, max|w_cpu - w_cuda| {wdiff:.2e} "
+        f"({cpu_seconds:.1f}s on the CPU)")
+    check(rel <= 1e-4, f"{what}: cpu/cuda Xent rel diff {rel} > 1e-4")
+    check(c["frames"] == e["frames"], f"{what}: cpu/cuda frame counts differ")
+    check(dcorr <= 1e-3 * c["frames"], f"{what}: cpu/cuda correct differs by {dcorr} frames")
+    check(wdiff <= 1e-4, f"{what}: cpu/cuda weights differ by {wdiff} > 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# 5. the momentum newbob path: scheduler -> tnet --MOMENTUM -> tfeacat, tnorm
+# ---------------------------------------------------------------------------
+
+def read_user_features(path):
+    """An HTK feature file written big-endian: (n_samples, dim) float32."""
+    import numpy as np
+
+    n, _, size, _ = np.fromfile(path, dtype=">i4,>i4,>i2,>i2", count=1)[0]
+    return np.fromfile(path, dtype=">f4", offset=12).reshape(int(n), int(size) // 4)
+
+
+def run_tfeacat(d, mmf, out_dir, *extra, device=None):
+    """Features of every cv utterance from ``tfeacat``, by file name."""
+    from nnet_asr_torch.tools import tfeacat
+
+    os.makedirs(out_dir)
+    argv = ["tfeacat", "-H", mmf, "-S", os.path.join(d, "cv.scp"),
+            f"--FEATURETRANSFORM={os.path.join(d, 'transform')}",
+            f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}", "-l", out_dir, "-y", "fea", *extra]
+    check(tfeacat.main(argv, device=device) == 0, "tfeacat failed")
+    return {f: read_user_features(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+
+
+def run_tnorm(d, target, device=None):
+    """(bias, window) that ``tnorm`` computes over the training part."""
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.tools import tnorm
+
+    argv = ["tnorm", "-H", os.path.join(d, "transform"), "-S", os.path.join(d, "train.scp"),
+            f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}", f"--TARGETMMF={target}"]
+    stdout_of(tnorm.main, argv, device=device)
+    net = Network.read(target)
+    check([l.tag for l in net.layers] == ["<bias>", "<window>"], "tnorm output structure")
+    return [v for p in net.to_numpy_params() for v in p.values()]
+
+
+def momentum_path(torch, card: str, d: str, n: dict):
+    import glob
+
+    import numpy as np
+
+    from nnet_asr_torch.ops.kernels import matmul_act as MA
+    from nnet_asr_torch.ops.kernels import sgd_fused as SF
+    from nnet_asr_torch.ops.kernels import softmax_ce as SC
+    from nnet_asr_torch.tools import scheduler, tnet
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    weights = j("weights")
+    sched = ["--nn-init", j("init.mmf"), "--mlf-train", j("labs.mlf"),
+             "--mlf-cv", j("labs.mlf"), "--scp-train", j("train.scp"),
+             "--scp-cv", j("cv.scp"), "--phonelist", j("map"),
+             "--feature-transform", j("transform"), f"--frm-ext={EXT}",
+             f"--bunchsize={BUNCH}", f"--cachesize={CACHE}", f"--seed={SEED}",
+             f"--learnrate={MOM_LR!r}", f"--momentum={MOM!r}", f"--max-iter={MOM_ITERS}",
+             "--weights-dir", weights]
+    MA.matmul_act.launches = 0
+    SC.softmax_xent.launches = 0
+    SF.wgrad_momentum_update.launches = 0
+    t0 = time.perf_counter()
+    out = stdout_of(scheduler.main, sched)
+    wall = time.perf_counter() - t0
+    launches = {"matmul_act": MA.matmul_act.launches,
+                "softmax_xent": SC.softmax_xent.launches,
+                "wgrad_momentum_update": SF.wgrad_momentum_update.launches}
+
+    best_m = re.search(r"Best model: (\S+) \(CV ([\d.]+)%, (\d+) iterations\)", out)
+    init_m = re.search(r"Initial CV accuracy: (\S+)", out)
+    check(best_m is not None and init_m is not None, f"scheduler output:\n{out}")
+    best, best_cv, iters = best_m.group(1), float(best_m.group(2)), int(best_m.group(3))
+    init_cv = float(init_m.group(1))
+    runs = [(float(x), int(f), float(a)) for x, f, a in XENT.findall(out)]
+    fps = [float(v) for v in re.findall(r"FPS:([\d.]+)", out)]
+    decisions = re.findall(r"^(accepting weights|reverting the weights.*|lrate=.*)$", out, re.M)
+    log(f"scheduler (momentum {MOM}, learnrate {MOM_LR}, {iters} iterations) on cuda:0, "
+        f"{card}: {wall:.1f}s; CV accuracy {init_cv}% -> best {best_cv}% "
+        f"({os.path.basename(best)}); decisions {decisions}")
+    for k, (x, f, a) in enumerate(runs):
+        kind = "cv" if k % 2 == 0 else "train"
+        log(f"  tnet run {k} ({kind}): Xent {x:.10g} frames {f} correct {a:.4f}% "
+            f"FPS {fps[k] if k < len(fps) else None}")
+    log(f"momentum-path launches (scheduler, {iters} epochs + {iters + 1} CV runs): "
+        f"{json.dumps(launches)}")
+    bunches = drained_frames(n["train"], CACHE, BUNCH) // BUNCH
+    check(len(runs) == 2 * iters + 1, f"{len(runs)} tnet runs for {iters} iterations")
+    check(all(math.isfinite(x) for x, _, _ in runs), "Xent not finite")
+    check(launches["wgrad_momentum_update"] == 2 * iters * bunches,
+          f"wgrad_momentum_update launched {launches['wgrad_momentum_update']} times, "
+          f"not 2 x {iters} epochs x {bunches} bunches")
+    check(launches["matmul_act"] > 0 and launches["softmax_xent"] > 0,
+          f"a kernel was not launched on the momentum path: {launches}")
+    check(best_cv > init_cv, f"cv accuracy did not improve: {init_cv}% -> {best_cv}%")
+
+    # the first momentum epoch again on the CPU, as the scheduler ran it
+    e1_mmf = glob.glob(os.path.join(weights, "init.mmf_iter01_*"))
+    check(len(e1_mmf) == 1, f"epoch-1 model: {e1_mmf}")
+    argv = ["tnet", "-H", j("init.mmf"), "-I", j("labs.mlf"), "-S", j("train.scp"),
+            f"--LEARNINGRATE={MOM_LR!r}", f"--MOMENTUM={MOM!r}", "--WEIGHTCOST=0.0",
+            "--RANDOMIZE=TRUE", f"--SEED={SEED}", f"--TARGETMMF={j('mc1.mmf')}",
+            "-m", j("map"), f"--BUNCHSIZE={BUNCH}", f"--CACHESIZE={CACHE}",
+            f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}", "-L", "*/", "-X", "lab",
+            f"--FEATURETRANSFORM={j('transform')}"]
+    t0 = time.perf_counter()
+    c1 = XENT.search(stdout_of(tnet.main, argv, device="cpu"))
+    check(c1 is not None, "no Xent line in the CPU momentum epoch")
+    as_run = {"xent": float(c1.group(1)), "frames": int(c1.group(2)),
+              "acc": float(c1.group(3))}
+    e1 = dict(zip(("xent", "frames", "acc"), runs[1]))
+    check_cpu_epoch("momentum epoch 1", as_run, e1, j("mc1.mmf"), e1_mmf[0],
+                    time.perf_counter() - t0)
+
+    # posteriors of the best model: log-posteriors on cuda:0 and on the CPU
+    # within 1e-4 (logits differ by f32 summation order, ~1e-5); each row's
+    # posteriors sum to 1 within 1e-4
+    t0 = time.perf_counter()
+    lp = run_tfeacat(d, best, j("lpost_cuda"), "--LOGPOSTERIOR=TRUE")
+    lp_s = time.perf_counter() - t0
+    lp_cpu = run_tfeacat(d, best, j("lpost_cpu"), "--LOGPOSTERIOR=TRUE", device="cpu")
+    with open(j("cv.scp")) as f:
+        n_cv_files = len(f.read().split())
+    check(sorted(lp) == sorted(lp_cpu) and len(lp) == n_cv_files,
+          f"tfeacat files: {sorted(lp)}")
+    frames = sum(a.shape[0] for a in lp.values())
+    check(frames == n["cv"], f"tfeacat wrote {frames} frames, the cv part has {n['cv']}")
+    lp_diff = max(float(np.abs(lp[f] - lp_cpu[f]).max()) for f in lp)
+    sum_err = max(float(np.abs(np.exp(a.astype(np.float64)).sum(1) - 1).max())
+                  for a in lp.values())
+    check(all(a.shape[1] == CLASSES and np.isfinite(a).all() for a in lp.values()),
+          "tfeacat log-posteriors: wrong width or not finite")
+    log(f"tfeacat --LOGPOSTERIOR best model, {len(lp)} cv files, {frames} frames: "
+        f"cuda:0 {lp_s:.2f}s; max|lp_cuda - lp_cpu| {lp_diff:.3e}; "
+        f"max|sum(p) - 1| {sum_err:.3e}")
+    check(lp_diff <= 1e-4, f"tfeacat cpu/cuda log-posteriors differ by {lp_diff}")
+    check(sum_err <= 1e-4, f"tfeacat posteriors do not sum to 1: {sum_err}")
+    gmm = run_tfeacat(d, best, j("gmm_cuda"), "--GMMBYPASS=TRUE")
+    check(all(np.isfinite(a).all() and (a >= 0).all() for a in gmm.values()),
+          "tfeacat --GMMBYPASS output not finite")
+
+    # tnorm of the transform's output on cuda:0 and on the CPU (float64 sums
+    # of f32 rows): the mean (-bias) within 1e-5 of the output's standard
+    # deviation (1/window) -- the transform already normalises, so the mean
+    # is a near-zero sum and its relative change means nothing -- and the
+    # window within 1e-5 relative
+    t0 = time.perf_counter()
+    (bias, window) = run_tnorm(d, j("norm_cuda"))
+    norm_s = time.perf_counter() - t0
+    (bias_c, window_c) = run_tnorm(d, j("norm_cpu"), device="cpu")
+    check(np.isfinite(bias).all() and np.isfinite(window).all() and (window > 0).all(),
+          "tnorm output not finite")
+    d_mean = float((np.abs(bias - bias_c) * window_c).max())
+    d_window = float((np.abs(window - window_c) / window_c).max())
+    log(f"tnorm over {n['train']} frames: cuda:0 {norm_s:.2f}s; cuda vs cpu: mean "
+        f"differs by {d_mean:.3e} std, window by {d_window:.3e} relative (max|bias| "
+        f"{np.abs(bias).max():.3e}, window {window.min():.4g}..{window.max():.4g})")
+    check(d_mean <= 1e-5 and d_window <= 1e-5,
+          f"tnorm cpu/cuda differ: mean by {d_mean} std, window by {d_window}")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# 5. production width through the Trainer
+# 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
 def production(torch, dev, card: str):
@@ -336,6 +573,25 @@ def production(torch, dev, card: str):
         f"epoch incl. host intake {epoch_fps:.0f} frames/s = "
         f"{6 * n_params * epoch_fps / 1e12:.2f} TFLOP/s")
 
+    # the momentum step (every weight through the fused wgrad+momentum
+    # kernel) beside momentum 0, in turns on the same weights
+    steps = {"momentum 0": tr}
+    for name, vdt in (("momentum 0.9 f32 velocity", None), ("momentum 0.9 bf16 velocity", "bf16")):
+        steps[name] = Trainer(net, TrainerConfig(
+            bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, seed=1,
+            sgd=SgdConfig(learning_rate=0.01, momentum=0.9, velocity_dtype=vdt)), device=dev)
+    times = {name: [] for name in steps}
+    for name in [*steps, *reversed(steps)]:
+        times[name].append(cuda_ms(torch, lambda: steps[name]._train_step(feats, labels),
+                                   reps=20, warmup=3))
+    for name, ms in times.items():
+        fps = [PROD_BUNCH / (t * 1e-3) for t in ms]
+        log(f"production train step, {name}, {card}: "
+            + ", ".join(f"{t:.3f} ms = {f:.0f} frames/s = {6 * n_params * f / 1e12:.2f} "
+                        f"TFLOP/s" for t, f in zip(ms, fps)))
+    check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
+          "production weights not finite after the momentum steps")
+
 
 def main() -> int:
     import torch
@@ -345,6 +601,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from nnet_asr_torch.ops.kernels import _build
+    from nnet_asr_torch.tools.synth_corpus import CorpusShape, make_corpus
 
     # 1. environment
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -365,6 +622,10 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f}s (nvcc {_build.build_seconds}) -> "
         f"{os.path.relpath(_build.library_path())}")
 
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+
     # 3. kernels against their plain versions
     errs1, times1 = [], {}
     for M, K, N in ((BUNCH, 598, 1024), (1024, 4096, 4096)):
@@ -377,14 +638,31 @@ def main() -> int:
         errs2.append(e)
         times2[(B, C)] = (ms, pms)
 
-    # 4. the main path, then 5. production width
-    launches = main_path(torch, card)
+    errs3, times3 = [], {}
+    for B, In, Out, vdts in WGRAD_SHAPES:
+        for vdt in vdts:
+            e, ms, pms = check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
+            errs3.append(e)
+            times3[(B, In, Out, vdt)] = (ms, pms)
+
+    # 4. the frame-CE path, 5. the momentum newbob path, on one corpus;
+    # then 6. production width
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        t0 = time.perf_counter()
+        n = make_corpus(d, CorpusShape(), seed=SEED)
+        log(f"corpus: {n['train']} training frames, {n['cv']} cv frames "
+            f"({time.perf_counter() - t0:.1f}s to make)")
+        launches_ce = main_path(torch, card, d, n)
+        launches_mom = momentum_path(torch, card, d, n)
     production(torch, dev, card)
+    launches = {k: launches_ce.get(k, 0) + launches_mom[k] for k in launches_mom}
 
     ms1, pms1 = times1[(BUNCH, 598, 1024)]
     ms2, pms2 = times2[(BUNCH, CLASSES)]
+    ms3, pms3 = times3[(BUNCH, 598, 1024, "f32")]
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
-        f"shapes (960x598->1024, 960x135) on {card}")
+        f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}; launches "
+        f"summed over the frame-CE and momentum paths")
     log(json.dumps({"kernels": [
         {"name": "affine_sigmoid", "route": "cuda",
          "source": "nnet_asr_torch/csrc/matmul_act.cu",
@@ -396,6 +674,11 @@ def main() -> int:
          "replaces": "nnet_asr_tpu/ops/pallas/softmax_ce.py:113",
          "launches": launches["softmax_xent"], "max_abs_err": max(errs2),
          "ms": ms2, "plain_ms": pms2},
+        {"name": "wgrad_momentum_update", "route": "cuda",
+         "source": "nnet_asr_torch/csrc/sgd_fused.cu",
+         "replaces": "nnet_asr_tpu/ops/pallas/sgd_fused.py:105",
+         "launches": launches["wgrad_momentum_update"], "max_abs_err": max(errs3),
+         "ms": ms3, "plain_ms": pms3},
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

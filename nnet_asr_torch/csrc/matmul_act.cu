@@ -8,26 +8,19 @@
 // What bounds it on an H100: FFMA issue, not bytes. At the production
 // shape (1024 x 4096 -> 4096) the GEMM does 2*M*N*K = 34 GFLOP over
 // 50 MB of operands (~680 FLOP/byte). This first version is the classic
-// shared-memory tiled SGEMM: a 64x64 output tile per 256-thread block,
-// K stepped 16 at a time through shared memory, and a 4x4 register
-// micro-tile per thread (16 FFMA per 8 shared-memory words read). Full
-// f32 with FFMA (no TF32, no tensor cores): the parity tests hold f32.
-// Ragged edges (598, 135, 960 are not tile multiples) are masked: loads
-// outside the matrix read 0, stores outside are skipped.
+// shared-memory tiled SGEMM of tile_gemm.cuh. Ragged edges (598, 135, 960
+// are not tile multiples) are masked: loads outside the matrix read 0,
+// stores outside are skipped.
 //
 // Layout: x (M, K), W (K, N), b (N,), y (M, N), all row-major contiguous.
 
 #include <cuda_runtime.h>
 
+#include "tile_gemm.cuh"
+
 namespace {
 
-constexpr int BM = 64;       // rows of the output tile
-constexpr int BN = 64;       // columns of the output tile
-constexpr int BK = 16;       // K step through shared memory
-constexpr int TM = 4;        // rows per thread
-constexpr int TN = 4;        // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int A_PAD = 4;     // keeps float4 alignment, spreads the stores
+using namespace nnet_tile;
 
 __global__ void __launch_bounds__(THREADS)
 matmul_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -67,18 +60,7 @@ matmul_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
       Bs[k][n] = (gk < K && gc < N) ? w[(size_t)gk * N + gc] : 0.0f;
     }
     __syncthreads();
-
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-      const float4 c = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    fma_tile(As, Bs, ty, tx, acc);
     __syncthreads();
   }
 

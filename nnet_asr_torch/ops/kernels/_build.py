@@ -2,13 +2,14 @@
 
 ``nnet_asr_torch/csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface, at first use, under
-``build/kernels/`` at the repository root. The file name carries a hash of
-the sources and flags, so an edited source builds anew. The library is
-written to a per-process temporary file and moved into place with
-``os.replace`` (the pattern of ``nnet_asr_tpu/io/native.py``), so
-concurrent cold builds never load a half-written file. A failed build
+``build/kernels/`` at the repository root: one ``nvcc -c`` per source, all
+started together, then one link. The file name carries a hash of the
+sources (``*.cuh`` included) and flags, so an edited source builds anew.
+The library is written to a per-process temporary file and moved into
+place with ``os.replace`` (the pattern of ``nnet_asr_tpu/io/native.py``),
+so concurrent cold builds never load a half-written file. A failed build
 raises; nothing is fetched and nothing but the package's own sources is
-compiled.
+compiled. ``build_log`` keeps ptxas's per-kernel register and spill report.
 
 Each C entry point returns ``cudaGetLastError()`` after its launches; the
 wrappers raise on a non-zero code.
@@ -29,22 +30,26 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: (argtypes, restype = int cudaError_t)
 SIGNATURES = {
     # x, w, b, y, M, N, K, act, stream
     "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # logits, labels, err, row_xent, row_corr, xent, corr, B, C, stream
     "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # x, e, p, v, a, m, B, In, Out, v_is_bf16, stream
+    "wgrad_momentum_update_f32": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None   # wall time of the nvcc call, if one ran
+build_seconds: Optional[float] = None   # wall time of the nvcc calls, if they ran
+build_log = ""                          # ptxas's report of the last build
 
 
 def _sources():
@@ -72,19 +77,39 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libnnet_asr_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise naming every one that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def _build(so: str) -> None:
-    global build_seconds
+    global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for obj, src in zip(objs, _sources())])
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
+    build_log = log
 
 
 def load_library() -> ctypes.CDLL:

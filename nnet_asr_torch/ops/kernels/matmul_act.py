@@ -14,6 +14,10 @@ kernel or raises — there is no fallback. ``matmul_act.launches`` counts
 kernel launches. ``affine_sigmoid`` is the ``autograd.Function``; its
 backward is the JAX ``_bwd``: the elementwise ``dz`` in plain torch, and
 ``dx``, ``dW`` by ``torch.matmul``, which JAX also left outside Pallas.
+On the momentum path the backward instead hands ``(x, dz)`` to a
+weight-update hook, which launches the fused wgrad+momentum kernel
+(``ops/kernels/sgd_fused.py``), and forms no ``dW``; ``affine`` is the
+same for a BiasedLinearity without a sigmoid.
 """
 
 from __future__ import annotations
@@ -75,24 +79,60 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 matmul_act.launches = 0
 
 
+def _affine_backward(ctx, x, w, dz):
+    """(dx, dw, db, None) of ``z = x @ w + b`` from the pre-activation
+    error ``dz``. With a weight-update hook, the hook gets ``(x, dz)``
+    after ``dx`` has used the old ``w``, and ``w`` gets no gradient."""
+    dx = dz @ w.T if ctx.needs_input_grad[0] else None
+    db = dz.sum(0) if ctx.needs_input_grad[2] else None
+    if ctx.update is not None:
+        ctx.update(x, dz)
+        return dx, None, db, None
+    dw = x.T @ dz if ctx.needs_input_grad[1] else None
+    return dx, dw, db, None
+
+
 class AffineSigmoid(torch.autograd.Function):
-    """y = sigmoid(x @ w + b) through the fused kernel, JAX ``_bwd`` backward."""
+    """y = sigmoid(x @ w + b) through the fused kernel, JAX ``_bwd`` backward.
+
+    ``update`` is None or a callable ``update(x, dz)`` that updates ``w``
+    in place from the layer's input and pre-activation error (the
+    Trainer's momentum step through the fused wgrad+momentum kernel)."""
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, update):
         y = matmul_act(x, w, b, "sigmoid")
         ctx.save_for_backward(x, w, y)
+        ctx.update = update
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        dz = g * y * (1.0 - y)
-        dx = dz @ w.T if ctx.needs_input_grad[0] else None
-        dw = x.T @ dz if ctx.needs_input_grad[1] else None
-        db = dz.sum(0) if ctx.needs_input_grad[2] else None
-        return dx, dw, db
+        return _affine_backward(ctx, x, w, g * y * (1.0 - y))
 
 
-def affine_sigmoid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return AffineSigmoid.apply(x, w, b)
+class Affine(torch.autograd.Function):
+    """z = x @ w + b in plain torch (a BiasedLinearity without a sigmoid,
+    e.g. the output layer, which the JAX trainer leaves outside Pallas)
+    with the weight-update hook of ``AffineSigmoid``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, update):
+        ctx.save_for_backward(x, w)
+        ctx.update = update
+        return x @ w + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _affine_backward(ctx, x, w, g)
+
+
+def affine_sigmoid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   update=None) -> torch.Tensor:
+    return AffineSigmoid.apply(x, w, b, update)
+
+
+def affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, update) -> torch.Tensor:
+    return Affine.apply(x, w, b, update)

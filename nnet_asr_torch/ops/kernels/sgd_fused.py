@@ -1,0 +1,89 @@
+"""Fused weight gradient + momentum SGD update, in place.
+
+Replaces the TPU kernel ``nnet_asr_tpu/ops/pallas/sgd_fused.py``
+(``wgrad_momentum_update``) with the hand-written CUDA kernel
+``nnet_asr_torch/csrc/sgd_fused.cu``. One pass computes, for one weight
+matrix ``p`` with velocity ``v``::
+
+    g = x^T e;  corr = g + m*v;  v <- corr;  p <- p - a*corr
+
+from the layer's input ``x`` (B, In) and its pre-activation error ``e``
+(B, Out), so the gradient never reaches device memory. It is the momentum
+branch of ``train.sgd.apply_updates`` for a matrix (``a = lr/N``); the L2
+decay stays outside, after it. It is bound by FFMA issue at the production
+stack's widths and by launch latency at example-01's.
+
+Unlike the JAX function, which returns ``(p_new, v_new)``, this one
+updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
+``wgrad_momentum_update`` checks its operands, then dispatches on their
+device: CPU tensors take the plain PyTorch version
+(``wgrad_momentum_update_plain``), CUDA tensors launch the kernel or raise —
+there is no fallback. ``wgrad_momentum_update.launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_VDTYPES = (torch.float32, torch.bfloat16)
+
+
+@torch.no_grad()
+def wgrad_momentum_update_plain(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
+                                v: torch.Tensor, a: float, m: float) -> None:
+    """The plain PyTorch version: the same update, in place, in f32
+    (``v`` is stored back at its own dtype)."""
+    corr = x.T @ e + v.float() * m
+    v.copy_(corr)
+    p.sub_(corr * a)
+
+
+def _check(x, e, p, v):
+    for name, t in (("x", x), ("e", e), ("p", p)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"wgrad_momentum_update: {name} must be float32, got {t.dtype}")
+    if v.dtype not in _VDTYPES:
+        raise TypeError(f"wgrad_momentum_update: v must be float32 or bfloat16, got {v.dtype}")
+    for name, t in (("x", x), ("e", e), ("p", p), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"wgrad_momentum_update: {name} must be contiguous")
+        if t.device != p.device:
+            raise ValueError(f"wgrad_momentum_update: {name} on {t.device}, p on {p.device}")
+    if (x.dim() != 2 or e.dim() != 2 or x.shape[0] != e.shape[0]
+            or tuple(p.shape) != (x.shape[1], e.shape[1]) or v.shape != p.shape):
+        raise ValueError(f"wgrad_momentum_update: want x (B,In), e (B,Out), p and v "
+                         f"(In,Out); got {tuple(x.shape)}, {tuple(e.shape)}, "
+                         f"{tuple(p.shape)}, {tuple(v.shape)}")
+    if min(x.shape[0], x.shape[1], e.shape[1]) < 1:
+        raise ValueError("wgrad_momentum_update: empty operand")
+
+
+def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
+                          v: torch.Tensor, a: float, m: float) -> None:
+    """In place: v <- x^T e + m*v, then p <- p - a*v (before v's rounding
+    to its dtype). x (B,In), e (B,Out), p (In,Out) float32; v (In,Out)
+    float32 or bfloat16."""
+    _check(x, e, p, v)
+    if p.device.type == "cpu":
+        return wgrad_momentum_update_plain(x, e, p, v, a, m)
+    if p.device.type != "cuda":
+        raise ValueError(f"wgrad_momentum_update: unsupported device {p.device}")
+    lib = _build.load_library()
+    B, In = x.shape
+    Out = e.shape[1]
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    code = lib.wgrad_momentum_update_f32(
+        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m),
+        B, In, Out, int(v.dtype == torch.bfloat16), stream)
+    _build.check(code, "wgrad_momentum_update_f32")
+    # written through a raw pointer: bump the versions as an in-place op
+    # would, so autograd refuses a saved copy of p or v from before
+    for t in (p, v):
+        torch.autograd.graph.increment_version(t)
+    wgrad_momentum_update.launches += 1
+
+
+wgrad_momentum_update.launches = 0

@@ -8,8 +8,10 @@ ASCII MMF. The device comes from ``--GPUSELECT`` as in TNetCu (-1 means
 device="cpu")`` runs on the CPU, through the kernels' plain versions.
 ``--THREADS`` and ``--SCANUNROLL`` are accepted and ignored.
 
-Options of the JAX tool that this port does not carry yet raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+``--SAVESTATE``/``--RESUMESTATE`` write and read the Trainer's npz state
+(parameters, velocities, stats) after and before the epoch, in the JAX
+tool's format. Options of the JAX tool that this port does not carry yet
+raise NotImplementedError naming the ROADMAP.md item that brings them.
 
     python -m nnet_asr_torch.tools.tnet -H init.mmf -I labs.mlf -L '*/' \\
         -X lab -S train.scp -m label_map -n 0.008 --GRAD-DIV-FRM=F \\
@@ -35,6 +37,7 @@ from ..device import DeviceLike, gpuselect_device, resolve_device
 from ..models.network import Network
 from ..train.sgd import SgdConfig
 from ..train.trainer import Trainer, TrainerConfig
+from . import not_ported
 
 OPTION_STRING = (
     " -c n   CROSSVALIDATE=TRUE"
@@ -55,11 +58,6 @@ OPTION_STRING = (
 )
 
 SNAME = "TNET"
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to nnet_asr_torch yet (ROADMAP.md {item})")
 
 
 def main(argv=None, device: DeviceLike = None) -> int:
@@ -122,19 +120,17 @@ def main(argv=None, device: DeviceLike = None) -> int:
     ui.check_command_line_param_use()
 
     if compute_dtype != "f32":
-        raise _not_ported(f"--COMPUTEDTYPE={compute_dtype}", "queue 1 item 7")
+        raise not_ported(f"--COMPUTEDTYPE={compute_dtype}", "queue 1 item 7")
     if confusion_mode != "no":
-        raise _not_ported(f"--CONFUSIONMODE={confusion_mode}", "queue 1 items 3 and 7")
+        raise not_ported(f"--CONFUSIONMODE={confusion_mode}", "queue 1 items 3 and 7")
     if objective != "ent":
-        raise _not_ported("-O mse", "queue 1 items 3 and 7")
+        raise not_ported("-O mse", "queue 1 items 3 and 7")
     if l1 != 0.0:
-        raise _not_ported("--L1 (SparseLinearity)", "queue 1 items 2 and 4")
+        raise not_ported("--L1 (SparseLinearity)", "queue 1 items 2 and 4")
     if mesh_spec or distributed:
-        raise _not_ported("--MESH/--DISTRIBUTED", "queue 1 item 14")
-    if p_resume or p_save:
-        raise _not_ported("--RESUMESTATE/--SAVESTATE", "queue 1 item 7")
+        raise not_ported("--MESH/--DISTRIBUTED", "queue 1 item 14")
     if p_jaxprofile:
-        raise _not_ported("--JAXPROFILE", "queue 1 item 9")
+        raise not_ported("--JAXPROFILE", "queue 1 item 9")
 
     if p_script is None:
         print("WARNING: The script file is missing [-S]", file=sys.stderr)
@@ -196,7 +192,11 @@ def main(argv=None, device: DeviceLike = None) -> int:
             yield feats, labs
 
     enable_from_trace(trace)
+    if p_resume:
+        trainer.load_state(p_resume)
     trainer.run_epoch(utterance_iter())
+    if p_save:
+        trainer.save_state(p_save)
 
     if not crossval:
         out_net = trainer.updated_network()

@@ -13,7 +13,7 @@ extended block, so its value equals per-utterance transformation.
 Linear transforms fold to one splice + matmul (``ops.fold_affine``);
 others run layer by layer. The JAX package's shape buckets existed to bound
 XLA compiles and are gone: blocks here hold exactly the valid rows. The
-bf16 and int8 inference modes come with tfeacat (ROADMAP.md queue 1 item 5).
+bf16 and int8 inference modes are still to come (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -98,3 +98,14 @@ class TransformPipeline:
         halo-trimmed rows of all utterances in arrival order."""
         rows, lens = self.transform_rows(ext_feats)
         return rows, int(sum(lens))
+
+    def transform_to_host(self, ext_feats: Sequence[np.ndarray]) -> List[np.ndarray]:
+        """Per-utterance HOST arrays (T_i, D_out) with ONE device-to-host
+        copy for the batch (the posterior-dump path: tfeacat)."""
+        rows, lens = self.transform_rows(ext_feats)
+        return np.split(rows.cpu().numpy(), np.cumsum(lens)[:-1])
+
+    def __call__(self, ext_feats: Sequence[np.ndarray]) -> List[torch.Tensor]:
+        """Per-utterance device tensors (T_i, D_out), halo trimmed."""
+        rows, lens = self.transform_rows(ext_feats)
+        return list(rows.split(lens))

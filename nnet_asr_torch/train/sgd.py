@@ -15,7 +15,9 @@ Unlike the JAX package's pure function, ``apply_updates`` updates the
 parameter and velocity tensors IN PLACE under ``torch.no_grad()``: it saves
 a parameter-sized allocation per step, and the tensors are the network's
 own ``nn.Parameter``s. The scalar coefficients are formed on the host in
-float32, in the JAX package's order.
+float32, in the JAX package's order, by ``layer_coeffs``, which both
+``apply_updates`` and ``fused_weight_step`` (the momentum step of a weight
+matrix through the fused wgrad+momentum kernel) take them from.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.network import Network
+from ..ops.kernels.sgd_fused import wgrad_momentum_update
 
 _f32 = np.float32
 
@@ -88,6 +91,22 @@ def init_momentum(net: Network, momentum: float = 1.0,
              if k in layer.trainable_keys} for layer in net.layers]
 
 
+def layer_coeffs(cfg: SgdConfig, n_frames: int, factor: float,
+                 learning_rate: Optional[float] = None) -> Tuple[float, float]:
+    """(a, decay) of one layer's step, formed on the host in float32 in the
+    JAX package's order: ``p -= a * corr`` (``a = lr/N``, N scaled by
+    ``1/(1-m)`` with momentum), then ``w -= w * decay`` for matrices (L2;
+    0 without weightcost)."""
+    base_lr = _f32(cfg.learning_rate if learning_rate is None else learning_rate)
+    nf = _f32(n_frames)
+    lr = _f32(base_lr * _f32(factor))
+    N = nf if cfg.grad_div_frm else _f32(1.0)
+    if cfg.momentum != 0.0:
+        N = _f32(N * _f32(1.0 / (1.0 - cfg.momentum)))
+    decay = _f32(_f32(lr * _f32(cfg.weightcost)) * (_f32(1.0) if cfg.grad_div_frm else nf))
+    return float(_f32(lr / N)), float(decay)
+
+
 @torch.no_grad()
 def apply_updates(net: Network, params: List[dict], velocity: List[dict],
                   grads: List[dict], cfg: SgdConfig, n_frames: int,
@@ -97,18 +116,14 @@ def apply_updates(net: Network, params: List[dict], velocity: List[dict],
 
     grads are *sums* over the bunch (the reference's X^T E convention).
     ``learning_rate`` overrides cfg.learning_rate at run time (newbob).
+    Tensors without a gradient in ``grads`` are left alone (the Trainer's
+    momentum path updates weight matrices with ``fused_weight_step``).
     """
-    base_lr = _f32(cfg.learning_rate if learning_rate is None else learning_rate)
-    nf = _f32(n_frames)
     m = cfg.momentum
     for spec, p, v, g, f in zip(net.layers, params, velocity, grads, factors):
         if not spec.updatable or f == 0.0:
             continue
-        lr = _f32(base_lr * _f32(f))
-        N = nf if cfg.grad_div_frm else _f32(1.0)
-        if m != 0.0:
-            N = _f32(N * _f32(1.0 / (1.0 - m)))
-        a = float(_f32(lr / N))
+        a, decay = layer_coeffs(cfg, n_frames, f, learning_rate)
         for k in spec.trainable_keys:
             if g.get(k) is None:
                 continue
@@ -124,8 +139,18 @@ def apply_updates(net: Network, params: List[dict], velocity: List[dict],
             # L2 weight decay from live weights, matrices ONLY: both
             # reference backends decay the weights and leave the bias alone
             # (cuBiasedLinearity.cc:62-64, BiasedLinearity.cc:155-170)
-            if cfg.weightcost != 0.0 and w.dim() >= 2:
-                decay = _f32(_f32(lr * _f32(cfg.weightcost))
-                             * (_f32(1.0) if cfg.grad_div_frm else nf))
-                w.sub_(w * float(decay))
+            if decay != 0.0 and w.dim() >= 2:
+                w.sub_(w * decay)
     return params, velocity
+
+
+@torch.no_grad()
+def fused_weight_step(x: torch.Tensor, e: torch.Tensor, w: torch.Tensor,
+                      v: torch.Tensor, a: float, m: float, decay: float) -> None:
+    """The momentum branch of ``apply_updates`` for one weight matrix, in
+    place, with its gradient ``x^T e`` formed inside the fused kernel:
+    the momentum step, then the L2 decay (which the kernel leaves out, as
+    the TPU kernel does). ``(a, decay)`` come from ``layer_coeffs``."""
+    wgrad_momentum_update(x, e, w, v, a, m)
+    if decay != 0.0:
+        w.sub_(w * decay)

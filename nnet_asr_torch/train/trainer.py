@@ -10,8 +10,16 @@ The forward pass goes through the hand-written kernels where the JAX
 package's Pallas path (``use_pallas=True``) does: every BiasedLinearity →
 Sigmoid pair through ``affine_sigmoid`` (trainer.py:158-165) and the
 terminal Softmax with CE through ``fused_softmax_xent`` (trainer.py:205-207).
-On a CUDA device those launch the CUDA kernels; on the CPU they run their
-plain PyTorch versions. Other layers are plain torch ops.
+With momentum, the weight matrix of every updatable BiasedLinearity is
+updated inside the backward pass by the fused wgrad+momentum kernel
+(``wgrad_momentum_update``, the TPU kernel the JAX package runs only in its
+``mom9_fused`` probe, scripts/mfu_drain_ab.py:96-113): the layer's
+``autograd.Function`` hands its input and pre-activation error to
+``sgd.fused_weight_step`` after ``dx`` has used the old weights, so no
+weight gradient is formed; biases and other layers' tensors take
+``apply_updates``. The result is the JAX step's: each weight is read only
+by its own layer's backward. On a CUDA device the kernels launch; on the
+CPU they run their plain PyTorch versions. Other layers are plain torch ops.
 
 Statistics accumulate per cache in f32/int32 device scalars and merge into
 float64 host totals at the end of the epoch (ObjFun.h:16-54), so the loop
@@ -22,6 +30,7 @@ MSE, confusion and BlockSoftmax come later (ROADMAP.md queue 1).
 from __future__ import annotations
 
 import copy
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional, Tuple
@@ -34,12 +43,13 @@ from nnet_asr_tpu.utils.profiler import profiler
 from ..device import DeviceLike, resolve_device
 from ..models.components import BiasedLinearity, Sigmoid, Softmax
 from ..models.network import Network
-from ..ops.kernels.matmul_act import affine_sigmoid
+from ..ops.kernels.matmul_act import affine, affine_sigmoid
 from ..ops.kernels.softmax_ce import fused_softmax_xent
 from ..ops.objectives import XentStats
 from .cache import DeviceFrameCache
 from .pipeline import TransformPipeline
-from .sgd import SgdConfig, apply_updates, init_momentum, layer_lr_factors
+from .sgd import (SgdConfig, apply_updates, fused_weight_step, init_momentum,
+                  layer_coeffs, layer_lr_factors)
 
 
 @dataclass
@@ -72,9 +82,14 @@ class Trainer:
         self.total_frames = 0
         self.wall = 0.0
         self._accs: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
-        # (layer index, key) of every tensor that gets a gradient
+        # layers whose weight the fused wgrad+momentum kernel updates
+        self._fused = [i for i, (spec, f) in enumerate(zip(net.layers, self.factors))
+                       if cfg.sgd.momentum != 0.0 and isinstance(spec, BiasedLinearity)
+                       and f != 0.0]
+        # (layer index, key) of every other tensor that gets a gradient
         self._trainable = [(i, k) for i, (spec, f) in enumerate(zip(net.layers, self.factors))
-                           if spec.updatable and f != 0.0 for k in spec.trainable_keys]
+                           if spec.updatable and f != 0.0 for k in spec.trainable_keys
+                           if not (k == "weight" and i in self._fused)]
         self._lr = cfg.sgd.learning_rate
 
     def set_learning_rate(self, lr: float) -> None:
@@ -82,22 +97,36 @@ class Trainer:
         self._lr = float(lr)
 
     # ------------------------------------------------------------------
-    def _forward_logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward_logits(self, x: torch.Tensor, updates: Optional[dict] = None
+                        ) -> torch.Tensor:
+        """Logits; ``updates`` maps a layer index to its weight-update hook."""
+        updates = updates or {}
         body = self.net.layers[:-1]
         i = 0
         while i < len(body):
             spec = body[i]
             if (isinstance(spec, BiasedLinearity) and i + 1 < len(body)
                     and isinstance(body[i + 1], Sigmoid)):
-                x = affine_sigmoid(x, spec.weight, spec.bias)
+                x = affine_sigmoid(x, spec.weight, spec.bias, updates.get(i))
                 i += 2
                 continue
-            x = spec(x)
+            x = affine(x, spec.weight, spec.bias, updates[i]) if i in updates else spec(x)
             i += 1
         return x
 
+    def _weight_updates(self, n_frames: int) -> dict:
+        """The momentum step's hook for each fused layer (see the module doc)."""
+        updates = {}
+        for i in self._fused:
+            a, decay = layer_coeffs(self.cfg.sgd, n_frames, self.factors[i], self._lr)
+            updates[i] = functools.partial(
+                fused_weight_step, w=self.params[i]["weight"],
+                v=self.velocity[i]["weight"], a=a, m=self.cfg.sgd.momentum, decay=decay)
+        return updates
+
     def _train_step(self, feats: torch.Tensor, labels: torch.Tensor):
-        loss, correct = fused_softmax_xent(self._forward_logits(feats), labels)
+        updates = self._weight_updates(feats.shape[0])
+        loss, correct = fused_softmax_xent(self._forward_logits(feats, updates), labels)
         ts = [self.params[i][k] for i, k in self._trainable]
         gs = torch.autograd.grad(loss, ts) if ts else []
         grads = [{} for _ in self.params]
@@ -171,6 +200,46 @@ class Trainer:
         self.wall += time.time() - t0
 
     # ------------------------------------------------------------------
+    # checkpoint/resume (JAX trainer.py:400-434): the same npz keys, so
+    # either package loads the other's file
+    def save_state(self, path: str) -> None:
+        """Parameters ``p{i}.{k}``, velocities ``v{i}.{k}`` (as f32: npz
+        has no bf16), ``_rng_x`` and the epoch's ``_stats``."""
+        arrs = {}
+        for i, p in enumerate(self.params):
+            for k, t in p.items():
+                arrs[f"p{i}.{k}"] = t.detach().to("cpu", torch.float32).numpy()
+        for i, v in enumerate(self.velocity):
+            for k, t in v.items():
+                arrs[f"v{i}.{k}"] = t.detach().to("cpu", torch.float32).numpy()
+        # the JAX trainer writes this slot as 0 and neither package reads it:
+        # each epoch's cache shuffle restarts from --SEED
+        arrs["_rng_x"] = np.zeros(1, np.uint64)
+        arrs["_stats"] = np.asarray([self.stats.error, self.stats.frames, self.stats.corr],
+                                    dtype=np.float64)
+        np.savez(path, **arrs)
+
+    @torch.no_grad()
+    def load_state(self, path: str) -> None:
+        """Copy a ``save_state`` file into the live tensors (velocities
+        recast to their dtype) and restore the stats; absent keys stay."""
+        with np.load(path) as data:
+            for prefix, groups in (("p", self.params), ("v", self.velocity)):
+                for i, group in enumerate(groups):
+                    for k, t in group.items():
+                        key = f"{prefix}{i}.{k}"
+                        if key not in data:
+                            continue
+                        src = data[key]
+                        if tuple(src.shape) != tuple(t.shape):
+                            raise ValueError(f"{path}: {key} has shape {src.shape}, "
+                                             f"the network's is {tuple(t.shape)}")
+                        t.copy_(torch.from_numpy(np.asarray(src, np.float32)))
+            st = data["_stats"]
+        self.stats.error = float(st[0])
+        self.stats.frames = int(st[1])
+        self.stats.corr = int(st[2])
+
     def updated_network(self) -> Network:
         """A host (CPU) copy of the trained network."""
         return copy.deepcopy(self.net).to("cpu")

@@ -6,7 +6,11 @@ JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: forward outputs differ by summation order only (f32, no TF32).
+Tolerances: forward outputs differ by summation order only (f32, no TF32);
+the fused update's f32 outputs within 1e-5 of the plain version's largest
+value, its bf16 velocity within that plus one bf16 step at the element (the
+f32 sum, taken in another order, may round to the neighbouring bf16 value;
+near zero the sum's own error exceeds a bf16 step).
 """
 
 import numpy as np
@@ -14,6 +18,7 @@ import pytest
 import torch
 
 from nnet_asr_torch.ops.kernels import matmul_act as MA
+from nnet_asr_torch.ops.kernels import sgd_fused as SF
 from nnet_asr_torch.ops.kernels import softmax_ce as SC
 
 torch.set_num_threads(2)
@@ -93,6 +98,39 @@ def test_cuda_softmax_xent_matches_plain(cuda, B, C):
     assert torch.equal(err, err2) and xent.item() == xent2.item()
 
 
+def bf16_ulp(t):
+    """One bf16 step at each element's magnitude (8 significant bits)."""
+    mag = t.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 61, 135), (960, 598, 1024),
+                                   (960, 1024, 135)])
+def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
+    B, In, Out = shape
+    rng = np.random.default_rng(8)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
+    xs, es = (torch.from_numpy(a).to(cuda) for a in (x, e))
+    pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
+    vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
+    before = SF.wgrad_momentum_update.launches
+    SF.wgrad_momentum_update(xs, es, pk, vk, 0.003, 0.9)
+    assert SF.wgrad_momentum_update.launches == before + 1
+    SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, 0.9)
+    torch.cuda.synchronize()
+    assert vk.dtype == vdt and pk.dtype == torch.float32
+    assert (pk - pp).abs().max().item() <= 1e-5 * pp.abs().max().item()
+    if vdt == torch.float32:
+        assert (vk - vp).abs().max().item() <= 1e-5 * vp.abs().max().item()
+    else:
+        big = torch.maximum(vk.float().abs(), vp.float().abs())
+        tol = bf16_ulp(big) + 1e-5 * vp.float().abs().max()
+        assert bool(((vk.float() - vp.float()).abs() <= tol).all())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_bad_input(cuda):
     x = torch.zeros((4, 3), device=cuda)
@@ -108,3 +146,8 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         SC.softmax_xent(x, torch.zeros(4, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         SC.softmax_xent(x, torch.zeros(3, dtype=torch.int32, device=cuda))
+    e = torch.zeros((4, 2), device=cuda)
+    with pytest.raises(TypeError):
+        SF.wgrad_momentum_update(x, e, w, w.half(), 0.1, 0.5)
+    with pytest.raises(ValueError):
+        SF.wgrad_momentum_update(x, e, w, w.cpu(), 0.1, 0.5)

@@ -23,11 +23,15 @@ MODULES = [
     "nnet_asr_torch.ops.kernels._build",
     "nnet_asr_torch.ops.kernels.matmul_act",
     "nnet_asr_torch.ops.kernels.softmax_ce",
+    "nnet_asr_torch.ops.kernels.sgd_fused",
     "nnet_asr_torch.train.pipeline",
     "nnet_asr_torch.train.cache",
     "nnet_asr_torch.train.sgd",
     "nnet_asr_torch.train.trainer",
     "nnet_asr_torch.tools.tnet",
+    "nnet_asr_torch.tools.scheduler",
+    "nnet_asr_torch.tools.tfeacat",
+    "nnet_asr_torch.tools.tnorm",
     "nnet_asr_torch.tools.synth_corpus",
 ]
 

@@ -1,0 +1,104 @@
+"""The port's newbob scheduler against the JAX scheduler, on the CPU.
+
+Both drive three momentum epochs of their own package's tnet over the same
+synthetic corpus (``nnet_asr_torch.tools.synth_corpus`` at a small shape)
+through the shared ``run_newbob``. The accept, reject and halving
+decisions must be the same, and the best models' MMFs allclose.
+"""
+
+import contextlib
+import io
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from nnet_asr_tpu.models.network import Network as JNetwork
+from nnet_asr_tpu.tools import scheduler as jscheduler
+from nnet_asr_torch.tools import scheduler as tscheduler
+from nnet_asr_torch.tools.synth_corpus import CorpusShape, make_corpus
+
+torch.set_num_threads(2)
+
+SHAPE = CorpusShape(feat_dim=5, ext=3, dct=4, hidden=24, classes=6, n_train=15,
+                    n_cv=5, min_frames=20, max_frames=40)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    d = tmp_path_factory.mktemp("corpus")
+    n = make_corpus(str(d), SHAPE, seed=21)
+    assert n["train"] > 0 and n["cv"] > 0
+    return d
+
+
+def _argv(d, weights, *extra):
+    return ["--nn-init", str(d / "init.mmf"), "--mlf-train", str(d / "labs.mlf"),
+            "--mlf-cv", str(d / "labs.mlf"), "--scp-train", str(d / "train.scp"),
+            "--scp-cv", str(d / "cv.scp"), "--phonelist", str(d / "map"),
+            "--feature-transform", str(d / "transform"), f"--frm-ext={SHAPE.ext}",
+            "--bunchsize=16", "--cachesize=64", "--weights-dir", str(weights), *extra]
+
+
+DECISION = re.compile(r"^(accepting weights|reverting the weights.*|lrate=.*|"
+                      r"Initial CV accuracy.*|Best model: .*)$", re.M)
+
+
+def _run(main, argv, **kw):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv, **kw) == 0
+    out = buf.getvalue()
+    best = re.search(r"Best model: (\S+) \(CV", out).group(1)
+    return DECISION.findall(out), best
+
+
+# learning rates (per-frame, divided by the bunch) where the decisions are:
+# accept, accept + start halving, accept + halve; and accept, reject +
+# start halving, accept + halve. Best models within atol 1e-4 after up to three
+# epochs of f32 SGD with momentum 0.5 at these rates.
+@pytest.mark.parametrize("learnrate,want", [
+    ("8.0", ["accepting weights", "accepting weights", "lrate=4",
+             "accepting weights", "lrate=2"]),
+    ("10.0", ["accepting weights", "reverting the weights  71.52777778 < 72.22222222",
+              "lrate=5", "accepting weights", "lrate=2.5"]),
+])
+def test_scheduler_momentum_newbob_matches_jax(corpus, tmp_path, learnrate, want):
+    extra = ("--learnrate", learnrate, "--momentum=0.5", "--max-iter=3",
+             "--start-halving-inc=10")
+    jlog, jbest = _run(jscheduler.main, _argv(corpus, tmp_path / "jax", *extra))
+    tlog, tbest = _run(tscheduler.main, _argv(corpus, tmp_path / "torch", *extra),
+                       device="cpu")
+    assert tlog[:-1] == jlog[:-1]                # every decision, then the best model
+    assert [line for line in tlog if not line.startswith(("Initial", "Best"))] == want
+    assert os.path.basename(tbest) == os.path.basename(jbest)
+    assert os.path.dirname(tbest) == str(tmp_path / "torch")
+    for a, b in zip(JNetwork.read(tbest).params, JNetwork.read(jbest).params):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-4, rtol=0)
+    # the port's weights directory holds the same files as the JAX one
+    assert sorted(os.listdir(tmp_path / "torch")) == sorted(os.listdir(tmp_path / "jax"))
+
+
+@pytest.mark.parametrize("extra,item", [
+    (("--resident",), "queue 1 item 10"),
+    (("--mesh=2x1",), "queue 1 item 14"),
+    (("--compute-dtype=bf16",), "queue 1 item 7"),
+])
+def test_scheduler_mode_outside_slice_raises(corpus, tmp_path, extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        tscheduler.main(_argv(corpus, tmp_path / "w", *extra), device="cpu")
+
+
+def test_scheduler_requires_its_inputs(tmp_path):
+    with pytest.raises(SystemExit, match="--nn-init"):
+        tscheduler.main(["--weights-dir", str(tmp_path)], device="cpu")
+
+
+def test_scheduler_needs_cuda_unless_cpu_is_named(corpus, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tscheduler.main(_argv(corpus, tmp_path / "w", "--max-iter=1"))

@@ -1,0 +1,113 @@
+"""The port's tfeacat and tnorm against the JAX tools, on the CPU.
+
+Same synthetic corpus (``nnet_asr_torch.tools.synth_corpus`` at a small
+shape), transform and model. Posteriors and log-posteriors agree within
+f32 GEMM summation order (rtol 1e-5, atol 1e-6 and atol 1e-5); the
+GMM-bypass features within atol 1e-5 (the model's posteriors stay far from
+1, where ``sqrt(-2 log p)`` is steep); tnorm's bias and window within
+rtol 1e-5, atol 1e-7 (float64 sums of f32 rows; the normalised
+transform's mean is a near-zero sum, held in absolute terms).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nnet_asr_tpu.io import htk
+from nnet_asr_tpu.models.network import Network as JNetwork
+from nnet_asr_tpu.tools import tfeacat as jtfeacat
+from nnet_asr_tpu.tools import tnorm as jtnorm
+from nnet_asr_torch.models.network import Network as TNetwork
+from nnet_asr_torch.tools import tfeacat as ttfeacat
+from nnet_asr_torch.tools import tnorm as ttnorm
+from nnet_asr_torch.tools.synth_corpus import CorpusShape, make_corpus
+
+torch.set_num_threads(2)
+
+SHAPE = CorpusShape(feat_dim=5, ext=3, dct=4, hidden=24, classes=6, n_train=6,
+                    n_cv=20, min_frames=20, max_frames=40)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    d = tmp_path_factory.mktemp("corpus")
+    n = make_corpus(str(d), SHAPE, seed=31)
+    assert n["cv"] > 0
+    return d
+
+
+def _tfeacat_argv(d, out, *extra):
+    return ["tfeacat", "-H", str(d / "init.mmf"), "-S", str(d / "cv.scp"),
+            f"--FEATURETRANSFORM={d / 'transform'}", f"--STARTFRMEXT={SHAPE.ext}",
+            f"--ENDFRMEXT={SHAPE.ext}", "-l", str(out), "-y", "post", *extra]
+
+
+TOL = {"posterior": dict(rtol=1e-5, atol=1e-6), "log": dict(rtol=0, atol=1e-5),
+       "gmmbypass": dict(rtol=0, atol=1e-5)}
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("posterior", ()), ("log", ("--LOGPOSTERIOR=TRUE",)), ("gmmbypass", ("--GMMBYPASS=TRUE",)),
+])
+def test_tfeacat_matches_jax(corpus, tmp_path, mode, extra):
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jdir.mkdir()
+    tdir.mkdir()
+    assert jtfeacat.main(_tfeacat_argv(corpus, jdir, *extra)) == 0
+    assert ttfeacat.main(_tfeacat_argv(corpus, tdir, *extra), device="cpu") == 0
+    names = sorted(p.name for p in jdir.iterdir())
+    assert len(names) == SHAPE.n_cv and names == sorted(p.name for p in tdir.iterdir())
+    for name in names:
+        (j, jh), (t, th) = (htk.read_htk_file(str(p / name)) for p in (jdir, tdir))
+        assert th == jh and th.sample_kind == htk.PARMKIND_USER
+        assert t.shape == j.shape and t.shape[1] == SHAPE.classes
+        assert np.isfinite(t).all()
+        np.testing.assert_allclose(t, j, **TOL[mode])
+        if mode == "posterior":
+            np.testing.assert_allclose(t.sum(1), 1.0, rtol=1e-5)
+
+
+def test_combine_networks_matches_jax(corpus):
+    transform, net = (corpus / "transform").read_text(), (corpus / "init.mmf").read_text()
+    j = jtfeacat.combine_networks(JNetwork.read(transform), JNetwork.read(net))
+    t = ttfeacat.combine_networks(TNetwork.read(transform), TNetwork.read(net))
+    assert t.to_text() == j.to_text()
+    assert (ttfeacat.combine_networks(None, TNetwork.read(net)).to_text()
+            == TNetwork.read(net).to_text())
+
+
+@pytest.mark.parametrize("flag", ["--BF16=TRUE", "--INT8=TRUE"])
+def test_tfeacat_inference_dtypes_raise(corpus, tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
+        ttfeacat.main(_tfeacat_argv(corpus, tmp_path, flag), device="cpu")
+
+
+def _tnorm_argv(d, target, transform):
+    extra = ["-H", str(d / "transform")] if transform else []
+    return ["tnorm", *extra, "-S", str(d / "train.scp"), f"--STARTFRMEXT={SHAPE.ext}",
+            f"--ENDFRMEXT={SHAPE.ext}", f"--TARGETMMF={target}"]
+
+
+@pytest.mark.parametrize("transform", [True, False])
+def test_tnorm_matches_jax(corpus, tmp_path, transform):
+    jout, tout = tmp_path / "jax.mmf", tmp_path / "torch.mmf"
+    assert jtnorm.main(_tnorm_argv(corpus, jout, transform)) == 0
+    assert ttnorm.main(_tnorm_argv(corpus, tout, transform), device="cpu") == 0
+    jnet, tnet = JNetwork.read(str(jout)), JNetwork.read(str(tout))
+    assert [s.tag for s in tnet.specs] == [s.tag for s in jnet.specs] == ["<bias>", "<window>"]
+    dim = SHAPE.feat_dim * SHAPE.dct if transform else SHAPE.feat_dim
+    for a, b in zip(tnet.params, jnet.params):
+        for k in a:
+            assert a[k].shape == (dim,) and np.isfinite(a[k]).all()
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("tool", ["tfeacat", "tnorm"])
+def test_tools_need_cuda_unless_cpu_is_named(corpus, tmp_path, tool):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if tool == "tfeacat":
+            ttfeacat.main(_tfeacat_argv(corpus, tmp_path))
+        else:
+            ttnorm.main(_tnorm_argv(corpus, tmp_path / "n.mmf", True))

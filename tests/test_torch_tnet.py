@@ -94,12 +94,39 @@ def test_tnet_matches_jax_tnet(corpus, tmp_path, extra):
 
 @pytest.mark.parametrize("extra", [
     ("--COMPUTEDTYPE=bf16",), ("--CONFUSIONMODE=max",), ("-O", "mse"),
-    ("--MESH=2x1",), ("--DISTRIBUTED=TRUE",), ("--RESUMESTATE=x.npz",),
-    ("--SAVESTATE=x.npz",), ("--JAXPROFILE=trace",), ("--L1=0.001",),
+    ("--MESH=2x1",), ("--DISTRIBUTED=TRUE",), ("--COMPUTEDTYPE=int8pfsr",),
+    ("--CONFUSIONMODE=soft",), ("--JAXPROFILE=trace",), ("--L1=0.001",),
 ])
 def test_tnet_option_outside_slice_raises(corpus, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttnet.main(_argv(corpus, corpus / "init.mmf", *extra), device="cpu")
+
+
+# one momentum epoch with --SAVESTATE, then the next from its MMF with
+# --RESUMESTATE, in each package: the resumed Xent (which carries the
+# saved stats) within 1e-5 relative, the MMFs within atol 1e-5, and both
+# state files hold the same keys
+@pytest.mark.parametrize("velocity", ["f32", "bf16"])
+def test_tnet_save_then_resume_state_matches_jax(corpus, tmp_path, velocity):
+    d = corpus
+    extra = ("--MOMENTUM=0.9", f"--VELOCITYDTYPE={velocity}")
+    runs = {}
+    for name, main, kw in (("jax", jtnet.main, {}), ("torch", ttnet.main, {"device": "cpu"})):
+        e1, e2, st = (tmp_path / f"{name}_{f}" for f in ("e1.mmf", "e2.mmf", "state.npz"))
+        log1 = _stdout_of(main, _argv(d, d / "init.mmf", f"--TARGETMMF={e1}",
+                                      f"--SAVESTATE={st}", *extra), **kw)
+        log2 = _stdout_of(main, _argv(d, e1, f"--TARGETMMF={e2}", f"--RESUMESTATE={st}",
+                                      *extra), **kw)
+        with np.load(st) as data:
+            runs[name] = (_xent(log1), _xent(log2), e2, sorted(data.files))
+    (jx1, jx2, je2, jkeys), (tx1, tx2, te2, tkeys) = runs["jax"], runs["torch"]
+    assert tkeys == jkeys
+    assert tx2[1] == jx2[1] == 2 * tx1[1] > 0        # the stats carry over
+    np.testing.assert_allclose(tx1[0], jx1[0], rtol=1e-5)
+    np.testing.assert_allclose(tx2[0], jx2[0], rtol=1e-5)
+    for a, b in zip(JNetwork.read(str(te2)).params, JNetwork.read(str(je2)).params):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=0)
 
 
 def test_tnet_blocksoftmax_output_raises(corpus, tmp_path):

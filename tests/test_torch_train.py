@@ -285,3 +285,85 @@ def test_trainer_requires_softmax_and_cuda_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(TNetwork.read(text), TrainerConfig())
+
+
+# transform_to_host / __call__ rows within atol 1e-5 of JAX's (f32 GEMMs of
+# different blocking); one per utterance, halo trimmed
+@pytest.mark.parametrize("kind", ["folded", "layered", "none"])
+def test_transform_to_host_and_call_match_jax(kind):
+    ext = 2
+    text = {"folded": _hamm_norm_text(), "layered": _nonlinear_text(), "none": None}[kind]
+    jp = JPipeline(JNetwork.read(text) if text else None, ext, ext, chunk=16)
+    tp = TransformPipeline(TNetwork.read(text) if text else None, ext, ext, chunk=16,
+                           device="cpu")
+    utts = _ext_utts(8, 7, 4, ext)
+    jouts = jp.transform_to_host(utts)
+    touts = tp.transform_to_host(utts)
+    calls = tp(utts)
+    assert len(touts) == len(calls) == len(jouts) == len(utts)
+    for u, j, t, c in zip(utts, jouts, touts, calls):
+        assert isinstance(t, np.ndarray) and isinstance(c, torch.Tensor)
+        assert t.shape == np.asarray(j).shape == (u.shape[0] - 2 * ext, t.shape[1])
+        np.testing.assert_allclose(t, np.asarray(j), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(c.numpy(), t)
+
+
+def _state_trainers(velocity_dtype):
+    text = _mlp_text(seed=11)
+    common = dict(bunchsize=16, cachesize=64, seed=7)
+    sgd = dict(learning_rate=0.1, momentum=0.5, velocity_dtype=velocity_dtype)
+    jtr = JTrainer(JNetwork.read(text), JTrainerConfig(
+        **common, sgd=jsgd.SgdConfig(**sgd), use_pallas=True))
+    ttr = Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                  device="cpu")
+    return jtr, ttr
+
+
+def _trainer_state(tr):
+    """(params, velocity as f32, (error, frames, corr)) of either package's Trainer."""
+    def host(t):
+        return (t.detach().float().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t, np.float32))
+    return ([{k: host(v) for k, v in p.items()} for p in tr.params],
+            [{k: host(v) for k, v in d.items()} for d in tr.velocity],
+            (tr.stats.error, tr.stats.frames, tr.stats.corr))
+
+
+# a file one package writes loads in the other exactly (f32 values; bf16
+# velocity is stored as its exact f32 value); the next epoch from the
+# loaded state then agrees as whole epochs do (rtol 1e-4, atol 1e-5)
+@pytest.mark.parametrize("velocity_dtype", [None, "bf16"])
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_state_file_loads_across_packages(tmp_path, writer, velocity_dtype):
+    jtr, ttr = _state_trainers(velocity_dtype)
+    src, dst = (ttr, jtr) if writer == "torch" else (jtr, ttr)
+    src.run_epoch(iter(_utts(5)), batch_utts=5)
+    path = str(tmp_path / "state.npz")
+    src.save_state(path)
+    with np.load(path) as data:
+        keys = set(data.files)
+    assert {"_rng_x", "_stats", "p0.weight", "p0.bias", "v4.weight"} <= keys
+    dst.load_state(path)
+    (sp, sv, ss), (dp, dv, ds) = _trainer_state(src), _trainer_state(dst)
+    assert ds == ss and ss[1] > 0
+    for a, b in zip(sp + sv, dp + dv):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    for tr in (jtr, ttr):
+        tr.run_epoch(iter(_utts(9)), batch_utts=5)
+    np.testing.assert_allclose(ttr.stats.error, jtr.stats.error, rtol=1e-5)
+    for a, b in zip(_trainer_state(ttr)[0], _trainer_state(jtr)[0]):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5)
+
+
+def test_load_state_rejects_a_mismatched_network(tmp_path):
+    _, ttr = _state_trainers(None)
+    path = str(tmp_path / "state.npz")
+    ttr.save_state(path)
+    other = Trainer(TNetwork.read(_stdout_of(gen_mlp_init.main, [
+        "--dim=20:16:32:10", "--gauss", "--negbias", "--seed=3"])),
+        TrainerConfig(sgd=tsgd.SgdConfig(momentum=0.5)), device="cpu")
+    with pytest.raises(ValueError, match="p0.weight"):
+        other.load_state(path)
