@@ -11,8 +11,12 @@ final line):
      build/kernels/;
   3. each CUDA kernel against its plain PyTorch version on the card at the
      main paths' shapes (forward, and gradients for affine_sigmoid; the
-     fused wgrad+momentum update with f32 and bf16 velocity), with
-     CUDA-event and profiler timings of kernel and plain version;
+     fused wgrad+momentum update with f32 and bf16 velocity, split-K where
+     its plan asks, twice to show equal bits), with CUDA-event and profiler
+     timings of kernel, plain version and a library yardstick the port
+     never calls (addmm + sigmoid_; addmm_ with beta + add_), beside the
+     bound: the larger of the operations at the arithmetic's peak (165
+     TFLOP/s for 3xTF32 on the tensor cores) and the bytes at 3.35 TB/s;
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -28,7 +32,9 @@ final line):
      and the CPU, and tfeacat --GMMBYPASS must be finite;
   6. the production-width stack 1024->4096x4->8192 (bunch 1024) through
      the port's Trainer: frames/s and achieved TFLOP/s of the train step
-     with momentum 0, and with momentum 0.9 (f32 and bf16 velocity).
+     with momentum 0, and with momentum 0.9 (f32 and bf16 velocity); then a
+     torch.profiler window of steps with momentum 0 and 0.9, device time
+     summed by kernel name.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
@@ -57,9 +63,18 @@ PROD_BUNCH, PROD_CACHE_BUNCHES = 1024, 8
 # the per-step rate of the frame-CE path's -n 0.008 --GRAD-DIV-FRM=F
 MOM, MOM_LR, MOM_ITERS = 0.5, 7.68, 3
 # (B, In, Out, velocity dtypes) of the fused update: MLP3's two weights,
-# then the production stack's 4096->4096 and 4096->8192
+# then the production stack's 1024->4096, 4096->4096 and 4096->8192
 WGRAD_SHAPES = ((BUNCH, 598, 1024, ("f32",)), (BUNCH, 1024, CLASSES, ("f32",)),
-                (1024, 4096, 4096, ("f32", "bf16")), (1024, 4096, 8192, ("f32", "bf16")))
+                (1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf16")),
+                (1024, 4096, 8192, ("f32", "bf16")))
+# (M, K, N) of affine_sigmoid: MLP3's hidden layer, the production stack's
+# first layer and its 4096->4096 layers
+AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096))
+SOFTMAX_SHAPES = ((BUNCH, CLASSES), (1024, 8192))
+# NVIDIA H100 SXM data sheet: 495 TFLOP/s dense TF32, of which 3xTF32 gives
+# a third as f32-accurate work; 67 TFLOP/s f32 outside the tensor cores;
+# 3.35 TB/s of HBM3
+PEAK_3XTF32, PEAK_F32, HBM_BYTES_S = 495e12 / 3, 67e12, 3.35e12
 
 
 def log(*args) -> None:
@@ -95,6 +110,31 @@ def device_us(torch, fn, reps: int = 20):
 
 def _us(v) -> str:
     return "not measured" if v is None else f"{v:.2f} us"
+
+
+def bound_us(flops: float, nbytes: float, peak: float):
+    """(least time in us, "operations" or "bytes"): the larger of the
+    operations at ``peak`` and the bytes (each input read once, each output
+    written once) at the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e6, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def record(shape, err, ms, plain_ms, library_ms, dev, flops, nbytes, peak):
+    """One shape's numbers; ``dev`` = (kernel, plain, library) device us."""
+    b_us, b_by = bound_us(flops, nbytes, peak)
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "device_us": dev[0], "plain_device_us": dev[1],
+            "library_device_us": dev[2], "bound_us": b_us, "bound_by": b_by}
+
+
+def log_times(what, r, tflops=None):
+    rate = "" if tflops is None else f" ({tflops:.2f} TFLOP/s)"
+    lib = ("none" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} ms, device {_us(r['library_device_us'])}")
+    log(f"time {what}: kernel {r['ms']:.4f} ms{rate}, device {_us(r['device_us'])}; plain "
+        f"{r['plain_ms']:.4f} ms, device {_us(r['plain_device_us'])}; library {lib}; "
+        f"bound {r['bound_us']:.2f} us ({r['bound_by']})")
 
 
 def cuda_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
@@ -145,17 +185,18 @@ def check_matmul_act(torch, dev, M, K, N, seed):
     err_z = (z - MA.matmul_act_plain(x, w, b, "none")).abs().max().item()
     check(err_z <= 1e-4 * max(z.abs().max().item(), 1.0),
           f"matmul_act none {M}x{K}->{N}: err {err_z}")
-    ms = cuda_ms(torch, lambda: MA.matmul_act(x, w, b, "sigmoid"))
-    plain_ms = cuda_ms(torch, lambda: MA.matmul_act_plain(x, w, b, "sigmoid"))
-    dev_k = device_us(torch, lambda: MA.matmul_act(x, w, b, "sigmoid"))
-    dev_p = device_us(torch, lambda: MA.matmul_act_plain(x, w, b, "sigmoid"))
-    tflops = 2.0 * M * N * K / (ms * 1e-3) / 1e12
+    fns = (lambda: MA.matmul_act(x, w, b, "sigmoid"),
+           lambda: MA.matmul_act_plain(x, w, b, "sigmoid"),
+           lambda: torch.addmm(b, x, w).sigmoid_())      # library yardstick
+    ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in fns)
+    dev = tuple(device_us(torch, f) for f in fns)
+    r = record(f"{M}x{K}->{N}", err_y, ms, plain_ms, lib_ms, dev, 2.0 * M * N * K,
+               4.0 * (M * K + K * N + N + M * N), PEAK_3XTF32)
     log(f"kernel affine_sigmoid {M}x{K}->{N}: max|y-plain| {err_y:.3e}, grad rel err "
         f"dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}")
-    log(f"time affine_sigmoid {M}x{K}->{N}: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s), "
-        f"plain (cuBLAS f32 + sigmoid) {plain_ms:.4f} ms; device time per call "
-        f"(profiler) kernel {_us(dev_k)}, plain {_us(dev_p)}")
-    return err_y, ms, plain_ms
+    log_times(f"affine_sigmoid {M}x{K}->{N} (plain: cuBLAS f32 + bias + sigmoid; library: "
+              f"addmm + sigmoid_)", r, 2.0 * M * N * K / (ms * 1e-3) / 1e12)
+    return r
 
 
 def check_softmax_xent(torch, dev, B, C, seed):
@@ -181,17 +222,19 @@ def check_softmax_xent(torch, dev, B, C, seed):
     err2, xent2, _ = SC.softmax_xent(logits, labels)
     check(torch.equal(err, err2) and xent.item() == xent2.item(),
           f"softmax_xent {B}x{C}: a second run differs")
-    ms = cuda_ms(torch, lambda: SC.softmax_xent(logits, labels))
-    plain_ms = cuda_ms(torch, lambda: SC.softmax_xent_plain(logits, labels))
-    dev_k = device_us(torch, lambda: SC.softmax_xent(logits, labels))
-    dev_p = device_us(torch, lambda: SC.softmax_xent_plain(logits, labels))
-    gbs = 2.0 * B * C * 4 / (ms * 1e-3) / 1e9
+    fns = (lambda: SC.softmax_xent(logits, labels),
+           lambda: SC.softmax_xent_plain(logits, labels))
+    ms, plain_ms = (cuda_ms(torch, f) for f in fns)
+    dev = (*(device_us(torch, f) for f in fns), None)
+    # no one PyTorch call forms err and both statistics: no library time.
+    # Operations: max, exp, sum, divide, subtract per element (f32, FFMA)
+    r = record(f"{B}x{C}", err_e, ms, plain_ms, None, dev, 5.0 * B * C,
+               4.0 * (2 * B * C + B), PEAK_F32)
     log(f"kernel softmax_xent {B}x{C}: max|err-plain| {err_e:.3e}, xent rel err "
         f"{rel_x:.2e}, correct {corr.item()} == {pcorr.item()}")
-    log(f"time softmax_xent {B}x{C}: kernel {ms:.4f} ms ({gbs:.1f} GB/s of logits+err), "
-        f"plain {plain_ms:.4f} ms; device time per call (profiler) kernel "
-        f"{_us(dev_k)}, plain {_us(dev_p)}")
-    return err_e, ms, plain_ms
+    log_times(f"softmax_xent {B}x{C} ({2.0 * B * C * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of "
+              f"logits+err by events)", r)
+    return r
 
 
 def bf16_ulp(torch, t):
@@ -202,6 +245,7 @@ def bf16_ulp(torch, t):
 
 def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
     from nnet_asr_torch.ops.kernels import sgd_fused as SF
+    from nnet_asr_torch.ops.kernels import tile_plan
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((B, In), generator=gen, device=dev)
@@ -235,19 +279,36 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
         v_note = (f"max|v-plain| {err_v:.3e}; {int((dv > step).sum())} of {dv.numel()} "
                   f"elements more than one bf16 step apart, by at most "
                   f"{max(worst, 0.0) * f32_tol:.3e} (tolerance {f32_tol:.3e})")
-    # timed on the updated copies: each call is one more in-place step
-    ms = cuda_ms(torch, lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m))
-    plain_ms = cuda_ms(torch, lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m))
-    dev_k = device_us(torch, lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m))
-    dev_p = device_us(torch, lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m))
+    # the same step again from the same state gives the same bits (the
+    # split-K partials are summed in a fixed order, no float atomics)
+    pk2, vk2 = p.clone(), v.clone()
+    SF.wgrad_momentum_update(x, e, pk2, vk2, a, m)
+    torch.cuda.synchronize()
+    check(torch.equal(pk, pk2) and torch.equal(vk, vk2), f"{what}: a second run differs")
+    plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
+                          b_ptr=e.data_ptr(), split_k=True)
+    # timed on the updated copies: each call is one more in-place step.
+    # Library yardstick (f32 velocity): cuBLAS with beta, then one axpy
+    pl, vl = p.clone(), v.clone()
+    fns = [lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m),
+           lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)]
+    if vdt == "f32":
+        fns.append(lambda: pl.add_(vl.addmm_(x.T, e, beta=m), alpha=-a))
+    times = [cuda_ms(torch, f) for f in fns] + [None] * (3 - len(fns))
+    dev = tuple(device_us(torch, f) for f in fns) + (None,) * (3 - len(fns))
     check(bool(torch.isfinite(pk).all() and torch.isfinite(vk.float()).all()),
           f"{what}: non-finite values after the timed steps")
-    tflops = 2.0 * B * In * Out / (ms * 1e-3) / 1e12
-    log(f"kernel {what}: max|p-plain| {err_p:.3e}, {v_note}")
-    log(f"time {what}: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s), plain (cuBLAS f32 "
-        f"x.T@e + elementwise) {plain_ms:.4f} ms; device time per call (profiler) "
-        f"kernel {_us(dev_k)}, plain {_us(dev_p)}")
-    return max(err_p, err_v), ms, plain_ms
+    vbytes = 2 if vdt == "bf16" else 4
+    r = record(f"{B}x{In}->{Out} v {vdt}", max(err_p, err_v), *times, dev,
+               2.0 * B * In * Out, 4.0 * (B * In + B * Out) + In * Out * (8 + 2 * vbytes),
+               PEAK_3XTF32)
+    r["plan"] = {"tile": f"{plan.bm}x{plan.bn}", "splits": plan.splits,
+                 "x_16B": plan.a_vec, "e_16B": plan.b_vec}
+    log(f"kernel {what}: max|p-plain| {err_p:.3e}, {v_note}; plan {r['plan']}; "
+        f"two runs equal bit for bit")
+    log_times(f"{what} (plain: cuBLAS f32 x.T@e + elementwise; library: addmm_ with beta "
+              f"+ add_)", r, 2.0 * B * In * Out / (r["ms"] * 1e-3) / 1e12)
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -591,6 +652,63 @@ def production(torch, dev, card: str):
                         f"TFLOP/s" for t, f in zip(ms, fps)))
     check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
           "production weights not finite after the momentum steps")
+    for name in ("momentum 0", "momentum 0.9 f32 velocity"):
+        trace_steps(torch, name, lambda: steps[name]._train_step(feats, labels), card)
+
+
+KERNEL_GROUPS = (("affine_sigmoid (ours)", "matmul_act_kernel"),
+                 ("wgrad_momentum_update (ours)", "wgrad_"),
+                 ("softmax_xent (ours)", "softmax_xent_rows"),
+                 ("softmax_xent (ours)", "reduce_rows"),
+                 ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"), ("cuBLAS GEMM", "cutlass"))
+
+
+def trace_steps(torch, name, step, card, n_steps=5):
+    """Device time per train step by kernel name, from a torch.profiler
+    window of ``n_steps`` steps after one warm-up step (the schedule drops
+    its events); the idle share is that of the window's wall time (profiler
+    on). The wrappers' launch counts over the same steps stand beside it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from nnet_asr_torch.ops.kernels import matmul_act as MA
+    from nnet_asr_torch.ops.kernels import sgd_fused as SF
+    from nnet_asr_torch.ops.kernels import softmax_ce as SC
+
+    counters = (MA.matmul_act, SF.wgrad_momentum_update, SC.softmax_xent)
+    # one cycle; no step() after the last active step, which would end the
+    # cycle and clear its events before key_averages reads them
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_steps, repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()   # the warm-up step's kernels end before the window
+        prof.step()
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step()
+            if i < n_steps - 1:
+                prof.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / n_steps
+        launched = {c.__name__: (c.launches - b) / n_steps for c, b in zip(counters, before)}
+    rows = sorted(((e.key, getattr(e, "self_device_time_total", 0) / n_steps, e.count / n_steps)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows = [r for r in rows if r[1] > 0]
+    busy = sum(us for _, us, _ in rows)
+    if busy <= 0:
+        log(f"trace {name}: the profiler recorded no device time")
+        return
+    groups = {}
+    for key, us, _ in rows:
+        group = next((g for g, pat in KERNEL_GROUPS if pat in key), "other")
+        groups[group] = groups.get(group, 0.0) + us
+    log(f"trace production step, {name}, {card}: device {busy:.1f} us per step of "
+        f"{wall_us:.1f} us wall under the profiler (idle share {1 - busy / wall_us:.3f}); "
+        + "; ".join(f"{g} {us:.1f} us ({us / busy:.1%})"
+                    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + f"; wrapper launches per step {json.dumps(launched)}")
+    for key, us, count in rows[:12]:
+        log(f"  {us:9.1f} us x{count:<4.1f} {key[:110]}")
 
 
 def main() -> int:
@@ -626,24 +744,16 @@ def main() -> int:
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
 
-    # 3. kernels against their plain versions
-    errs1, times1 = [], {}
-    for M, K, N in ((BUNCH, 598, 1024), (1024, 4096, 4096)):
-        e, ms, pms = check_matmul_act(torch, dev, M, K, N, seed=M + K)
-        errs1.append(e)
-        times1[(M, K, N)] = (ms, pms)
-    errs2, times2 = [], {}
-    for B, C in ((BUNCH, CLASSES), (1024, 8192)):
-        e, ms, pms = check_softmax_xent(torch, dev, B, C, seed=B + C)
-        errs2.append(e)
-        times2[(B, C)] = (ms, pms)
-
-    errs3, times3 = [], {}
-    for B, In, Out, vdts in WGRAD_SHAPES:
-        for vdt in vdts:
-            e, ms, pms = check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
-            errs3.append(e)
-            times3[(B, In, Out, vdt)] = (ms, pms)
+    # 3. kernels against their plain versions; the first shape of each is
+    # the MLP3 shape the kernels line reports
+    shapes = {
+        "affine_sigmoid": [check_matmul_act(torch, dev, M, K, N, seed=M + K)
+                           for M, K, N in AFFINE_SHAPES],
+        "fused_softmax_xent": [check_softmax_xent(torch, dev, B, C, seed=B + C)
+                               for B, C in SOFTMAX_SHAPES],
+        "wgrad_momentum_update": [
+            check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
+            for B, In, Out, vdts in WGRAD_SHAPES for vdt in vdts]}
 
     # 4. the frame-CE path, 5. the momentum newbob path, on one corpus;
     # then 6. production width
@@ -657,29 +767,25 @@ def main() -> int:
     production(torch, dev, card)
     launches = {k: launches_ce.get(k, 0) + launches_mom[k] for k in launches_mom}
 
-    ms1, pms1 = times1[(BUNCH, 598, 1024)]
-    ms2, pms2 = times2[(BUNCH, CLASSES)]
-    ms3, pms3 = times3[(BUNCH, 598, 1024, "f32")]
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
-        f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}; launches "
-        f"summed over the frame-CE and momentum paths")
-    log(json.dumps({"kernels": [
-        {"name": "affine_sigmoid", "route": "cuda",
-         "source": "nnet_asr_torch/csrc/matmul_act.cu",
-         "replaces": "nnet_asr_tpu/ops/pallas/matmul_act.py:86",
-         "launches": launches["matmul_act"], "max_abs_err": max(errs1),
-         "ms": ms1, "plain_ms": pms1},
-        {"name": "fused_softmax_xent", "route": "cuda",
-         "source": "nnet_asr_torch/csrc/softmax_ce.cu",
-         "replaces": "nnet_asr_tpu/ops/pallas/softmax_ce.py:113",
-         "launches": launches["softmax_xent"], "max_abs_err": max(errs2),
-         "ms": ms2, "plain_ms": pms2},
-        {"name": "wgrad_momentum_update", "route": "cuda",
-         "source": "nnet_asr_torch/csrc/sgd_fused.cu",
-         "replaces": "nnet_asr_tpu/ops/pallas/sgd_fused.py:105",
-         "launches": launches["wgrad_momentum_update"], "max_abs_err": max(errs3),
-         "ms": ms3, "plain_ms": pms3},
-    ]}))
+        f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, every shape "
+        f"under 'shapes'; launches summed over the frame-CE and momentum paths")
+    meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act"),
+            "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent"),
+            "wgrad_momentum_update": ("sgd_fused.cu", "sgd_fused.py:105",
+                                      "wgrad_momentum_update")}
+    kernels = []
+    for name, (src, tpu, counter) in meta.items():
+        main_shape = shapes[name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"nnet_asr_torch/csrc/{src}",
+            "replaces": f"nnet_asr_tpu/ops/pallas/{tpu}", "launches": launches[counter],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes[name]),
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_us"] * 1e-3, "bound_us": main_shape["bound_us"],
+            "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
+            "shapes": shapes[name]})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

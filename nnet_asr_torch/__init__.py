@@ -9,11 +9,15 @@ its layout so each module's counterpart is easy to find:
              plain PyTorch versions
   train/     transform pipeline, device frame cache, SGD, trainer
   tools/     CLI entry points with the reference option vocabulary
+  io/        HTK features, MLF, SCP, labels, MMF text, the native reader
+  utils/     option parsing, Rand48, profiler, prefetch
 
-Host code that does not import jax is imported from ``nnet_asr_tpu``, not
-copied: ``io/*``, ``utils/{config,rand48,profiler,prefetch}`` and the
-file-level tools (``gen_mlp_init``, ``generators``). This package imports
-``torch`` and never ``jax``.
+The host code it shares with the JAX package is copied, never imported:
+``io/{htk,mmf,scp,labels,mlf,native}.py`` and ``native/htkio.cc``,
+``utils/{config,prefetch,profiler,rand48}.py``, ``train/newbob.py``,
+``tools/gen_mlp_init.py`` and ``tools/generators.py`` (``hamm_dct`` only)
+are copies at the original's relative path. This package imports ``torch``
+and nothing of ``jax`` or ``nnet_asr_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,24 @@
-// Fused affine + activation, f32: y = act(x @ W + b).
+// Fused affine + activation, f32-accurate: y = act(x @ W + b).
 //
 // Replaces the TPU kernel nnet_asr_tpu/ops/pallas/matmul_act.py (_kernel,
 // called by matmul_act and the custom-VJP affine_sigmoid): a K-blocked
 // GEMM into an f32 accumulator with the bias + sigmoid epilogue applied in
 // registers, so the pre-activation never reaches device memory.
 //
-// What bounds it on an H100: FFMA issue, not bytes. At the production
+// What bounds it on an H100: operations, not bytes. At the production
 // shape (1024 x 4096 -> 4096) the GEMM does 2*M*N*K = 34 GFLOP over
-// 50 MB of operands (~680 FLOP/byte). This first version is the classic
-// shared-memory tiled SGEMM of tile_gemm.cuh. Ragged edges (598, 135, 960
-// are not tile multiples) are masked: loads outside the matrix read 0,
-// stores outside are skipped.
+// 101 MB of operands and output; in 3xTF32 (three TF32 products per f32
+// product) the card's 495 TFLOP/s of TF32 give 165 TFLOP/s of f32-accurate
+// work, a bound of 208 us, against 30 us for the bytes. In practice the
+// mma.sync issue rate of TF32 (half of wgmma's, tile_gemm.cuh) caps the
+// main loop near half of that bound.
+// The design: the tensor-core main loop of tile_gemm.cuh (3xTF32
+// mma.sync, cp.async ring, 128x128 or 64x64 tiles chosen by
+// ops/kernels/tile_plan.py), with x K-major and W N-major in shared memory.
+// The epilogue adds the bias and applies the sigmoid to the output tile,
+// staged through shared memory so that y is written in whole rows, masked
+// at the ragged edges (598, 135 and 960 are not tile multiples; loads
+// outside the matrix read 0).
 //
 // Layout: x (M, K), W (K, N), b (N,), y (M, N), all row-major contiguous.
 
@@ -22,72 +30,50 @@ namespace {
 
 using namespace nnet_tile;
 
-__global__ void __launch_bounds__(THREADS)
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
 matmul_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ b, float* __restrict__ y,
-                  int M, int N, int K, int act) {
-  // A tile stored transposed (k-major) so a thread reads its 4 rows as one float4
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);    // column group
-  const int ty = tid / (BN / TN);    // row group
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
+                  const float* __restrict__ b, float* __restrict__ y, int M, int N, int K,
+                  int act, int x_vec, int w_vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  float acc[T::MT][T::NT][4];
+  gemm_mainloop<T, true>(smem, x, K, x_vec != 0, w, N, w_vec != 0, M, N, m0, n0, 0, K, acc);
+  constexpr int U = 16;
+  epilogue<T, U>(smem, m0, n0, acc, [&](const int (&r)[U], const int (&c)[U], float (&z)[U]) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM x BK, consecutive threads walk k (coalesced along a row of x)
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int m = idx / BK, k = idx % BK;
-      const int gr = row0 + m, gk = k0 + k;
-      As[k][m] = (gr < M && gk < K) ? x[(size_t)gr * K + gk] : 0.0f;
+    for (int u = 0; u < U; ++u) {
+      if (r[u] >= M || c[u] >= N) continue;
+      z[u] += b[c[u]];
+      if (act == 1) z[u] = 1.0f / (1.0f + expf(-z[u]));
     }
-    // B tile: BK x BN, consecutive threads walk n (coalesced along a row of W)
 #pragma unroll
-    for (int l = 0; l < (BK * BN) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int k = idx / BN, n = idx % BN;
-      const int gk = k0 + k, gc = col0 + n;
-      Bs[k][n] = (gk < K && gc < N) ? w[(size_t)gk * N + gc] : 0.0f;
-    }
-    __syncthreads();
-    fma_tile(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
+    for (int u = 0; u < U; ++u)
+      if (r[u] < M && c[u] < N) y[(size_t)r[u] * N + c[u]] = z[u];
+  });
+}
 
-  // epilogue: bias + activation in registers, masked store
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= N) continue;
-      float z = acc[i][j] + b[c];
-      if (act == 1) z = 1.0f / (1.0f + expf(-z));
-      y[(size_t)r * N + c] = z;
-    }
-  }
+template <class T>
+int launch(const float* x, const float* w, const float* b, float* y, int M, int N, int K,
+           int act, int x_vec, int w_vec, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, true>();
+  const int err = allow_smem(matmul_act_kernel<T>, smem);
+  if (err != 0) return err;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  matmul_act_kernel<T><<<grid, T::THREADS, smem, stream>>>(x, w, b, y, M, N, K, act, x_vec,
+                                                           w_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// act: 0 = none, 1 = sigmoid. Returns cudaGetLastError() after the launch.
-extern "C" int matmul_act_f32(const float* x, const float* w, const float* b,
-                              float* y, int M, int N, int K, int act,
+// act: 0 = none, 1 = sigmoid. tile: 0 = 128x128, 1 = 64x64. x_vec, w_vec:
+// 16-byte copies of that operand (row pitch % 4 == 0 and base 16-byte
+// aligned), else 4-byte. Returns the CUDA error code of the launch.
+extern "C" int matmul_act_f32(const float* x, const float* w, const float* b, float* y,
+                              int M, int N, int K, int act, int tile, int x_vec, int w_vec,
                               void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_act_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, y, M, N, K, act);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == 0 ? launch<BigTile>(x, w, b, y, M, N, K, act, x_vec, w_vec, s)
+                   : launch<SmallTile>(x, w, b, y, M, N, K, act, x_vec, w_vec, s);
 }

@@ -1,4 +1,4 @@
-// Fused weight gradient + momentum SGD update, f32, in place:
+// Fused weight gradient + momentum SGD update, f32-accurate, in place:
 //
 //     g    = x^T e                 (sum over the bunch, the X^T E convention)
 //     corr = g + m * v
@@ -12,31 +12,37 @@
 // and written once, in the GEMM's epilogue.
 //
 // What bounds it on an H100: at the production shape (bunch 1024,
-// 4096 -> 8192) FFMA issue: 2*B*In*Out = 68.7 GFLOP against 537 MB of p/v
-// reads and writes (f32 velocity), ~128 FLOP/byte, so the GEMM and not the
-// epilogue's bytes sets the time. At example-01's 960 x 1024 -> 135 it is
-// launch and latency: 0.27 GFLOP in 48 output tiles, fewer than the 132 SMs.
-// The design: the f32 tile scheme of tile_gemm.cuh, one block per (In, Out)
-// output tile, looping over the bunch in BK steps inside the block (the
-// TPU's sequential "arbitrary" grid axis becomes that loop, so nothing is
-// carried between blocks). The contraction runs over the LEADING (bunch)
-// dimension of both operands, so the x tile (BK, BM) and the e tile
-// (BK, BN) are already k-major: each is loaded coalesced along its rows
-// straight into shared memory, and the product is x^T e. The epilogue
-// reads p and v (upcasting bf16), and writes both in place: each element
-// belongs to exactly one thread of one block, so no other block reads it.
-// Ragged edges (598, 135, 960 are not tile multiples) are masked by bounds;
-// there is no padding copy. The epilogue rounds each product and sum on
-// its own (__fmul_rn / __fadd_rn, no FMA contraction), as the plain
-// PyTorch and JAX versions do; bf16 velocity is stored round-to-nearest-
-// even (__float2bfloat16_rn), as JAX's astype. Tensor cores (wgmma) are
-// later work.
+// 4096 -> 8192) operations: 2*B*In*Out = 68.7 GFLOP, a bound of 416 us at
+// the 165 TFLOP/s of f32-accurate 3xTF32, against 587 MB of x, e and the
+// p/v reads and writes (f32 velocity), 175 us. In practice the mma.sync
+// issue rate of TF32 (half of wgmma's, tile_gemm.cuh) caps the main loop
+// near half of that bound. At example-01's 960 x 1024 -> 135 it is bytes
+// and latency: 0.27 GFLOP in only 48 64x64 output tiles for 132 SMs.
+// The design: the tensor-core main loop of tile_gemm.cuh (3xTF32 mma.sync,
+// cp.async ring) with the bunch as the contraction, x and e both loaded
+// M/N-major (rows of the bunch) straight from row-major memory. The TPU's
+// sequential "arbitrary" grid axis becomes the loop over the bunch inside
+// each block. Where the 64x64 tiles alone give fewer than two blocks per
+// SM, the plan (ops/kernels/tile_plan.py) splits the bunch S ways: each
+// split writes its f32 partial tile to a scratch (S, In, Out) buffer the
+// wrapper allocates, and a second kernel sums the S partials in a fixed
+// order and applies the same epilogue. No float atomics, so two runs give
+// the same bits. The epilogue reads p and v (upcasting bf16) in whole rows,
+// 16 elements per thread at a time with every load before the first store,
+// and writes both in place: each element belongs to exactly one thread, so
+// no other block reads it. Ragged edges (598, 135, 960 are not tile
+// multiples) are masked by bounds; there is no padding copy. The epilogue
+// rounds each product and sum on its own (__fmul_rn / __fadd_rn, no FMA
+// contraction), as the plain PyTorch and JAX versions do; bf16 velocity is
+// stored round-to-nearest-even (__float2bfloat16_rn), as JAX's astype.
 //
 // Layout: x (B, In), e (B, Out), p (In, Out), v (In, Out), all row-major
-// contiguous.
+// contiguous; scratch (S, In, Out) f32 when S > 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "tile_gemm.cuh"
 
@@ -53,80 +59,132 @@ __device__ __forceinline__ void store_v(__nv_bfloat16* v, size_t i, float x) {
   v[i] = __float2bfloat16_rn(x);
 }
 
-template <typename V>
-__global__ void __launch_bounds__(THREADS)
+template <class V>
+__device__ __forceinline__ void momentum_update(float* p, V* v, size_t o, float g, float a,
+                                                float m) {
+  const float corr = __fadd_rn(g, __fmul_rn(load_v(v, o), m));
+  store_v(v, o, corr);
+  p[o] = __fsub_rn(p[o], __fmul_rn(corr, a));
+}
+
+// Marks the split-K GEMM: store the f32 partial of split blockIdx.z.
+struct Partial {};
+
+// V = float or __nv_bfloat16: the fused epilogue; V = Partial: store the
+// f32 partial of split blockIdx.z into part.
+template <class T, class V>
+__global__ void __launch_bounds__(T::THREADS)
 wgrad_momentum_kernel(const float* __restrict__ x, const float* __restrict__ e,
-                      float* __restrict__ p, V* __restrict__ v, float a, float m,
-                      int B, int In, int Out) {
-  __shared__ __align__(16) float Xs[BK][BM + A_PAD];
-  __shared__ __align__(16) float Es[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);    // column group (Out)
-  const int ty = tid / (BN / TN);    // row group (In)
-  const int row0 = blockIdx.y * BM;  // first In index of the tile
-  const int col0 = blockIdx.x * BN;  // first Out index of the tile
-
-  float acc[TM][TN];
+                      float* __restrict__ p, V* __restrict__ v, float* __restrict__ part,
+                      float a, float m, int B, int In, int Out, int k_chunk, int x_vec,
+                      int e_vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(B, k_begin + k_chunk);
+  float acc[T::MT][T::NT][4];
+  gemm_mainloop<T, false>(smem, x, In, x_vec != 0, e, Out, e_vec != 0, In, Out, m0, n0,
+                          k_begin, k_end, acc);
+  constexpr int U = 16;
+  epilogue<T, U>(smem, m0, n0, acc, [&](const int (&r)[U], const int (&c)[U], float (&g)[U]) {
+    size_t o[U];
+    bool in[U];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < B; k0 += BK) {
-    // x tile: BK bunch rows x BM columns, consecutive threads walk a row of x
-#pragma unroll
-    for (int l = 0; l < (BK * BM) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int k = idx / BM, i = idx % BM;
-      const int gk = k0 + k, gi = row0 + i;
-      Xs[k][i] = (gk < B && gi < In) ? x[(size_t)gk * In + gi] : 0.0f;
+    for (int u = 0; u < U; ++u) {
+      in[u] = r[u] < In && c[u] < Out;
+      o[u] = (size_t)r[u] * Out + c[u];
     }
-    // e tile: BK bunch rows x BN columns, consecutive threads walk a row of e
+    if constexpr (std::is_same<V, Partial>::value) {
 #pragma unroll
-    for (int l = 0; l < (BK * BN) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int k = idx / BN, j = idx % BN;
-      const int gk = k0 + k, gj = col0 + j;
-      Es[k][j] = (gk < B && gj < Out) ? e[(size_t)gk * Out + gj] : 0.0f;
+      for (int u = 0; u < U; ++u)
+        if (in[u]) part[(size_t)blockIdx.z * In * Out + o[u]] = g[u];
+    } else {
+      float pv[U], vv[U];   // every load before the first store
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        pv[u] = in[u] ? p[o[u]] : 0.0f;
+        vv[u] = in[u] ? load_v(v, o[u]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!in[u]) continue;
+        const float corr = __fadd_rn(g[u], __fmul_rn(vv[u], m));
+        store_v(v, o[u], corr);
+        p[o[u]] = __fsub_rn(pv[u], __fmul_rn(corr, a));
+      }
     }
-    __syncthreads();
-    fma_tile(Xs, Es, ty, tx, acc);
-    __syncthreads();
+  });
+}
+
+// The S partials summed in split order, then the epilogue.
+template <class V>
+__global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ p,
+                                    V* __restrict__ v, float a, float m, int S, size_t n) {
+  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < n;
+       o += (size_t)gridDim.x * blockDim.x) {
+    float g = part[o];
+    for (int s = 1; s < S; ++s) g = __fadd_rn(g, part[(size_t)s * n + o]);
+    momentum_update(p, v, o, g, a, m);
   }
+}
 
-  // epilogue after the last bunch step: momentum update of the owned elements
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= In) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= Out) continue;
-      const size_t o = (size_t)r * Out + c;
-      const float corr = __fadd_rn(acc[i][j], __fmul_rn(load_v(v, o), m));
-      store_v(v, o, corr);
-      p[o] = __fsub_rn(p[o], __fmul_rn(corr, a));
-    }
-  }
+template <class T, class V>
+int launch_gemm(const float* x, const float* e, float* p, V* v, float* part, float a, float m,
+                int B, int In, int Out, int splits, int k_chunk, int x_vec, int e_vec,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, false>();
+  const int err = allow_smem(wgrad_momentum_kernel<T, V>, smem);
+  if (err != 0) return err;
+  const dim3 grid((Out + T::BN - 1) / T::BN, (In + T::BM - 1) / T::BM, splits);
+  wgrad_momentum_kernel<T, V><<<grid, T::THREADS, smem, stream>>>(
+      x, e, p, v, part, a, m, B, In, Out, k_chunk, x_vec, e_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one split: the fused epilogue in the GEMM; several: partials, then reduce
+template <class T, class V>
+int launch(const float* x, const float* e, float* p, V* v, float* part, float a, float m,
+           int B, int In, int Out, int splits, int k_chunk, int x_vec, int e_vec,
+           cudaStream_t stream) {
+  if (splits <= 1)
+    return launch_gemm<T, V>(x, e, p, v, nullptr, a, m, B, In, Out, 1, B, x_vec, e_vec,
+                             stream);
+  const int err = launch_gemm<T, Partial>(x, e, nullptr, nullptr, part, a, m, B, In, Out,
+                                       splits, k_chunk, x_vec, e_vec, stream);
+  if (err != 0) return err;
+  const size_t n = (size_t)In * Out;
+  const int threads = 256;
+  const size_t want = (n + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  wgrad_reduce_kernel<V><<<blocks, threads, 0, stream>>>(part, p, v, a, m, splits, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int dispatch_v(const float* x, const float* e, float* p, void* v, float* part, float a, float m,
+               int B, int In, int Out, int v_is_bf16, int splits, int k_chunk, int x_vec,
+               int e_vec, cudaStream_t s) {
+  if (v_is_bf16)
+    return launch<T>(x, e, p, static_cast<__nv_bfloat16*>(v), part, a, m, B, In, Out, splits,
+                     k_chunk, x_vec, e_vec, s);
+  return launch<T>(x, e, p, static_cast<float*>(v), part, a, m, B, In, Out, splits, k_chunk,
+                   x_vec, e_vec, s);
 }
 
 }  // namespace
 
-// v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). Returns
-// cudaGetLastError() after the launch.
-extern "C" int wgrad_momentum_update_f32(const float* x, const float* e, float* p,
-                                         void* v, float a, float m, int B, int In,
-                                         int Out, int v_is_bf16, void* stream) {
-  const dim3 grid((Out + BN - 1) / BN, (In + BM - 1) / BM);
+// v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). tile:
+// 0 = 128x128, 1 = 64x64. splits > 1: the bunch is cut into chunks of
+// k_chunk rows (a multiple of the tile's BK) and part is an f32 scratch of
+// splits * In * Out elements; else part is unused. x_vec, e_vec: 16-byte
+// copies of that operand. Returns the CUDA error code of the launches.
+extern "C" int wgrad_momentum_update_f32(const float* x, const float* e, float* p, void* v,
+                                         float* part, float a, float m, int B, int In,
+                                         int Out, int v_is_bf16, int tile, int splits,
+                                         int k_chunk, int x_vec, int e_vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (v_is_bf16) {
-    wgrad_momentum_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        x, e, p, static_cast<__nv_bfloat16*>(v), a, m, B, In, Out);
-  } else {
-    wgrad_momentum_kernel<float><<<grid, THREADS, 0, s>>>(
-        x, e, p, static_cast<float*>(v), a, m, B, In, Out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tile == 0 ? dispatch_v<BigTile>(x, e, p, v, part, a, m, B, In, Out, v_is_bf16, splits,
+                                         k_chunk, x_vec, e_vec, s)
+                   : dispatch_v<SmallTile>(x, e, p, v, part, a, m, B, In, Out, v_is_bf16,
+                                           splits, k_chunk, x_vec, e_vec, s);
 }

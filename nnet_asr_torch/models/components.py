@@ -8,7 +8,7 @@ the constant vectors of the feature-transform tags are buffers.
 
 ``apply(params, x)`` is the functional forward over a dict of tensors, as
 in JAX; ``forward(x)`` applies the module's own parameters. MMF text is
-read and written through the shared ``nnet_asr_tpu.io.mmf``.
+read and written through the port's copy of the MMF reader, ``io/mmf.py``.
 
 Ported tags: the trained MLP (<biasedlinearity>, <sigmoid>, <softmax>) and
 the linear transform tags that ``ops.fold_affine`` folds (<expand>,
@@ -25,8 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from nnet_asr_tpu.io import mmf
-from nnet_asr_tpu.io.mmf import TokenStream
+from ..io import mmf
+from ..io.mmf import TokenStream
 
 Params = Dict[str, torch.Tensor]
 

@@ -1,7 +1,7 @@
 """Network = an ordered stack of components (port of nnet_asr_tpu/models/network.py).
 
 Reads and writes the reference's ASCII MMF (TNetLib/Nnet.cc:162-354) through
-the shared ``nnet_asr_tpu.io.mmf``, so either package reads the other's
+the port's copy of the MMF reader (``io/mmf.py``), so either package reads the other's
 files, and carries parameters across from and back to the JAX package's
 layout (a list of dicts of numpy arrays).
 """
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nnet_asr_tpu.io.mmf import TokenStream
+from ..io.mmf import TokenStream
 
 from .components import TAG_TO_TYPE, UNPORTED_TAGS, Component, Params
 

@@ -6,7 +6,7 @@ into one shared library with a plain C interface, at first use, under
 started together, then one link. The file name carries a hash of the
 sources (``*.cuh`` included) and flags, so an edited source builds anew.
 The library is written to a per-process temporary file and moved into
-place with ``os.replace`` (the pattern of ``nnet_asr_tpu/io/native.py``),
+place with ``os.replace`` (the pattern of ``io/native.py``),
 so concurrent cold builds never load a half-written file. A failed build
 raises; nothing is fetched and nothing but the package's own sources is
 compiled. ``build_log`` keeps ptxas's per-kernel register and spill report.
@@ -38,12 +38,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: (argtypes, restype = int cudaError_t)
 SIGNATURES = {
-    # x, w, b, y, M, N, K, act, stream
-    "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, b, y, M, N, K, act, tile, x_vec, w_vec, stream
+    "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # logits, labels, err, row_xent, row_corr, xent, corr, B, C, stream
     "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # x, e, p, v, a, m, B, In, Out, v_is_bf16, stream
-    "wgrad_momentum_update_f32": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P],
+    # x, e, p, v, part, a, m, B, In, Out, v_is_bf16, tile, splits, k_chunk,
+    # x_vec, e_vec, stream
+    "wgrad_momentum_update_f32": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P],
 }
 
 _lock = threading.Lock()

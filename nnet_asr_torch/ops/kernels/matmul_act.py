@@ -2,11 +2,13 @@
 
 Replaces the TPU kernel ``nnet_asr_tpu/ops/pallas/matmul_act.py``
 (``matmul_act`` / custom-VJP ``affine_sigmoid``) with the hand-written
-CUDA kernel ``nnet_asr_torch/csrc/matmul_act.cu``: a tiled shared-memory
-FFMA GEMM with the bias + sigmoid epilogue in registers. It is bound by
-FFMA issue, not bytes, at the main path's shapes (960x598->1024 on
-example-01's MLP3, 1024x{1024,4096}->4096 on the production stack);
-tensor cores (wgmma, bf16) are work for a later version.
+CUDA kernel ``nnet_asr_torch/csrc/matmul_act.cu``: the f32-accurate
+tensor-core GEMM of ``csrc/tile_gemm.cuh`` (3xTF32 ``mma.sync`` fed by a
+``cp.async`` ring) with the bias + sigmoid epilogue in registers. It is
+bound by operations, not bytes, at the main path's shapes (960x598->1024
+on example-01's MLP3, 1024x{1024,4096}->4096 on the production stack).
+``tile_plan.plan`` picks the tile and each operand's copy width from the
+shapes and pointers.
 
 ``matmul_act`` dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (``matmul_act_plain``), a CUDA tensor launches the
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, tile_plan
 
 ACTS = {"none": 0, "sigmoid": 1}
 
@@ -67,10 +69,13 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     lib = _build.load_library()
     M, K = x.shape
     N = w.shape[1]
+    p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=x.data_ptr(),
+                       b_ptr=w.data_ptr())
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.matmul_act_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                              y.data_ptr(), M, N, K, ACTS[act], stream)
+                              y.data_ptr(), M, N, K, ACTS[act], p.tile, int(p.a_vec),
+                              int(p.b_vec), stream)
     _build.check(code, "matmul_act_f32")
     matmul_act.launches += 1
     return y

@@ -10,8 +10,14 @@ matrix ``p`` with velocity ``v``::
 from the layer's input ``x`` (B, In) and its pre-activation error ``e``
 (B, Out), so the gradient never reaches device memory. It is the momentum
 branch of ``train.sgd.apply_updates`` for a matrix (``a = lr/N``); the L2
-decay stays outside, after it. It is bound by FFMA issue at the production
-stack's widths and by launch latency at example-01's.
+decay stays outside, after it. The GEMM is the f32-accurate tensor-core
+main loop of ``csrc/tile_gemm.cuh`` (3xTF32 ``mma.sync``, ``cp.async``
+ring); ``tile_plan.plan`` picks the tile, the copy widths and, where the
+output tiles alone leave SMs idle (example-01's 960x1024->135), a split of
+the bunch: the splits' f32 partials go to a scratch buffer allocated here
+and a second kernel sums them in a fixed order before the epilogue, so
+runs repeat bit for bit. It is bound by operations at the production
+stack's widths and by bytes and latency at example-01's.
 
 Unlike the JAX function, which returns ``(p_new, v_new)``, this one
 updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, tile_plan
 
 _VDTYPES = (torch.float32, torch.bfloat16)
 
@@ -74,10 +80,16 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     lib = _build.load_library()
     B, In = x.shape
     Out = e.shape[1]
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
+                        b_ptr=e.data_ptr(), split_k=True)
+    part = (torch.empty((pl.splits, In, Out), dtype=torch.float32, device=p.device)
+            if pl.splits > 1 else None)
     stream = torch.cuda.current_stream(p.device).cuda_stream
     code = lib.wgrad_momentum_update_f32(
-        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m),
-        B, In, Out, int(v.dtype == torch.bfloat16), stream)
+        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(),
+        None if part is None else part.data_ptr(), float(a), float(m), B, In, Out,
+        int(v.dtype == torch.bfloat16), pl.tile, pl.splits, pl.k_chunk, int(pl.a_vec),
+        int(pl.b_vec), stream)
     _build.check(code, "wgrad_momentum_update_f32")
     # written through a raw pointer: bump the versions as an in-place op
     # would, so autograd refuses a saved copy of p or v from before

@@ -2,7 +2,8 @@
 streaming mode of nnet_asr_tpu/tools/scheduler.py).
 
 Runs the newbob loop (initial CV, per-epoch train + CV, accept/reject, LR
-halving) of the shared, jax-free ``nnet_asr_tpu.train.newbob.run_newbob``
+halving) of ``train/newbob.py`` ``run_newbob`` (the port's copy of the JAX
+package's)
 in process against the port's ``tnet``, with the JAX tool's flags and
 environment variables (NN_INIT, MLF_TRAIN, MLF_CV, SCP_TRAIN_LOCAL,
 SCP_CV_LOCAL, PHONELIST, LEARNRATE, FEATURE_TRANSFORM, FRM_EXT, BUNCHSIZE,
@@ -30,7 +31,7 @@ import os
 import re
 import sys
 
-from nnet_asr_tpu.train.newbob import NewbobConfig, run_newbob
+from ..train.newbob import NewbobConfig, run_newbob
 
 from ..device import DeviceLike
 from . import not_ported, tnet

@@ -8,8 +8,8 @@ frames, an MLF over them, a label map, scripts for a training and a
 cross-validation part, example-01's transform (``generators hamm_dct``
 followed by a ``<bias>``/``<window>`` normalisation to the data's mean and
 standard deviation, as in its ``Hamm_dct_norm``) and a ``gen_mlp_init``
-initial model. Files are written with the shared host tools of
-``nnet_asr_tpu`` (HTK, MLF and the generators).
+initial model. Files are written with the port's own host tools (HTK,
+MLF and the generators).
 """
 
 from __future__ import annotations
@@ -23,9 +23,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from nnet_asr_tpu.io import htk
-from nnet_asr_tpu.io.mlf import MlfWriter
-from nnet_asr_tpu.tools import gen_mlp_init, generators
+from ..io import htk
+from ..io.mlf import MlfWriter
+from ..tools import gen_mlp_init, generators
 
 from ..models.network import Network
 

@@ -1,7 +1,7 @@
 """TFeaCat — forward-pass "feature cat" CLI (port of nnet_asr_tpu/tools/tfeacat.py).
 
 Propagates utterances through transform + network on one device and writes
-HTK PARMKIND_USER feature files through the shared ``io/htk.py``, with the
+HTK PARMKIND_USER feature files through the port's ``io/htk.py``, with the
 decode-path post-processing: ``--GMMBYPASS`` maps posteriors to
 ``sqrt(-2·log p)`` pseudo-features for HVite's GMM-bypass trick
 (TFeaCat.cc:244-251), ``--LOGPOSTERIOR`` takes the log. The stack runs in
@@ -26,9 +26,9 @@ from typing import Optional
 
 import numpy as np
 
-from nnet_asr_tpu.io.htk import PARMKIND_USER, make_htk_filename, write_htk_file
-from nnet_asr_tpu.io.scp import parse_scp_entry, read_scp
-from nnet_asr_tpu.utils.config import UserInterface
+from ..io.htk import PARMKIND_USER, make_htk_filename, write_htk_file
+from ..io.scp import parse_scp_entry, read_scp
+from ..utils.config import UserInterface
 
 from .. import __version__
 from ..device import DeviceLike, gpuselect_device, resolve_device

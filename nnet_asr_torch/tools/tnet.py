@@ -26,11 +26,11 @@ import sys
 import threading
 import time
 
-from nnet_asr_tpu.io.labels import LabelRepository
-from nnet_asr_tpu.io.scp import parse_scp_entry, read_scp
-from nnet_asr_tpu.utils.config import UserInterface
-from nnet_asr_tpu.utils.prefetch import prefetch_map
-from nnet_asr_tpu.utils.profiler import enable_from_trace, profiler
+from ..io.labels import LabelRepository
+from ..io.scp import parse_scp_entry, read_scp
+from ..utils.config import UserInterface
+from ..utils.prefetch import prefetch_map
+from ..utils.profiler import enable_from_trace, profiler
 
 from .. import __version__
 from ..device import DeviceLike, gpuselect_device, resolve_device
@@ -203,7 +203,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
         if p_targetmmf:
             out_net.write(p_targetmmf)
         elif p_trg_dir or p_trg_ext:
-            from nnet_asr_tpu.io.htk import make_htk_filename
+            from ..io.htk import make_htk_filename
             out_net.write(make_htk_filename(p_source_mmf, p_trg_dir, p_trg_ext))
         else:
             print("WARNING: no target model specified, not saving",

@@ -25,9 +25,9 @@ import time
 import numpy as np
 import torch
 
-from nnet_asr_tpu.io.mmf import write_vector
-from nnet_asr_tpu.io.scp import parse_scp_entry, read_scp
-from nnet_asr_tpu.utils.config import UserInterface
+from ..io.mmf import write_vector
+from ..io.scp import parse_scp_entry, read_scp
+from ..utils.config import UserInterface
 
 from .. import __version__
 from ..device import DeviceLike, gpuselect_device, resolve_device

@@ -7,7 +7,7 @@ preallocates cachesize rows too), the cache drains at exact ``cachesize``
 boundaries, the overflow of the block that crossed the boundary carries
 into the next fill, and the trailing sub-bunch of a drain is discarded
 (Cache.cc:239-244). The shuffle is the bit-exact srand48 +
-std::random_shuffle permutation of the shared ``Rand48``, made on the host;
+std::random_shuffle permutation of the port's ``utils/rand48.py``, made on the host;
 the row gather into stacked bunches runs on the device. The multi-host
 partial drain (``max_bunches``) comes with the multi-device port.
 """
@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from nnet_asr_tpu.utils.rand48 import Rand48
+from ..utils.rand48 import Rand48
 
 
 class DeviceFrameCache:

@@ -38,7 +38,7 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from nnet_asr_tpu.utils.profiler import profiler
+from ..utils.profiler import profiler
 
 from ..device import DeviceLike, resolve_device
 from ..models.components import BiasedLinearity, Sigmoid, Softmax

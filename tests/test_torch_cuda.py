@@ -6,7 +6,14 @@ JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: forward outputs differ by summation order only (f32, no TF32);
+The GEMM kernels run 3xTF32 on the tensor cores, f32-accurate (one TF32
+pass would not meet these tolerances; tests/test_torch_tf32x3.py shows it on
+the CPU). The shapes cover both tiles, the split-K weight gradient
+(960x1024->135), the 4-byte copy path (widths 598 and 135) and operands
+whose base is not 16-byte aligned (``offset``: a contiguous tensor that
+starts that many floats into its buffer).
+
+Tolerances: forward outputs differ by summation order only (no plain TF32);
 the fused update's f32 outputs within 1e-5 of the plain version's largest
 value, its bf16 velocity within that plus one bf16 step at the element (the
 f32 sum, taken in another order, may round to the neighbouring bf16 value;
@@ -20,6 +27,7 @@ import torch
 from nnet_asr_torch.ops.kernels import matmul_act as MA
 from nnet_asr_torch.ops.kernels import sgd_fused as SF
 from nnet_asr_torch.ops.kernels import softmax_ce as SC
+from nnet_asr_torch.ops.kernels import tile_plan
 
 torch.set_num_threads(2)
 
@@ -31,6 +39,15 @@ def _affine_inputs(seed, M, K, N):
     b = rng.standard_normal(N).astype(np.float32)
     g = rng.standard_normal((M, N)).astype(np.float32)
     return x, w, b, g
+
+
+def _on_card(a, dev, offset=0):
+    """``a`` on the card, contiguous, ``offset`` floats into its buffer (base
+    not 16-byte aligned unless offset % 4 == 0)."""
+    buf = torch.empty(a.size + offset, dtype=torch.float32, device=dev)
+    t = buf[offset:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t.detach()
 
 
 def _ce_inputs(seed, B, C):
@@ -56,10 +73,14 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 598, 135), (130, 33, 70), (960, 598, 1024)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 598, 135), (130, 33, 70), (960, 598, 1024),
+                                   (1024, 1024, 4096), (200, 256, 132, 1), (64, 128, 520, 2)])
 def test_cuda_matmul_act_matches_plain(cuda, shape):
-    x, w, b, g = _affine_inputs(6, *shape)
-    ts = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in (x, w, b)]
+    M, K, N, offset = (*shape, 0)[:4]
+    x, w, b, g = _affine_inputs(6, M, K, N)
+    ts = [_on_card(a, cuda, offset).requires_grad_(True) for a in (x, w, b)]
+    if offset:
+        assert ts[0].data_ptr() % 16 and ts[1].data_ptr() % 16
     before = MA.matmul_act.launches
     y = MA.affine_sigmoid(*ts)
     y.backward(torch.from_numpy(g).to(cuda))
@@ -107,13 +128,18 @@ def bf16_ulp(t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (67, 61, 135), (960, 598, 1024),
-                                   (960, 1024, 135)])
+                                   (960, 1024, 135), (1024, 1024, 4096), (300, 256, 520, 1),
+                                   (960, 1024, 135, 3)])
 def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
-    B, In, Out = shape
+    B, In, Out, offset = (*shape, 0)[:4]
     rng = np.random.default_rng(8)
     x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
     p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
-    xs, es = (torch.from_numpy(a).to(cuda) for a in (x, e))
+    xs, es = (_on_card(a, cuda, offset) for a in (x, e))
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
+                        b_ptr=es.data_ptr(), split_k=True)
+    if offset:
+        assert not (pl.a_vec or pl.b_vec)
     pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
     vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
     before = SF.wgrad_momentum_update.launches
@@ -129,6 +155,13 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         big = torch.maximum(vk.float().abs(), vp.float().abs())
         tol = bf16_ulp(big) + 1e-5 * vp.float().abs().max()
         assert bool(((vk.float() - vp.float()).abs() <= tol).all())
+    # bit-for-bit repeatable, split-K included: no float atomics
+    pk2, vk2 = (torch.from_numpy(p).to(cuda), torch.from_numpy(v).to(cuda, vdt))
+    SF.wgrad_momentum_update(xs, es, pk2, vk2, 0.003, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pk2) and torch.equal(vk, vk2)
+    if shape[:3] == (960, 1024, 135):
+        assert pl.splits > 1
 
 
 @pytest.mark.cuda

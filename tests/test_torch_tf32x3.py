@@ -1,0 +1,184 @@
+"""The arithmetic and the launch plan of the tensor-core GEMM kernels, on the CPU.
+
+``csrc/tile_gemm.cuh`` multiplies f32 operands on TF32 tensor cores by
+3xTF32: each element is split into hi = rna_tf32(a) and lo = rna_tf32(a - hi)
+and the product accumulates lo*hi + hi*lo + hi*hi in f32 per k-step of 8 (the
+mma.sync m16n8k8 depth). Here the split is emulated with integer operations
+on the f32 bits and the products with f32 matmuls of depth 8; a TF32 product
+of two TF32 values is exact in f32, so only the accumulation order differs
+from the card. At the production depths (K = 4096 for ``x @ W``, a bunch of
+1024 for ``x^T e``) the emulated 3xTF32 result is within the tolerances
+``chip_smoke.py`` phase 3 holds the kernels to, against an f64 product, and a
+single TF32 pass is not.
+
+The second half holds ``tile_plan.plan`` to the tile, split and copy path of
+every shape the main paths launch.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from nnet_asr_torch.ops.kernels import tile_plan
+
+torch.set_num_threads(2)
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 explicit mantissa bits), to nearest, ties away
+    from zero, as cvt.rna.tf32.f32: add half of the 13 dropped bits to the
+    magnitude, then clear them (a carry moves into the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x):
+    hi = rna_tf32(x)
+    return hi, rna_tf32(x - hi)
+
+
+def gemm_tf32(a, b, passes):
+    """a @ b as the kernel's mma sequence: f32 accumulation per depth-8 step
+    of lo*hi, hi*lo, hi*hi (passes = 3) or of hi*hi alone (passes = 1)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        if passes == 3:
+            acc = acc + al[:, s] @ bh[s]
+            acc = acc + ah[:, s] @ bl[s]
+        acc = acc + ah[:, s] @ bh[s]
+    return acc
+
+
+def test_rna_tf32_rounds_to_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12, 65504.0, 2.0 - 2 ** -23], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 1.0,
+                         65504.0, 2.0])
+    got = rna_tf32(x)
+    assert torch.equal(got, want)
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())
+    rng = np.random.default_rng(0)
+    r = torch.from_numpy(rng.standard_normal(10000).astype(np.float32))
+    hi, lo = split_tf32(r)
+    assert (hi - r).abs().div(r.abs()).max().item() <= 2 ** -11
+    # hi + lo carries 21 significant bits: within 2^-21 of the f32 value
+    assert ((hi.double() + lo.double()) - r.double()).abs().div(r.abs()).max().item() \
+        <= 2 ** -21
+
+
+def _affine_case():
+    """x (M, 4096) and W (4096, N) as chip_smoke.py makes them, z = x @ W."""
+    rng = np.random.default_rng(1)
+    M, K, N = 48, 4096, 40
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) / math.sqrt(K)).astype(np.float32))
+    return x, w, x.double() @ w.double()
+
+
+def _wgrad_case():
+    """x (1024, In), e (1024, Out) and v as chip_smoke.py makes them; the
+    momentum step's corr = x^T e + 0.9 v."""
+    rng = np.random.default_rng(2)
+    B, In, Out = 1024, 40, 48
+    x = torch.from_numpy(rng.standard_normal((B, In)).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal((B, Out)) / math.sqrt(B)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((In, Out)).astype(np.float32))
+    return x, e, v, x.double().T @ e.double() + 0.9 * v.double()
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_affine_at_depth_4096_within_phase3_tolerance_only_with_3xtf32(passes):
+    x, w, ref = _affine_case()
+    z = gemm_tf32(x, w, passes).double()
+    err_z = (z - ref).abs().max().item()
+    err_y = (torch.sigmoid(z) - torch.sigmoid(ref)).abs().max().item()
+    tol_z = 1e-4 * max(ref.abs().max().item(), 1.0)     # matmul_act "none"
+    tol_y = 1e-4                                         # affine_sigmoid y
+    if passes == 3:
+        assert err_z <= tol_z / 10 and err_y <= tol_y / 10
+    else:
+        assert err_z > tol_z and err_y > tol_y
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_wgrad_at_bunch_1024_within_phase3_tolerance_only_with_3xtf32(passes):
+    x, e, v, ref = _wgrad_case()
+    corr = gemm_tf32(x.T.contiguous(), e, passes).double() + 0.9 * v.double()
+    err = (corr - ref).abs().max().item()
+    tol = 1e-5 * ref.abs().max().item()                  # p and v within 1e-5 * max
+    if passes == 3:
+        assert err <= tol / 5
+    else:
+        assert err > tol
+
+
+# --------------------------------------------------------------------------
+# the launch plan
+# --------------------------------------------------------------------------
+
+BIG, SMALL = tile_plan.BIG, tile_plan.SMALL
+
+# (M, N, K, a_pitch, b_pitch, split_k) -> (tile, splits, k_chunk, a_vec, b_vec)
+MAIN_PATH_PLANS = {
+    # affine_sigmoid x (M, K) @ W (K, N): pitches K and N
+    "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
+                                    (SMALL, 1, 598, False, True)),
+    "affine 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, False),
+                               (BIG, 1, 1024, True, True)),
+    "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
+                               (BIG, 1, 4096, True, True)),
+    # wgrad x^T e: M = In, N = Out, K = bunch; pitches In and Out
+    "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
+                                   (SMALL, 2, 480, False, True)),
+    "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
+                                   (SMALL, 6, 160, True, False)),
+    "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
+                              (BIG, 1, 1024, True, True)),
+    "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
+                              (BIG, 1, 1024, True, True)),
+    "wgrad 1024x4096->8192": ((4096, 8192, 1024, 4096, 8192, True),
+                              (BIG, 1, 1024, True, True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAIN_PATH_PLANS))
+def test_plan_of_main_path_shapes(name):
+    (M, N, K, ap, bp, split), want = MAIN_PATH_PLANS[name]
+    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split)
+    assert (p.tile, p.splits, p.k_chunk, p.a_vec, p.b_vec) == want
+    assert (p.bm, p.bn) == tile_plan.TILES[p.tile]
+    blocks = tile_plan.tile_count(M, N, p.tile) * p.splits
+    assert blocks >= tile_plan.SM_COUNT
+    # the splits cover the contraction exactly once, in whole BK steps
+    assert p.k_chunk * (p.splits - 1) < K <= p.k_chunk * p.splits
+    if p.splits > 1:
+        assert p.k_chunk % tile_plan.BK == 0
+        assert p.k_chunk >= tile_plan.MIN_K_STEPS * tile_plan.BK
+
+
+def test_plan_copy_path_follows_pitch_and_alignment():
+    for ptr, vec in ((0, True), (16, True), (4, False), (8, False), (1 << 40, True)):
+        p = tile_plan.plan(512, 512, 512, a_pitch=512, b_pitch=512, a_ptr=ptr, b_ptr=0)
+        assert (p.a_vec, p.b_vec) == (vec, True)
+    for pitch in (598, 135, 1023, 2, 1):
+        assert not tile_plan.vec16(pitch, 0)
+    assert tile_plan.vec16(1024, 4096)
+
+
+def test_plan_splits_only_when_asked_and_idle():
+    # the same small product: matmul_act never splits, the wgrad does
+    assert tile_plan.plan(1024, 135, 960, 1024, 135).splits == 1
+    assert tile_plan.plan(1024, 135, 960, 1024, 135, split_k=True).splits > 1
+    # a contraction too short for two splits of MIN_K_STEPS stays whole
+    p = tile_plan.plan(64, 64, 200, 64, 64, split_k=True)
+    assert (p.splits, p.k_chunk) == (1, 200)
+    # tiny shapes still get one block
+    p = tile_plan.plan(1, 1, 1, 1, 1, split_k=True)
+    assert (p.tile, p.splits, p.k_chunk) == (SMALL, 1, 1)
+    with pytest.raises(ValueError):
+        tile_plan.plan(0, 4, 4, 4, 4)
