@@ -12,11 +12,16 @@ final line):
   3. each CUDA kernel against its plain PyTorch version on the card at the
      main paths' shapes (forward, and gradients for affine_sigmoid; the
      fused wgrad+momentum update with f32 and bf16 velocity, split-K where
-     its plan asks, twice to show equal bits), with CUDA-event and profiler
-     timings of kernel, plain version and a library yardstick the port
-     never calls (addmm + sigmoid_; addmm_ with beta + add_), beside the
-     bound: the larger of the operations at the arithmetic's peak (165
+     its plan asks, twice to show equal bits; softmax-CE once per shape of
+     its plan, with tied rows, a NaN row and a NaN in a labelled row, twice
+     to show equal bits and one launch a call), with CUDA-event and
+     profiler timings of kernel, plain version and a library yardstick the
+     port never calls (addmm + sigmoid_; addmm_ with beta + add_), beside
+     the bound: the larger of the operations at the arithmetic's peak (165
      TFLOP/s for 3xTF32 on the tensor cores) and the bytes at 3.35 TB/s;
+     softmax-CE also with L2 flushed between launches, its bound share
+     taken against that time, and torch.softmax and a copy at the same
+     shape as same-bytes yardsticks;
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -70,7 +75,12 @@ WGRAD_SHAPES = ((BUNCH, 598, 1024, ("f32",)), (BUNCH, 1024, CLASSES, ("f32",)),
 # (M, K, N) of affine_sigmoid: MLP3's hidden layer, the production stack's
 # first layer and its 4096->4096 layers
 AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096))
-SOFTMAX_SHAPES = ((BUNCH, CLASSES), (1024, 8192))
+# (B, C) of fused_softmax_xent, one per shape of its plan: MLP3's output
+# (one warp per row), the production stack's (a row in a block's
+# registers), a row width with 4-byte accesses, and one past the register
+# limit (two walks)
+SOFTMAX_SHAPES = ((BUNCH, CLASSES), (1024, 8192), (1000, 3001), (1024, 16384))
+FLUSH_BYTES = 256 << 20     # written between launches to time with L2 cold
 # NVIDIA H100 SXM data sheet: 495 TFLOP/s dense TF32, of which 3xTF32 gives
 # a third as f32-accurate work; 67 TFLOP/s f32 outside the tensor cores;
 # 3.35 TB/s of HBM3
@@ -93,9 +103,10 @@ def stdout_of(fn, *args, **kw) -> str:
     return buf.getvalue()
 
 
-def device_us(torch, fn, reps: int = 20):
+def device_us(torch, fn, reps: int = 20, only: str = ""):
     """Device time per call in microseconds, summed over the CUDA kernels
-    the profiler saw; None when the profiler records no device time."""
+    the profiler saw whose name holds ``only``; None when the profiler
+    records no such device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -104,7 +115,8 @@ def device_us(torch, fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                if only in e.key)
     return total / reps if total > 0 else None
 
 
@@ -137,13 +149,16 @@ def log_times(what, r, tflops=None):
         f"bound {r['bound_us']:.2f} us ({r['bound_by']})")
 
 
-def cuda_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+def cuda_ms(torch, fn, reps: int = 30, warmup: int = 5, before=None) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events;
+    ``before()``, if given, runs ahead of each, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -199,41 +214,98 @@ def check_matmul_act(torch, dev, M, K, N, seed):
     return r
 
 
+def _bits(torch, t):
+    """The tensor's bits, so that NaNs compare equal to themselves."""
+    return t.reshape(-1).view(torch.int32)
+
+
+def compare_softmax_xent(torch, SC, logits, labels, what):
+    """Kernel against plain on one input: err within 1e-6 where plain is
+    finite and NaN where it is NaN; xent within 1e-5 relative, or NaN with
+    plain's; correct equal; one launch a call; a second run equal bit for
+    bit. Returns (max|err - plain|, xent rel err or None, correct)."""
+    before = SC.softmax_xent.launches
+    err, xent, corr = SC.softmax_xent(logits, labels)
+    check(SC.softmax_xent.launches == before + 1, f"{what}: not one launch a call")
+    perr, pxent, pcorr = SC.softmax_xent_plain(logits, labels)
+    torch.cuda.synchronize()
+    nan = torch.isnan(perr)
+    check(torch.equal(torch.isnan(err), nan), f"{what}: NaNs of err differ from plain's")
+    err_e = (err - perr)[~nan].abs().max().item()
+    check(err_e <= 1e-6, f"{what}: |err - plain| {err_e} > 1e-6")
+    rel_x = None
+    if math.isnan(pxent.item()):
+        check(math.isnan(xent.item()), f"{what}: xent {xent.item()}, plain's is NaN")
+    else:
+        rel_x = abs(xent.item() - pxent.item()) / abs(pxent.item())
+        check(rel_x <= 1e-5, f"{what}: xent rel err {rel_x} > 1e-5")
+    check(corr.item() == pcorr.item(), f"{what}: correct {corr.item()} != {pcorr.item()}")
+    err2, xent2, corr2 = SC.softmax_xent(logits, labels)
+    check(torch.equal(_bits(torch, err), _bits(torch, err2))
+          and torch.equal(_bits(torch, xent), _bits(torch, xent2))
+          and corr.item() == corr2.item(), f"{what}: a second run differs")
+    return err_e, rel_x, (corr.item(), pcorr.item())
+
+
 def check_softmax_xent(torch, dev, B, C, seed):
     from nnet_asr_torch.ops.kernels import softmax_ce as SC
+    from nnet_asr_torch.ops.kernels import softmax_plan
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     logits = 3.0 * torch.randn((B, C), generator=gen, device=dev)
     labels = torch.randint(0, C, (B,), generator=gen, device=dev, dtype=torch.int32)
-    labels[1] = -1                                  # a row that adds no stats
+    labels[1] = -1                                  # a row that adds no stats ...
+    logits[1, C // 2] = float("nan")                # ... holding a NaN
     logits[2, 3] = logits[2, C - 2] = logits[2].max() + 1.0   # tied max
     labels[2] = C - 2                               # first max (col 3) wins: a miss
     logits[4, 0] = logits[4, 7] = logits[4].max() + 1.0
     labels[4] = 0                                   # first max is the label: a hit
-    err, xent, corr = SC.softmax_xent(logits, labels)
-    perr, pxent, pcorr = SC.softmax_xent_plain(logits, labels)
-    torch.cuda.synchronize()
-    err_e = (err - perr).abs().max().item()
-    rel_x = abs(xent.item() - pxent.item()) / abs(pxent.item())
-    check(err_e <= 1e-6, f"softmax_xent {B}x{C}: |err - plain| {err_e} > 1e-6")
-    check(rel_x <= 1e-5, f"softmax_xent {B}x{C}: xent rel err {rel_x} > 1e-5")
-    check(corr.item() == pcorr.item(), f"softmax_xent {B}x{C}: correct "
-                                       f"{corr.item()} != {pcorr.item()}")
-    err2, xent2, _ = SC.softmax_xent(logits, labels)
-    check(torch.equal(err, err2) and xent.item() == xent2.item(),
-          f"softmax_xent {B}x{C}: a second run differs")
+    what = f"softmax_xent {B}x{C}"
+    err_e, rel_x, corr = compare_softmax_xent(torch, SC, logits, labels, what)
+    # a NaN in a labelled row whose label is the first max of its other
+    # columns: NaN xent and no hit (a NaN-dropping max would count one)
+    nl, nb = logits.clone(), labels.clone()
+    nl[5, 1] = nl[5].max() + 1.0
+    nl[5, C - 1] = float("nan")
+    nb[5] = 1
+    nan_e, _, nan_corr = compare_softmax_xent(torch, SC, nl, nb, f"{what} NaN row")
+    plan = softmax_plan.plan(B, C, logits.data_ptr())
+
     fns = (lambda: SC.softmax_xent(logits, labels),
            lambda: SC.softmax_xent_plain(logits, labels))
     ms, plain_ms = (cuda_ms(torch, f) for f in fns)
-    dev = (*(device_us(torch, f) for f in fns), None)
+    dev_t = (*(device_us(torch, f) for f in fns), None)
+    # L2 cold: FLUSH_BYTES written before each launch, the kernel's own
+    # device time. Same-bytes yardsticks (not the same function, so no
+    # library time): torch.softmax, and a copy of the logits, the practical
+    # ceiling of one read and one write
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cold_ms = cuda_ms(torch, fns[0], before=flush_buf.zero_)
+    cold_us = device_us(torch, lambda: (flush_buf.zero_(), fns[0]()), only="softmax_xent_")
+    del flush_buf
+    soft_ms = cuda_ms(torch, lambda: torch.softmax(logits, 1))
+    soft_us = device_us(torch, lambda: torch.softmax(logits, 1))
+    copy_out = torch.empty_like(logits)
+    copy_us = device_us(torch, lambda: copy_out.copy_(logits))
     # no one PyTorch call forms err and both statistics: no library time.
-    # Operations: max, exp, sum, divide, subtract per element (f32, FFMA)
-    r = record(f"{B}x{C}", err_e, ms, plain_ms, None, dev, 5.0 * B * C,
+    # Operations: max, exp, sum, scale, subtract per element (f32, FFMA)
+    r = record(f"{B}x{C}", max(err_e, nan_e), ms, plain_ms, None, dev_t, 5.0 * B * C,
                4.0 * (2 * B * C + B), PEAK_F32)
-    log(f"kernel softmax_xent {B}x{C}: max|err-plain| {err_e:.3e}, xent rel err "
-        f"{rel_x:.2e}, correct {corr.item()} == {pcorr.item()}")
-    log_times(f"softmax_xent {B}x{C} ({2.0 * B * C * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of "
+    r.update(cold_ms=cold_ms, cold_device_us=cold_us, softmax_ms=soft_ms,
+             softmax_device_us=soft_us, copy_device_us=copy_us,
+             plan={"variant": ("narrow", "rows", "wide")[plan.variant],
+                   "threads": plan.threads, "values_per_thread": plan.vpt,
+                   "16B": plan.vec, "blocks": plan.blocks})
+    share = "not measured" if cold_us is None else f"{r['bound_us'] / cold_us:.1%}"
+    log(f"kernel {what}: max|err-plain| {err_e:.3e} (NaN row input {nan_e:.3e}), xent rel "
+        f"err {rel_x:.2e}, correct {corr[0]} == {corr[1]} (NaN row input {nan_corr[0]} == "
+        f"{nan_corr[1]}); plan {r['plan']}; one launch a call, two runs equal bit for bit")
+    log_times(f"{what} ({2.0 * B * C * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of "
               f"logits+err by events)", r)
+    log(f"time {what} L2 flushed ({FLUSH_BYTES >> 20} MB written before each launch): kernel "
+        f"{cold_ms:.4f} ms, device {_us(cold_us)}; bound share {share} of the flushed "
+        f"device time; same-bytes yardsticks: torch.softmax(x, 1) {soft_ms:.4f} ms, device "
+        f"{_us(soft_us)}; copy_ of the logits, device {_us(copy_us)}")
     return r
 
 
@@ -658,8 +730,7 @@ def production(torch, dev, card: str):
 
 KERNEL_GROUPS = (("affine_sigmoid (ours)", "matmul_act_kernel"),
                  ("wgrad_momentum_update (ours)", "wgrad_"),
-                 ("softmax_xent (ours)", "softmax_xent_rows"),
-                 ("softmax_xent (ours)", "reduce_rows"),
+                 ("softmax_xent (ours)", "softmax_xent_"),
                  ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"), ("cuBLAS GEMM", "cutlass"))
 
 

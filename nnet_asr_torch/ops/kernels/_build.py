@@ -40,8 +40,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, w, b, y, M, N, K, act, tile, x_vec, w_vec, stream
     "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # logits, labels, err, row_xent, row_corr, xent, corr, B, C, stream
-    "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # logits, labels, err, part, ticket, xent, corr, B, C, variant, blocks,
+    # threads, vpt, vec, stream
+    "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, e, p, v, part, a, m, B, In, Out, v_is_bf16, tile, splits, k_chunk,
     # x_vec, e_vec, stream
     "wgrad_momentum_update_f32": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,

@@ -2,11 +2,14 @@
 
 Replaces the TPU kernel ``nnet_asr_tpu/ops/pallas/softmax_ce.py``
 (``_fwd_impl`` / custom-VJP ``fused_softmax_xent``) with the hand-written
-CUDA kernel ``nnet_asr_torch/csrc/softmax_ce.cu``. One pass per row gives
-``err = softmax - onehot`` (the stored gradient), the clamped Xent and the
-first-max argmax hit; a second, fixed-order kernel reduces the per-row
-stats, so runs repeat bit for bit. It is bound by memory bytes: one read
-of the logits and one write of ``err``.
+CUDA kernel ``nnet_asr_torch/csrc/softmax_ce.cu``: one launch reads each
+row once, writes ``err = softmax - onehot`` (the stored gradient) and sums
+the clamped Xent and the first-max hits through per-block partials that the
+last block reduces in a fixed order, so runs repeat bit for bit. It is
+bound by memory bytes: one read of the logits and one write of ``err``.
+``softmax_plan.plan`` picks the kernel's shape (one warp per row, a row in
+a block's registers, or two walks of a wide row). The row max propagates
+NaN, as ``jnp.max`` does: a row with a NaN counts no hit.
 
 ``softmax_xent`` dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (``softmax_xent_plain``), a CUDA tensor launches the
@@ -18,11 +21,12 @@ not differentiable.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, softmax_plan
 
 
 def softmax_xent_plain(logits: torch.Tensor, labels: torch.Tensor
@@ -63,6 +67,22 @@ def _check(logits, labels):
         raise ValueError("softmax_xent: empty logits")
 
 
+# The kernel's last-block ticket: one int32 counter per (device, stream),
+# zeroed once here and set back to 0 by every launch, so launches on other
+# streams never share one.
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def _ticket(dev: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream)
+    with _tickets_lock:
+        if key not in _tickets:
+            with torch.cuda.stream(stream):
+                _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+        return _tickets[key]
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(err (B,C) f32, xent () f32, correct () int32) for int32 labels;
@@ -75,16 +95,16 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
     lib = _build.load_library()
     B, C = logits.shape
     dev = logits.device
-    err = torch.empty_like(logits)
-    row_xent = torch.empty(B, dtype=torch.float32, device=dev)
-    row_corr = torch.empty(B, dtype=torch.int32, device=dev)
+    p = softmax_plan.plan(B, C, logits.data_ptr())
+    err = torch.empty_like(logits)                       # 16-byte aligned
+    part = torch.empty(2 * p.blocks, dtype=torch.float32, device=dev)
     xent = torch.empty((), dtype=torch.float32, device=dev)
     correct = torch.empty((), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev)
     code = lib.softmax_xent_f32(
-        logits.data_ptr(), labels.data_ptr(), err.data_ptr(),
-        row_xent.data_ptr(), row_corr.data_ptr(), xent.data_ptr(),
-        correct.data_ptr(), B, C, stream)
+        logits.data_ptr(), labels.data_ptr(), err.data_ptr(), part.data_ptr(),
+        _ticket(dev, stream).data_ptr(), xent.data_ptr(), correct.data_ptr(), B, C,
+        p.variant, p.blocks, p.threads, p.vpt, int(p.vec), stream.cuda_stream)
     _build.check(code, "softmax_xent_f32")
     softmax_xent.launches += 1
     return err, xent, correct

@@ -27,7 +27,7 @@ import torch
 from nnet_asr_torch.ops.kernels import matmul_act as MA
 from nnet_asr_torch.ops.kernels import sgd_fused as SF
 from nnet_asr_torch.ops.kernels import softmax_ce as SC
-from nnet_asr_torch.ops.kernels import tile_plan
+from nnet_asr_torch.ops.kernels import softmax_plan, tile_plan
 
 torch.set_num_threads(2)
 
@@ -98,26 +98,109 @@ def test_cuda_matmul_act_matches_plain(cuda, shape):
     assert (z - zp).abs().max().item() <= 1e-4 * (zp.abs().max().item() or 1.0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,C", [(1, 1), (37, 135), (20, 1025), (64, 8192)])
-def test_cuda_softmax_xent_matches_plain(cuda, B, C):
-    logits, labels = _ce_inputs(7, max(B, 5), max(C, 6))
-    logits = np.ascontiguousarray(logits[:B, :C])
-    labels = np.minimum(labels[:B], C - 1)
-    lt = torch.from_numpy(logits).to(cuda)
-    lb = torch.from_numpy(labels).to(cuda)
+def _bits(t):
+    """The tensor's bits, so that NaNs compare equal to themselves."""
+    return t.reshape(-1).view(torch.int32)
+
+
+def _check_softmax_xent(lt, lb, variant, nan_rows=()):
+    """Kernel against plain: err within 1e-6 (NaN where plain has NaN),
+    xent within 1e-5 relative (or NaN with plain's), correct equal; one
+    launch a call; a second run equal bit for bit."""
+    p = softmax_plan.plan(*lt.shape, lt.data_ptr())
+    assert p.variant == variant
     before = SC.softmax_xent.launches
     err, xent, corr = SC.softmax_xent(lt, lb)
     assert SC.softmax_xent.launches == before + 1
     perr, pxent, pcorr = SC.softmax_xent_plain(lt, lb)
     torch.cuda.synchronize()
-    assert (err - perr).abs().max().item() <= 1e-6
-    assert abs(xent.item() - pxent.item()) <= 1e-5 * max(abs(pxent.item()), 1.0)
+    nan = torch.isnan(perr)
+    assert torch.equal(torch.isnan(err), nan)
+    assert bool(nan.any(1).cpu()[list(nan_rows)].all()) and int(nan.any(1).sum()) == len(nan_rows)
+    assert (err - perr)[~nan].abs().max().item() <= 1e-6
+    if torch.isnan(pxent):
+        assert torch.isnan(xent)
+    else:
+        assert abs(xent.item() - pxent.item()) <= 1e-5 * max(abs(pxent.item()), 1.0)
     assert corr.item() == pcorr.item()
-    # bit-for-bit repeatable: no float atomics
+    # bit-for-bit repeatable: no float atomics, whichever block ends last
     err2, xent2, corr2 = SC.softmax_xent(lt, lb)
-    assert torch.equal(err, err2) and xent.item() == xent2.item()
+    assert SC.softmax_xent.launches == before + 2
+    assert torch.equal(_bits(err), _bits(err2))
+    assert torch.equal(_bits(xent), _bits(xent2)) and corr.item() == corr2.item()
+    return err, xent, corr
 
+
+# every variant of the plan: NARROW at B not a multiple of its 4 rows a
+# block, ROWS with 4- and 16-byte accesses, WIDE past the register limit,
+# and each with more rows than its grid has blocks (a block walks several
+# rows); ``offset`` starts the logits that many floats into their buffer
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,offset,variant", [
+    (1, 1, 0, softmax_plan.NARROW), (37, 135, 0, softmax_plan.NARROW),
+    (38, 512, 0, softmax_plan.NARROW), (37, 136, 1, softmax_plan.NARROW),
+    (5000, 64, 0, softmax_plan.NARROW),
+    (20, 1025, 0, softmax_plan.ROWS), (33, 3001, 0, softmax_plan.ROWS),
+    (64, 8192, 0, softmax_plan.ROWS), (9, 8192, 2, softmax_plan.ROWS),
+    (600, 8192, 0, softmax_plan.ROWS),
+    (6, 8193, 0, softmax_plan.WIDE), (5, 40000, 0, softmax_plan.WIDE),
+    (5, 40000, 3, softmax_plan.WIDE), (300, 9000, 0, softmax_plan.WIDE)])
+def test_cuda_softmax_xent_matches_plain(cuda, B, C, offset, variant):
+    logits, labels = _ce_inputs(7, max(B, 5), max(C, 6))
+    logits = np.ascontiguousarray(logits[:B, :C])
+    labels = np.minimum(labels[:B], C - 1)
+    lt = _on_card(logits, cuda, offset)
+    if offset:
+        assert lt.data_ptr() % 16 and not softmax_plan.plan(B, C, lt.data_ptr()).vec
+    lb = torch.from_numpy(labels).to(cuda)
+    _check_softmax_xent(lt, lb, variant)
+
+
+# rows with a NaN: NaN err, NaN xent when labelled, and no hit even where
+# the label is the first max of the other columns (fmaxf would count one)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,variant", [(37, 135, softmax_plan.NARROW),
+                                         (12, 8192, softmax_plan.ROWS),
+                                         (6, 9000, softmax_plan.WIDE)])
+def test_cuda_softmax_xent_nan_rows_count_as_plain(cuda, B, C, variant):
+    logits, labels = _ce_inputs(9, B, C)
+    logits[1, C // 2] = np.nan                        # label -1: xent stays finite
+    lt = torch.from_numpy(logits).to(cuda)
+    lb = torch.from_numpy(labels).to(cuda)
+    _, xent, _ = _check_softmax_xent(lt, lb, variant, nan_rows=(1,))
+    assert torch.isfinite(xent)
+    logits[5, 1] = logits[5].max() + 1.0              # the label is the first max ...
+    labels[5] = 1
+    logits[5, C - 1] = np.nan                         # ... of a row with a NaN
+    lt = torch.from_numpy(logits).to(cuda)
+    lb = torch.from_numpy(labels).to(cuda)
+    _, xent, corr = _check_softmax_xent(lt, lb, variant, nan_rows=(1, 5))
+    assert torch.isnan(xent)
+    lb[5] = -1
+    _, _, corr_unlabelled = SC.softmax_xent(lt, lb)
+    assert corr.item() == corr_unlabelled.item()      # row 5 never counted
+
+
+# the last-block ticket is kept per stream: launches on two streams at once
+# each sum their own partials
+@pytest.mark.cuda
+def test_cuda_softmax_xent_on_two_streams(cuda):
+    ins = [_ce_inputs(seed, 600, 8192) for seed in (10, 11)]
+    ts = [(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)) for x, y in ins]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in ts]
+    outs = []
+    for _ in range(3):
+        for st, (lt, lb) in zip(streams, ts):
+            with torch.cuda.stream(st):
+                outs.append(SC.softmax_xent(lt, lb))
+    torch.cuda.synchronize()
+    for k, (err, xent, corr) in enumerate(outs):
+        perr, pxent, pcorr = SC.softmax_xent_plain(*ts[k % 2])
+        assert (err - perr).abs().max().item() <= 1e-6
+        assert abs(xent.item() - pxent.item()) <= 1e-5 * abs(pxent.item())
+        assert corr.item() == pcorr.item()
+        assert torch.equal(xent, outs[k % 2][1])
 
 def bf16_ulp(t):
     """One bf16 step at each element's magnitude (8 significant bits)."""

@@ -43,6 +43,7 @@ MODULES = [
     "nnet_asr_torch.tools.generators",
     "nnet_asr_torch.tools.gemm_ceiling",
     "nnet_asr_torch.ops.kernels.tile_plan",
+    "nnet_asr_torch.ops.kernels.softmax_plan",
     "nnet_asr_torch.io",
     "nnet_asr_torch.io.htk",
     "nnet_asr_torch.io.mmf",

@@ -129,6 +129,40 @@ def test_xent_loss_and_stats_matches_jax(B, C):
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(jgrad), rtol=1e-6, atol=1e-6)
 
 
+# rows with a NaN (without a label: no stats; with one: NaN xent and no
+# hit, since jnp.max propagates NaN and no column reaches a NaN max), tied
+# rows, and labels of -1 and past the Pallas kernel's column padding (135 ->
+# 256): the plain version counts as the JAX kernel does
+@pytest.mark.parametrize("labelled_nan", [False, True])
+def test_fused_softmax_xent_plain_nan_rows_match_pallas(labelled_nan):
+    B, C = 12, 135
+    logits, labels = _ce_inputs(6, B, C)
+    logits[1, 7] = np.nan                              # label -1
+    labels[6] = 256 + 3                                # picks nothing in either
+    logits[5, 1] = logits[5].max() + 1.0               # the label is the first max ...
+    labels[5] = 1
+    if labelled_nan:
+        logits[5, 9] = np.nan                          # ... of a row with a NaN
+    _, jstats = j_fused_softmax_xent(jnp.asarray(logits), jnp.asarray(labels))
+    _, xent, corr = SC.softmax_xent_plain(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert int(corr) == int(jstats["correct"])
+    assert bool(torch.isnan(xent)) == bool(np.isnan(float(jstats["xent"]))) == labelled_nan
+    if not labelled_nan:
+        np.testing.assert_allclose(float(xent), float(jstats["xent"]), rtol=1e-6)
+    labels[5] = -1                                     # row 5 was counted only without NaN
+    _, _, corr_off = SC.softmax_xent_plain(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert int(corr) - int(corr_off) == (0 if labelled_nan else 1)
+
+
+def test_nan_row_counts_no_hit():
+    logits = np.array([[1, 5, np.nan, 2], [0, 1, 2, 3]], np.float32)
+    labels = np.array([1, 3], np.int32)
+    _, jstats = j_fused_softmax_xent(jnp.asarray(logits), jnp.asarray(labels))
+    _, xent, corr = SC.softmax_xent_plain(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert int(corr) == int(jstats["correct"]) == 1
+    assert bool(torch.isnan(xent)) and np.isnan(float(jstats["xent"]))
+
+
 def test_clamp_at_minus_1e10():
     logits = np.zeros((2, 4), np.float32)
     logits[0, 0] = 1e11                      # label 1 has logp = -1e11: clamped
