@@ -37,9 +37,19 @@ final line):
      and the CPU, and tfeacat --GMMBYPASS must be finite;
   6. the production-width stack 1024->4096x4->8192 (bunch 1024) through
      the port's Trainer: frames/s and achieved TFLOP/s of the train step
-     with momentum 0, and with momentum 0.9 (f32 and bf16 velocity); then a
-     torch.profiler window of steps with momentum 0 and 0.9, device time
-     summed by kernel name.
+     with momentum 0, and with momentum 0.9 (f32 and bf16 velocity), and
+     under MSE and with a BlockSoftmax(4096, 4096) head at momentum 0 and
+     0.9; then a torch.profiler window of steps with momentum 0 and 0.9,
+     MSE and BlockSoftmax at momentum 0, device time summed by kernel name;
+  7. objectives and tags, on phase 4's corpus (run before phase 6): tnet
+     -O mse (epoch + CV, CV Mse must fall), a BlockSoftmax(90, 45) head
+     (epoch + CV, CV accuracy must rise), a --CONFUSIONMODE=max CV whose
+     matrix sums to the CV frames, and a SparseLinearity hidden layer with
+     --L1=1e-5 whose written mask holds zeros; each cuda:0 run's wrapper
+     launches exact (affine_sigmoid once a bunch, none for the
+     SparseLinearity pair; fused_softmax_xent only on the L1 run); the MSE
+     and BlockSoftmax epochs again on the CPU must agree; tfeacat of the
+     BlockSoftmax model on cuda:0 within 1e-4 of the CPU's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
@@ -393,9 +403,12 @@ def drained_frames(total: int, cache: int, bunch: int) -> int:
 
 
 XENT = re.compile(r"Xent:(\S+) frames:(\d+) err/frm:\S+ correct\[(\S+)%\]")
+MSE = re.compile(r"Mse:(\S+) frames:(\d+) err/frm:\S+")
 
 
 def run_tnet(d, src, *extra, device=None):
+    """One tnet run: ``xent`` holds the Xent (or, with -O mse, the Mse)
+    total, ``acc`` the accuracy (None for MSE)."""
     from nnet_asr_torch.tools import tnet
 
     argv = ["tnet", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
@@ -404,12 +417,12 @@ def run_tnet(d, src, *extra, device=None):
             f"--SEED={SEED}", f"--FEATURETRANSFORM={os.path.join(d, 'transform')}",
             f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}", *extra]
     out = stdout_of(tnet.main, argv, device=device)
-    m = XENT.search(out)
-    check(m is not None, f"no Xent line in tnet output:\n{out}")
+    m = XENT.search(out) or MSE.search(out)
+    check(m is not None, f"no Xent or Mse line in tnet output:\n{out}")
     fps = re.search(r"FPS:([\d.]+)", out)
     return {"xent": float(m.group(1)), "frames": int(m.group(2)),
-            "acc": float(m.group(3)), "fps": float(fps.group(1)) if fps else None,
-            "log": out}
+            "acc": float(m.group(3)) if m.re is XENT else None,
+            "fps": float(fps.group(1)) if fps else None, "log": out}
 
 
 def main_path(torch, card: str, d: str, n: dict):
@@ -469,19 +482,20 @@ def main_path(torch, card: str, d: str, n: dict):
 
 def check_cpu_epoch(what, c, e, c_mmf, e_mmf, cpu_seconds):
     """The CPU run ``c`` of an epoch agrees with its cuda:0 run ``e``: Xent
-    within 1e-4 relative, weights within 1e-4, correct frames within 0.1%
-    (argmax can flip on a near-tie under another summation order)."""
+    (or Mse) within 1e-4 relative, weights within 1e-4, correct frames
+    within 0.1% (argmax can flip on a near-tie under another summation
+    order)."""
     import numpy as np
 
     from nnet_asr_torch.models.network import Network
 
     rel = abs(c["xent"] - e["xent"]) / abs(e["xent"])
-    dcorr = abs(c["acc"] - e["acc"]) * c["frames"] / 100.0
+    dcorr = 0.0 if c["acc"] is None else abs(c["acc"] - e["acc"]) * c["frames"] / 100.0
     wdiff = max(float(np.abs(a[k] - b[k]).max())
                 for a, b in zip(Network.read(c_mmf).to_numpy_params(),
                                 Network.read(e_mmf).to_numpy_params())
                 for k in a)
-    log(f"{what} cpu vs cuda:0: Xent {c['xent']:.10g} vs {e['xent']:.10g} "
+    log(f"{what} cpu vs cuda:0: Xent/Mse {c['xent']:.10g} vs {e['xent']:.10g} "
         f"(rel {rel:.2e}), frames {c['frames']} vs {e['frames']}, correct differs "
         f"by {dcorr:.0f} frames, max|w_cpu - w_cuda| {wdiff:.2e} "
         f"({cpu_seconds:.1f}s on the CPU)")
@@ -653,13 +667,128 @@ def momentum_path(torch, card: str, d: str, n: dict):
 
 
 # ---------------------------------------------------------------------------
+# 7. objectives and tags: MSE, BlockSoftmax, confusion, L1 SparseLinearity
+# ---------------------------------------------------------------------------
+
+def objectives_path(torch, card: str, d: str, n: dict):
+    """tnet on phase 4's corpus with -O mse, a BlockSoftmax head, a
+    confusion-mode CV and an L1 SparseLinearity model, each run on cuda:0
+    with its exact wrapper launch counts; the MSE and BlockSoftmax epochs
+    again on the CPU; tfeacat of the BlockSoftmax model on both."""
+    import numpy as np
+
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.ops.kernels import matmul_act as MA
+    from nnet_asr_torch.ops.kernels import softmax_ce as SC
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    train = ("-S", j("train.scp"))
+    cv = ("-S", j("cv.scp"), "-c")
+    with open(j("init.mmf")) as f:
+        init = f.read()
+    with open(j("block.mmf"), "w") as f:      # BlockSoftmax (90, 45) head
+        f.write(init.replace(f"<softmax> {CLASSES} {CLASSES}",
+                             f"<blocksoftmax> {CLASSES} {CLASSES}\nv 2\n90 45"))
+    with open(j("sparse.mmf"), "w") as f:     # the hidden affine as SparseLinearity
+        f.write(init.replace("<biasedlinearity>", "<sparselinearity>", 1))
+    n_train = drained_frames(n["train"], CACHE, BUNCH)
+    n_cv = drained_frames(n["cv"], CACHE, BUNCH)
+    totals = {"matmul_act": 0, "softmax_xent": 0}
+
+    def counted(what, frames, fused, *args):
+        """A cuda:0 tnet run; affine_sigmoid launches once a drained bunch
+        (none for a SparseLinearity pair), fused_softmax_xent once a bunch
+        only where ``fused``."""
+        MA.matmul_act.launches = 0
+        SC.softmax_xent.launches = 0
+        r = run_tnet(d, *args)
+        got = {"matmul_act": MA.matmul_act.launches, "softmax_xent": SC.softmax_xent.launches}
+        want = {"matmul_act": 0 if fused else frames // BUNCH,
+                "softmax_xent": frames // BUNCH if fused else 0}
+        log(f"tnet cuda:0 {what}: {'Xent' if r['acc'] is not None else 'Mse'} "
+            f"{r['xent']:.10g} frames {r['frames']} correct {r['acc']} FPS {r['fps']}; "
+            f"launches {json.dumps(got)}")
+        check(r["frames"] == frames, f"{what}: {r['frames']} frames, want {frames}")
+        check(math.isfinite(r["xent"]), f"{what}: not finite")
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        return r
+
+    mse_cv0 = counted("-O mse cv init", n_cv, False, j("init.mmf"), *cv, "-O", "mse")
+    mse_e1 = counted("-O mse epoch 1", n_train, False, j("init.mmf"), *train, "-O", "mse",
+                     f"--TARGETMMF={j('mse1.mmf')}")
+    mse_cv1 = counted("-O mse cv epoch 1", n_cv, False, j("mse1.mmf"), *cv, "-O", "mse")
+    check("Objective function: Mse" in mse_e1["log"], "no 'Objective function: Mse' line")
+    check(mse_cv1["xent"] < mse_cv0["xent"],
+          f"-O mse: cv Mse did not fall: {mse_cv0['xent']} -> {mse_cv1['xent']}")
+    blk_cv0 = counted("BlockSoftmax(90,45) cv init", n_cv, False, j("block.mmf"), *cv)
+    blk_e1 = counted("BlockSoftmax(90,45) epoch 1", n_train, False, j("block.mmf"), *train,
+                     f"--TARGETMMF={j('block1.mmf')}")
+    blk_cv1 = counted("BlockSoftmax(90,45) cv epoch 1", n_cv, False, j("block1.mmf"), *cv)
+    check(blk_cv1["acc"] > blk_cv0["acc"],
+          f"BlockSoftmax: cv accuracy did not rise: {blk_cv0['acc']} -> {blk_cv1['acc']}")
+    conf = counted("--CONFUSIONMODE=max cv of phase 4's epoch 2", n_cv, False, j("e2.mmf"),
+                   *cv, "--CONFUSIONMODE=max")
+    lines = conf["log"].splitlines()
+    k = lines.index("Row:label Col:hyp")
+    check(lines[k + 1] == f"m {CLASSES} {CLASSES}", "confusion matrix header")
+    matrix = np.array([[float(v) for v in l.split()] for l in lines[k + 2:k + 2 + CLASSES]])
+    check(matrix.shape == (CLASSES, CLASSES) and matrix.sum() == n_cv,
+          f"confusion matrix {matrix.shape} sums to {matrix.sum()}, not {n_cv} cv frames")
+    diag = int(np.trace(matrix))
+    check(diag == round(conf["acc"] * n_cv / 100.0), "confusion diagonal != correct frames")
+    per_class = [l for l in lines[k + 2 + CLASSES:] if "%" in l and l.endswith("]")]
+    check(len(per_class) == CLASSES and per_class[0].split()[0] == "s0",
+          f"{len(per_class)} per-class confusion lines")
+    log(f"confusion max: {CLASSES}x{CLASSES} matrix sums to {int(matrix.sum())} cv frames, "
+        f"diagonal {diag}; {len(per_class)} per-class lines, first: {per_class[0].strip()}")
+    l1 = counted("SparseLinearity --L1=1e-5 epoch 1", n_train, True, j("sparse.mmf"), *train,
+                 "--L1=1e-5", f"--TARGETMMF={j('sparse1.mmf')}")
+    sparse = Network.read(j("sparse1.mmf")).layers[0]
+    zeros = int((sparse.mask == 0).sum())
+    check(sparse.tag == "<sparselinearity>" and zeros > 0,
+          f"written SparseLinearity mask holds no zeros ({sparse.tag})")
+    log(f"L1 epoch: written mask prunes {zeros} of {sparse.mask.numel()} weights "
+        f"(Xent {l1['xent']:.10g}, correct {l1['acc']}%)")
+
+    # the MSE and BlockSoftmax epochs again on the CPU (plain versions)
+    for what, e, src, mmf, extra in (("-O mse epoch 1", mse_e1, "init.mmf", "mse1.mmf",
+                                      ("-O", "mse")),
+                                     ("BlockSoftmax epoch 1", blk_e1, "block.mmf",
+                                      "block1.mmf", ())):
+        t0 = time.perf_counter()
+        c = run_tnet(d, j(src), *train, *extra, f"--TARGETMMF={j('cpu_' + mmf)}", device="cpu")
+        check_cpu_epoch(what, c, e, j("cpu_" + mmf), j(mmf), time.perf_counter() - t0)
+
+    # posteriors of the trained BlockSoftmax model: cuda:0 against the CPU
+    # within 1e-4 (logits differ by f32 summation order), each span's
+    # posteriors summing to 1 within 1e-4
+    post = run_tfeacat(d, j("block1.mmf"), j("blk_cuda"))
+    post_cpu = run_tfeacat(d, j("block1.mmf"), j("blk_cpu"), device="cpu")
+    check(sorted(post) == sorted(post_cpu) and sum(a.shape[0] for a in post.values()) == n["cv"],
+          "tfeacat BlockSoftmax files or frames")
+    diff = max(float(np.abs(post[f] - post_cpu[f]).max()) for f in post)
+    span_err = max(float(np.abs(a[:, s].astype(np.float64).sum(1) - 1).max())
+                   for a in post.values() for s in (slice(0, 90), slice(90, CLASSES)))
+    log(f"tfeacat BlockSoftmax model, {len(post)} cv files: max|p_cuda - p_cpu| {diff:.3e}; "
+        f"max|sum(p over a span) - 1| {span_err:.3e}")
+    check(diff <= 1e-4, f"tfeacat BlockSoftmax cpu/cuda differ by {diff}")
+    check(span_err <= 1e-4, f"BlockSoftmax spans do not sum to 1: {span_err}")
+    log(f"objectives-path launches (8 tnet runs on cuda:0): {json.dumps(totals)}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
 def production(torch, dev, card: str):
     import numpy as np
 
-    from nnet_asr_torch.models.components import BiasedLinearity, Sigmoid, Softmax
+    from nnet_asr_torch.models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
     from nnet_asr_torch.models.network import Network
     from nnet_asr_torch.train.sgd import SgdConfig
     from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
@@ -707,12 +836,22 @@ def production(torch, dev, card: str):
         f"{6 * n_params * epoch_fps / 1e12:.2f} TFLOP/s")
 
     # the momentum step (every weight through the fused wgrad+momentum
-    # kernel) beside momentum 0, in turns on the same weights
+    # kernel) beside momentum 0, then the MSE objective and a
+    # BlockSoftmax(4096, 4096) head (plain objective passes in place of the
+    # fused softmax-CE kernel) at momentum 0 and 0.9, in turns on the same
+    # weights
+    block_net = Network(list(net.layers[:-1]) + [
+        BlockSoftmax(PROD_DIMS[-1], PROD_DIMS[-1], dims=(PROD_DIMS[-1] // 2,) * 2)])
     steps = {"momentum 0": tr}
     for name, vdt in (("momentum 0.9 f32 velocity", None), ("momentum 0.9 bf16 velocity", "bf16")):
         steps[name] = Trainer(net, TrainerConfig(
             bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, seed=1,
             sgd=SgdConfig(learning_rate=0.01, momentum=0.9, velocity_dtype=vdt)), device=dev)
+    for name, n_, objective in (("mse", net, "mse"), ("blocksoftmax(4096,4096)", block_net, "xent")):
+        for m in (0.0, 0.9):
+            steps[f"{name} momentum {m:g}"] = Trainer(n_, TrainerConfig(
+                bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, seed=1,
+                objective=objective, sgd=SgdConfig(learning_rate=0.01, momentum=m)), device=dev)
     times = {name: [] for name in steps}
     for name in [*steps, *reversed(steps)]:
         times[name].append(cuda_ms(torch, lambda: steps[name]._train_step(feats, labels),
@@ -724,7 +863,8 @@ def production(torch, dev, card: str):
                         f"TFLOP/s" for t, f in zip(ms, fps)))
     check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
           "production weights not finite after the momentum steps")
-    for name in ("momentum 0", "momentum 0.9 f32 velocity"):
+    for name in ("momentum 0", "momentum 0.9 f32 velocity", "mse momentum 0",
+                 "blocksoftmax(4096,4096) momentum 0"):
         trace_steps(torch, name, lambda: steps[name]._train_step(feats, labels), card)
 
 
@@ -835,12 +975,14 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f}s to make)")
         launches_ce = main_path(torch, card, d, n)
         launches_mom = momentum_path(torch, card, d, n)
+        launches_obj = objectives_path(torch, card, d, n)
     production(torch, dev, card)
-    launches = {k: launches_ce.get(k, 0) + launches_mom[k] for k in launches_mom}
+    launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj))
+                for k in launches_mom}
 
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, every shape "
-        f"under 'shapes'; launches summed over the frame-CE and momentum paths")
+        f"under 'shapes'; launches summed over the frame-CE, momentum and objectives paths")
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act"),
             "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent"),
             "wgrad_momentum_update": ("sgd_fused.cu", "sgd_fused.py:105",

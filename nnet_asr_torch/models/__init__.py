@@ -1,8 +1,9 @@
 """Model components and networks as ``nn.Module``s."""
 
 from .components import (
-    Component, BiasedLinearity, SharedLinearity, Sigmoid, Softmax,
-    Expand, Copy, Transpose, BlockLinearity, Bias, Window,
+    Component, BiasedLinearity, DiscreteLinearity, SharedLinearity, SparseLinearity,
+    ClusterLinearity, Rbm, RbmSparse, Sigmoid, Softmax, BlockSoftmax,
+    Expand, Copy, Transpose, BlockLinearity, Bias, Window, Log, BlockArray,
     TAG_TO_TYPE, UNPORTED_TAGS,
 )
 from .network import Network, read_components, write_component

@@ -10,16 +10,20 @@ the constant vectors of the feature-transform tags are buffers.
 in JAX; ``forward(x)`` applies the module's own parameters. MMF text is
 read and written through the port's copy of the MMF reader, ``io/mmf.py``.
 
-Ported tags: the trained MLP (<biasedlinearity>, <sigmoid>, <softmax>) and
-the linear transform tags that ``ops.fold_affine`` folds (<expand>,
-<copy>, <transpose>, <blocklinearity>, <bias>, <window>,
-<sharedlinearity>). The other tags of the JAX package raise
-NotImplementedError when read.
+Parameters that the JAX package keeps as Python lists (DiscreteLinearity's
+``weights``, ClusterLinearity's ``cluster_weights``/``cluster_biases``) are
+``_TensorList`` submodules inside, and plain lists in ``param_dict()``;
+BlockArray's ``blocks`` is a list (one per block) of lists of its
+sub-layers' dicts, as in JAX.
+
+Every tag of the JAX package is ported but <recurrent>, whose forward is a
+scan over time that belongs with BPTT (ROADMAP.md queue 1 item 12): reading
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Dict, TextIO, Tuple
+from typing import Dict, List, Sequence, TextIO, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,47 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
 
 
+class _TensorList(nn.Module):
+    """Zero float32 tensors of the given shapes, registered as Parameters
+    (trainable) or buffers named "0", "1", ...; iterates like a list."""
+
+    def __init__(self, shapes: Sequence[Tuple[int, ...]], trainable: bool):
+        super().__init__()
+        self.n = len(shapes)
+        for i, shape in enumerate(shapes):
+            t = torch.zeros(shape, dtype=torch.float32)
+            if trainable:
+                self.register_parameter(str(i), nn.Parameter(t))
+            else:
+                self.register_buffer(str(i), t)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        return (getattr(self, str(i)) for i in range(self.n))
+
+
+@torch.no_grad()
+def _copy_into(dst, src, what: str) -> None:
+    """Copy ``src`` (numpy arrays in the JAX nesting of lists and dicts)
+    into the tensors of ``dst`` (the same nesting), checking every shape."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k], f"{what}[{k!r}]")
+        return
+    if isinstance(dst, list):
+        if len(src) != len(dst):
+            raise ValueError(f"{what}: {len(src)} entries, want {len(dst)}")
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_into(d, s, f"{what}[{i}]")
+        return
+    t = torch.as_tensor(np.asarray(src, dtype=np.float32))
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)} != {tuple(dst.shape)}")
+    dst.copy_(t)
+
+
 class Component(nn.Module):
     """One layer: static dims + its parameter tensors."""
 
@@ -48,29 +93,33 @@ class Component(nn.Module):
         self.n_inputs = n_inputs
         self.n_outputs = n_outputs
 
-    def _init_params(self, shapes: Dict[str, Tuple[int, ...]]) -> None:
+    def _init_params(self, shapes: Dict[str, object]) -> None:
         """Zero tensors of the given shapes: trainable keys as Parameters,
-        the rest as buffers."""
+        the rest as buffers; a list of shapes makes a ``_TensorList``."""
         for k, shape in shapes.items():
+            trainable = k in self.trainable_keys
+            if isinstance(shape, list):
+                self.add_module(k, _TensorList(shape, trainable))
+                continue
             t = torch.zeros(shape, dtype=torch.float32)
-            if k in self.trainable_keys:
+            if trainable:
                 self.register_parameter(k, nn.Parameter(t))
             else:
                 self.register_buffer(k, t)
 
     def param_dict(self) -> Params:
-        return {k: getattr(self, k) for k in self.param_keys}
-
-    @torch.no_grad()
-    def load_params(self, params: Dict[str, np.ndarray]) -> "Component":
-        """Copy numpy arrays (JAX layout) into this layer's tensors."""
+        """The parameters in the JAX package's names and nesting."""
+        out = {}
         for k in self.param_keys:
-            t = getattr(self, k)
-            src = torch.as_tensor(np.asarray(params[k], dtype=np.float32))
-            if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(f"{self.tag} param {k!r}: shape "
-                                 f"{tuple(src.shape)} != {tuple(t.shape)}")
-            t.copy_(src)
+            v = getattr(self, k)
+            out[k] = list(v) if isinstance(v, _TensorList) else v
+        return out
+
+    def load_params(self, params: Dict[str, object]) -> "Component":
+        """Copy numpy arrays (JAX layout and nesting) into this layer's tensors."""
+        mine = self.param_dict()
+        for k in self.param_keys:
+            _copy_into(mine[k], params[k], f"{self.tag} param {k!r}")
         return self
 
     # -- compute ---------------------------------------------------------
@@ -169,6 +218,174 @@ class SharedLinearity(Component):
         out.write("\n")
 
 
+class DiscreteLinearity(Component):
+    """Block-diagonal affine with independent per-block weights
+    (CuTNetLib/cuDiscreteLinearity.cc): ``n_blocks``, then each block's
+    transposed matrix, then one bias vector."""
+
+    tag = "<discretelinearity>"
+    updatable = True
+    trainable_keys = ("weights", "bias")
+    param_keys = ("weights", "bias")
+
+    def __init__(self, n_inputs, n_outputs, block_dims: Sequence[Tuple[int, int]] = ()):
+        super().__init__(n_inputs, n_outputs)
+        self.block_dims = tuple((int(di), int(do)) for di, do in block_dims)
+        if (not self.block_dims or sum(d[0] for d in self.block_dims) != n_inputs
+                or sum(d[1] for d in self.block_dims) != n_outputs):
+            raise ValueError("Wrong discrete-linearity dimensions in network file")
+        self._init_params({"weights": list(self.block_dims), "bias": (n_outputs,)})
+
+    def apply(self, params, x):
+        outs = []
+        in_off = 0
+        for w, (di, _) in zip(params["weights"], self.block_dims):
+            outs.append(x[:, in_off:in_off + di] @ w)
+            in_off += di
+        return torch.cat(outs, dim=1) + params["bias"]
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        nb = int(ts.next())
+        if nb < 1:
+            raise ValueError(f"Bad number of blocks: {nb}")
+        wts = [mmf.read_matrix(ts) for _ in range(nb)]     # each stored (out_i, in_i)
+        b = mmf.read_vector(ts)
+        if b.shape != (n_outputs,):
+            raise ValueError("Wrong discrete-linearity dimensions in network file")
+        dims = [(wt.shape[1], wt.shape[0]) for wt in wts]
+        return cls(n_inputs, n_outputs, block_dims=dims).load_params(
+            {"weights": [wt.T for wt in wts], "bias": b})
+
+    def write(self, out):
+        out.write(f"{len(self.block_dims)}\n")
+        for w in self.weights:
+            mmf.write_matrix(out, _np(w).T)
+        mmf.write_vector(out, _np(self.bias))
+        out.write("\n")
+
+
+class SparseLinearity(Component):
+    """``x @ (W * mask) + b`` with a 0/1 mask buffer (CuTNetLib/
+    cuSparseLinearity.cc). On read a missing mask is all ones and the
+    accumulator matrix that may follow is skipped; ``write`` prunes the
+    mask at |w| < 1e-3 (the reference's UpdateMask from WriteToStream), and
+    nothing else does, so a pruned weight is never re-activated."""
+
+    tag = "<sparselinearity>"
+    updatable = True
+    trainable_keys = ("weight", "bias")
+    param_keys = ("weight", "bias", "mask")
+
+    def __init__(self, n_inputs, n_outputs):
+        super().__init__(n_inputs, n_outputs)
+        self._init_params({"weight": (n_inputs, n_outputs), "bias": (n_outputs,),
+                           "mask": (n_inputs, n_outputs)})
+        self.mask.fill_(1.0)          # a buffer: no mask on file means all ones
+
+    def apply(self, params, x):
+        return x @ (params["weight"] * params["mask"]) + params["bias"]
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        wt = mmf.read_matrix(ts)
+        b = mmf.read_vector(ts)
+        mask = mmf.read_matrix(ts).T if ts.peek() == "m" else np.ones(
+            (n_inputs, n_outputs), np.float32)
+        if ts.peek() == "m":
+            mmf.read_matrix(ts)          # the accumulated-gradient matrix: not kept
+        if wt.shape != (n_outputs, n_inputs) or b.shape != (n_outputs,):
+            raise ValueError("Wrong sparse-linearity dimensions in network file")
+        return cls(n_inputs, n_outputs).load_params({"weight": wt.T, "bias": b, "mask": mask})
+
+    def write(self, out):
+        w = _np(self.weight)
+        mask = np.where(np.abs(w) < 1e-3, 0.0, _np(self.mask))
+        mmf.write_matrix(out, w.T)
+        mmf.write_vector(out, _np(self.bias))
+        mmf.write_matrix(out, mask.astype(np.float32).T)
+        out.write("\n")
+
+    @staticmethod
+    def update_mask(params: Params, threshold: float = 1e-3) -> Params:
+        """The params with |weight| < threshold pruned from the mask
+        (cuSparseLinearity.cc:66-95)."""
+        mask = torch.where(params["weight"].abs() < threshold,
+                           torch.zeros_like(params["mask"]), params["mask"])
+        return {**params, "mask": mask}
+
+
+class ClusterLinearity(Component):
+    """Cluster-adaptive affine: the forward pass is BiasedLinearity's on
+    the combined ``weight``/``bias``, the only trainable entries
+    (cuClusterLinearity.cc:9-21); the per-cluster transforms, the constant
+    weight and ``cluster_map`` are carried through read and write. Format
+    (cuClusterLinearity.cc:95-253): n_instances; per cluster ``c n ids...``
+    + square xform^T + bias(in); const weight^T + bias(out); combined
+    weight^T + bias(out)."""
+
+    tag = "<clusterlinearity>"
+    updatable = True
+    trainable_keys = ("weight", "bias")
+    param_keys = ("cluster_weights", "cluster_biases", "const_weight", "const_bias",
+                  "weight", "bias")
+
+    def __init__(self, n_inputs, n_outputs, cluster_map: Sequence[Sequence[int]]):
+        super().__init__(n_inputs, n_outputs)
+        self.cluster_map = tuple(tuple(int(i) for i in ids) for ids in cluster_map)
+        self.n_instances = len(self.cluster_map)
+        if self.n_instances < 1:
+            raise ValueError(f"Bad number of instances: {self.n_instances}")
+        k = self.n_instances
+        self._init_params({"cluster_weights": [(n_inputs, n_inputs)] * k,
+                           "cluster_biases": [(n_inputs,)] * k,
+                           "const_weight": (n_inputs, n_outputs), "const_bias": (n_outputs,),
+                           "weight": (n_inputs, n_outputs), "bias": (n_outputs,)})
+
+    def apply(self, params, x):
+        return x @ params["weight"] + params["bias"]
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        k = int(ts.next())
+        if k < 1:
+            raise ValueError(f"Bad number of instances: {k}")
+        cmap, cw, cb = [], [], []
+        for _ in range(k):
+            tag = ts.next()
+            n = int(ts.next())
+            if tag != "c" or n < 1:
+                raise ValueError(f"Bad cluster xform header: {tag} {n}")
+            cmap.append(tuple(int(ts.next()) for _ in range(n)))
+            xt = mmf.read_matrix(ts)
+            xb = mmf.read_vector(ts)
+            if xt.shape != (n_inputs, n_inputs) or xb.shape != (n_inputs,):
+                raise ValueError("Wrong cluster-xform dimensions in network file")
+            cw.append(xt.T)
+            cb.append(xb)
+        ct = mmf.read_matrix(ts)
+        const_b = mmf.read_vector(ts)
+        wt = mmf.read_matrix(ts)
+        b = mmf.read_vector(ts)
+        if wt.shape != (n_outputs, n_inputs) or ct.shape != (n_outputs, n_inputs):
+            raise ValueError("Wrong cluster-linearity dimensions in network file")
+        return cls(n_inputs, n_outputs, cluster_map=cmap).load_params({
+            "cluster_weights": cw, "cluster_biases": cb, "const_weight": ct.T,
+            "const_bias": const_b, "weight": wt.T, "bias": b})
+
+    def write(self, out):
+        out.write(f"{self.n_instances}\n")
+        for ids, w, b in zip(self.cluster_map, self.cluster_weights, self.cluster_biases):
+            out.write("c " + " ".join(str(i) for i in (len(ids),) + ids) + "\n")
+            mmf.write_matrix(out, _np(w).T)
+            mmf.write_vector(out, _np(b))
+        mmf.write_matrix(out, _np(self.const_weight).T)
+        mmf.write_vector(out, _np(self.const_bias))
+        mmf.write_matrix(out, _np(self.weight).T)
+        mmf.write_vector(out, _np(self.bias))
+        out.write("\n")
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
@@ -190,6 +407,30 @@ class Softmax(Component):
 
     def apply(self, params, x):
         return torch.softmax(x, dim=-1)
+
+
+class BlockSoftmax(Component):
+    """Softmaxes over disjoint output spans (TNetLib/Activation.cc:55-133);
+    the file holds the span widths as a vector."""
+
+    tag = "<blocksoftmax>"
+
+    def __init__(self, n_inputs, n_outputs, dims: Sequence[int] = ()):
+        super().__init__(n_inputs, n_outputs)
+        self.dims = tuple(int(d) for d in dims)
+        if sum(self.dims) != n_outputs:
+            raise ValueError(f"Non-matching dimension of sum of softmaxes: "
+                             f"{sum(self.dims)} vs {n_outputs}")
+
+    def apply(self, params, x):
+        return torch.cat([torch.softmax(s, dim=-1) for s in x.split(self.dims, dim=1)], dim=1)
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        return cls(n_inputs, n_outputs, dims=mmf.read_vector(ts, dtype=np.int32))
+
+    def write(self, out):
+        mmf.write_vector(out, np.asarray(self.dims, dtype=np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -366,26 +607,148 @@ class Window(Component):
         mmf.write_vector(out, _np(self.window))
 
 
+class Log(Component):
+    """Elementwise natural log (TNetLib/CRBEDctFeat.h:392-426)."""
+
+    tag = "<log>"
+
+    def apply(self, params, x):
+        return torch.log(x)
+
+
+# ---------------------------------------------------------------------------
+# RBM layers as MLP layers (CD-1 pretraining is ROADMAP.md queue 1 item 11)
+# ---------------------------------------------------------------------------
+
+BERNOULLI = "bern"
+GAUSSIAN = "gauss"
+
+
+class Rbm(Component):
+    """As an MLP layer: ``sigmoid(x @ W + hid_bias)`` for Bernoulli hidden
+    units, linear for Gaussian (cuRbm.cc:13-23). Serialized as ``vis_type
+    hid_type``, then W^T (hid, vis), vis bias, hid bias (cuRbm.cc:177-209)."""
+
+    tag = "<rbm>"
+    updatable = True
+    trainable_keys = ("weight", "hid_bias")
+    param_keys = ("weight", "vis_bias", "hid_bias")
+
+    def __init__(self, n_inputs, n_outputs, vis_type: str = BERNOULLI,
+                 hid_type: str = BERNOULLI):
+        super().__init__(n_inputs, n_outputs)
+        for t in (vis_type, hid_type):
+            if t not in (BERNOULLI, GAUSSIAN):
+                raise ValueError(f"Invalid unit type: {t}")
+        self.vis_type, self.hid_type = vis_type, hid_type
+        self._init_params({"weight": (n_inputs, n_outputs), "vis_bias": (n_inputs,),
+                           "hid_bias": (n_outputs,)})
+
+    def apply(self, params, x):
+        pre = x @ params["weight"] + params["hid_bias"]
+        return torch.sigmoid(pre) if self.hid_type == BERNOULLI else pre
+
+    def reconstruct(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        """hid → vis: sigmoid for Bernoulli visible units, linear for
+        Gaussian (cuRbm.cc:117-128)."""
+        pre = h @ params["weight"].T + params["vis_bias"]
+        return torch.sigmoid(pre) if self.vis_type == BERNOULLI else pre
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        vt, ht = ts.next(), ts.next()
+        layer = cls(n_inputs, n_outputs, vis_type=vt, hid_type=ht)
+        wt = mmf.read_matrix(ts)          # (hid, vis)
+        vb = mmf.read_vector(ts)
+        hb = mmf.read_vector(ts)
+        if wt.shape != (n_outputs, n_inputs):
+            raise ValueError("Wrong RBM weight dimensions in network file")
+        return layer.load_params({"weight": wt.T, "vis_bias": vb, "hid_bias": hb})
+
+    def write(self, out):
+        out.write(f"{self.vis_type} {self.hid_type}\n")
+        mmf.write_matrix(out, _np(self.weight).T)
+        mmf.write_vector(out, _np(self.vis_bias))
+        mmf.write_vector(out, _np(self.hid_bias))
+        out.write("\n")
+
+
+class RbmSparse(Rbm):
+    """RBM with a hidden-sparsity target (cuRbmSparse.cc:143-160): the
+    same file format; the sparsity state is training state, not a parameter."""
+
+    tag = "<rbmsparse>"
+
+
+# ---------------------------------------------------------------------------
+# BlockArray: sub-networks over consecutive input column blocks
+# ---------------------------------------------------------------------------
+
+class BlockArray(Component):
+    """N sub-networks applied to consecutive input column blocks, outputs
+    concatenated (TNetLib/BlockArray.cc, forward only), serialized as
+    ``n_blocks`` then ``<block> i ... <endblock>`` per sub-network. Its
+    ``blocks`` parameter is a list of each sub-network's param dicts."""
+
+    tag = "<blockarray>"
+    param_keys = ("blocks",)
+
+    def __init__(self, n_inputs, n_outputs, subnets: Sequence[Sequence[Component]]):
+        super().__init__(n_inputs, n_outputs)
+        self.subnets = nn.ModuleList(nn.ModuleList(layers) for layers in subnets)
+
+    def param_dict(self) -> Params:
+        return {"blocks": [[layer.param_dict() for layer in layers]
+                           for layers in self.subnets]}
+
+    def apply(self, params, x):
+        bi = self.n_inputs // len(self.subnets)
+        outs = []
+        for i, layers in enumerate(self.subnets):
+            h = x[:, i * bi:(i + 1) * bi]
+            for layer, p in zip(layers, params["blocks"][i]):
+                h = layer.apply(p, h)
+            outs.append(h)
+        return torch.cat(outs, dim=1)
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        from .network import read_components       # network imports this module
+        subnets: List[List[Component]] = []
+        for i in range(int(ts.next())):
+            tag = ts.next()
+            idx = int(ts.next())
+            if tag != "<block>" or idx != i + 1:
+                raise ValueError(f"Expected '<block> {i + 1}', got '{tag} {idx}'")
+            subnets.append(read_components(ts, stop_tag="<endblock>"))
+        return cls(n_inputs, n_outputs, subnets)
+
+    def write(self, out):
+        from .network import write_component
+        out.write(f"{len(self.subnets)}\n")
+        for i, layers in enumerate(self.subnets):
+            out.write(f"<block> {i + 1}\n")
+            for layer in layers:
+                write_component(out, layer)
+            out.write("<endblock>\n")
+
+
 # ---------------------------------------------------------------------------
 # Tag registry
 # ---------------------------------------------------------------------------
 
 COMPONENT_TYPES = [
-    BiasedLinearity, SharedLinearity, Sigmoid, Softmax,
-    Expand, Copy, Transpose, BlockLinearity, Bias, Window,
+    BiasedLinearity, DiscreteLinearity, SharedLinearity, SparseLinearity,
+    Rbm, RbmSparse,
+    Softmax, Sigmoid, BlockSoftmax,
+    Expand, Copy, Transpose, BlockLinearity, Bias, Window, Log,
+    BlockArray, ClusterLinearity,
 ]
 
 TAG_TO_TYPE = {c.tag: c for c in COMPONENT_TYPES}
 
 # tags the JAX package reads that this port does not yet (ROADMAP.md queue 1)
 UNPORTED_TAGS = {
-    "<discretelinearity>": "queue 1 item 2 (models)",
-    "<sparselinearity>": "queue 1 items 2 and 4 (models, L1/mask SGD)",
-    "<clusterlinearity>": "queue 1 item 2 (models)",
-    "<blocksoftmax>": "queue 1 items 2 and 3 (models, BlockSoftmax CE)",
-    "<log>": "queue 1 item 2 (models)",
-    "<rbm>": "queue 1 item 11 (RBM)",
-    "<rbmsparse>": "queue 1 item 11 (RBM)",
-    "<recurrent>": "queue 1 item 12 (recurrent)",
-    "<blockarray>": "queue 1 item 2 (models)",
+    "<recurrent>": "queue 1 item 12 (recurrent: its forward is a scan over time, "
+                   "ported with BPTT)",
 }

@@ -9,7 +9,7 @@ layout (a list of dicts of numpy arrays).
 from __future__ import annotations
 
 import io
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,8 +20,18 @@ from ..io.mmf import TokenStream
 from .components import TAG_TO_TYPE, UNPORTED_TAGS, Component, Params
 
 
-def read_components(ts: TokenStream) -> List[Component]:
-    """Parse ``<tag> nOutputs nInputs`` + params until EOF
+def _to_numpy(v):
+    """Tensors → host float32 numpy copies, keeping the list/dict nesting."""
+    if isinstance(v, dict):
+        return {k: _to_numpy(t) for k, t in v.items()}
+    if isinstance(v, list):
+        return [_to_numpy(t) for t in v]
+    return v.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def read_components(ts: TokenStream, stop_tag: Optional[str] = None) -> List[Component]:
+    """Parse ``<tag> nOutputs nInputs`` + params until EOF, ``stop_tag``
+    (consumed) or an ``<endblock>`` (left for the caller)
     (Network::ComponentFactory, Nnet.cc:199-288)."""
     layers: List[Component] = []
     while True:
@@ -29,6 +39,11 @@ def read_components(ts: TokenStream) -> List[Component]:
         if tok is None:
             break
         tag = tok.lower()
+        if stop_tag is not None and tag == stop_tag:
+            ts.next()
+            break
+        if tag == "<endblock>":
+            break
         if not (tag.startswith("<") and tag.endswith(">")):
             raise ValueError(f"Invalid component tag: {tok}")
         if tag in UNPORTED_TAGS:
@@ -95,10 +110,10 @@ class Network(nn.Module):
             layer.load_params(p)
         return self
 
-    def to_numpy_params(self) -> List[Dict[str, np.ndarray]]:
-        """The parameters as the JAX package holds them (host float32)."""
-        return [{k: v.detach().to("cpu", torch.float32).numpy().copy()
-                 for k, v in layer.param_dict().items()} for layer in self.layers]
+    def to_numpy_params(self) -> List[Dict[str, object]]:
+        """The parameters as the JAX package holds them (host float32
+        arrays, in lists where it keeps lists)."""
+        return [_to_numpy(layer.param_dict()) for layer in self.layers]
 
     # -- shape info --------------------------------------------------------
 
@@ -131,3 +146,30 @@ class Network(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.params, x)
+
+    def apply_upto(self, params: Sequence[Params], x: torch.Tensor,
+                   n_layers: int) -> torch.Tensor:
+        """Forward through the first ``n_layers`` layers."""
+        return self.apply(params[:n_layers], x)
+
+    def has_recurrent(self) -> bool:
+        return any(layer.tag == "<recurrent>" for layer in self.layers)
+
+    # -- streaming inference ----------------------------------------------
+
+    def feedforward(self, x: torch.Tensor, start_frm_ext: int = 0, end_frm_ext: int = 0,
+                    max_frames: int = 5000, block: int = 1024) -> torch.Tensor:
+        """Blockwise forward for long utterances (Network::Feedforward,
+        Nnet.cc:15-62): over ``max_frames`` rows, ``block``-row chunks run
+        with ``start/end_frm_ext`` rows of halo on each side, so splicing
+        stays exact, and the outputs are stitched with the halos trimmed."""
+        T = x.shape[0]
+        if T <= max_frames:
+            return self(x)
+        out = []
+        for pos in range(0, T, block):
+            end = min(pos + block, T)
+            lo, hi = max(pos - start_frm_ext, 0), min(end + end_frm_ext, T)
+            y = self(x[lo:hi])
+            out.append(y[pos - lo:y.shape[0] - (hi - end)])
+        return torch.cat(out, dim=0)

@@ -1,4 +1,4 @@
-"""TNet — frame-level CE trainer CLI on one CUDA device (port of nnet_asr_tpu/tools/tnet.py).
+"""TNet — frame-level CE/MSE trainer CLI on one CUDA device (port of nnet_asr_tpu/tools/tnet.py).
 
 Accepts the reference tools' option vocabulary (same short options, long
 ``--PARAM=VAL`` names and ``-C`` config files, SNAME "TNET"), prints the
@@ -8,10 +8,13 @@ ASCII MMF. The device comes from ``--GPUSELECT`` as in TNetCu (-1 means
 device="cpu")`` runs on the CPU, through the kernels' plain versions.
 ``--THREADS`` and ``--SCANUNROLL`` are accepted and ignored.
 
-``--SAVESTATE``/``--RESUMESTATE`` write and read the Trainer's npz state
-(parameters, velocities, stats) after and before the epoch, in the JAX
-tool's format. Options of the JAX tool that this port does not carry yet
-raise NotImplementedError naming the ROADMAP.md item that brings them.
+``-O mse``, ``--CONFUSIONMODE=max|soft|dmax|dsoft`` (with the label map's
+tags in the per-class lines) and ``--L1`` (SparseLinearity layers) work as
+in the JAX tool. ``--SAVESTATE``/``--RESUMESTATE`` write and read the
+Trainer's npz state (parameters, velocities, stats) after and before the
+epoch, in the JAX tool's format. ``--COMPUTEDTYPE`` other than f32,
+``--MESH``, ``--DISTRIBUTED`` and ``--JAXPROFILE`` raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 
     python -m nnet_asr_torch.tools.tnet -H init.mmf -I labs.mlf -L '*/' \\
         -X lab -S train.scp -m label_map -n 0.008 --GRAD-DIV-FRM=F \\
@@ -121,12 +124,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
 
     if compute_dtype != "f32":
         raise not_ported(f"--COMPUTEDTYPE={compute_dtype}", "queue 1 item 7")
-    if confusion_mode != "no":
-        raise not_ported(f"--CONFUSIONMODE={confusion_mode}", "queue 1 items 3 and 7")
-    if objective != "ent":
-        raise not_ported("-O mse", "queue 1 items 3 and 7")
-    if l1 != 0.0:
-        raise not_ported("--L1 (SparseLinearity)", "queue 1 items 2 and 4")
     if mesh_spec or distributed:
         raise not_ported("--MESH/--DISTRIBUTED", "queue 1 item 14")
     if p_jaxprofile:
@@ -154,16 +151,21 @@ def main(argv=None, device: DeviceLike = None) -> int:
     cfg = TrainerConfig(
         bunchsize=bunchsize, cachesize=cachesize, seed=seed,
         randomize=randomize and not crossval, crossvalidate=crossval,
+        objective="xent" if objective == "ent" else "mse",
         sgd=SgdConfig(learning_rate=learning_rate, momentum=momentum,
-                      weightcost=weightcost, grad_div_frm=grad_div_frm,
+                      weightcost=weightcost, l1=l1, grad_div_frm=grad_div_frm,
                       lr_factors=SgdConfig.parse_factors(lr_factors),
                       velocity_dtype=(None if velocity_dtype == "f32"
-                                      else velocity_dtype)))
+                                      else velocity_dtype)),
+        confusion_mode=confusion_mode)
     trainer = Trainer(net, cfg, transform, feaparams["start_frm_ext"],
                       feaparams["end_frm_ext"], device=dev)
+    if cfg.objective == "xent":
+        trainer.stats.confusion_mode = confusion_mode
+        trainer.stats.label_map_file = p_label_map
 
     print(f"===== TNET {'CROSSVALIDATION' if crossval else 'TRAINING'} STARTED =====")
-    print("Objective function: Xent")
+    print(f"Objective function: {'Xent' if cfg.objective == 'xent' else 'Mse'}")
     if not crossval:
         print(f"Learning rate: {learning_rate:g}")
     sys.stdout.flush()

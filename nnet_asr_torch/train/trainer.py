@@ -1,30 +1,39 @@
-"""Single-device frame-level CE trainer (port of nnet_asr_tpu/train/trainer.py).
+"""Single-device frame-level CE/MSE trainer (port of nnet_asr_tpu/train/trainer.py).
 
 The epoch loop mirrors TNetCu.cc:376-442: fill the device cache through
 the transform pipeline, shuffle, and run each cache of stacked bunches
-through forward + CE + backward + SGD, or forward only in crossvalidate
-mode (TNet.cc:96-231). The JAX package's ``lax.scan`` drain is a Python
-loop over the stacked bunches here.
+through forward + objective + backward + SGD, or forward only in
+crossvalidate mode (TNet.cc:96-231). The JAX package's ``lax.scan`` drain
+is a Python loop over the stacked bunches here.
 
 The forward pass goes through the hand-written kernels where the JAX
 package's Pallas path (``use_pallas=True``) does: every BiasedLinearity →
-Sigmoid pair through ``affine_sigmoid`` (trainer.py:158-165) and the
-terminal Softmax with CE through ``fused_softmax_xent`` (trainer.py:205-207).
+Sigmoid pair through ``affine_sigmoid`` (trainer.py:158-165), under every
+objective. The loss is routed as trainer.py:200-216 routes it: a terminal
+Softmax with CE and no confusion mode through ``fused_softmax_xent``; a
+BlockSoftmax head, or any confusion mode, through the plain
+``xent_loss_and_stats`` (the confusion matrix is then
+``onehot(labels)ᵀ @ {onehot(argmax logits) | softmax(logits)}`` over the
+whole row, as in JAX); MSE against one-hot targets, through
+``softmax_identity_backward`` when the net ends in a (Block)Softmax and on
+the raw outputs when it does not.
 With momentum, the weight matrix of every updatable BiasedLinearity is
 updated inside the backward pass by the fused wgrad+momentum kernel
 (``wgrad_momentum_update``, the TPU kernel the JAX package runs only in its
 ``mom9_fused`` probe, scripts/mfu_drain_ab.py:96-113): the layer's
 ``autograd.Function`` hands its input and pre-activation error to
 ``sgd.fused_weight_step`` after ``dx`` has used the old weights, so no
-weight gradient is formed; biases and other layers' tensors take
-``apply_updates``. The result is the JAX step's: each weight is read only
-by its own layer's backward. On a CUDA device the kernels launch; on the
-CPU they run their plain PyTorch versions. Other layers are plain torch ops.
+weight gradient is formed; biases and the other layers' tensors
+(SparseLinearity, ClusterLinearity and Rbm weights among them, which JAX
+also updates outside Pallas) take ``apply_updates``. The result is the JAX
+step's: each weight is read only by its own layer's backward. On a CUDA
+device the kernels launch; on the CPU they run their plain PyTorch
+versions. Other layers are plain torch ops.
 
-Statistics accumulate per cache in f32/int32 device scalars and merge into
+Statistics accumulate per cache in f32/int32 device tensors and merge into
 float64 host totals at the end of the epoch (ObjFun.h:16-54), so the loop
-never waits for the device. Compute is f32; the other compute dtypes,
-MSE, confusion and BlockSoftmax come later (ROADMAP.md queue 1).
+never waits for the device. Compute is f32; the other compute dtypes come
+later (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import copy
 import functools
 import time
 from dataclasses import dataclass, field
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,15 +50,18 @@ import torch
 from ..utils.profiler import profiler
 
 from ..device import DeviceLike, resolve_device
-from ..models.components import BiasedLinearity, Sigmoid, Softmax
+from ..models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
 from ..models.network import Network
 from ..ops.kernels.matmul_act import affine, affine_sigmoid
 from ..ops.kernels.softmax_ce import fused_softmax_xent
-from ..ops.objectives import XentStats
+from ..ops.objectives import (MseStats, XentStats, mse_loss_and_stats, one_hot,
+                              softmax_identity_backward, xent_loss_and_stats)
 from .cache import DeviceFrameCache
 from .pipeline import TransformPipeline
-from .sgd import (SgdConfig, apply_updates, fused_weight_step, init_momentum,
-                  layer_coeffs, layer_lr_factors)
+from .sgd import (SgdConfig, apply_updates, check_updatable, fused_weight_step,
+                  init_momentum, layer_coeffs, layer_lr_factors)
+
+CONFUSION_MODES = ("no", "max", "soft", "dmax", "dsoft")
 
 
 @dataclass
@@ -59,7 +71,18 @@ class TrainerConfig:
     seed: int = 0
     randomize: bool = True
     crossvalidate: bool = False
+    objective: str = "xent"          # 'xent' | 'mse'
     sgd: SgdConfig = field(default_factory=SgdConfig)
+    # CONFUSIONMODE (ObjFun.cc:132-155), xent only: accumulated on the
+    # device as onehot(labels)ᵀ @ {onehot(argmax) | softmax} of the logits
+    confusion_mode: str = "no"
+
+    def __post_init__(self):
+        if self.objective not in ("xent", "mse"):
+            raise ValueError(f"objective must be 'xent' or 'mse', got {self.objective!r}")
+        if self.confusion_mode not in CONFUSION_MODES:
+            raise ValueError(f"confusion_mode must be one of {CONFUSION_MODES}, "
+                             f"got {self.confusion_mode!r}")
 
 
 class Trainer:
@@ -68,20 +91,23 @@ class Trainer:
                  start_frm_ext: int = 0, end_frm_ext: int = 0,
                  device: DeviceLike = None):
         net.check_dims()
-        if not len(net.layers) or not isinstance(net.layers[-1], Softmax):
-            raise ValueError("CE objective expects a softmax output layer")
-        self.device = resolve_device(device)
-        self.net = net.to(self.device)
+        self.net = net
         self.cfg = cfg
+        self._body, self._block_dims, self._has_softmax = self._split_head()
+        if cfg.objective == "xent" and not self._has_softmax:
+            raise ValueError("CE objective expects a softmax output layer")
+        self.factors = tuple(layer_lr_factors(net, cfg.sgd))
+        check_updatable(net, cfg.sgd.momentum, self.factors)
+        self.device = resolve_device(device)
+        net.to(self.device)
         self.pipeline = TransformPipeline(transform, start_frm_ext, end_frm_ext,
                                           device=self.device)
-        self.factors = tuple(layer_lr_factors(net, cfg.sgd))
         self.params = net.params              # the modules' own tensors
         self.velocity = init_momentum(net, cfg.sgd.momentum, cfg.sgd.velocity_dtype)
-        self.stats = XentStats()
+        self.stats = XentStats() if cfg.objective == "xent" else MseStats()
         self.total_frames = 0
         self.wall = 0.0
-        self._accs: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
+        self._accs: List[Tuple[Dict[str, torch.Tensor], int]] = []
         # layers whose weight the fused wgrad+momentum kernel updates
         self._fused = [i for i, (spec, f) in enumerate(zip(net.layers, self.factors))
                        if cfg.sgd.momentum != 0.0 and isinstance(spec, BiasedLinearity)
@@ -97,11 +123,21 @@ class Trainer:
         self._lr = float(lr)
 
     # ------------------------------------------------------------------
+    def _split_head(self):
+        """(body layers, BlockSoftmax dims or None, has a softmax head): a
+        terminal Softmax or BlockSoftmax is left to the objective."""
+        layers = list(self.net.layers)
+        if layers and isinstance(layers[-1], Softmax):
+            return layers[:-1], None, True
+        if layers and isinstance(layers[-1], BlockSoftmax):
+            return layers[:-1], layers[-1].dims, True
+        return layers, None, False
+
     def _forward_logits(self, x: torch.Tensor, updates: Optional[dict] = None
                         ) -> torch.Tensor:
         """Logits; ``updates`` maps a layer index to its weight-update hook."""
         updates = updates or {}
-        body = self.net.layers[:-1]
+        body = self._body
         i = 0
         while i < len(body):
             spec = body[i]
@@ -118,15 +154,38 @@ class Trainer:
         """The momentum step's hook for each fused layer (see the module doc)."""
         updates = {}
         for i in self._fused:
-            a, decay = layer_coeffs(self.cfg.sgd, n_frames, self.factors[i], self._lr)
+            a, decay, _ = layer_coeffs(self.cfg.sgd, n_frames, self.factors[i], self._lr)
             updates[i] = functools.partial(
                 fused_weight_step, w=self.params[i]["weight"],
                 v=self.velocity[i]["weight"], a=a, m=self.cfg.sgd.momentum, decay=decay)
         return updates
 
-    def _train_step(self, feats: torch.Tensor, labels: torch.Tensor):
+    def _loss(self, logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, per-bunch device stats), routed as trainer.py:200-216."""
+        cfg = self.cfg
+        if cfg.objective == "mse":
+            y = softmax_identity_backward(logits) if self._has_softmax else logits
+            loss, stats = mse_loss_and_stats(y, one_hot(labels, logits.shape[1], y.dtype))
+            return loss, {"mse": stats["mse"]}
+        if self._block_dims is None and cfg.confusion_mode == "no":
+            loss, correct = fused_softmax_xent(logits, labels)
+            return loss, {"xent": loss.detach(), "correct": correct}
+        loss, stats = xent_loss_and_stats(logits, labels, self._block_dims)
+        stats = {"xent": stats["xent"], "correct": stats["correct"]}
+        if cfg.confusion_mode != "no":
+            oh_lab = one_hot(labels, logits.shape[1])
+            z = logits.detach()
+            hyp = (one_hot(torch.argmax(z, dim=-1), z.shape[1])
+                   if cfg.confusion_mode in ("max", "dmax") else torch.softmax(z, dim=-1))
+            stats["confusion"] = oh_lab.T @ hyp
+            stats["confusion_count"] = oh_lab.sum(0)
+        return loss, stats
+
+    def _train_step(self, feats: torch.Tensor, labels: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
         updates = self._weight_updates(feats.shape[0])
-        loss, correct = fused_softmax_xent(self._forward_logits(feats, updates), labels)
+        loss, stats = self._loss(self._forward_logits(feats, updates), labels)
         ts = [self.params[i][k] for i, k in self._trainable]
         gs = torch.autograd.grad(loss, ts) if ts else []
         grads = [{} for _ in self.params]
@@ -134,11 +193,12 @@ class Trainer:
             grads[i][k] = g
         apply_updates(self.net, self.params, self.velocity, grads, self.cfg.sgd,
                       feats.shape[0], self.factors, learning_rate=self._lr)
-        return loss.detach(), correct
+        return stats
 
     @torch.no_grad()
-    def _eval_step(self, feats: torch.Tensor, labels: torch.Tensor):
-        return fused_softmax_xent(self._forward_logits(feats), labels)
+    def _eval_step(self, feats: torch.Tensor, labels: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        return self._loss(self._forward_logits(feats), labels)[1]
 
     def _drain_cache(self, cache: DeviceFrameCache) -> None:
         with profiler.phase("cache-randomize"):
@@ -146,19 +206,29 @@ class Trainer:
         if stacked is None:
             return
         feats_all, labels_all = stacked
-        xent = torch.zeros((), dtype=torch.float32, device=self.device)
-        correct = torch.zeros((), dtype=torch.int32, device=self.device)
+        acc: Dict[str, torch.Tensor] = {}
         step = self._eval_step if self.cfg.crossvalidate else self._train_step
         with profiler.phase("eval-step" if self.cfg.crossvalidate else "train-step"):
             for feats, labels in zip(feats_all, labels_all):
-                x, c = step(feats, labels)
-                xent += x
-                correct += c
-        self._accs.append((xent, correct, feats_all.shape[0] * feats_all.shape[1]))
+                for k, v in step(feats, labels).items():
+                    # f32/int32 sums in bunch order, as the JAX drain's
+                    acc[k] = v.clone() if k not in acc else acc[k].add_(v)
+        self._accs.append((acc, feats_all.shape[0] * feats_all.shape[1]))
 
     def _flush_acc(self) -> None:
-        for xent, correct, frames in self._accs:
-            self.stats.add(float(xent), frames, int(correct))
+        for acc, frames in self._accs:
+            if self.cfg.objective == "mse":
+                self.stats.add(float(acc["mse"]), frames)
+                continue
+            self.stats.add(float(acc["xent"]), frames, int(acc["correct"]))
+            if self.cfg.confusion_mode != "no":
+                st = self.stats
+                st.confusion_mode = self.cfg.confusion_mode
+                st._ensure_confusion(self.net.n_outputs)
+                conf = acc["confusion"].cpu().double().numpy()
+                st.confusion += conf
+                st.diag_confusion += np.diag(conf)
+                st.confusion_count += acc["confusion_count"].cpu().double().numpy()
         self._accs = []
 
     def run_epoch(self, utterances: Iterable[Tuple[np.ndarray, np.ndarray]],
@@ -203,11 +273,21 @@ class Trainer:
     # checkpoint/resume (JAX trainer.py:400-434): the same npz keys, so
     # either package loads the other's file
     def save_state(self, path: str) -> None:
-        """Parameters ``p{i}.{k}``, velocities ``v{i}.{k}`` (as f32: npz
-        has no bf16), ``_rng_x`` and the epoch's ``_stats``."""
+        """Parameters ``p{i}.{k}`` (a list of equal-shape tensors stacked,
+        as ``np.asarray`` stacks it in JAX), velocities ``v{i}.{k}`` (as f32:
+        npz has no bf16), ``_rng_x`` and the epoch's ``_stats``
+        ([error, frames, corr], corr 0 for MSE)."""
         arrs = {}
         for i, p in enumerate(self.params):
             for k, t in p.items():
+                if isinstance(t, list):
+                    if not (all(isinstance(e, torch.Tensor) for e in t)
+                            and len({e.shape for e in t}) == 1):
+                        # np.asarray fails on these in JAX, or pickles
+                        # sub-networks that its load_state cannot read
+                        raise ValueError(f"layer {i} ({self.net.layers[i].tag}): its "
+                                         f"{k!r} is not a stack of equal-shape arrays")
+                    t = torch.stack(t)
                 arrs[f"p{i}.{k}"] = t.detach().to("cpu", torch.float32).numpy()
         for i, v in enumerate(self.velocity):
             for k, t in v.items():
@@ -215,8 +295,8 @@ class Trainer:
         # the JAX trainer writes this slot as 0 and neither package reads it:
         # each epoch's cache shuffle restarts from --SEED
         arrs["_rng_x"] = np.zeros(1, np.uint64)
-        arrs["_stats"] = np.asarray([self.stats.error, self.stats.frames, self.stats.corr],
-                                    dtype=np.float64)
+        arrs["_stats"] = np.asarray([self.stats.error, self.stats.frames,
+                                     getattr(self.stats, "corr", 0)], dtype=np.float64)
         np.savez(path, **arrs)
 
     @torch.no_grad()
@@ -231,14 +311,19 @@ class Trainer:
                         if key not in data:
                             continue
                         src = data[key]
-                        if tuple(src.shape) != tuple(t.shape):
+                        # a list of tensors was saved stacked
+                        dsts, srcs = (t, src) if isinstance(t, list) else ([t], [src])
+                        shape = (len(t), *t[0].shape) if isinstance(t, list) else t.shape
+                        if tuple(src.shape) != tuple(shape):
                             raise ValueError(f"{path}: {key} has shape {src.shape}, "
-                                             f"the network's is {tuple(t.shape)}")
-                        t.copy_(torch.from_numpy(np.asarray(src, np.float32)))
+                                             f"the network's is {tuple(shape)}")
+                        for dst, s in zip(dsts, srcs):
+                            dst.copy_(torch.from_numpy(np.asarray(s, np.float32)))
             st = data["_stats"]
         self.stats.error = float(st[0])
         self.stats.frames = int(st[1])
-        self.stats.corr = int(st[2])
+        if isinstance(self.stats, XentStats):
+            self.stats.corr = int(st[2])
 
     def updated_network(self) -> Network:
         """A host (CPU) copy of the trained network."""

@@ -267,3 +267,66 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         SF.wgrad_momentum_update(x, e, w, w.half(), 0.1, 0.5)
     with pytest.raises(ValueError):
         SF.wgrad_momentum_update(x, e, w, w.cpu(), 0.1, 0.5)
+
+
+def _routing_net(head, sparse):
+    """20 -> 32 (sigmoid) -> 10 with the given head; the hidden affine a
+    SparseLinearity if ``sparse``."""
+    from nnet_asr_torch.models import components as TC
+    from nnet_asr_torch.models.network import Network
+
+    rng = np.random.default_rng(12)
+    first = TC.SparseLinearity(20, 32) if sparse else TC.BiasedLinearity(20, 32)
+    layers = [first, TC.Sigmoid(32, 32), TC.BiasedLinearity(32, 10)]
+    p0 = {"weight": (0.3 * rng.standard_normal((20, 32))).astype(np.float32),
+          "bias": np.zeros(32, np.float32)}
+    if sparse:
+        p0["mask"] = (rng.random((20, 32)) > 0.2).astype(np.float32)
+    params = [p0, {}, {"weight": (0.3 * rng.standard_normal((32, 10))).astype(np.float32),
+                       "bias": np.zeros(10, np.float32)}]
+    if head == "softmax":
+        layers.append(TC.Softmax(10, 10))
+        params.append({})
+    elif head == "blocksoftmax":
+        layers.append(TC.BlockSoftmax(10, 10, dims=(6, 4)))
+        params.append({})
+    return Network(layers).from_numpy_params(params)
+
+
+# the loss routing of trainer.py:200-216, read from the wrappers' launch
+# counts over two train steps and one eval step: affine_sigmoid on every
+# BiasedLinearity -> Sigmoid pair under every objective (none for a
+# SparseLinearity pair), fused_softmax_xent only for a Softmax head with CE
+# and no confusion mode; stats finite, and the step's CE, MSE and
+# confusion totals within 1e-4 relative of the CPU's plain run
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,head,mode,sparse,fused", [
+    ("xent", "softmax", "no", False, True), ("xent", "blocksoftmax", "no", False, False),
+    ("xent", "softmax", "max", False, False), ("xent", "softmax", "dsoft", False, False),
+    ("mse", "softmax", "no", False, False), ("mse", "none", "no", False, False),
+    ("xent", "softmax", "no", True, True)])
+def test_cuda_trainer_loss_routing_by_launch_count(cuda, objective, head, mode, sparse, fused):
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(13)
+    feats = rng.standard_normal((64, 20)).astype(np.float32)
+    labels = rng.integers(0, 10, 64).astype(np.int32)
+    stats = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg = TrainerConfig(bunchsize=64, cachesize=64, objective=objective,
+                            confusion_mode=mode, sgd=SgdConfig(learning_rate=0.01, l1=1e-4))
+        tr = Trainer(_routing_net(head, sparse), cfg, device=dev)
+        x, y = torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
+        before = (MA.matmul_act.launches, SC.softmax_xent.launches)
+        out = [tr._train_step(x, y), tr._train_step(x, y), tr._eval_step(x, y)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert MA.matmul_act.launches - before[0] == (0 if sparse else 3)
+            assert SC.softmax_xent.launches - before[1] == (3 if fused else 0)
+        stats[dev.type] = [{k: v.double().cpu().numpy() for k, v in s.items()} for s in out]
+    for g, c in zip(stats["cuda"], stats["cpu"]):
+        assert sorted(g) == sorted(c)
+        for k in g:
+            assert np.isfinite(g[k]).all()
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-4, atol=1e-4 * max(abs(c[k]).max(), 1))

@@ -67,6 +67,77 @@ def test_tfeacat_matches_jax(corpus, tmp_path, mode, extra):
             np.testing.assert_allclose(t.sum(1), 1.0, rtol=1e-5)
 
 
+def _new_tags_model(d):
+    """A model over the transform's 20 outputs through every tag the port
+    gained with TNet's full network vocabulary: BlockArray (two affine +
+    sigmoid blocks), DiscreteLinearity, Rbm, Log, SparseLinearity with a
+    pruned mask, RbmSparse (Gaussian), ClusterLinearity and a BlockSoftmax
+    head; written by the JAX package from seeded numpy params."""
+    from nnet_asr_tpu.models import components as JC
+
+    rng = np.random.default_rng(33)
+    din = SHAPE.feat_dim * SHAPE.dct
+
+    def r(*shape):
+        return (0.4 * rng.standard_normal(shape)).astype(np.float32)
+
+    bl = JC.BiasedLinearity
+    specs = (
+        JC.BlockArray(din, 16, subnets=((bl(din // 2, 8), JC.Sigmoid(8, 8)),
+                                        (bl(din // 2, 8), JC.Sigmoid(8, 8)))),
+        JC.DiscreteLinearity(16, 16, block_dims=((8, 6), (8, 10))),
+        JC.Sigmoid(16, 16),
+        JC.Rbm(16, 12, vis_type="bern", hid_type="bern"),
+        JC.Log(12, 12),
+        JC.SparseLinearity(12, 10),
+        JC.RbmSparse(10, 10, vis_type="gauss", hid_type="gauss"),
+        JC.ClusterLinearity(10, SHAPE.classes, n_instances=2, cluster_map=((1, 2), (3,))),
+        JC.BlockSoftmax(SHAPE.classes, SHAPE.classes, dims=(2, SHAPE.classes - 2)),
+    )
+    params = [
+        {"blocks": [[{"weight": r(din // 2, 8), "bias": r(8)}, {}] for _ in range(2)]},
+        {"weights": [r(8, 6), r(8, 10)], "bias": r(16)},
+        {},
+        {"weight": r(16, 12), "vis_bias": r(16), "hid_bias": r(12)},
+        {},
+        {"weight": r(12, 10), "bias": r(10),
+         "mask": (rng.random((12, 10)) > 0.2).astype(np.float32)},
+        {"weight": r(10, 10), "vis_bias": r(10), "hid_bias": r(10)},
+        {"cluster_weights": [r(10, 10), r(10, 10)], "cluster_biases": [r(10), r(10)],
+         "const_weight": r(10, SHAPE.classes), "const_bias": r(SHAPE.classes),
+         "weight": r(10, SHAPE.classes), "bias": r(SHAPE.classes)},
+        {},
+    ]
+    path = d / "new_tags.mmf"
+    path.write_text(JNetwork(specs, params).to_text())
+    return path
+
+
+# posteriors of the model with the new tags within rtol 1e-5, atol 1e-6
+# (f32 summation order), and the stacked network's text byte-equal
+def test_tfeacat_new_tags_matches_jax(corpus, tmp_path):
+    model = _new_tags_model(tmp_path)
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jdir.mkdir()
+    tdir.mkdir()
+    argv = [a if a != str(corpus / "init.mmf") else str(model)
+            for a in _tfeacat_argv(corpus, jdir)]
+    assert jtfeacat.main(argv) == 0
+    assert ttfeacat.main([a if a != str(jdir) else str(tdir) for a in argv], device="cpu") == 0
+    names = sorted(p.name for p in jdir.iterdir())
+    assert len(names) == SHAPE.n_cv and names == sorted(p.name for p in tdir.iterdir())
+    for name in names:
+        (j, jh), (t, th) = (htk.read_htk_file(str(p / name)) for p in (jdir, tdir))
+        assert th == jh and t.shape == j.shape and t.shape[1] == SHAPE.classes
+        assert np.isfinite(t).all()
+        np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(t[:, :2].sum(1), 1.0, rtol=1e-5)
+    transform = (corpus / "transform").read_text()
+    j = jtfeacat.combine_networks(JNetwork.read(transform), JNetwork.read(str(model)))
+    t = ttfeacat.combine_networks(TNetwork.read(transform), TNetwork.read(str(model)))
+    assert t.to_text() == j.to_text()
+
+
 def test_combine_networks_matches_jax(corpus):
     transform, net = (corpus / "transform").read_text(), (corpus / "init.mmf").read_text()
     j = jtfeacat.combine_networks(JNetwork.read(transform), JNetwork.read(net))

@@ -2,9 +2,9 @@
 
 Same corpus (``nnet_asr_torch.tools.synth_corpus`` at a small shape),
 transform (hamm_dct + bias/window normalisation), initial model and
-options: the ``Xent:`` values agree within 1e-5 relative (f32
-summation order over a few dozen SGD steps) and the written MMFs load
-allclose (atol 1e-5).
+options: the ``Xent:``/``Mse:`` values agree within 1e-5 relative (f32
+summation order over a few dozen SGD steps), the written MMFs load
+allclose (atol 1e-5), and the confusion report lines are equal.
 """
 
 import contextlib
@@ -93,9 +93,9 @@ def test_tnet_matches_jax_tnet(corpus, tmp_path, extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--COMPUTEDTYPE=bf16",), ("--CONFUSIONMODE=max",), ("-O", "mse"),
+    ("--COMPUTEDTYPE=bf16",), ("--COMPUTEDTYPE=int8",), ("--COMPUTEDTYPE=int8pf",),
     ("--MESH=2x1",), ("--DISTRIBUTED=TRUE",), ("--COMPUTEDTYPE=int8pfsr",),
-    ("--CONFUSIONMODE=soft",), ("--JAXPROFILE=trace",), ("--L1=0.001",),
+    ("--COMPUTEDTYPE=int8full",), ("--JAXPROFILE=trace",), ("--MESH=1x2",),
 ])
 def test_tnet_option_outside_slice_raises(corpus, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -129,14 +129,82 @@ def test_tnet_save_then_resume_state_matches_jax(corpus, tmp_path, velocity):
             np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=0)
 
 
-def test_tnet_blocksoftmax_output_raises(corpus, tmp_path):
-    text = (corpus / "init.mmf").read_text().replace(
-        f"<softmax> {SHAPE.classes} {SHAPE.classes}",
-        f"<blocksoftmax> {SHAPE.classes} {SHAPE.classes}\nv 2\n3 3")
-    src = tmp_path / "block.mmf"
+def _model(corpus, tmp_path, kind):
+    """The corpus's initial model, or it with a BlockSoftmax (3, 3) head, or
+    with its hidden affine as a SparseLinearity (no mask: all ones)."""
+    text = (corpus / "init.mmf").read_text()
+    if kind == "blocksoftmax":
+        text = text.replace(f"<softmax> {SHAPE.classes} {SHAPE.classes}",
+                            f"<blocksoftmax> {SHAPE.classes} {SHAPE.classes}\nv 2\n3 3")
+    elif kind == "sparse":
+        text = text.replace("<biasedlinearity>", "<sparselinearity>", 1)
+    src = tmp_path / f"{kind}.mmf"
     src.write_text(text)
-    with pytest.raises(NotImplementedError, match="<blocksoftmax>"):
+    return src
+
+
+def test_tnet_blocksoftmax_output_raises(corpus, tmp_path):
+    """A BlockSoftmax whose spans do not sum to its width is refused, with
+    the JAX reader's message."""
+    text = _model(corpus, tmp_path, "blocksoftmax").read_text().replace("\n3 3", "\n3 2")
+    src = tmp_path / "bad_block.mmf"
+    src.write_text(text)
+    with pytest.raises(ValueError, match="Non-matching dimension of sum of softmaxes"):
         ttnet.main(_argv(corpus, src), device="cpu")
+
+
+MSE = re.compile(r"Mse:(\S+) frames:(\d+) err/frm:\S+")
+
+
+def _report(log):
+    """(value, frames) of the Xent or Mse line, and the confusion lines after it."""
+    lines = log.splitlines()
+    i = next(k for k, l in enumerate(lines) if l.startswith(("Xent:", "Mse:")))
+    m = (XENT if lines[i].startswith("Xent:") else MSE).match(lines[i])
+    rest = lines[i + 1:next(k for k in range(i, len(lines)) if lines[k].startswith("Done"))]
+    return float(m.group(1)), int(m.group(2)), rest
+
+
+# each new route against the JAX tnet, one epoch and a CV of its model
+@pytest.mark.parametrize("model,extra", [
+    ("init", ("-O", "mse")),
+    ("init", ("--CONFUSIONMODE=max",)),
+    ("init", ("--CONFUSIONMODE=dsoft", "--MOMENTUM=0.5")),
+    ("sparse", ("--L1=0.001", "--GRAD-DIV-FRM=F")),
+    ("sparse", ("--L1=0.0001", "--MOMENTUM=0.5", "--WEIGHTCOST=0.001")),
+    ("blocksoftmax", ()),
+    ("blocksoftmax", ("-O", "mse")),
+])
+def test_tnet_objectives_and_tags_match_jax_tnet(corpus, tmp_path, model, extra):
+    d = corpus
+    src = d / "init.mmf" if model == "init" else _model(d, tmp_path, model)
+    jout, tout = tmp_path / "jax.mmf", tmp_path / "torch.mmf"
+    jlog = _stdout_of(jtnet.main, _argv(d, src, f"--TARGETMMF={jout}", *extra))
+    tlog = _stdout_of(ttnet.main, _argv(d, src, f"--TARGETMMF={tout}", *extra), device="cpu")
+    mse = "mse" in extra
+    assert f"Objective function: {'Mse' if mse else 'Xent'}" in tlog
+    cv_extra = [e for e in extra if e.startswith(("-O", "mse", "--CONFUSIONMODE"))]
+    jcv = _stdout_of(jtnet.main, _argv(d, jout, "-c", *cv_extra))
+    tcv = _stdout_of(ttnet.main, _argv(d, tout, "-c", *cv_extra), device="cpu")
+    for j, t in ((jlog, tlog), (jcv, tcv)):
+        (jv, jf, jrest), (tv, tf, trest) = _report(j), _report(t)
+        assert tf == jf > 0
+        np.testing.assert_allclose(tv, jv, rtol=1e-5)
+        assert trest == jrest
+        if "--CONFUSIONMODE=max" in extra:
+            assert trest[:2] == ["Row:label Col:hyp", f"m {SHAPE.classes} {SHAPE.classes}"]
+            rows = np.array([[float(v) for v in l.split()] for l in trest[2:2 + SHAPE.classes]])
+            assert rows.sum() == tf
+        if "--CONFUSIONMODE=dsoft" in extra:
+            assert len(trest) == SHAPE.classes and trest[0].split()[0] == "s0"
+    jnet, tnet = JNetwork.read(str(jout)), JNetwork.read(str(tout))
+    assert [s.tag for s in tnet.specs] == [s.tag for s in jnet.specs]
+    for a, b in zip(tnet.params, jnet.params):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=0)
+    if model == "sparse":       # the written mask prunes |w| < 1e-3
+        w, mask = tnet.params[0]["weight"], tnet.params[0]["mask"]
+        assert (mask == 0).any() and (mask[np.abs(w) < 1e-3] == 0).all()
 
 
 def test_tnet_needs_cuda_unless_cpu_is_named(corpus):

@@ -153,6 +153,14 @@ SGD_CASES = {
     "bf16_velocity": dict(cfg=dict(learning_rate=0.05, momentum=0.9,
                                    velocity_dtype="bf16")),
     "runtime_lr": dict(cfg=dict(learning_rate=0.05, momentum=0.5), lr=0.0125),
+    # the first layer a SparseLinearity with a random 0/1 mask: the soft
+    # threshold after the step (and the L2 decay), then the mask, on every
+    # update of the layer with or without L1; L1 leaves other layers alone
+    "l1_sparse": dict(cfg=dict(learning_rate=0.05, l1=0.05, grad_div_frm=False), sparse=True),
+    "l1_sparse_momentum_l2": dict(cfg=dict(learning_rate=0.05, l1=0.01, momentum=0.5,
+                                           weightcost=1e-2), sparse=True),
+    "sparse_mask_only": dict(cfg=dict(learning_rate=0.05, grad_div_frm=False), sparse=True),
+    "l1_without_sparse_layer": dict(cfg=dict(learning_rate=0.05, l1=0.05)),
 }
 
 
@@ -162,16 +170,23 @@ SGD_CASES = {
 def test_apply_updates_matches_jax(case):
     spec = SGD_CASES[case]
     text = _stdout_of(gen_mlp_init.main, ["--dim=6:5:3", "--gauss", "--negbias", "--seed=2"])
+    if spec.get("sparse"):
+        text = text.replace("<biasedlinearity>", "<sparselinearity>", 1)
     jnet = JNetwork.read(text)
     tnet = TNetwork.read(text)
     rng = np.random.default_rng(sorted(SGD_CASES).index(case))
+    if spec.get("sparse"):
+        mask = (rng.random((6, 5)) > 0.3).astype(np.float32)
+        jnet.params[0]["mask"] = mask
+        tnet.layers[0].mask.copy_(torch.from_numpy(mask))
     grads = [{k: rng.standard_normal(np.shape(v)).astype(np.float32) for k, v in p.items()}
              for p in jnet.params]
     jcfg = jsgd.SgdConfig(**spec["cfg"])
     tcfg = tsgd.SgdConfig(**spec["cfg"])
     bf16 = tcfg.velocity_dtype == "bf16"
     vel = [{k: (0.1 * rng.standard_normal(np.shape(v))).astype(np.float32)
-            for k, v in p.items()} if tcfg.momentum else {} for p in jnet.params]
+            for k, v in p.items() if k in js.trainable_keys} if tcfg.momentum else {}
+           for js, p in zip(jnet.specs, jnet.params)]
     jvel = [{k: jnp.asarray(v, jnp.bfloat16 if bf16 else jnp.float32) for k, v in d.items()}
             for d in vel]
     tvel = tsgd.init_momentum(tnet, tcfg.momentum, tcfg.velocity_dtype)
@@ -203,6 +218,10 @@ def test_apply_updates_matches_jax(case):
     if case == "factor0":   # the frozen layer did not move
         np.testing.assert_array_equal(tnet.to_numpy_params()[0]["weight"],
                                       jnet.params[0]["weight"])
+    if spec.get("sparse"):  # pruned weights stay at 0; L1 zeroes some more
+        w = tnet.to_numpy_params()[0]["weight"]
+        np.testing.assert_array_equal(w[mask == 0], 0.0)
+        assert ((w == 0) & (mask == 1)).any() == (tcfg.l1 > 0.02)
 
 
 def _mlp_text(seed=4):
@@ -261,6 +280,133 @@ def test_trainer_epoch_and_crossvalidate_match_jax_pallas(momentum):
     for a, b in zip(tcv.net.to_numpy_params(), before):     # no update in CV
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def _head_text(head, seed=4):
+    """The 20:32:32:10 MLP with its softmax head kept, swapped for a
+    BlockSoftmax over (6, 4), or dropped."""
+    text = _mlp_text(seed)
+    if head == "softmax":
+        return text
+    if head == "none":
+        return text.rsplit("<softmax>", 1)[0]
+    return text.replace("<softmax> 10 10", "<blocksoftmax> 10 10\nv 2\n6 4")
+
+
+# (objective, head, confusion mode) of the routes trainer.py:200-216 takes
+# beside the fused one
+OBJECTIVE_CASES = {
+    "mse": ("mse", "softmax", "no"),
+    "mse_no_head": ("mse", "none", "no"),
+    "mse_blocksoftmax": ("mse", "blocksoftmax", "no"),
+    "blocksoftmax": ("xent", "blocksoftmax", "no"),
+    "confusion_max": ("xent", "softmax", "max"),
+    "confusion_soft": ("xent", "softmax", "soft"),
+    "confusion_dmax": ("xent", "softmax", "dmax"),
+    "confusion_dsoft": ("xent", "softmax", "dsoft"),
+    "blocksoftmax_confusion_max": ("xent", "blocksoftmax", "max"),
+}
+
+
+def _check_stats(t, j, mode):
+    """frames and correct exact, error within 1e-5 relative; the max/dmax
+    confusion (counts) equal, the soft/dsoft one within rtol 1e-5."""
+    assert t.frames == j.frames > 0
+    np.testing.assert_allclose(t.error, j.error, rtol=1e-5)
+    assert getattr(t, "corr", None) == getattr(j, "corr", None)
+    if mode == "no":
+        assert getattr(t, "confusion", None) is None
+        return
+    assert t.confusion_mode == j.confusion_mode == mode and t.n_classes == j.n_classes
+    np.testing.assert_array_equal(t.confusion_count, j.confusion_count)
+    assert t.confusion_count.sum() == t.frames
+    for a, b in ((t.confusion, j.confusion), (t.diag_confusion, j.diag_confusion)):
+        if mode in ("max", "dmax"):
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+# epochs + CV of each route against JAX Trainer(use_pallas=True): params
+# within atol 1e-5 after ~20 f32 SGD steps, stats as _check_stats
+@pytest.mark.parametrize("momentum", [0.0, 0.5])
+@pytest.mark.parametrize("case", list(OBJECTIVE_CASES))
+def test_trainer_objectives_match_jax_pallas(case, momentum):
+    objective, head, mode = OBJECTIVE_CASES[case]
+    text = _head_text(head)
+    utts = _utts(5)
+    common = dict(bunchsize=16, cachesize=64, seed=5, objective=objective,
+                  confusion_mode=mode)
+    sgd = dict(learning_rate=0.1 if objective == "xent" else 0.5, momentum=momentum)
+    jtr = JTrainer(JNetwork.read(text), JTrainerConfig(
+        **common, sgd=jsgd.SgdConfig(**sgd), use_pallas=True))
+    jtr.run_epoch(iter(utts), batch_utts=5)
+    ttr = Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                  device="cpu")
+    ttr.run_epoch(iter(utts), batch_utts=5)
+    _check_stats(ttr.stats, jtr.stats, mode)
+    tnet = ttr.updated_network()
+    for a, b in zip(tnet.to_numpy_params(), jtr.updated_network().params):
+        for k in a:
+            np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=0, atol=1e-5)
+    assert ttr.report().startswith("Mse:" if objective == "mse" else "Xent:")
+
+    cv_utts = _utts(6, n=6)
+    cv = dict(bunchsize=16, cachesize=64, randomize=False, crossvalidate=True,
+              objective=objective, confusion_mode=mode)
+    jcv = JTrainer(jtr.updated_network(), JTrainerConfig(**cv, use_pallas=True))
+    jcv.run_epoch(iter(cv_utts))
+    tcv = Trainer(tnet, TrainerConfig(**cv), device="cpu")
+    tcv.run_epoch(iter(cv_utts))
+    _check_stats(tcv.stats, jcv.stats, mode)
+
+
+def _discrete_text():
+    """DiscreteLinearity(20 → 12 + 20) → sigmoid → BiasedLinearity → softmax."""
+    rng = np.random.default_rng(12)
+
+    def mat(r, c):
+        return f"m {r} {c}\n" + "\n".join(" ".join(repr(float(v)) for v in row)
+                                          for row in 0.3 * rng.standard_normal((r, c))) + "\n"
+    return (f"<discretelinearity> 32 20\n2\n{mat(12, 8)}{mat(20, 12)}v 32\n"
+            + " ".join(["0.1"] * 32) + "\n<sigmoid> 32 32\n<biasedlinearity> 10 32\n"
+            + mat(10, 32) + "v 10\n" + " ".join(["0"] * 10) + "\n<softmax> 10 10\n")
+
+
+# the JAX package cannot update a DiscreteLinearity (its weights are a
+# list): init_momentum fails with any momentum, apply_updates with a
+# non-zero factor. The port raises a ValueError there, and trains the frozen
+# layer (factor 0, momentum 0) as JAX does (params within atol 1e-5)
+@pytest.mark.parametrize("factors,momentum", [(None, 0.0), ((1.0, 1.0), 0.0),
+                                              ((0.0, 1.0), 0.5), ((0.0, 1.0), 0.0)])
+def test_discretelinearity_updates_as_jax(factors, momentum):
+    text = _discrete_text()
+    common = dict(bunchsize=16, cachesize=64, seed=5)
+    sgd = dict(learning_rate=0.1, momentum=momentum, lr_factors=factors)
+    utts = _utts(7, n=4)
+    frozen = factors is not None and factors[0] == 0.0 and momentum == 0.0
+    with contextlib.ExitStack() as stack:
+        if not frozen:
+            stack.enter_context(pytest.raises(Exception))
+        jtr = JTrainer(JNetwork.read(text), JTrainerConfig(
+            **common, sgd=jsgd.SgdConfig(**sgd), use_pallas=True))
+        jtr.run_epoch(iter(utts), batch_utts=5)
+    if not frozen:
+        with pytest.raises(ValueError, match="JAX package cannot update either"):
+            Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                    device="cpu")
+        return
+    ttr = Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                  device="cpu")
+    ttr.run_epoch(iter(utts), batch_utts=5)
+    _check_stats(ttr.stats, jtr.stats, "no")
+    jparams = jtr.params       # (JAX's updated_network cannot np.asarray the blocks)
+    tparams = ttr.updated_network().to_numpy_params()
+    for a, b in zip(tparams[0]["weights"], jparams[0]["weights"]):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    for a, b in zip(tparams[1:], jparams[1:]):
+        for k in a:
+            np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=0, atol=1e-5)
 
 
 def test_trainer_runtime_learning_rate():
@@ -326,7 +472,7 @@ def _trainer_state(tr):
                 else np.asarray(t, np.float32))
     return ([{k: host(v) for k, v in p.items()} for p in tr.params],
             [{k: host(v) for k, v in d.items()} for d in tr.velocity],
-            (tr.stats.error, tr.stats.frames, tr.stats.corr))
+            (tr.stats.error, tr.stats.frames, getattr(tr.stats, "corr", 0)))
 
 
 # a file one package writes loads in the other exactly (f32 values; bf16
@@ -356,6 +502,35 @@ def test_state_file_loads_across_packages(tmp_path, writer, velocity_dtype):
     for a, b in zip(_trainer_state(ttr)[0], _trainer_state(jtr)[0]):
         for k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5)
+
+
+# an MSE trainer's state file has the JAX layout ([error, frames, 0] in
+# _stats, the SparseLinearity mask among the params) and loads across the
+# packages exactly
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_mse_sparse_state_file_loads_across_packages(tmp_path, writer):
+    text = _head_text("softmax", seed=13).replace("<biasedlinearity>", "<sparselinearity>", 1)
+    common = dict(bunchsize=16, cachesize=64, seed=7, objective="mse")
+    sgd = dict(learning_rate=0.5, momentum=0.5, l1=1e-4)
+    jtr = JTrainer(JNetwork.read(text), JTrainerConfig(
+        **common, sgd=jsgd.SgdConfig(**sgd), use_pallas=True))
+    ttr = Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                  device="cpu")
+    src, dst = (ttr, jtr) if writer == "torch" else (jtr, ttr)
+    src.run_epoch(iter(_utts(5)), batch_utts=5)
+    path = str(tmp_path / "state.npz")
+    src.save_state(path)
+    with np.load(path) as data:
+        assert {"p0.mask", "v0.weight", "_stats"} <= set(data.files)
+        assert "v0.mask" not in data.files
+        st = data["_stats"]
+    assert st.shape == (3,) and st[2] == 0 and st[1] == src.stats.frames > 0
+    dst.load_state(path)
+    assert (dst.stats.error, dst.stats.frames) == (src.stats.error, src.stats.frames)
+    for a, b in zip(_trainer_state(src)[0] + _trainer_state(src)[1],
+                    _trainer_state(dst)[0] + _trainer_state(dst)[1]):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_load_state_rejects_a_mismatched_network(tmp_path):
