@@ -10,7 +10,10 @@ final line):
   2. build: nvcc compiles nnet_asr_torch/csrc/*.cu for sm_90a into
      build/kernels/;
   3. each CUDA kernel against its plain PyTorch version on the card at the
-     main paths' shapes (forward, and gradients for affine_sigmoid; the
+     main paths' shapes, the bf16-operand variants of affine_sigmoid and
+     wgrad_momentum_update too (bound at 989 TFLOP/s dense bf16; library
+     yardsticks bf16 addmm + sigmoid_, and bf16 x.T @ e + the f32 update
+     passes) (forward, and gradients for affine_sigmoid; the
      fused wgrad+momentum update with f32 and bf16 velocity, split-K where
      its plan asks, twice to show equal bits; softmax-CE once per shape of
      its plan, with tied rows, a NaN row and a NaN in a labelled row, twice
@@ -39,8 +42,10 @@ final line):
      the port's Trainer: frames/s and achieved TFLOP/s of the train step
      with momentum 0, and with momentum 0.9 (f32 and bf16 velocity), and
      under MSE and with a BlockSoftmax(4096, 4096) head at momentum 0 and
-     0.9; then a torch.profiler window of steps with momentum 0 and 0.9,
-     MSE and BlockSoftmax at momentum 0, device time summed by kernel name;
+     0.9, and under the bf16 compute dtype at momentum 0 and 0.9 (TFLOP/s
+     also against the bf16 bound); then a torch.profiler window of steps
+     with momentum 0 and 0.9, MSE and BlockSoftmax at momentum 0, and bf16
+     at momentum 0 and 0.9, device time summed by kernel name;
   7. objectives and tags, on phase 4's corpus (run before phase 6): tnet
      -O mse (epoch + CV, CV Mse must fall), a BlockSoftmax(90, 45) head
      (epoch + CV, CV accuracy must rise), a --CONFUSIONMODE=max CV whose
@@ -49,7 +54,15 @@ final line):
      launches exact (affine_sigmoid once a bunch, none for the
      SparseLinearity pair; fused_softmax_xent only on the L1 run); the MSE
      and BlockSoftmax epochs again on the CPU must agree; tfeacat of the
-     BlockSoftmax model on cuda:0 within 1e-4 of the CPU's.
+     BlockSoftmax model on cuda:0 within 1e-4 of the CPU's;
+  8. compute dtypes, on phase 4's corpus (run before phase 6): tnet
+     --COMPUTEDTYPE=bf16|int8|int8pf|int8pfsr|int8full on cuda:0, an epoch
+     and a CV of its model each (bf16 also with --MOMENTUM), each with exact
+     launch counts per dtype (bf16: the bf16 affine_sigmoid once a bunch and
+     the bf16 wgrad twice a momentum bunch; int8: no GEMM kernel); the bf16
+     and int8 epochs again on the CPU must agree; the scheduler with
+     --compute-dtype=bf16 for 2 newbob iterations; tfeacat --BF16 and --INT8
+     on cuda:0 against the CPU.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
@@ -95,6 +108,10 @@ FLUSH_BYTES = 256 << 20     # written between launches to time with L2 cold
 # a third as f32-accurate work; 67 TFLOP/s f32 outside the tensor cores;
 # 3.35 TB/s of HBM3
 PEAK_3XTF32, PEAK_F32, HBM_BYTES_S = 495e12 / 3, 67e12, 3.35e12
+PEAK_BF16 = 989e12          # dense bf16 tensor cores, the same data sheet
+# the compute dtypes of phase 8, and the learning rate of its scheduler run
+DTYPES = ("bf16", "int8", "int8pf", "int8pfsr", "int8full")
+DTYPE_SCHED_ITERS = 2
 
 
 def log(*args) -> None:
@@ -393,6 +410,128 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
     return r
 
 
+def bf16_tol(torch, t, ref):
+    """One bf16 step at each element, plus 1e-5 of the largest value: f32
+    sums taken in another order may round to neighbouring bf16 values, and
+    near zero (cancellation) their own difference exceeds a bf16 step."""
+    big = torch.maximum(t.float().abs(), ref.float().abs())
+    return bf16_ulp(torch, big) + 1e-5 * ref.float().abs().max()
+
+
+def check_matmul_act_bf16(torch, dev, M, K, N, seed):
+    """The bf16 variant against its plain version (f32 product, bias and
+    sigmoid, one rounding): y within bf16_tol; the JAX _bwd gradients (dz
+    rounded to bf16, f32 GEMMs each rounded once) within two bf16 steps of
+    the largest, against the same formula on the plain y."""
+    from nnet_asr_torch.ops.kernels import matmul_act as MA
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+    w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(bf)
+    b = (0.1 * torch.randn((N,), generator=gen, device=dev)).to(bf)
+    g = torch.randn((M, N), generator=gen, device=dev).to(bf)
+    what = f"affine_sigmoid bf16 {M}x{K}->{N}"
+    ts = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = MA.matmul_act.launches_bf16
+    y = MA.affine_sigmoid(*ts)
+    y.backward(g)
+    yp = MA.matmul_act_plain(x, w, b)
+    torch.cuda.synchronize()
+    check(MA.matmul_act.launches_bf16 == before + 1 and y.dtype == bf,
+          f"{what}: not one bf16 launch, or y not bf16")
+    dy = (y.float() - yp.float()).abs()
+    err_y = dy.max().item()
+    check(bool((dy <= bf16_tol(torch, y, yp)).all()), f"{what}: y beyond one bf16 step")
+    yf = yp.float()
+    dz = g.float() * yf * (1.0 - yf)
+    dzc = dz.to(bf).float()
+    rel = {}
+    for name, t, ref in zip(("dx", "dw", "db"), ts,
+                            (dzc @ w.float().T, x.float().T @ dzc, dz.sum(0))):
+        rel[name] = ((t.grad.float() - ref).abs().max().item()
+                     / max(ref.abs().max().item(), 1e-30))
+        check(rel[name] <= 2 ** -7, f"{what}: {name} rel err {rel[name]} > 2^-7")
+    fns = (lambda: MA.matmul_act(x, w, b, "sigmoid"),
+           lambda: MA.matmul_act_plain(x, w, b, "sigmoid"),
+           lambda: torch.addmm(b, x, w).sigmoid_())      # library yardstick
+    ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in fns)
+    devt = tuple(device_us(torch, f) for f in fns)
+    r = record(f"{M}x{K}->{N} bf16", err_y, ms, plain_ms, lib_ms, devt, 2.0 * M * N * K,
+               2.0 * (M * K + K * N + N + M * N), PEAK_BF16)
+    log(f"kernel {what}: max|y-plain| {err_y:.3e} (within one bf16 step + 1e-5 max), grad "
+        f"rel err dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}")
+    log_times(f"{what} (plain: cuBLAS f32 of the upcast operands + bias + sigmoid + "
+              f"rounding; library: bf16 addmm + sigmoid_)", r,
+              2.0 * M * N * K / (ms * 1e-3) / 1e12)
+    return r
+
+
+def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
+    """The bf16-operand variant against its plain version: g = x^T e
+    rounded to bf16 once in both, so p and v within one bf16 step of g (the
+    f32 sums may round to neighbouring values) plus v's own bf16 step; two
+    runs equal bit for bit."""
+    from nnet_asr_torch.ops.kernels import sgd_fused as SF
+    from nnet_asr_torch.ops.kernels import tile_plan
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, In), generator=gen, device=dev).to(bf)
+    e = (torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)).to(bf)
+    p = torch.randn((In, Out), generator=gen, device=dev)
+    v = torch.randn((In, Out), generator=gen, device=dev).to(bf if vdt == "bf16" else torch.float32)
+    a, m = 1e-3, 0.9
+    what = f"wgrad_momentum_update bf16 x,e {B}x{In}->{Out} v {vdt}"
+    pk, vk, pp, vp = p.clone(), v.clone(), p.clone(), v.clone()
+    before = SF.wgrad_momentum_update.launches_bf16
+    SF.wgrad_momentum_update(x, e, pk, vk, a, m)
+    check(SF.wgrad_momentum_update.launches_bf16 == before + 1, f"{what}: not one bf16 launch")
+    SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
+    torch.cuda.synchronize()
+    g = x.float().T @ e.float()
+    tol_v = bf16_ulp(torch, g) + 1e-5 * vp.float().abs().max()
+    if vdt == "bf16":
+        tol_v = tol_v + bf16_ulp(torch, torch.maximum(vk.float().abs(), vp.float().abs()))
+    dv = (vk.float() - vp.float()).abs()
+    dp = (pk - pp).abs()
+    check(bool((dv <= tol_v).all()), f"{what}: velocity beyond one bf16 step of g")
+    check(bool((dp <= a * tol_v + 1e-6 * pp.abs().max()).all()), f"{what}: p beyond a bf16 step")
+    differ = int((dv > 1e-5 * vp.float().abs().max()).sum())
+    pk2, vk2 = p.clone(), v.clone()
+    SF.wgrad_momentum_update(x, e, pk2, vk2, a, m)
+    torch.cuda.synchronize()
+    check(torch.equal(pk, pk2) and torch.equal(vk, vk2), f"{what}: a second run differs")
+    plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
+                          b_ptr=e.data_ptr(), split_k=True, elem=2)
+    pl, vl = p.clone(), v.clone()
+
+    def library():          # bf16 x.T @ e, then the f32 update passes
+        corr = (x.T @ e).float().add_(vl, alpha=m)
+        vl.copy_(corr)
+        pl.sub_(corr, alpha=a)
+
+    fns = (lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m),
+           lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m), library)
+    times = [cuda_ms(torch, f) for f in fns]
+    devt = tuple(device_us(torch, f) for f in fns)
+    check(bool(torch.isfinite(pk).all() and torch.isfinite(vk.float()).all()),
+          f"{what}: non-finite values after the timed steps")
+    vbytes = 2 if vdt == "bf16" else 4
+    r = record(f"{B}x{In}->{Out} bf16 x,e v {vdt}", max(dp.max().item(), dv.max().item()),
+               *times, devt, 2.0 * B * In * Out,
+               2.0 * (B * In + B * Out) + In * Out * (8 + 2 * vbytes), PEAK_BF16)
+    r["plan"] = {"tile": f"{plan.bm}x{plan.bn}", "splits": plan.splits,
+                 "x_bytes": plan.a_bytes, "e_bytes": plan.b_bytes}
+    log(f"kernel {what}: max|p-plain| {dp.max().item():.3e}, max|v-plain| "
+        f"{dv.max().item():.3e}, {differ} of {dv.numel()} elements a bf16 rounding of g apart; "
+        f"plan {r['plan']}; two runs equal bit for bit")
+    log_times(f"{what} (plain: cuBLAS f32 of the upcast operands, rounded, + elementwise; "
+              f"library: bf16 x.T@e + f32 update passes)", r,
+              2.0 * B * In * Out / (r["ms"] * 1e-3) / 1e12)
+    return r
+
+
 # ---------------------------------------------------------------------------
 # 4. the frame-CE path: tnet on a synthetic example-01-shaped corpus
 # ---------------------------------------------------------------------------
@@ -480,11 +619,11 @@ def main_path(torch, card: str, d: str, n: dict):
     return launches
 
 
-def check_cpu_epoch(what, c, e, c_mmf, e_mmf, cpu_seconds):
+def check_cpu_epoch(what, c, e, c_mmf, e_mmf, cpu_seconds, rtol=1e-4, wtol=1e-4):
     """The CPU run ``c`` of an epoch agrees with its cuda:0 run ``e``: Xent
-    (or Mse) within 1e-4 relative, weights within 1e-4, correct frames
-    within 0.1% (argmax can flip on a near-tie under another summation
-    order)."""
+    (or Mse) within ``rtol`` relative, weights within ``wtol``, correct
+    frames within 0.1% (argmax can flip on a near-tie under another
+    summation order)."""
     import numpy as np
 
     from nnet_asr_torch.models.network import Network
@@ -499,10 +638,10 @@ def check_cpu_epoch(what, c, e, c_mmf, e_mmf, cpu_seconds):
         f"(rel {rel:.2e}), frames {c['frames']} vs {e['frames']}, correct differs "
         f"by {dcorr:.0f} frames, max|w_cpu - w_cuda| {wdiff:.2e} "
         f"({cpu_seconds:.1f}s on the CPU)")
-    check(rel <= 1e-4, f"{what}: cpu/cuda Xent rel diff {rel} > 1e-4")
+    check(rel <= rtol, f"{what}: cpu/cuda Xent rel diff {rel} > {rtol}")
     check(c["frames"] == e["frames"], f"{what}: cpu/cuda frame counts differ")
     check(dcorr <= 1e-3 * c["frames"], f"{what}: cpu/cuda correct differs by {dcorr} frames")
-    check(wdiff <= 1e-4, f"{what}: cpu/cuda weights differ by {wdiff} > 1e-4")
+    check(wdiff <= wtol, f"{what}: cpu/cuda weights differ by {wdiff} > {wtol}")
 
 
 # ---------------------------------------------------------------------------
@@ -782,6 +921,166 @@ def objectives_path(torch, card: str, d: str, n: dict):
 
 
 # ---------------------------------------------------------------------------
+# 8. compute dtypes: tnet --COMPUTEDTYPE, scheduler --compute-dtype,
+#    tfeacat --BF16/--INT8
+# ---------------------------------------------------------------------------
+
+COUNTERS = ("matmul_act", "matmul_act_bf16", "wgrad_momentum_update",
+            "wgrad_momentum_update_bf16", "softmax_xent")
+
+
+def _counters():
+    """(wrapper, attribute) of each launch counter, by name."""
+    from nnet_asr_torch.ops.kernels import matmul_act as MA
+    from nnet_asr_torch.ops.kernels import sgd_fused as SF
+    from nnet_asr_torch.ops.kernels import softmax_ce as SC
+
+    return {"matmul_act": (MA.matmul_act, "launches"),
+            "matmul_act_bf16": (MA.matmul_act, "launches_bf16"),
+            "wgrad_momentum_update": (SF.wgrad_momentum_update, "launches"),
+            "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
+            "softmax_xent": (SC.softmax_xent, "launches")}
+
+
+def zero_counts():
+    for f, k in _counters().values():
+        setattr(f, k, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(f, k) for name, (f, k) in _counters().items()}
+
+
+def compare_posteriors(what, post, post_cpu, tol):
+    """cuda:0 against the CPU: every frame within 5e-2 (the JAX package's
+    bound of a reduced-precision dump against f32), at most 1% of the frames
+    beyond ``tol`` (a rounding or quantum that flips on a near-tie under
+    another summation order moves a whole frame), the argmax equal on 99%."""
+    import numpy as np
+
+    check(sorted(post) == sorted(post_cpu), f"{what}: files differ")
+    a = np.concatenate([post[f] for f in sorted(post)])
+    b = np.concatenate([post_cpu[f] for f in sorted(post)])
+    per_frame = np.abs(a - b).max(axis=1)
+    beyond = float((per_frame > tol).mean())
+    agree = float((a.argmax(1) == b.argmax(1)).mean())
+    log(f"{what}: {a.shape[0]} frames, max|p_cuda - p_cpu| {per_frame.max():.3e}, "
+        f"{beyond:.4%} of frames beyond {tol:g}, argmax equal on {agree:.4%}")
+    check(np.isfinite(a).all() and per_frame.max() < 5e-2 and beyond <= 0.01
+          and agree >= 0.99, f"{what}: cuda/cpu posteriors differ")
+
+
+def dtypes_path(torch, card: str, d: str, n: dict):
+    """tnet under each compute dtype on cuda:0 with exact launch counts per
+    dtype, the bf16 and int8 epochs again on the CPU, the scheduler under
+    bf16, and tfeacat --BF16/--INT8 against the CPU."""
+    import glob
+
+    from nnet_asr_torch.tools import scheduler
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    train = ("-S", j("train.scp"))
+    cv = ("-S", j("cv.scp"), "-c")
+    n_train = drained_frames(n["train"], CACHE, BUNCH) // BUNCH
+    n_cv = drained_frames(n["cv"], CACHE, BUNCH) // BUNCH
+    totals = dict.fromkeys(COUNTERS, 0)
+
+    def counted(what, bunches, extra_want, *args):
+        """A cuda:0 tnet run: fused_softmax_xent once a bunch, and the
+        launches in ``extra_want``, nothing else."""
+        zero_counts()
+        r = run_tnet(d, *args)
+        got = read_counts()
+        want = dict.fromkeys(COUNTERS, 0)
+        want["softmax_xent"] = bunches
+        want.update(extra_want)
+        log(f"tnet cuda:0 {what}: Xent {r['xent']:.10g} frames {r['frames']} correct "
+            f"{r['acc']}% FPS {r['fps']}; launches {json.dumps(got)}")
+        check(r["frames"] == bunches * BUNCH, f"{what}: {r['frames']} frames")
+        check(math.isfinite(r["xent"]), f"{what}: not finite")
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        return r
+
+    cv0 = run_tnet(d, j("init.mmf"), *cv)           # f32, not counted
+    runs = {}
+    for dt in DTYPES:
+        flag = f"--COMPUTEDTYPE={dt}"
+        bf = dt == "bf16"
+        e = counted(f"{flag} epoch 1", n_train, {"matmul_act_bf16": n_train} if bf else {},
+                    j("init.mmf"), *train, flag, f"--TARGETMMF={j(dt + '.mmf')}")
+        c = counted(f"{flag} cv", n_cv, {"matmul_act_bf16": n_cv} if bf else {},
+                    j(dt + ".mmf"), *cv, flag)
+        check(c["acc"] > cv0["acc"], f"{flag}: cv accuracy {cv0['acc']}% -> {c['acc']}%")
+        runs[dt] = e
+    counted("--COMPUTEDTYPE=bf16 --MOMENTUM=0.5 epoch 1", n_train,
+            {"matmul_act_bf16": n_train, "wgrad_momentum_update_bf16": 2 * n_train},
+            j("init.mmf"), *train, "--COMPUTEDTYPE=bf16", "--MOMENTUM=0.5",
+            f"--TARGETMMF={j('bf16_mom.mmf')}")
+
+    # the bf16 and int8 epochs again on the CPU (plain versions): Xent
+    # within the tests' 1e-3 (bf16) and f32's 1e-4 (int8) relative, weights
+    # within 2e-3 for both. bf16: a gradient rounding that flips between the
+    # two devices' f32 sums moves a weight by the learning rate times one
+    # bf16 step of it. int8: an activation quantum (max|x|/127, one scale a
+    # bunch) that rounds the other way where x/s lies within f32 rounding of
+    # a tie moves that frame's gradient by |dz| times the quantum
+    for dt, rtol in (("bf16", 1e-3), ("int8", 1e-4)):
+        t0 = time.perf_counter()
+        c = run_tnet(d, j("init.mmf"), *train, f"--COMPUTEDTYPE={dt}",
+                     f"--TARGETMMF={j('cpu_' + dt + '.mmf')}", device="cpu")
+        check_cpu_epoch(f"--COMPUTEDTYPE={dt} epoch 1", c, runs[dt], j(f"cpu_{dt}.mmf"),
+                        j(f"{dt}.mmf"), time.perf_counter() - t0, rtol=rtol, wtol=2e-3)
+
+    # newbob under bf16 with momentum: every epoch's weights through the bf16
+    # wgrad, every bunch through the bf16 affine_sigmoid
+    iters = DTYPE_SCHED_ITERS
+    sched = ["--nn-init", j("init.mmf"), "--mlf-train", j("labs.mlf"),
+             "--mlf-cv", j("labs.mlf"), "--scp-train", j("train.scp"),
+             "--scp-cv", j("cv.scp"), "--phonelist", j("map"),
+             "--feature-transform", j("transform"), f"--frm-ext={EXT}",
+             f"--bunchsize={BUNCH}", f"--cachesize={CACHE}", f"--seed={SEED}",
+             f"--learnrate={MOM_LR!r}", f"--momentum={MOM!r}", f"--max-iter={iters}",
+             "--compute-dtype=bf16", "--weights-dir", j("weights_bf16")]
+    zero_counts()
+    t0 = time.perf_counter()
+    out = stdout_of(scheduler.main, sched)
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    best_m = re.search(r"Best model: (\S+) \(CV ([\d.]+)%, (\d+) iterations\)", out)
+    init_m = re.search(r"Initial CV accuracy: (\S+)", out)
+    check(best_m is not None and init_m is not None, f"scheduler output:\n{out}")
+    decisions = re.findall(r"^(accepting weights|reverting the weights.*|lrate=.*)$", out, re.M)
+    log(f"scheduler --compute-dtype=bf16 (momentum {MOM}, learnrate {MOM_LR}, {iters} "
+        f"iterations) on cuda:0, {card}: {wall:.1f}s; CV accuracy {init_m.group(1)}% -> best "
+        f"{best_m.group(2)}%; decisions {decisions}; launches {json.dumps(got)}")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(matmul_act_bf16=iters * n_train + (iters + 1) * n_cv,
+                wgrad_momentum_update_bf16=2 * iters * n_train,
+                softmax_xent=iters * n_train + (iters + 1) * n_cv)
+    check(got == want, f"scheduler bf16: launches {got}, want {want}")
+    check(float(best_m.group(2)) > float(init_m.group(1)), "scheduler bf16: cv did not rise")
+    check(len(glob.glob(j("weights_bf16/*"))) >= 1, "scheduler bf16 wrote no model")
+    for k in totals:
+        totals[k] += got[k]
+
+    # posterior dumps of phase 4's model in the inference dtypes
+    for flag, name, tol in (("--BF16=TRUE", "bf16", 2e-3), ("--INT8=TRUE", "int8", 1e-5)):
+        t0 = time.perf_counter()
+        post = run_tfeacat(d, j("e2.mmf"), j(f"tfeacat_{name}_cuda"), flag)
+        secs = time.perf_counter() - t0
+        post_cpu = run_tfeacat(d, j("e2.mmf"), j(f"tfeacat_{name}_cpu"), flag, device="cpu")
+        check(sum(a.shape[0] for a in post.values()) == n["cv"], f"tfeacat {flag} frames")
+        compare_posteriors(f"tfeacat {flag} cuda:0 ({secs:.2f}s) vs cpu", post, post_cpu, tol)
+    log(f"compute-dtype launches (12 tnet runs and the scheduler on cuda:0): "
+        f"{json.dumps(totals)}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
@@ -852,26 +1151,41 @@ def production(torch, dev, card: str):
             steps[f"{name} momentum {m:g}"] = Trainer(n_, TrainerConfig(
                 bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, seed=1,
                 objective=objective, sgd=SgdConfig(learning_rate=0.01, momentum=m)), device=dev)
+    # the bf16 compute dtype: bf16 affine_sigmoid, and at momentum 0.9 the
+    # bf16-operand wgrad, on the same f32 master weights
+    for m in (0.0, 0.9):
+        steps[f"bf16 momentum {m:g}"] = Trainer(net, TrainerConfig(
+            bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, seed=1,
+            compute_dtype="bf16", sgd=SgdConfig(learning_rate=0.01, momentum=m)), device=dev)
     times = {name: [] for name in steps}
     for name in [*steps, *reversed(steps)]:
         times[name].append(cuda_ms(torch, lambda: steps[name]._train_step(feats, labels),
                                    reps=20, warmup=3))
     for name, ms in times.items():
         fps = [PROD_BUNCH / (t * 1e-3) for t in ms]
+        bound = (f" ({6 * n_params / PEAK_BF16 * PROD_BUNCH * 1e3:.3f} ms at the 989 TFLOP/s "
+                 f"bf16 bound)" if name.startswith("bf16") else "")
         log(f"production train step, {name}, {card}: "
             + ", ".join(f"{t:.3f} ms = {f:.0f} frames/s = {6 * n_params * f / 1e12:.2f} "
-                        f"TFLOP/s" for t, f in zip(ms, fps)))
+                        f"TFLOP/s" for t, f in zip(ms, fps)) + bound)
     check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
           "production weights not finite after the momentum steps")
     for name in ("momentum 0", "momentum 0.9 f32 velocity", "mse momentum 0",
-                 "blocksoftmax(4096,4096) momentum 0"):
+                 "blocksoftmax(4096,4096) momentum 0", "bf16 momentum 0", "bf16 momentum 0.9"):
         trace_steps(torch, name, lambda: steps[name]._train_step(feats, labels), card)
 
 
-KERNEL_GROUPS = (("affine_sigmoid (ours)", "matmul_act_kernel"),
+# (group, pattern searched in the kernel's name), first match wins; the
+# operand type is the template argument after the Tile (the wgrad reduce
+# kernel's first)
+KERNEL_GROUPS = (("affine_sigmoid bf16 (ours)", r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16"),
+                 ("affine_sigmoid (ours)", "matmul_act_kernel"),
+                 ("wgrad_momentum_update bf16 (ours)",
+                  r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|"
+                  r"wgrad_reduce_kernel<__nv_bfloat16"),
                  ("wgrad_momentum_update (ours)", "wgrad_"),
                  ("softmax_xent (ours)", "softmax_xent_"),
-                 ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"), ("cuBLAS GEMM", "cutlass"))
+                 ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"))
 
 
 def trace_steps(torch, name, step, card, n_steps=5):
@@ -881,11 +1195,7 @@ def trace_steps(torch, name, step, card, n_steps=5):
     on). The wrappers' launch counts over the same steps stand beside it."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from nnet_asr_torch.ops.kernels import matmul_act as MA
-    from nnet_asr_torch.ops.kernels import sgd_fused as SF
-    from nnet_asr_torch.ops.kernels import softmax_ce as SC
-
-    counters = (MA.matmul_act, SF.wgrad_momentum_update, SC.softmax_xent)
+    counters = _counters()
     # one cycle; no step() after the last active step, which would end the
     # cycle and clear its events before key_averages reads them
     with profile(activities=[ProfilerActivity.CUDA],
@@ -893,7 +1203,7 @@ def trace_steps(torch, name, step, card, n_steps=5):
         step()
         torch.cuda.synchronize()   # the warm-up step's kernels end before the window
         prof.step()
-        before = [c.launches for c in counters]
+        before = read_counts()
         t0 = time.perf_counter()
         for i in range(n_steps):
             step()
@@ -901,7 +1211,7 @@ def trace_steps(torch, name, step, card, n_steps=5):
                 prof.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / n_steps
-        launched = {c.__name__: (c.launches - b) / n_steps for c, b in zip(counters, before)}
+        launched = {k: (v - before[k]) / n_steps for k, v in read_counts().items()}
     rows = sorted(((e.key, getattr(e, "self_device_time_total", 0) / n_steps, e.count / n_steps)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     rows = [r for r in rows if r[1] > 0]
@@ -911,7 +1221,7 @@ def trace_steps(torch, name, step, card, n_steps=5):
         return
     groups = {}
     for key, us, _ in rows:
-        group = next((g for g, pat in KERNEL_GROUPS if pat in key), "other")
+        group = next((g for g, pat in KERNEL_GROUPS if re.search(pat, key)), "other")
         groups[group] = groups.get(group, 0.0) + us
     log(f"trace production step, {name}, {card}: device {busy:.1f} us per step of "
         f"{wall_us:.1f} us wall under the profiler (idle share {1 - busy / wall_us:.3f}); "
@@ -964,7 +1274,12 @@ def main() -> int:
                                for B, C in SOFTMAX_SHAPES],
         "wgrad_momentum_update": [
             check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
-            for B, In, Out, vdts in WGRAD_SHAPES for vdt in vdts]}
+            for B, In, Out, vdts in WGRAD_SHAPES for vdt in vdts],
+        "affine_sigmoid_bf16": [check_matmul_act_bf16(torch, dev, M, K, N, seed=M + K + 1)
+                                for M, K, N in AFFINE_SHAPES],
+        "wgrad_momentum_update_bf16": [
+            check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed=B + In + Out + 1)
+            for B, In, Out, _ in WGRAD_SHAPES for vdt in ("f32", "bf16")]}
 
     # 4. the frame-CE path, 5. the momentum newbob path, on one corpus;
     # then 6. production width
@@ -976,17 +1291,22 @@ def main() -> int:
         launches_ce = main_path(torch, card, d, n)
         launches_mom = momentum_path(torch, card, d, n)
         launches_obj = objectives_path(torch, card, d, n)
+        launches_dt = dtypes_path(torch, card, d, n)
     production(torch, dev, card)
-    launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj))
-                for k in launches_mom}
+    launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj,
+                                             launches_dt)) for k in COUNTERS}
 
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, every shape "
-        f"under 'shapes'; launches summed over the frame-CE, momentum and objectives paths")
+        f"under 'shapes'; launches summed over the frame-CE, momentum, objectives and "
+        f"compute-dtype paths")
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act"),
             "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent"),
             "wgrad_momentum_update": ("sgd_fused.cu", "sgd_fused.py:105",
-                                      "wgrad_momentum_update")}
+                                      "wgrad_momentum_update"),
+            "affine_sigmoid_bf16": ("matmul_act.cu", "matmul_act.py:86", "matmul_act_bf16"),
+            "wgrad_momentum_update_bf16": ("sgd_fused.cu", "sgd_fused.py:105",
+                                           "wgrad_momentum_update_bf16")}
     kernels = []
     for name, (src, tpu, counter) in meta.items():
         main_shape = shapes[name][0]

@@ -1,22 +1,31 @@
-// The GEMM main loop shared by matmul_act.cu and sgd_fused.cu: f32-accurate
-// products on Hopper's tensor cores by 3xTF32, fed by a cp.async ring.
+// The GEMM main loops shared by matmul_act.cu and sgd_fused.cu: products on
+// Hopper's tensor cores into an f32 accumulator, fed by a cp.async ring.
+// Two operand types, one ring:
 //
-// 3xTF32. mma.sync m16n8k8 multiplies TF32 (10 explicit mantissa bits)
-// into an f32 accumulator. Each f32 operand element is split in registers
-// into hi = rna_tf32(a) and lo = rna_tf32(a - hi), and the product is
-// accumulated as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the small terms first,
-// into the one f32 accumulator). Only lo*lo is dropped, about 2^-22 of each
-// product: the order of f32's own rounding over K = 4096, so the result
-// agrees with an f32 FFMA GEMM to f32 accuracy. One pass of TF32 keeps
-// about three decimal digits and is not used.
+// f32 operands, 3xTF32. mma.sync m16n8k8 multiplies TF32 (10 explicit
+// mantissa bits) into an f32 accumulator. Each f32 operand element is split
+// in registers into hi = rna_tf32(a) and lo = rna_tf32(a - hi), and the
+// product is accumulated as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the small
+// terms first, into the one f32 accumulator). Only lo*lo is dropped, about
+// 2^-22 of each product: the order of f32's own rounding over K = 4096, so
+// the result agrees with an f32 FFMA GEMM to f32 accuracy. One pass of TF32
+// keeps about three decimal digits and is not used.
+//
+// bf16 operands (the bf16 compute mode). mma.sync m16n8k16 multiplies bf16
+// into the f32 accumulator in one pass: a bf16 product is exact in f32, so
+// the result is the f32-accumulated sum that JAX's
+// preferred_element_type=float32 asks for. Fragments come from shared
+// memory by ldmatrix, .trans for an operand stored MN-major (W and e, and
+// the x of x^T e), so the shared tiles keep the global row layout here too.
 //
 // Why mma.sync and not wgmma: TF32 wgmma takes both operands K-major from
 // shared memory, but affine_sigmoid's W (K x N) is N-major and both x and e
 // of the wgrad product x^T e are M/N-major. mma.sync fragments are loaded by
-// each thread from an f32 shared tile of either layout, and the hi/lo split
+// each thread from a shared tile of either layout, and the hi/lo split
 // happens in those registers. The price: on an H100, mma.sync issues TF32
 // at about half of wgmma's rate, so this loop stays under half of the
 // 3xTF32 bound (tools/gemm_ceiling.py times it with the split taken out).
+// The bf16 loop keeps the same simple form; wgmma and TMA are later work.
 //
 // Tiles. A block computes a BM x BN output tile with WARPS_M x WARPS_N
 // warps, each a WM x WN sub-tile of (WM/16) x (WN/8) mma tiles. The
@@ -24,29 +33,40 @@
 // stages filled by cp.async: tile kt+STAGES-1 is in flight while tile kt is
 // multiplied, with one cp.async.wait_group and one barrier per BK step.
 // Shared tiles keep the global row layout, so every copy is a contiguous
-// run of a row:
-//   A K-major (x of x @ W):    As[m][k], pitch BK + 4
+// run of a row (pitches in elements, Ring below):
+//   A K-major (x of x @ W):    As[m][k], pitch BK + 4 (f32), BK + 8 (bf16)
 //   A M-major (x of x^T e):    As[k][m], pitch BM + 8
 //   B N-major (W, and e):      Bs[k][n], pitch BN + 8
-// With those pads the fragment loads of a warp hit 32 distinct banks: a
-// K-major fragment reads (row g, col t) at g*(BK+4) + t = 4g + t (mod 32),
-// an MN-major one reads (k t, m g) at t*(BM+8) + g = 8t + g (mod 32), for
-// g = lane/4 and t = lane%4.
+// With those pads the fragment loads of a warp hit 32 distinct banks: an
+// f32 K-major fragment reads (row g, col t) at g*(BK+4) + t = 4g + t (mod
+// 32), an MN-major one reads (k t, m g) at t*(BM+8) + g = 8t + g (mod 32),
+// for g = lane/4 and t = lane%4; the 8 rows of 16 bytes that one ldmatrix
+// phase reads lie an odd number of 16-byte units apart (80, 144 or 272
+// bytes), so they fall in 8 distinct groups of 4 banks.
 //
-// Copies. Where a matrix's row pitch is a multiple of 4 floats and its base
+// Copies. Where a matrix's row pitch is a multiple of 16 bytes and its base
 // is 16-byte aligned, each copy moves 16 bytes (cp.async.cg); otherwise 4
-// bytes (cp.async.ca). The main path needs both: x at 598 columns and e at
-// 135 have rows of 2,392 and 540 bytes, which no 16-byte copy (nor TMA) can
-// describe. Elements outside the matrix, or past the end of this block's
-// K range (split-K), are zero-filled by a source size of 0. The host picks
-// the copy path per operand (ops/kernels/tile_plan.py).
+// bytes (cp.async.ca) where the pitch and base allow it. The main path
+// needs both: x at 598 columns and e at 135 have rows of 2,392 and 540
+// bytes in f32, which no 16-byte copy (nor TMA) can describe. A bf16 row of
+// 135 elements (270 bytes) has an odd pitch in 4-byte words, and cp.async
+// has no 2-byte size: that operand is read by plain loads into registers and
+// stored to shared memory, which the barrier ahead of the tile's use makes
+// visible. Elements outside the matrix, or past the end of this block's K
+// range (split-K), are zero-filled. The host picks the copy width per
+// operand (ops/kernels/tile_plan.py).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace nnet_tile {
+
+using bf16 = __nv_bfloat16;
 
 template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_, int STAGES_>
 struct Tile {
@@ -55,13 +75,7 @@ struct Tile {
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;   // warp sub-tile
   static constexpr int MT = WM / 16, NT = WN / 8;              // mma tiles per warp
-  static constexpr int A_KMAJ_PITCH = BK + 4;                  // As[m][k]
-  static constexpr int A_MMAJ_PITCH = BM + 8;                  // As[k][m]
-  static constexpr int B_PITCH = BN + 8;                       // Bs[k][n]
-  static constexpr int A_KMAJ_STAGE = BM * A_KMAJ_PITCH;       // floats per stage
-  static constexpr int A_MMAJ_STAGE = BK * A_MMAJ_PITCH;
-  static constexpr int B_STAGE = BK * B_PITCH;
-  static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "mma tiling");
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0, "mma tiling");
 };
 
 // The two tiles of ops/kernels/tile_plan.py (BIG = 0, SMALL = 1): 128x128
@@ -70,23 +84,50 @@ struct Tile {
 using BigTile = Tile<128, 128, 32, 2, 4, 3>;
 using SmallTile = Tile<64, 64, 32, 2, 2, 4>;
 
-template <class T, bool A_KMAJOR>
+// The ring's layout for operand type E (float or bf16): row pitches and
+// stage sizes in elements of E.
+template <class T, class E>
+struct Ring {
+  static constexpr int A_KMAJ_PITCH = T::BK + (sizeof(E) == 4 ? 4 : 8);   // As[m][k]
+  static constexpr int A_MMAJ_PITCH = T::BM + 8;                          // As[k][m]
+  static constexpr int B_PITCH = T::BN + 8;                               // Bs[k][n]
+  static constexpr int A_KMAJ_STAGE = T::BM * A_KMAJ_PITCH;
+  static constexpr int A_MMAJ_STAGE = T::BK * A_MMAJ_PITCH;
+  static constexpr int B_STAGE = T::BK * B_PITCH;
+};
+
+// Dynamic shared memory of a kernel: the ring, or the epilogue's staged
+// BM x (BN + 8) f32 output tile where that is larger (the bf16 ring is).
+template <class T, class E, bool A_KMAJOR>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * T::STAGES *
-         ((A_KMAJOR ? T::A_KMAJ_STAGE : T::A_MMAJ_STAGE) + T::B_STAGE);
+  using R = Ring<T, E>;
+  constexpr size_t ring =
+      sizeof(E) * T::STAGES * ((A_KMAJOR ? R::A_KMAJ_STAGE : R::A_MMAJ_STAGE) + R::B_STAGE);
+  constexpr size_t out = sizeof(float) * T::BM * (T::BN + 8);
+  return ring > out ? ring : out;
 }
+
+// ---------------------------------------------------------------------------
+// element conversions of the epilogues
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_rn(float* p, float v) { *p = v; }
+// round to nearest even, as JAX's astype
+__device__ __forceinline__ void store_rn(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(float* s, const float* g, bool ok) {
+__device__ __forceinline__ void cp_async16(void* s, const void* g, bool ok) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa), "l"(g),
                "r"(ok ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(float* s, const float* g, bool ok) {
+__device__ __forceinline__ void cp_async4(void* s, const void* g, bool ok) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa), "l"(g),
                "r"(ok ? 4 : 0));
@@ -125,53 +166,101 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8q..8q+7 give the row
+// addresses of matrix q, whose element (row l/4, cols 2(l%4), +1) lands in
+// r[q] of lane l; .trans delivers (rows 2(l%4), +1; col l/4) instead.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // ---------------------------------------------------------------------------
 // global -> shared
 // ---------------------------------------------------------------------------
 
 // Start the copy of the ROWS x COLS tile at (r0, c0) of a row-major matrix g
-// (row pitch ld) into s (row pitch SP), zero-filling rows >= rows_end and
-// columns >= cols_end. vec: 16-byte copies, which needs ld % 4 == 0 and g
-// 16-byte aligned (then cols_end, the matrix width or a multiple of BK, is
-// a multiple of 4 and a 4-wide run is wholly inside or outside).
-template <int ROWS, int COLS, int SP, int THREADS>
-__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g, int ld,
-                                          int r0, int c0, int rows_end, int cols_end,
-                                          bool vec) {
-  if (vec) {
-    constexpr int RUNS = COLS / 4;
+// (row pitch ld elements) into s (row pitch SP), zero-filling rows >=
+// rows_end and columns >= cols_end, in copies of `bytes` (16, 4 or 2). A
+// width of 16 or 4 bytes needs ld and g's base aligned to it (then cols_end,
+// the matrix width or a multiple of BK, holds whole runs: a run is wholly
+// inside or outside).
+template <class E, int ROWS, int COLS, int SP, int THREADS>
+__device__ __forceinline__ void load_tile(E* s, const E* __restrict__ g, int ld, int r0, int c0,
+                                          int rows_end, int cols_end, int bytes) {
+  if (bytes == 16) {
+    constexpr int V = 16 / sizeof(E), RUNS = COLS / V;
     static_assert((ROWS * RUNS) % THREADS == 0, "16-byte copies per thread");
 #pragma unroll
     for (int l = 0; l < ROWS * RUNS / THREADS; ++l) {
       const int idx = threadIdx.x + l * THREADS;
-      const int r = idx / RUNS, c = (idx % RUNS) * 4;
+      const int r = idx / RUNS, c = (idx % RUNS) * V;
       const bool ok = r0 + r < rows_end && c0 + c < cols_end;
       cp_async16(s + r * SP + c, ok ? g + (size_t)(r0 + r) * ld + (c0 + c) : g, ok);
     }
-  } else {
-    static_assert((ROWS * COLS) % THREADS == 0, "4-byte copies per thread");
+  } else if (sizeof(E) == 4 || bytes == 4) {
+    constexpr int V = 4 / sizeof(E), RUNS = COLS / V;
+    static_assert((ROWS * RUNS) % THREADS == 0, "4-byte copies per thread");
 #pragma unroll
-    for (int l = 0; l < ROWS * COLS / THREADS; ++l) {
+    for (int l = 0; l < ROWS * RUNS / THREADS; ++l) {
       const int idx = threadIdx.x + l * THREADS;
-      const int r = idx / COLS, c = idx % COLS;
+      const int r = idx / RUNS, c = (idx % RUNS) * V;
       const bool ok = r0 + r < rows_end && c0 + c < cols_end;
       cp_async4(s + r * SP + c, ok ? g + (size_t)(r0 + r) * ld + (c0 + c) : g, ok);
+    }
+  } else {
+    // 2-byte elements on an odd pitch: every load, then every store
+    constexpr int N = ROWS * COLS / THREADS;
+    static_assert((ROWS * COLS) % THREADS == 0, "2-byte copies per thread");
+    const uint16_t* gb = reinterpret_cast<const uint16_t*>(g);
+    uint16_t* sb = reinterpret_cast<uint16_t*>(s);
+    uint16_t v[N];
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      const int idx = threadIdx.x + l * THREADS;
+      const int r = idx / COLS, c = idx % COLS;
+      v[l] = r0 + r < rows_end && c0 + c < cols_end ? gb[(size_t)(r0 + r) * ld + (c0 + c)] : 0;
+    }
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      const int idx = threadIdx.x + l * THREADS;
+      sb[(idx / COLS) * SP + idx % COLS] = v[l];
     }
   }
 }
 
 // A K-major: a is (M, K) with pitch lda; A M-major: a is (K, M), the
 // product uses its transpose. b is (K, N) with pitch ldb.
-template <class T, bool A_KMAJOR>
-__device__ __forceinline__ void load_stage(float* sa, float* sb, const float* a, int lda,
-                                           bool a_vec, const float* b, int ldb, bool b_vec,
-                                           int M, int N, int m0, int n0, int k0, int k_end) {
+template <class T, class E, bool A_KMAJOR>
+__device__ __forceinline__ void load_stage(E* sa, E* sb, const E* a, int lda, int a_bytes,
+                                           const E* b, int ldb, int b_bytes, int M, int N, int m0,
+                                           int n0, int k0, int k_end) {
+  using R = Ring<T, E>;
   if constexpr (A_KMAJOR) {
-    load_tile<T::BM, T::BK, T::A_KMAJ_PITCH, T::THREADS>(sa, a, lda, m0, k0, M, k_end, a_vec);
+    load_tile<E, T::BM, T::BK, R::A_KMAJ_PITCH, T::THREADS>(sa, a, lda, m0, k0, M, k_end,
+                                                            a_bytes);
   } else {
-    load_tile<T::BK, T::BM, T::A_MMAJ_PITCH, T::THREADS>(sa, a, lda, k0, m0, k_end, M, a_vec);
+    load_tile<E, T::BK, T::BM, R::A_MMAJ_PITCH, T::THREADS>(sa, a, lda, k0, m0, k_end, M,
+                                                            a_bytes);
   }
-  load_tile<T::BK, T::BN, T::B_PITCH, T::THREADS>(sb, b, ldb, k0, n0, k_end, N, b_vec);
+  load_tile<E, T::BK, T::BN, R::B_PITCH, T::THREADS>(sb, b, ldb, k0, n0, k_end, N, b_bytes);
 }
 
 // ---------------------------------------------------------------------------
@@ -184,6 +273,7 @@ __device__ __forceinline__ void load_stage(float* sa, float* sb, const float* a,
 template <class T, bool A_KMAJOR>
 __device__ __forceinline__ void mma_stage(const float* sa, const float* sb, int wm0, int wn0,
                                           float (&acc)[T::MT][T::NT][4]) {
+  using R = Ring<T, float>;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -194,27 +284,27 @@ __device__ __forceinline__ void mma_stage(const float* sa, const float* sb, int 
       const int r = wm0 + i * 16 + g;
       float v[4];
       if constexpr (A_KMAJOR) {
-        const float* q = sa + r * T::A_KMAJ_PITCH + kk + t;
+        const float* q = sa + r * R::A_KMAJ_PITCH + kk + t;
         v[0] = q[0];
-        v[1] = q[8 * T::A_KMAJ_PITCH];
+        v[1] = q[8 * R::A_KMAJ_PITCH];
         v[2] = q[4];
-        v[3] = q[8 * T::A_KMAJ_PITCH + 4];
+        v[3] = q[8 * R::A_KMAJ_PITCH + 4];
       } else {
-        const float* q = sa + (kk + t) * T::A_MMAJ_PITCH + r;
+        const float* q = sa + (kk + t) * R::A_MMAJ_PITCH + r;
         v[0] = q[0];
         v[1] = q[8];
-        v[2] = q[4 * T::A_MMAJ_PITCH];
-        v[3] = q[4 * T::A_MMAJ_PITCH + 8];
+        v[2] = q[4 * R::A_MMAJ_PITCH];
+        v[3] = q[4 * R::A_MMAJ_PITCH + 8];
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) split_tf32(v[e], ahi[i][e], alo[i][e]);
     }
 #pragma unroll
     for (int j = 0; j < T::NT; ++j) {
-      const float* q = sb + (kk + t) * T::B_PITCH + wn0 + j * 8 + g;
+      const float* q = sb + (kk + t) * R::B_PITCH + wn0 + j * 8 + g;
       uint32_t bhi[2], blo[2];
       split_tf32(q[0], bhi[0], blo[0]);
-      split_tf32(q[4 * T::B_PITCH], bhi[1], blo[1]);
+      split_tf32(q[4 * R::B_PITCH], bhi[1], blo[1]);
 #pragma unroll
       for (int i = 0; i < T::MT; ++i) {
         mma_tf32(acc[i][j], alo[i], bhi);
@@ -225,15 +315,56 @@ __device__ __forceinline__ void mma_stage(const float* sa, const float* sb, int 
   }
 }
 
-// acc = A[m0:m0+BM, k_begin:k_end] @ B[k_begin:k_end, n0:n0+BN] for this
-// thread's fragments, through the cp.async ring in dynamic shared memory.
+// acc += the warp's WM x WN sub-tile of (A stage) x (B stage), bf16.
+// Fragments of m16n8k16 (g = lane/4, t = lane%4, pairs of bf16 per
+// register): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8,
+// 2t+8..); b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g). One ldmatrix.x4 gives
+// an A fragment (the four 8x8 quarters of the 16x16 tile, q = lane/8 at
+// rows +8(q&1), columns +8(q>>1)), or the B fragments of two neighbouring
+// 8-column tiles (k +8(q&1), n +8(q>>1)).
 template <class T, bool A_KMAJOR>
-__device__ __forceinline__ void gemm_mainloop(float* smem, const float* a, int lda, bool a_vec,
-                                              const float* b, int ldb, bool b_vec, int M, int N,
+__device__ __forceinline__ void mma_stage(const bf16* sa, const bf16* sb, int wm0, int wn0,
+                                          float (&acc)[T::MT][T::NT][4]) {
+  using R = Ring<T, bf16>;
+  const int lane = threadIdx.x & 31;
+  const int q = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < T::BK; kk += 16) {
+    uint32_t a[T::MT][4];
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i) {
+      const int m = wm0 + i * 16 + (q & 1) * 8;
+      if constexpr (A_KMAJOR)
+        ldmatrix_x4(a[i], sa + (m + r8) * R::A_KMAJ_PITCH + kk + (q >> 1) * 8);
+      else
+        ldmatrix_x4_trans(a[i], sa + (kk + (q >> 1) * 8 + r8) * R::A_MMAJ_PITCH + m);
+    }
+#pragma unroll
+    for (int j = 0; j < T::NT; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sb + (kk + (q & 1) * 8 + r8) * R::B_PITCH + wn0 + j * 8 +
+                               (q >> 1) * 8);
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        mma_bf16(acc[i][j], a[i], b[0], b[1]);
+        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc = A[m0:m0+BM, k_begin:k_end] @ B[k_begin:k_end, n0:n0+BN] for this
+// thread's fragments, through the cp.async ring in dynamic shared memory
+// (E = float: 3xTF32; E = bf16: one bf16 pass). a_bytes, b_bytes: the copy
+// width of each operand (16, 4 or, for bf16, 2).
+template <class T, class E, bool A_KMAJOR>
+__device__ __forceinline__ void gemm_mainloop(E* smem, const E* a, int lda, int a_bytes,
+                                              const E* b, int ldb, int b_bytes, int M, int N,
                                               int m0, int n0, int k_begin, int k_end,
                                               float (&acc)[T::MT][T::NT][4]) {
-  constexpr int AS = A_KMAJOR ? T::A_KMAJ_STAGE : T::A_MMAJ_STAGE;
-  constexpr int STAGE = AS + T::B_STAGE;
+  using R = Ring<T, E>;
+  constexpr int AS = A_KMAJOR ? R::A_KMAJ_STAGE : R::A_MMAJ_STAGE;
+  constexpr int STAGE = AS + R::B_STAGE;
   const int warp = threadIdx.x >> 5;
   const int wm0 = (warp / T::WARPS_N) * T::WM, wn0 = (warp % T::WARPS_N) * T::WN;
 #pragma unroll
@@ -247,8 +378,8 @@ __device__ __forceinline__ void gemm_mainloop(float* smem, const float* a, int l
 #pragma unroll
   for (int s = 0; s < T::STAGES - 1; ++s) {
     if (s < ktiles)
-      load_stage<T, A_KMAJOR>(smem + s * STAGE, smem + s * STAGE + AS, a, lda, a_vec, b, ldb,
-                              b_vec, M, N, m0, n0, k_begin + s * T::BK, k_end);
+      load_stage<T, E, A_KMAJOR>(smem + s * STAGE, smem + s * STAGE + AS, a, lda, a_bytes, b, ldb,
+                                 b_bytes, M, N, m0, n0, k_begin + s * T::BK, k_end);
     cp_async_commit();   // one group per stage, empty or not, keeps the count
   }
   for (int kt = 0; kt < ktiles; ++kt) {
@@ -256,12 +387,12 @@ __device__ __forceinline__ void gemm_mainloop(float* smem, const float* a, int l
     __syncthreads();                  // everyone's did; and tile kt-1 is consumed
     const int next = kt + T::STAGES - 1;
     if (next < ktiles) {
-      float* st = smem + (next % T::STAGES) * STAGE;   // the slot of tile kt-1
-      load_stage<T, A_KMAJOR>(st, st + AS, a, lda, a_vec, b, ldb, b_vec, M, N, m0, n0,
-                              k_begin + next * T::BK, k_end);
+      E* st = smem + (next % T::STAGES) * STAGE;   // the slot of tile kt-1
+      load_stage<T, E, A_KMAJOR>(st, st + AS, a, lda, a_bytes, b, ldb, b_bytes, M, N, m0, n0,
+                                 k_begin + next * T::BK, k_end);
     }
     cp_async_commit();
-    const float* st = smem + (kt % T::STAGES) * STAGE;
+    const E* st = smem + (kt % T::STAGES) * STAGE;
     mma_stage<T, A_KMAJOR>(st, st + AS, wm0, wn0, acc);
   }
   cp_async_wait<0>();
@@ -273,19 +404,17 @@ __device__ __forceinline__ void gemm_mainloop(float* smem, const float* a, int l
 // 128-byte rows, and f can issue all U elements' loads before any store (a
 // store through one pointer would otherwise hold back every later load
 // through another that might alias it). The fragments (c0 (g, 2t),
-// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1) of each mma tile) go through
-// shared memory first, reusing the ring: a BM x BN tile of pitch BN + 8,
-// written as float2, free of bank conflicts per half-warp (8g + 2t). f
-// checks the matrix bounds itself.
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1) of each mma tile, the same
+// for m16n8k8 and m16n8k16) go through shared memory first, reusing the
+// ring (smem_bytes makes room): a BM x BN tile of pitch BN + 8, written as
+// float2, free of bank conflicts per half-warp (8g + 2t). f checks the
+// matrix bounds itself.
 template <class T, int U, class F>
 __device__ __forceinline__ void epilogue(float* smem, int m0, int n0,
                                          const float (&acc)[T::MT][T::NT][4], F&& f) {
   constexpr int CP = T::BN + 8;
   constexpr int ELEMS = T::BM * T::BN / T::THREADS;   // per thread
   static_assert(ELEMS % U == 0, "whole calls");
-  static_assert(T::BM * CP <= T::STAGES * (T::A_MMAJ_STAGE + T::B_STAGE) &&
-                    T::BM * CP <= T::STAGES * (T::A_KMAJ_STAGE + T::B_STAGE),
-                "the output tile fits in the ring");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp / T::WARPS_N) * T::WM + (lane >> 2);
   const int c0 = (warp % T::WARPS_N) * T::WN + 2 * (lane & 3);

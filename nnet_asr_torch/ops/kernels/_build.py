@@ -40,6 +40,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, w, b, y, M, N, K, act, tile, x_vec, w_vec, stream
     "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the same, bf16; x_bytes, w_bytes in place of x_vec, w_vec
+    "matmul_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # logits, labels, err, part, ticket, xent, corr, B, C, variant, blocks,
     # threads, vpt, vec, stream
     "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -47,6 +49,9 @@ SIGNATURES = {
     # x_vec, e_vec, stream
     "wgrad_momentum_update_f32": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _P],
+    # the same, bf16 x and e; x_bytes, e_bytes in place of x_vec, e_vec
+    "wgrad_momentum_update_bf16": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P],
 }
 
 _lock = threading.Lock()

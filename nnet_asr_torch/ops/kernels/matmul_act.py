@@ -1,25 +1,31 @@
-"""Fused affine + sigmoid: y = sigmoid(x @ W + b), f32.
+"""Fused affine + sigmoid: y = sigmoid(x @ W + b), f32 or bf16 operands.
 
 Replaces the TPU kernel ``nnet_asr_tpu/ops/pallas/matmul_act.py``
 (``matmul_act`` / custom-VJP ``affine_sigmoid``) with the hand-written
-CUDA kernel ``nnet_asr_torch/csrc/matmul_act.cu``: the f32-accurate
-tensor-core GEMM of ``csrc/tile_gemm.cuh`` (3xTF32 ``mma.sync`` fed by a
-``cp.async`` ring) with the bias + sigmoid epilogue in registers. It is
-bound by operations, not bytes, at the main path's shapes (960x598->1024
-on example-01's MLP3, 1024x{1024,4096}->4096 on the production stack).
-``tile_plan.plan`` picks the tile and each operand's copy width from the
-shapes and pointers.
+CUDA kernel ``nnet_asr_torch/csrc/matmul_act.cu``: the tensor-core GEMM of
+``csrc/tile_gemm.cuh`` (3xTF32 ``mma.sync`` for f32 operands, f32-accurate;
+one bf16 ``mma.sync`` pass for bf16 ones, accumulated in f32) fed by a
+``cp.async`` ring, with the bias + sigmoid epilogue in registers, in f32.
+As in the TPU kernel, ``y`` has x's dtype: bf16 y is the f32 result rounded
+once. It is bound by operations, not bytes, at the main path's shapes
+(960x598->1024 on example-01's MLP3, 1024x{1024,4096}->4096 on the
+production stack). ``tile_plan.plan`` picks the tile and each operand's
+copy width from the shapes, pointers and element size.
 
 ``matmul_act`` dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (``matmul_act_plain``), a CUDA tensor launches the
-kernel or raises — there is no fallback. ``matmul_act.launches`` counts
-kernel launches. ``affine_sigmoid`` is the ``autograd.Function``; its
-backward is the JAX ``_bwd``: the elementwise ``dz`` in plain torch, and
-``dx``, ``dW`` by ``torch.matmul``, which JAX also left outside Pallas.
-On the momentum path the backward instead hands ``(x, dz)`` to a
+kernel or raises — there is no fallback, and x, w and b must share one
+dtype. ``matmul_act.launches`` counts f32 launches,
+``matmul_act.launches_bf16`` bf16 ones. ``affine_sigmoid`` is the
+``autograd.Function``; its backward is the JAX ``_bwd``, roundings
+included: the elementwise ``dz`` in f32, rounded to x's dtype, then ``dx``
+and ``dW`` by ``torch.matmul`` (which JAX also left outside Pallas; at bf16
+through ``bf16_matmul``, f32 accumulation), ``db`` summed from the f32
+``dz``. On the momentum path the backward instead hands ``(x, dz)`` to a
 weight-update hook, which launches the fused wgrad+momentum kernel
 (``ops/kernels/sgd_fused.py``), and forms no ``dW``; ``affine`` is the
-same for a BiasedLinearity without a sigmoid.
+same for a BiasedLinearity without a sigmoid (at bf16 ``x @ w`` and ``+ b``
+each rounded, as XLA computes the JAX bf16 mode's output layer).
 """
 
 from __future__ import annotations
@@ -29,11 +35,30 @@ import torch
 from . import _build, tile_plan
 
 ACTS = {"none": 0, "sigmoid": 1}
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for bf16 operands, accumulated in f32 and rounded to bf16
+    once, as JAX's ``preferred_element_type=float32`` dots and XLA's bf16
+    dots give it. On the CPU: an f32 product of the exact upcast values. On
+    CUDA: cuBLAS's bf16 GEMM with its reduced-precision reductions switched
+    off (``allow_bf16_reduced_precision_reduction``, a process-wide switch
+    that is on by default), so every partial sum stays f32."""
+    if a.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        return a @ b
+    return (a.float() @ b.float()).to(torch.bfloat16)
 
 
 def matmul_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      act: str = "sigmoid") -> torch.Tensor:
-    """The plain PyTorch version of the kernel."""
+    """The plain PyTorch version of the kernel. bf16 operands: the f32
+    product plus the f32 bias, the sigmoid in f32, then one rounding to
+    bf16 (a bf16 ``x @ w + b`` would round twice)."""
+    if x.dtype == torch.bfloat16:
+        z = x.float() @ w.float() + b.float()
+        return (torch.sigmoid(z) if act == "sigmoid" else z).to(torch.bfloat16)
     z = x @ w + b
     return torch.sigmoid(z) if act == "sigmoid" else z
 
@@ -41,9 +66,11 @@ def matmul_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _check(x, w, b, act):
     if act not in ACTS:
         raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"matmul_act: x must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"matmul_act: {name} must be float32, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"matmul_act: {name} is {t.dtype}, x is {x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"matmul_act: {name} must be contiguous")
         if t.device != x.device:
@@ -60,7 +87,8 @@ def _check(x, w, b, act):
 
 def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                act: str = "sigmoid") -> torch.Tensor:
-    """act(x @ w + b): x (M,K), w (K,N), b (N,) float32."""
+    """act(x @ w + b): x (M,K), w (K,N), b (N,), all float32 or all
+    bfloat16; y at their dtype."""
     if x.device.type == "cpu":
         return matmul_act_plain(x, w, b, act)
     if x.device.type != "cuda":
@@ -70,39 +98,50 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     M, K = x.shape
     N = w.shape[1]
     p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=x.data_ptr(),
-                       b_ptr=w.data_ptr())
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+                       b_ptr=w.data_ptr(), elem=x.element_size())
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.matmul_act_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                              y.data_ptr(), M, N, K, ACTS[act], p.tile, int(p.a_vec),
-                              int(p.b_vec), stream)
-    _build.check(code, "matmul_act_f32")
-    matmul_act.launches += 1
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act], p.tile)
+    if x.dtype == torch.bfloat16:
+        _build.check(lib.matmul_act_bf16(*args, p.a_bytes, p.b_bytes, stream),
+                     "matmul_act_bf16")
+        matmul_act.launches_bf16 += 1
+    else:
+        _build.check(lib.matmul_act_f32(*args, int(p.a_vec), int(p.b_vec), stream),
+                     "matmul_act_f32")
+        matmul_act.launches += 1
     return y
 
 
 matmul_act.launches = 0
+matmul_act.launches_bf16 = 0
 
 
 def _affine_backward(ctx, x, w, dz):
     """(dx, dw, db, None) of ``z = x @ w + b`` from the pre-activation
-    error ``dz``. With a weight-update hook, the hook gets ``(x, dz)``
-    after ``dx`` has used the old ``w``, and ``w`` gets no gradient."""
-    dx = dz @ w.T if ctx.needs_input_grad[0] else None
-    db = dz.sum(0) if ctx.needs_input_grad[2] else None
+    error ``dz``, rounded as JAX ``_bwd`` rounds: ``dz`` to x's dtype for
+    the two GEMMs, each product to x's dtype once, ``db`` summed from
+    ``dz`` before that rounding. With a weight-update hook, the hook gets
+    ``(x, dz)`` after ``dx`` has used the old ``w``, and ``w`` gets no
+    gradient."""
+    dzc = dz.to(x.dtype)
+    mm = bf16_matmul if x.dtype == torch.bfloat16 else torch.matmul
+    dx = mm(dzc, w.T) if ctx.needs_input_grad[0] else None
+    db = dz.sum(0).to(x.dtype) if ctx.needs_input_grad[2] else None
     if ctx.update is not None:
-        ctx.update(x, dz)
+        ctx.update(x, dzc)
         return dx, None, db, None
-    dw = x.T @ dz if ctx.needs_input_grad[1] else None
+    dw = mm(x.T, dzc) if ctx.needs_input_grad[1] else None
     return dx, dw, db, None
 
 
 class AffineSigmoid(torch.autograd.Function):
     """y = sigmoid(x @ w + b) through the fused kernel, JAX ``_bwd`` backward.
 
-    ``update`` is None or a callable ``update(x, dz)`` that updates ``w``
-    in place from the layer's input and pre-activation error (the
-    Trainer's momentum step through the fused wgrad+momentum kernel)."""
+    ``update`` is None or a callable ``update(x, dz)`` that updates the
+    layer's f32 master weight in place from the layer's input and
+    pre-activation error (the Trainer's momentum step through the fused
+    wgrad+momentum kernel)."""
 
     @staticmethod
     def forward(ctx, x, w, b, update):
@@ -114,18 +153,22 @@ class AffineSigmoid(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        return _affine_backward(ctx, x, w, g * y * (1.0 - y))
+        yf = y.float()
+        return _affine_backward(ctx, x, w, g.float() * yf * (1.0 - yf))
 
 
 class Affine(torch.autograd.Function):
     """z = x @ w + b in plain torch (a BiasedLinearity without a sigmoid,
     e.g. the output layer, which the JAX trainer leaves outside Pallas)
-    with the weight-update hook of ``AffineSigmoid``."""
+    with the weight-update hook of ``AffineSigmoid``. At bf16 the product
+    and the sum are each rounded to bf16, as XLA computes them."""
 
     @staticmethod
     def forward(ctx, x, w, b, update):
         ctx.save_for_backward(x, w)
         ctx.update = update
+        if x.dtype == torch.bfloat16:
+            return bf16_matmul(x, w) + b
         return x @ w + b
 
     @staticmethod
@@ -139,5 +182,5 @@ def affine_sigmoid(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return AffineSigmoid.apply(x, w, b, update)
 
 
-def affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, update) -> torch.Tensor:
+def affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, update=None) -> torch.Tensor:
     return Affine.apply(x, w, b, update)

@@ -10,9 +10,12 @@ matrix ``p`` with velocity ``v``::
 from the layer's input ``x`` (B, In) and its pre-activation error ``e``
 (B, Out), so the gradient never reaches device memory. It is the momentum
 branch of ``train.sgd.apply_updates`` for a matrix (``a = lr/N``); the L2
-decay stays outside, after it. The GEMM is the f32-accurate tensor-core
-main loop of ``csrc/tile_gemm.cuh`` (3xTF32 ``mma.sync``, ``cp.async``
-ring); ``tile_plan.plan`` picks the tile, the copy widths and, where the
+decay stays outside, after it. The GEMM is the tensor-core main loop of
+``csrc/tile_gemm.cuh`` (``cp.async`` ring; 3xTF32 ``mma.sync`` for f32
+``x`` and ``e``, f32-accurate; one bf16 ``mma.sync`` pass for bf16 ones,
+the bf16 compute mode's, where ``g`` is accumulated in f32 and rounded to
+bf16 once after the whole sum, as JAX's bf16 ``dW``, before the f32
+update). ``tile_plan.plan`` picks the tile, the copy widths and, where the
 output tiles alone leave SMs idle (example-01's 960x1024->135), a split of
 the bunch: the splits' f32 partials go to a scratch buffer allocated here
 and a second kernel sums them in a fixed order before the epilogue, so
@@ -24,8 +27,9 @@ updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
 ``wgrad_momentum_update`` checks its operands, then dispatches on their
 device: CPU tensors take the plain PyTorch version
 (``wgrad_momentum_update_plain``), CUDA tensors launch the kernel or raise —
-there is no fallback. ``wgrad_momentum_update.launches`` counts kernel
-launches.
+there is no fallback. ``wgrad_momentum_update.launches`` counts launches
+with f32 ``x`` and ``e``, ``wgrad_momentum_update.launches_bf16`` those with
+bf16 ones.
 """
 
 from __future__ import annotations
@@ -34,24 +38,30 @@ import torch
 
 from . import _build, tile_plan
 
-_VDTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @torch.no_grad()
 def wgrad_momentum_update_plain(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
                                 v: torch.Tensor, a: float, m: float) -> None:
     """The plain PyTorch version: the same update, in place, in f32
-    (``v`` is stored back at its own dtype)."""
-    corr = x.T @ e + v.float() * m
+    (``v`` is stored back at its own dtype); bf16 ``x`` and ``e`` are
+    multiplied in f32 and ``g`` rounded to bf16 before the update."""
+    g = x.T.float() @ e.float()
+    if x.dtype == torch.bfloat16:
+        g = g.to(torch.bfloat16).float()
+    corr = g + v.float() * m
     v.copy_(corr)
     p.sub_(corr * a)
 
 
 def _check(x, e, p, v):
-    for name, t in (("x", x), ("e", e), ("p", p)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"wgrad_momentum_update: {name} must be float32, got {t.dtype}")
-    if v.dtype not in _VDTYPES:
+    if p.dtype != torch.float32:
+        raise TypeError(f"wgrad_momentum_update: p must be float32, got {p.dtype}")
+    if x.dtype not in _DTYPES or e.dtype != x.dtype:
+        raise TypeError(f"wgrad_momentum_update: x and e must both be float32 or both "
+                        f"bfloat16, got {x.dtype} and {e.dtype}")
+    if v.dtype not in _DTYPES:
         raise TypeError(f"wgrad_momentum_update: v must be float32 or bfloat16, got {v.dtype}")
     for name, t in (("x", x), ("e", e), ("p", p), ("v", v)):
         if not t.is_contiguous():
@@ -70,8 +80,9 @@ def _check(x, e, p, v):
 def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
                           v: torch.Tensor, a: float, m: float) -> None:
     """In place: v <- x^T e + m*v, then p <- p - a*v (before v's rounding
-    to its dtype). x (B,In), e (B,Out), p (In,Out) float32; v (In,Out)
-    float32 or bfloat16."""
+    to its dtype). x (B,In) and e (B,Out) both float32 or both bfloat16
+    (then x^T e is rounded to bfloat16 first); p (In,Out) float32; v
+    (In,Out) float32 or bfloat16."""
     _check(x, e, p, v)
     if p.device.type == "cpu":
         return wgrad_momentum_update_plain(x, e, p, v, a, m)
@@ -81,21 +92,28 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     B, In = x.shape
     Out = e.shape[1]
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
-                        b_ptr=e.data_ptr(), split_k=True)
+                        b_ptr=e.data_ptr(), split_k=True, elem=x.element_size())
     part = (torch.empty((pl.splits, In, Out), dtype=torch.float32, device=p.device)
             if pl.splits > 1 else None)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    code = lib.wgrad_momentum_update_f32(
-        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(),
-        None if part is None else part.data_ptr(), float(a), float(m), B, In, Out,
-        int(v.dtype == torch.bfloat16), pl.tile, pl.splits, pl.k_chunk, int(pl.a_vec),
-        int(pl.b_vec), stream)
-    _build.check(code, "wgrad_momentum_update_f32")
+    args = (x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(),
+            None if part is None else part.data_ptr(), float(a), float(m), B, In, Out,
+            int(v.dtype == torch.bfloat16), pl.tile, pl.splits, pl.k_chunk)
+    if x.dtype == torch.bfloat16:
+        _build.check(lib.wgrad_momentum_update_bf16(*args, pl.a_bytes, pl.b_bytes, stream),
+                     "wgrad_momentum_update_bf16")
+    else:
+        _build.check(lib.wgrad_momentum_update_f32(*args, int(pl.a_vec), int(pl.b_vec), stream),
+                     "wgrad_momentum_update_f32")
     # written through a raw pointer: bump the versions as an in-place op
     # would, so autograd refuses a saved copy of p or v from before
     for t in (p, v):
         torch.autograd.graph.increment_version(t)
-    wgrad_momentum_update.launches += 1
+    if x.dtype == torch.bfloat16:
+        wgrad_momentum_update.launches_bf16 += 1
+    else:
+        wgrad_momentum_update.launches += 1
 
 
 wgrad_momentum_update.launches = 0
+wgrad_momentum_update.launches_bf16 = 0

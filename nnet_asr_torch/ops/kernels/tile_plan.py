@@ -11,12 +11,16 @@ tile shapes. ``plan`` picks, from the shapes and pointers alone:
   tiles, 960 x 598 -> 1024 has 160), the contraction is cut into
   ``splits`` chunks of ``k_chunk`` rows (a multiple of BK, at least
   ``MIN_K_STEPS`` steps each) to reach that;
-- per operand, 16-byte or 4-byte asynchronous copies: 16 bytes needs a row
-  pitch that is a multiple of 4 floats and a 16-byte aligned base pointer
-  (the main path's widths 598 and 135 are neither).
+- per operand, the copy width: 16-byte asynchronous copies need a row
+  pitch that is a multiple of 16 bytes and a 16-byte aligned base pointer
+  (the main path's widths 598 and 135 are neither), else 4-byte ones a
+  pitch and base in whole 4-byte words; a bf16 matrix with an odd pitch
+  (135 columns: rows of 270 bytes, the weight gradient of MLP3's output
+  layer) gets 2-byte plain loads, since ``cp.async`` has no 2-byte size.
 
-Pure Python, so the CPU tests hold every main-path shape to its plan; the
-indices of ``BIG``/``SMALL`` and ``BK`` match ``BigTile``/``SmallTile``.
+The bf16 main loop shares the tiles, ``BK`` and the split. Pure Python, so
+the CPU tests hold every main-path shape to its plan; the indices of
+``BIG``/``SMALL`` and ``BK`` match ``BigTile``/``SmallTile``.
 """
 
 from __future__ import annotations
@@ -38,8 +42,18 @@ class Plan(NamedTuple):
     bn: int
     splits: int          # 1: no split-K
     k_chunk: int         # rows of the contraction per split
-    a_vec: bool          # 16-byte copies of A (else 4-byte)
-    b_vec: bool          # 16-byte copies of B
+    a_bytes: int         # copy width of A: 16, 4 or (2-byte elements) 2
+    b_bytes: int         # copy width of B
+
+    @property
+    def a_vec(self) -> bool:
+        """16-byte copies of A."""
+        return self.a_bytes == 16
+
+    @property
+    def b_vec(self) -> bool:
+        """16-byte copies of B."""
+        return self.b_bytes == 16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -51,17 +65,30 @@ def tile_count(M: int, N: int, tile: int) -> int:
     return _cdiv(M, bm) * _cdiv(N, bn)
 
 
+def copy_bytes(pitch: int, ptr: int, elem: int = 4) -> int:
+    """The widest copy (16, 4 or ``elem`` bytes) that describes every row
+    of a matrix with row pitch ``pitch`` elements of ``elem`` bytes at
+    ``ptr``."""
+    for width in (16, 4):
+        if (pitch * elem) % width == 0 and ptr % width == 0:
+            return width
+    return elem
+
+
 def vec16(pitch: int, ptr: int) -> bool:
-    """Whether 16-byte copies can describe a matrix's rows."""
-    return pitch % 4 == 0 and ptr % 16 == 0
+    """Whether 16-byte copies can describe an f32 matrix's rows."""
+    return copy_bytes(pitch, ptr) == 16
 
 
 def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
-         b_ptr: int = 0, split_k: bool = False) -> Plan:
-    """The plan of an (M, K) x (K, N) product whose operands have row
-    pitches ``a_pitch``, ``b_pitch`` (floats) at ``a_ptr``, ``b_ptr``."""
+         b_ptr: int = 0, split_k: bool = False, elem: int = 4) -> Plan:
+    """The plan of an (M, K) x (K, N) product whose operands, of ``elem``
+    bytes an element (4: f32, 2: bf16), have row pitches ``a_pitch``,
+    ``b_pitch`` (elements) at ``a_ptr``, ``b_ptr``."""
     if min(M, N, K) < 1:
         raise ValueError(f"empty GEMM {M}x{K}->{N}")
+    if elem not in (2, 4):
+        raise ValueError(f"element size {elem}: want 4 (f32) or 2 (bf16)")
     tile = BIG if tile_count(M, N, BIG) >= SM_COUNT else SMALL
     tiles = tile_count(M, N, tile)
     splits, k_chunk = 1, K
@@ -74,4 +101,5 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
         if splits == 1:
             k_chunk = K
     bm, bn = TILES[tile]
-    return Plan(tile, bm, bn, splits, k_chunk, vec16(a_pitch, a_ptr), vec16(b_pitch, b_ptr))
+    return Plan(tile, bm, bn, splits, k_chunk, copy_bytes(a_pitch, a_ptr, elem),
+                copy_bytes(b_pitch, b_ptr, elem))

@@ -12,8 +12,9 @@ epoch passes ``--MOMENTUM`` to tnet, so a nonzero ``--momentum`` trains
 through the fused wgrad+momentum kernel.
 
 ``main(argv, device)`` passes ``device`` to ``tnet.main`` (None: tnet's
-``--GPUSELECT`` default, cuda:0; the tests pass "cpu"). ``--resident``,
-``--mesh`` and a ``--compute-dtype`` other than f32 raise
+``--GPUSELECT`` default, cuda:0; the tests pass "cpu"). ``--compute-dtype``
+(or COMPUTE_DTYPE) other than f32 is passed on to every tnet run as
+``--COMPUTEDTYPE``. ``--resident`` and ``--mesh`` raise
 NotImplementedError naming the ROADMAP.md item that brings them.
 
     python -m nnet_asr_torch.tools.scheduler --nn-init init.mmf \\
@@ -94,8 +95,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
         raise not_ported("--resident", "queue 1 item 10")
     if args.mesh:
         raise not_ported("--mesh", "queue 1 item 14")
-    if args.compute_dtype not in (None, "f32"):
-        raise not_ported(f"--compute-dtype={args.compute_dtype}", "queue 1 item 7")
 
     common = [
         "-m", args.phonelist,
@@ -107,6 +106,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
     ]
     if args.feature_transform:
         common.append("--FEATURETRANSFORM=" + args.feature_transform)
+    if args.compute_dtype not in (None, "f32"):
+        common.append("--COMPUTEDTYPE=" + args.compute_dtype)
 
     def parse_accu(log: str) -> float:
         hits = re.findall(r"correct\[([\d.]+)%\]", log)

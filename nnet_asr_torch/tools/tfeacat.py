@@ -4,14 +4,15 @@ Propagates utterances through transform + network on one device and writes
 HTK PARMKIND_USER feature files through the port's ``io/htk.py``, with the
 decode-path post-processing: ``--GMMBYPASS`` maps posteriors to
 ``sqrt(-2·log p)`` pseudo-features for HVite's GMM-bypass trick
-(TFeaCat.cc:244-251), ``--LOGPOSTERIOR`` takes the log. The stack runs in
-f32 through the port's chunked halo pipeline, 16 utterances and one
-device-to-host copy at a time.
+(TFeaCat.cc:244-251), ``--LOGPOSTERIOR`` takes the log. The stack runs
+through the port's chunked halo pipeline, 16 utterances and one
+device-to-host copy at a time, in f32, or with ``--BF16``/``--INT8`` with
+the pipeline's bf16 or int8 affine GEMMs (``train/pipeline.py``), as the
+JAX tool's inference modes.
 
 The device comes from ``--GPUSELECT`` as in the port's tnet (-1 means
 ``cuda:0``) and the run raises without CUDA; only ``main(argv,
-device="cpu")`` runs on the CPU. ``--BF16``/``--INT8`` raise
-NotImplementedError naming their ROADMAP.md item.
+device="cpu")`` runs on the CPU.
 
     python -m nnet_asr_torch.tools.tfeacat -H final.mmf -S cv.scp \\
         --FEATURETRANSFORM=transform --STARTFRMEXT=25 --ENDFRMEXT=25 \\
@@ -34,7 +35,6 @@ from .. import __version__
 from ..device import DeviceLike, gpuselect_device, resolve_device
 from ..models.network import Network
 from ..train.pipeline import TransformPipeline
-from . import not_ported
 
 OPTION_STRING = (
     " -D n   PRINTCONFIG=TRUE"
@@ -86,9 +86,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
         print()
     ui.check_command_line_param_use()
 
-    if bf16 or int8:
-        raise not_ported("--BF16/--INT8", "queue 1 item 5")
-
     transform = Network.read(p_transform) if p_transform else None
     net = Network.read(p_source_mmf) if p_source_mmf else None
     if net is None:
@@ -104,7 +101,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
 
     dev = gpuselect_device(gpuselect) if device is None else resolve_device(device)
     pipe = TransformPipeline(combined, feaparams["start_frm_ext"],
-                             feaparams["end_frm_ext"], device=dev)
+                             feaparams["end_frm_ext"], device=dev,
+                             compute_dtype="int8" if int8 else ("bf16" if bf16 else None))
 
     t0 = time.time()
     frames = 0

@@ -12,9 +12,11 @@ device="cpu")`` runs on the CPU, through the kernels' plain versions.
 tags in the per-class lines) and ``--L1`` (SparseLinearity layers) work as
 in the JAX tool. ``--SAVESTATE``/``--RESUMESTATE`` write and read the
 Trainer's npz state (parameters, velocities, stats) after and before the
-epoch, in the JAX tool's format. ``--COMPUTEDTYPE`` other than f32,
-``--MESH``, ``--DISTRIBUTED`` and ``--JAXPROFILE`` raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+epoch, in the JAX tool's format. ``--COMPUTEDTYPE=bf16|int8|int8pf|
+int8pfsr|int8full`` selects the Trainer's compute dtype, as in the JAX tool
+(``train/trainer.py`` says what each does). ``--MESH``, ``--DISTRIBUTED``
+and ``--JAXPROFILE`` raise NotImplementedError naming the ROADMAP.md item
+that brings them.
 
     python -m nnet_asr_torch.tools.tnet -H init.mmf -I labs.mlf -L '*/' \\
         -X lab -S train.scp -m label_map -n 0.008 --GRAD-DIV-FRM=F \\
@@ -122,8 +124,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
         ["f32", "bf16", "int8", "int8pf", "int8pfsr", "int8full"])
     ui.check_command_line_param_use()
 
-    if compute_dtype != "f32":
-        raise not_ported(f"--COMPUTEDTYPE={compute_dtype}", "queue 1 item 7")
     if mesh_spec or distributed:
         raise not_ported("--MESH/--DISTRIBUTED", "queue 1 item 14")
     if p_jaxprofile:
@@ -157,7 +157,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
                       lr_factors=SgdConfig.parse_factors(lr_factors),
                       velocity_dtype=(None if velocity_dtype == "f32"
                                       else velocity_dtype)),
-        confusion_mode=confusion_mode)
+        confusion_mode=confusion_mode,
+        compute_dtype=None if compute_dtype == "f32" else compute_dtype)
     trainer = Trainer(net, cfg, transform, feaparams["start_frm_ext"],
                       feaparams["end_frm_ext"], device=dev)
     if cfg.objective == "xent":

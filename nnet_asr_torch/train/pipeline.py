@@ -1,4 +1,4 @@
-"""Batched device-side feature-transform pipeline, f32
+"""Batched device-side feature-transform pipeline
 (port of nnet_asr_tpu/train/pipeline.py).
 
 The reference transforms one utterance at a time and trims the splice halo
@@ -12,8 +12,18 @@ extended block, so its value equals per-utterance transformation.
 
 Linear transforms fold to one splice + matmul (``ops.fold_affine``);
 others run layer by layer. The JAX package's shape buckets existed to bound
-XLA compiles and are gone: blocks here hold exactly the valid rows. The
-bf16 and int8 inference modes are still to come (ROADMAP.md queue 1 item 5).
+XLA compiles and are gone: blocks here hold exactly the valid rows.
+
+``compute_dtype`` selects the inference modes of JAX ``pipeline.py:45-134``
+(tfeacat ``--BF16``/``--INT8``; training keeps f32):
+
+- ``'bf16'``: the affine GEMMs take bf16 operands with f32 accumulation
+  (``bf16_matmul``). Folded: the spliced input and the folded matrix in
+  bf16, the product rounded to bf16, plus the f32 bias, giving f32. Layer
+  by layer: each BiasedLinearity as ``(x.bf16 @ W.bf16).float() + b``.
+- ``'int8'``: each affine GEMM on int8 operands with int32 accumulation:
+  W quantized per output channel once, x per tensor at each call, the
+  product scaled back by both scales (``int8_matmul``).
 """
 
 from __future__ import annotations
@@ -24,32 +34,98 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models.components import BiasedLinearity
 from ..models.network import Network
 from ..ops.fold_affine import fold_transform
+from ..ops.int8_train import scale
+from ..ops.kernels.matmul_act import bf16_matmul
+
+COMPUTE_DTYPES = (None, "bf16", "int8")
+
+
+def _quantize(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 W, its f32 scales): symmetric, per output channel (column)."""
+    s = scale(w, 0)[0]
+    return _quantize(w, s), s
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) @ int8 (K, N) -> int32 by ``torch._int_mm``. Its CUDA
+    path wants more than 16 rows and K and N multiples of 8 (MLP3's 598
+    and 135 are not): the operands are zero-padded to that and the product
+    cut back, which is exact in int32."""
+    M, K = a.shape
+    N = b.shape[1]
+    if a.device.type != "cuda":
+        return torch._int_mm(a, b)
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp, Np) != (M, K, N):
+        a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M))
+        b = torch.nn.functional.pad(b, (0, Np - N, 0, Kp - K))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:M, :N]
+
+
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """x @ W on the int8 path: x quantized with one scale, int32
+    accumulation, then scaled by x's scale times W's per-column scales."""
+    sx = scale(x)
+    return int_mm(_quantize(x, sx), wq).float() * (sx * ws)
 
 
 class TransformPipeline:
     def __init__(self, transform: Optional[Network], start_ext: int = 0,
-                 end_ext: int = 0, chunk: int = 2048, device: DeviceLike = "cpu"):
+                 end_ext: int = 0, chunk: int = 2048, device: DeviceLike = "cpu",
+                 compute_dtype: Optional[str] = None):
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {compute_dtype!r}")
         self.device = resolve_device(device)
         self.start_ext = start_ext
         self.end_ext = end_ext
         self.chunk = chunk
         self.transform = transform
+        self.compute_dtype = compute_dtype
         self._folded = None
+        self._qweights = {}       # int8, layer by layer: layer index -> (Wq, scales)
         if transform is not None:
             transform.to(self.device)
             folded = fold_transform(transform, self.device)
             if folded is not None:
                 sa, M, c = folded
+                if compute_dtype == "bf16":
+                    M = M.to(torch.bfloat16)
+                elif compute_dtype == "int8":
+                    M = quantize_weight(M)
                 self._folded = (sa.expand().to(self.device), M, c)
+            elif compute_dtype == "int8":
+                self._qweights = {i: quantize_weight(spec.weight)
+                                  for i, spec in enumerate(transform.layers)
+                                  if isinstance(spec, BiasedLinearity)}
 
     @torch.no_grad()
     def _apply_chunk(self, x: torch.Tensor) -> torch.Tensor:
+        mode = self.compute_dtype
         if self._folded is not None:
             expand, M, c = self._folded
-            return expand(x) @ M + c
-        return self.transform(x)
+            x = expand(x)
+            if mode == "int8":
+                return int8_matmul(x, *M) + c
+            if mode == "bf16":
+                return bf16_matmul(x.to(torch.bfloat16), M) + c   # bf16 + f32 -> f32
+            return x @ M + c
+        for i, spec in enumerate(self.transform.layers):
+            if isinstance(spec, BiasedLinearity) and mode == "int8":
+                x = int8_matmul(x, *self._qweights[i]) + spec.bias
+            elif isinstance(spec, BiasedLinearity) and mode == "bf16":
+                x = bf16_matmul(x.to(torch.bfloat16), spec.weight.to(torch.bfloat16)
+                                ).float() + spec.bias
+            else:
+                x = spec(x)
+        return x
 
     def _valid_row_indices(self, ext_feats) -> np.ndarray:
         ext_l, ext_r = self.start_ext, self.end_ext

@@ -184,7 +184,10 @@ def fused_weight_step(x: torch.Tensor, e: torch.Tensor, w: torch.Tensor,
     place, with its gradient ``x^T e`` formed inside the fused kernel:
     the momentum step, then the L2 decay (which the kernel leaves out, as
     the TPU kernel does). ``(a, decay)`` come from ``layer_coeffs``; only
-    BiasedLinearity weights take this step, so there is no L1 or mask."""
+    BiasedLinearity weights take this step, so there is no L1 or mask.
+    Under the bf16 compute mode ``x`` and ``e`` are bf16 and the kernel's
+    bf16 entry point rounds ``x^T e`` to bf16 before the f32 update; ``w``
+    is the f32 master and the decay stays f32."""
     wgrad_momentum_update(x, e, w, v, a, m)
     if decay != 0.0:
         w.sub_(w * decay)

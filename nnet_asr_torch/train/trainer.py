@@ -30,16 +30,44 @@ step's: each weight is read only by its own layer's backward. On a CUDA
 device the kernels launch; on the CPU they run their plain PyTorch
 versions. Other layers are plain torch ops.
 
+The compute dtypes of JAX ``TrainerConfig.compute_dtype``
+(trainer.py:111-184) route the forward pass:
+
+- ``'bf16'``: the input is cast to bf16 once, and each BiasedLinearity's
+  weight and bias are cast per step from their f32 masters, which the SGD
+  step (and the fused hook) updates. The BiasedLinearity → Sigmoid pairs
+  run ``affine_sigmoid``'s bf16 kernel, its backward rounding as JAX
+  ``_bwd`` does; other BiasedLinearities compute ``x @ W`` and ``+ b`` each
+  rounded to bf16, as XLA does. A layer with f32 parameters
+  (SparseLinearity, Bias, Window, Rbm, ...) promotes a bf16 input to f32,
+  as jnp's rules do, and a BiasedLinearity after it then computes in f32
+  with its parameters rounded through bf16 (``_bf16_inputs``); such a
+  layer's weight takes autograd and ``apply_updates`` with momentum, its
+  gradient rounded to bf16 by the cast. The logits go back to f32 for the
+  loss. With momentum, the fused hook gets bf16 ``x`` and ``dz`` and
+  launches ``wgrad_momentum_update``'s bf16 entry point.
+- ``'int8'``, ``'int8pf'``, ``'int8pfsr'``: each BiasedLinearity computes
+  ``fq(x) @ fq(W) + b`` with the straight-through fake-quant of
+  ``ops/int8_train.py`` (W per output channel; x per tensor, or per row
+  for ``pf``). ``'int8pfsr'`` rounds x stochastically in training, with
+  uniform noise from one ``torch.Generator`` seeded by ``seed or 1`` that
+  advances every step and lives as long as the Trainer (eval rounds to
+  nearest); its stream is not JAX's. ``'int8full'``: ``qmatmul(x, W) + b``,
+  all three GEMMs fake-quantized. Any int8 mode takes precedence over the
+  ``affine_sigmoid`` fusion, and the momentum hooks are off (JAX's momentum
+  path has none): every weight takes autograd and ``apply_updates``.
+  ``fused_softmax_xent`` still takes the f32 logits.
+
 Statistics accumulate per cache in f32/int32 device tensors and merge into
 float64 host totals at the end of the epoch (ObjFun.h:16-54), so the loop
-never waits for the device. Compute is f32; the other compute dtypes come
-later (ROADMAP.md queue 1 item 7).
+never waits for the device.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -53,6 +81,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
 from ..models.network import Network
 from ..ops.kernels.matmul_act import affine, affine_sigmoid
+from ..ops.int8_train import fake_quant_ste, qmatmul
 from ..ops.kernels.softmax_ce import fused_softmax_xent
 from ..ops.objectives import (MseStats, XentStats, mse_loss_and_stats, one_hot,
                               softmax_identity_backward, xent_loss_and_stats)
@@ -62,6 +91,15 @@ from .sgd import (SgdConfig, apply_updates, check_updatable, fused_weight_step,
                   init_momentum, layer_coeffs, layer_lr_factors)
 
 CONFUSION_MODES = ("no", "max", "soft", "dmax", "dsoft")
+INT8_MODES = ("int8", "int8pf", "int8pfsr", "int8full")
+COMPUTE_DTYPES = (None, "bf16") + INT8_MODES
+
+
+def _promotes(spec) -> bool:
+    """Whether the layer has f32 parameters, against which jnp promotes a
+    bf16 input to f32."""
+    return any(t.is_floating_point() for t in itertools.chain(spec.parameters(),
+                                                                spec.buffers()))
 
 
 @dataclass
@@ -76,6 +114,9 @@ class TrainerConfig:
     # CONFUSIONMODE (ObjFun.cc:132-155), xent only: accumulated on the
     # device as onehot(labels)ᵀ @ {onehot(argmax) | softmax} of the logits
     confusion_mode: str = "no"
+    # None (f32) | 'bf16' | 'int8' | 'int8pf' | 'int8pfsr' | 'int8full'
+    # (the module doc)
+    compute_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.objective not in ("xent", "mse"):
@@ -83,6 +124,9 @@ class TrainerConfig:
         if self.confusion_mode not in CONFUSION_MODES:
             raise ValueError(f"confusion_mode must be one of {CONFUSION_MODES}, "
                              f"got {self.confusion_mode!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {self.compute_dtype!r}")
 
 
 class Trainer:
@@ -108,15 +152,22 @@ class Trainer:
         self.total_frames = 0
         self.wall = 0.0
         self._accs: List[Tuple[Dict[str, torch.Tensor], int]] = []
-        # layers whose weight the fused wgrad+momentum kernel updates
+        mode = cfg.compute_dtype
+        self._bf16_in = self._bf16_inputs() if mode == "bf16" else None
+        # layers whose weight the fused wgrad+momentum kernel updates: none
+        # under int8, and under bf16 only those with a bf16 input
         self._fused = [i for i, (spec, f) in enumerate(zip(net.layers, self.factors))
                        if cfg.sgd.momentum != 0.0 and isinstance(spec, BiasedLinearity)
-                       and f != 0.0]
+                       and f != 0.0 and mode not in INT8_MODES
+                       and (mode != "bf16" or self._bf16_in[i])]
         # (layer index, key) of every other tensor that gets a gradient
         self._trainable = [(i, k) for i, (spec, f) in enumerate(zip(net.layers, self.factors))
                            if spec.updatable and f != 0.0 for k in spec.trainable_keys
                            if not (k == "weight" and i in self._fused)]
         self._lr = cfg.sgd.learning_rate
+        # int8pfsr's rounding noise: one stream for the Trainer's lifetime
+        self._sr_gen = (torch.Generator(device=self.device).manual_seed(cfg.seed or 1)
+                        if mode == "int8pfsr" else None)
 
     def set_learning_rate(self, lr: float) -> None:
         """Runtime learning rate (newbob halving between epochs)."""
@@ -133,22 +184,62 @@ class Trainer:
             return layers[:-1], layers[-1].dims, True
         return layers, None, False
 
-    def _forward_logits(self, x: torch.Tensor, updates: Optional[dict] = None
-                        ) -> torch.Tensor:
-        """Logits; ``updates`` maps a layer index to its weight-update hook."""
+    def _bf16_inputs(self) -> List[bool]:
+        """Under bf16, whether each body layer's input is bf16: the input is
+        cast, a BiasedLinearity keeps its input's dtype, and a layer with
+        f32 parameters promotes to f32 (jnp's rules)."""
+        out, bf16 = [], True
+        for spec in self._body:
+            out.append(bf16)
+            if not isinstance(spec, BiasedLinearity) and _promotes(spec):
+                bf16 = False
+        return out
+
+    def _forward_logits(self, x: torch.Tensor, updates: Optional[dict] = None,
+                        train: bool = False) -> torch.Tensor:
+        """f32 logits; ``updates`` maps a layer index to its weight-update
+        hook; ``train`` draws int8pfsr's rounding noise."""
         updates = updates or {}
+        mode = self.cfg.compute_dtype
         body = self._body
+        if mode == "bf16":
+            x = x.to(torch.bfloat16)
         i = 0
         while i < len(body):
             spec = body[i]
-            if (isinstance(spec, BiasedLinearity) and i + 1 < len(body)
-                    and isinstance(body[i + 1], Sigmoid)):
-                x = affine_sigmoid(x, spec.weight, spec.bias, updates.get(i))
-                i += 2
+            if isinstance(spec, BiasedLinearity) and mode in INT8_MODES:
+                x = self._int8_affine(spec, x, train)
+                i += 1
                 continue
-            x = affine(x, spec.weight, spec.bias, updates[i]) if i in updates else spec(x)
+            if isinstance(spec, BiasedLinearity):
+                w, b = spec.weight, spec.bias
+                if mode == "bf16":
+                    w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
+                    if not self._bf16_in[i]:      # promoted: f32 x @ bf16 W
+                        w, b = w.float(), b.float()
+                if i + 1 < len(body) and isinstance(body[i + 1], Sigmoid):
+                    x = affine_sigmoid(x, w, b, updates.get(i))
+                    i += 2
+                else:
+                    x = affine(x, w, b, updates.get(i))
+                    i += 1
+                continue
+            if x.dtype == torch.bfloat16 and _promotes(spec):
+                x = x.float()
+            x = spec(x)
             i += 1
-        return x
+        return x.float()
+
+    def _int8_affine(self, spec: BiasedLinearity, x: torch.Tensor,
+                     train: bool) -> torch.Tensor:
+        """A BiasedLinearity under an int8 mode (JAX trainer.py:166-176)."""
+        mode = self.cfg.compute_dtype
+        if mode == "int8full":
+            return qmatmul(x, spec.weight) + spec.bias
+        noise = (torch.rand(x.shape, generator=self._sr_gen, device=x.device)
+                 if mode == "int8pfsr" and train else None)
+        dim = -1 if mode in ("int8pf", "int8pfsr") else None
+        return fake_quant_ste(x, dim, noise) @ fake_quant_ste(spec.weight, 0) + spec.bias
 
     def _weight_updates(self, n_frames: int) -> dict:
         """The momentum step's hook for each fused layer (see the module doc)."""
@@ -185,7 +276,7 @@ class Trainer:
     def _train_step(self, feats: torch.Tensor, labels: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
         updates = self._weight_updates(feats.shape[0])
-        loss, stats = self._loss(self._forward_logits(feats, updates), labels)
+        loss, stats = self._loss(self._forward_logits(feats, updates, train=True), labels)
         ts = [self.params[i][k] for i, k in self._trainable]
         gs = torch.autograd.grad(loss, ts) if ts else []
         grads = [{} for _ in self.params]

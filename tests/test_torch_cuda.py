@@ -18,6 +18,11 @@ the fused update's f32 outputs within 1e-5 of the plain version's largest
 value, its bf16 velocity within that plus one bf16 step at the element (the
 f32 sum, taken in another order, may round to the neighbouring bf16 value;
 near zero the sum's own error exceeds a bf16 step).
+
+The bf16 variants (one bf16 ``mma.sync`` pass, f32 accumulation) are held to
+their plain versions within one bf16 step: both round an f32 value that
+differs only by summation order. Their shapes add the 2-byte copy path (an
+odd bf16 pitch, or a base that is not 4-byte aligned).
 """
 
 import numpy as np
@@ -41,10 +46,10 @@ def _affine_inputs(seed, M, K, N):
     return x, w, b, g
 
 
-def _on_card(a, dev, offset=0):
-    """``a`` on the card, contiguous, ``offset`` floats into its buffer (base
-    not 16-byte aligned unless offset % 4 == 0)."""
-    buf = torch.empty(a.size + offset, dtype=torch.float32, device=dev)
+def _on_card(a, dev, offset=0, dtype=torch.float32):
+    """``a`` on the card at ``dtype``, contiguous, ``offset`` elements into
+    its buffer (base not 16-byte aligned unless offset * size % 16 == 0)."""
+    buf = torch.empty(a.size + offset, dtype=dtype, device=dev)
     t = buf[offset:].view(a.shape)
     t.copy_(torch.from_numpy(a))
     return t.detach()
@@ -96,6 +101,54 @@ def test_cuda_matmul_act_matches_plain(cuda, shape):
     z = MA.matmul_act(ts[0].detach(), ts[1].detach(), ts[2].detach(), "none")
     zp = MA.matmul_act_plain(ps[0].detach(), ps[1].detach(), ps[2].detach(), "none")
     assert (z - zp).abs().max().item() <= 1e-4 * (zp.abs().max().item() or 1.0)
+
+
+# bf16 x, w, b: y within one bf16 step of the plain version's (both round
+# the f32 result once; _bf16_tol); the JAX _bwd gradients (dz rounded to bf16, f32
+# GEMMs, each rounded once) within two bf16 steps of the largest, against
+# the same formula on the plain y. Shapes: both tiles, 16-, 4- and 2-byte
+# copies (K = 135 and a 1-element offset have no 4-byte rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 598, 135), (130, 33, 70), (960, 598, 1024),
+                                   (1024, 1024, 4096), (67, 135, 70), (200, 256, 132, 1),
+                                   (64, 128, 520, 2)])
+def test_cuda_matmul_act_bf16_matches_plain(cuda, shape):
+    M, K, N, offset = (*shape, 0)[:4]
+    x, w, b, g = _affine_inputs(16, M, K, N)
+    ts = [_on_card(a, cuda, offset, dtype=torch.bfloat16).requires_grad_(True) for a in (x, w, b)]
+    pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=ts[0].data_ptr(),
+                        b_ptr=ts[1].data_ptr(), elem=2)
+    if K == 135 or offset == 1:
+        assert pl.a_bytes == 2
+    before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16)
+    y = MA.affine_sigmoid(*ts)
+    gt = _on_card(g, cuda, dtype=torch.bfloat16)
+    y.backward(gt)
+    assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16) == (before[0], before[1] + 1)
+    assert y.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in ts)
+    xs, ws, bs = (t.detach() for t in ts)
+    yp = MA.matmul_act_plain(xs, ws, bs)
+    torch.cuda.synchronize()
+    assert bool(((y.float() - yp.float()).abs() <= _bf16_tol(y, yp)).all())
+    yf = yp.float()
+    dz = gt.float() * yf * (1.0 - yf)
+    dzc = dz.to(torch.bfloat16).float()
+    want = (dzc @ ws.float().T, xs.float().T @ dzc, dz.sum(0))
+    for t, ref in zip(ts, want):
+        scale = ref.abs().max().item() or 1.0
+        assert (t.grad.float() - ref).abs().max().item() <= 2 ** -7 * scale
+    z = MA.matmul_act(xs, ws, bs, "none")
+    zp = MA.matmul_act_plain(xs, ws, bs, "none")
+    assert bool(((z.float() - zp.float()).abs() <= _bf16_tol(z, zp)).all())
+
+
+def _bf16_tol(t, ref):
+    """One bf16 step at each element, plus 1e-5 of the largest value: the
+    f32 sums, taken in another order, may round to neighbouring bf16
+    values, and near zero (cancellation) their own difference exceeds a
+    bf16 step."""
+    big = torch.maximum(t.float().abs(), ref.float().abs())
+    return bf16_ulp(big) + 1e-5 * ref.float().abs().max()
 
 
 def _bits(t):
@@ -247,6 +300,76 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         assert pl.splits > 1
 
 
+# bf16 x and e: g accumulated in f32 and rounded to bf16 once, in both
+# versions, so p and v within one bf16 step of g (the f32 sums, taken in
+# another order, may round to neighbouring bf16 values) plus v's own bf16
+# step; two runs equal bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 61, 135), (960, 598, 1024),
+                                   (960, 1024, 135), (1024, 1024, 4096), (300, 256, 520, 1),
+                                   (960, 1024, 135, 2)])
+def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
+    B, In, Out, offset = (*shape, 0)[:4]
+    rng = np.random.default_rng(18)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
+    xs, es = (_on_card(a, cuda, offset, dtype=torch.bfloat16) for a in (x, e))
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
+                        b_ptr=es.data_ptr(), split_k=True, elem=2)
+    if Out == 135:
+        assert pl.b_bytes == 2
+    pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
+    vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
+    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_bf16)
+    a, m = 0.003, 0.9
+    SF.wgrad_momentum_update(xs, es, pk, vk, a, m)
+    assert (SF.wgrad_momentum_update.launches,
+            SF.wgrad_momentum_update.launches_bf16) == (before[0], before[1] + 1)
+    SF.wgrad_momentum_update_plain(xs, es, pp, vp, a, m)
+    torch.cuda.synchronize()
+    assert vk.dtype == vdt and pk.dtype == torch.float32
+    g = xs.float().T @ es.float()
+    tol_v = bf16_ulp(g) + 1e-5 * vp.float().abs().max()
+    if vdt == torch.bfloat16:
+        tol_v = tol_v + bf16_ulp(torch.maximum(vk.float().abs(), vp.float().abs()))
+    assert bool(((vk.float() - vp.float()).abs() <= tol_v).all())
+    assert bool(((pk - pp).abs() <= a * tol_v + 1e-6 * pp.abs().max()).all())
+    pk2, vk2 = (torch.from_numpy(p).to(cuda), torch.from_numpy(v).to(cuda, vdt))
+    SF.wgrad_momentum_update(xs, es, pk2, vk2, a, m)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pk2) and torch.equal(vk, vk2)
+    if shape[:3] == (960, 1024, 135):
+        assert pl.splits > 1
+
+
+# g is rounded to bf16 once, after the whole split-K sum: with integer
+# inputs every f32 sum is exact in any order, so the kernel's g (read back
+# from an f32 velocity at momentum 0) equals the exact sum rounded once, bit
+# for bit, and differs from the sum of each split's rounded partial
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(960, 1024, 135), (960, 598, 1024)])
+def test_cuda_wgrad_bf16_rounds_g_after_the_split_k_sum(cuda, shape):
+    B, In, Out = shape
+    rng = np.random.default_rng(19)
+    xs = torch.from_numpy(rng.integers(0, 3, (B, In)).astype(np.float32)).to(cuda, torch.bfloat16)
+    es = torch.from_numpy(rng.integers(0, 8, (B, Out)).astype(np.float32)).to(cuda, torch.bfloat16)
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
+                        b_ptr=es.data_ptr(), split_k=True, elem=2)
+    assert pl.splits > 1
+    p = torch.zeros((In, Out), device=cuda)
+    v = torch.zeros((In, Out), device=cuda)
+    SF.wgrad_momentum_update(xs, es, p, v, 1.0, 0.0)
+    torch.cuda.synchronize()
+    exact = xs.double().T @ es.double()
+    assert torch.equal(v, exact.float().to(torch.bfloat16).float())
+    assert torch.equal(p, -v)
+    per_split = sum(
+        (xs[k:k + pl.k_chunk].double().T @ es[k:k + pl.k_chunk].double()).float()
+        .to(torch.bfloat16).float() for k in range(0, B, pl.k_chunk))
+    assert not torch.equal(v, per_split)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_bad_input(cuda):
     x = torch.zeros((4, 3), device=cuda)
@@ -267,6 +390,15 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         SF.wgrad_momentum_update(x, e, w, w.half(), 0.1, 0.5)
     with pytest.raises(ValueError):
         SF.wgrad_momentum_update(x, e, w, w.cpu(), 0.1, 0.5)
+    # mixed dtypes: no cast, no fallback
+    with pytest.raises(TypeError):
+        MA.matmul_act(x.bfloat16(), w, b)
+    with pytest.raises(TypeError):
+        MA.matmul_act(x.bfloat16(), w.bfloat16(), b)
+    with pytest.raises(TypeError):
+        SF.wgrad_momentum_update(x.bfloat16(), e, w, w, 0.1, 0.5)
+    with pytest.raises(TypeError):
+        SF.wgrad_momentum_update(x.bfloat16(), e.bfloat16(), w.bfloat16(), w, 0.1, 0.5)
 
 
 def _routing_net(head, sparse):
@@ -330,3 +462,46 @@ def test_cuda_trainer_loss_routing_by_launch_count(cuda, objective, head, mode, 
         for k in g:
             assert np.isfinite(g[k]).all()
             np.testing.assert_allclose(g[k], c[k], rtol=1e-4, atol=1e-4 * max(abs(c[k]).max(), 1))
+
+
+# the compute dtypes' routing, read from the per-dtype launch counts over
+# two train steps and one eval step at momentum 0.5: bf16 launches the bf16
+# affine_sigmoid once a step and the bf16 wgrad for both weights a train
+# step, and no f32 GEMM kernel; an int8 mode launches no GEMM kernel at all;
+# fused_softmax_xent once a step under every dtype. The step stats within
+# 1e-3 relative of the CPU's plain run under bf16 (bf16 roundings of sums
+# taken in another order), 1e-4 under int8 (f32 arithmetic); int8pfsr's
+# noise comes from a generator on each device, so its training stats are
+# only finite
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int8pf", "int8pfsr", "int8full"])
+def test_cuda_trainer_compute_dtype_launch_counts(cuda, dtype):
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(14)
+    feats = rng.standard_normal((64, 20)).astype(np.float32)
+    labels = rng.integers(0, 10, 64).astype(np.int32)
+    counters = ((MA.matmul_act, "launches"), (MA.matmul_act, "launches_bf16"),
+                (SF.wgrad_momentum_update, "launches"),
+                (SF.wgrad_momentum_update, "launches_bf16"), (SC.softmax_xent, "launches"))
+    stats = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg = TrainerConfig(bunchsize=64, cachesize=64, compute_dtype=dtype,
+                            sgd=SgdConfig(learning_rate=0.01, momentum=0.5))
+        tr = Trainer(_routing_net("softmax", False), cfg, device=dev)
+        x, y = torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
+        before = [getattr(f, k) for f, k in counters]
+        out = [tr._train_step(x, y), tr._train_step(x, y), tr._eval_step(x, y)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            got = [getattr(f, k) - b for (f, k), b in zip(counters, before)]
+            assert got == ([0, 3, 0, 4, 3] if dtype == "bf16" else [0, 0, 0, 0, 3])
+        stats[dev.type] = [{k: v.double().cpu().numpy() for k, v in s.items()} for s in out]
+    rtol = 1e-3 if dtype == "bf16" else 1e-4
+    for g, c in zip(stats["cuda"], stats["cpu"]):
+        assert sorted(g) == sorted(c)
+        for k in g:
+            assert np.isfinite(g[k]).all()
+            if dtype != "int8pfsr" and k == "xent":
+                np.testing.assert_allclose(g[k], c[k], rtol=rtol)

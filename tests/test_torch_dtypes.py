@@ -1,0 +1,431 @@
+"""The compute dtypes of the port (bf16 and the four int8 modes) against the
+JAX package's, on the CPU.
+
+The bf16 kernels' plain versions and autograd against the JAX Pallas
+kernel at bf16 (interpret mode, as tests/test_pallas.py runs it), the
+fused update's bf16-operand plain version against ``dot(xᵀ, e)`` rounded to
+bf16 and JAX ``apply_updates``, the launch plan at two bytes an element,
+the int8 fake-quant and ``qmatmul`` against ``nnet_asr_tpu/ops/int8_train``,
+whole Trainer epochs per dtype against JAX ``Trainer(use_pallas=True,
+compute_dtype=...)``, int8pfsr by its properties (its noise stream is not
+JAX's), and the pipeline's inference modes against JAX's
+``transform_block``. Inputs come from numpy with a seed; tolerances are
+stated per test.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nnet_asr_tpu.models.network import Network as JNetwork
+from nnet_asr_tpu.ops import int8_train as jint8
+from nnet_asr_tpu.ops.pallas.matmul_act import affine_sigmoid as j_affine_sigmoid
+from nnet_asr_tpu.ops.pallas.matmul_act import matmul_act as j_matmul_act
+from nnet_asr_tpu.train import sgd as jsgd
+from nnet_asr_tpu.train.pipeline import TransformPipeline as JPipeline
+from nnet_asr_tpu.train.trainer import Trainer as JTrainer
+from nnet_asr_tpu.train.trainer import TrainerConfig as JTrainerConfig
+from nnet_asr_torch.models.network import Network as TNetwork
+from nnet_asr_torch.ops import int8_train
+from nnet_asr_torch.ops.kernels import matmul_act as MA
+from nnet_asr_torch.ops.kernels import sgd_fused as SF
+from nnet_asr_torch.ops.kernels import tile_plan
+from nnet_asr_torch.train import sgd as tsgd
+from nnet_asr_torch.train.pipeline import TransformPipeline, int_mm
+from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+from test_torch_kernels import _affine_inputs
+from test_torch_train import _ext_utts, _hamm_norm_text, _mlp_text, _nonlinear_text, _utts
+
+torch.set_num_threads(2)
+
+BF16 = torch.bfloat16
+
+
+def bf16_step(a):
+    """One bf16 step (8 significant bits) at each element's magnitude."""
+    mag = np.maximum(np.abs(np.asarray(a, np.float64)), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+def _f32(a):
+    return (a.detach().float().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a, np.float32))
+
+
+# --------------------------------------------------------------------------
+# the kernels' plain versions at bf16
+# --------------------------------------------------------------------------
+
+# y within one bf16 step of JAX's at each element (both round the f32
+# result once; the f32 sums differ in order); dx, dW and db within one bf16
+# step of each gradient's largest magnitude (each is one rounding of an f32
+# GEMM of the same bf16 dz, or of an f32 sum). (M, K, N): one K block, and
+# K > 1024 (several K blocks in the Pallas kernel)
+@pytest.mark.parametrize("shape", [(40, 70, 50), (24, 1100, 60)])
+def test_affine_sigmoid_bf16_plain_matches_pallas(shape):
+    x, w, b, g = _affine_inputs(3, *shape)
+    jy, vjp = jax.vjp(j_affine_sigmoid, *(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)))
+    jgrads = vjp(jnp.asarray(g, jnp.bfloat16))
+    ts = [torch.from_numpy(a).to(BF16).requires_grad_(True) for a in (x, w, b)]
+    before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16)
+    y = MA.affine_sigmoid(*ts)
+    y.backward(torch.from_numpy(g).to(BF16))
+    assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16) == before
+    assert y.dtype == BF16 and jy.dtype == jnp.bfloat16
+    ty, jyf = _f32(y), _f32(jy)
+    assert (np.abs(ty - jyf) <= bf16_step(np.maximum(np.abs(ty), np.abs(jyf)))).all()
+    for t, jg in zip(ts, jgrads):
+        assert t.grad.dtype == BF16 and jg.dtype == jnp.bfloat16
+        jgf = _f32(jg)
+        assert np.abs(_f32(t.grad) - jgf).max() <= bf16_step(np.abs(jgf).max())
+    # no activation: the affine alone, rounded once
+    z = _f32(MA.matmul_act(*(t.detach() for t in ts), "none"))
+    jz = _f32(j_matmul_act(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)), act="none"))
+    assert (np.abs(z - jz) <= bf16_step(np.maximum(np.abs(z), np.abs(jz))) + 1e-5).all()
+
+
+# the plain fused update with bf16 x and e against JAX's bf16 mode: dW =
+# dot(xᵀ, dz, f32 accumulation) rounded to bf16, then apply_updates in f32.
+# g is representable in bf16 (rounded once, after the whole sum); v within
+# one bf16 step of g (and of v, for bf16 v) where the two f32 sums round to
+# neighbouring values, p within lr times that
+@pytest.mark.parametrize("vdt", ["f32", "bf16"])
+def test_wgrad_momentum_bf16_plain_matches_jax_apply_updates(vdt):
+    rng = np.random.default_rng(4)
+    B, In, Out = 60, 37, 9
+    x = (0.5 * rng.standard_normal((B, In))).astype(np.float32)
+    e = (0.5 * rng.standard_normal((B, Out))).astype(np.float32)
+    p = (0.2 * rng.standard_normal((In, Out))).astype(np.float32)
+    v = (0.5 * rng.standard_normal((In, Out))).astype(np.float32)
+    cfg = dict(learning_rate=0.05, momentum=0.9, grad_div_frm=False,
+               velocity_dtype=None if vdt == "f32" else "bf16")
+    text = (f"<biasedlinearity> {Out} {In}\nm {Out} {In}\n"
+            + "\n".join(" ".join(repr(float(c)) for c in row) for row in p.T)
+            + f"\nv {Out}\n" + " ".join(["0"] * Out) + "\n")
+    jnet = JNetwork.read(text)
+    jvdt = jnp.bfloat16 if vdt == "bf16" else jnp.float32
+    xb, eb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(e, jnp.bfloat16)
+    jg = jnp.dot(xb.T, eb, preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+    jp, jv = jsgd.apply_updates(
+        jnet, [{k: jnp.asarray(a) for k, a in jnet.params[0].items()}],
+        [{"weight": jnp.asarray(v, jvdt), "bias": jnp.zeros(Out, jvdt)}],
+        [{"weight": jg.astype(jnp.float32)}], jsgd.SgdConfig(**cfg), B, [1.0])
+
+    a, _, _ = tsgd.layer_coeffs(tsgd.SgdConfig(**cfg), B, 1.0)
+    tdt = BF16 if vdt == "bf16" else torch.float32
+    xs, es = torch.from_numpy(x).to(BF16), torch.from_numpy(e).to(BF16)
+    tp, tv = torch.from_numpy(p.copy()), torch.from_numpy(v).to(tdt)
+    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_bf16)
+    SF.wgrad_momentum_update(xs, es, tp, tv, a, 0.9)
+    assert (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_bf16) == before
+    assert tp.dtype == torch.float32 and tv.dtype == tdt
+    g = _f32(jg)
+    tol_v = bf16_step(g) + (bf16_step(_f32(jv[0]["weight"])) if vdt == "bf16" else 1e-7)
+    assert (np.abs(_f32(tv) - _f32(jv[0]["weight"])) <= tol_v).all()
+    assert (np.abs(tp.numpy() - _f32(jp[0]["weight"])) <= a * tol_v + 1e-7).all()
+    # g itself, read back from an f32 velocity at momentum 0: one bf16
+    # rounding of the f32 sum
+    gp, gv = torch.zeros((In, Out)), torch.zeros((In, Out))
+    SF.wgrad_momentum_update_plain(xs, es, gp, gv, 1.0, 0.0)
+    assert torch.equal(gv, gv.to(BF16).float())
+    assert torch.equal(gv, (xs.float().T @ es.float()).to(BF16).float())
+    assert (np.abs(gv.numpy() - g) <= bf16_step(g)).all()
+
+
+# --------------------------------------------------------------------------
+# the launch plan at two bytes an element
+# --------------------------------------------------------------------------
+
+# (M, N, K, a_pitch, b_pitch, split_k) -> (tile, splits, k_chunk, a_bytes, b_bytes)
+BF16_PLANS = {
+    "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
+                                    (tile_plan.SMALL, 1, 598, 4, 16)),
+    "affine 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, False),
+                               (tile_plan.BIG, 1, 1024, 16, 16)),
+    "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
+                               (tile_plan.BIG, 1, 4096, 16, 16)),
+    "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
+                                   (tile_plan.SMALL, 2, 480, 4, 16)),
+    # e's rows of 135 bf16 are 270 bytes: an odd pitch in 4-byte words
+    "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
+                                   (tile_plan.SMALL, 6, 160, 16, 2)),
+    "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
+                              (tile_plan.BIG, 1, 1024, 16, 16)),
+    "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
+                              (tile_plan.BIG, 1, 1024, 16, 16)),
+    "wgrad 1024x4096->8192": ((4096, 8192, 1024, 4096, 8192, True),
+                              (tile_plan.BIG, 1, 1024, 16, 16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_PLANS))
+def test_bf16_plan_of_main_path_shapes(name):
+    (M, N, K, ap, bp, split), want = BF16_PLANS[name]
+    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split,
+                       elem=2)
+    assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes) == want
+    # the tile and split do not depend on the element size
+    f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split)
+    assert (f.tile, f.splits, f.k_chunk) == (p.tile, p.splits, p.k_chunk)
+
+
+@pytest.mark.parametrize("pitch,ptr,elem,want", [
+    (598, 0, 2, 4), (135, 0, 2, 2), (1024, 0, 2, 16), (4096, 0, 2, 16), (8192, 0, 2, 16),
+    (1024, 2, 2, 2), (1024, 4, 2, 4), (1024, 16, 2, 16), (136, 0, 2, 16), (2, 0, 2, 4),
+    (598, 0, 4, 4), (135, 0, 4, 4), (1024, 4, 4, 4), (1024, 0, 4, 16)])
+def test_copy_width_follows_pitch_alignment_and_element_size(pitch, ptr, elem, want):
+    assert tile_plan.copy_bytes(pitch, ptr, elem) == want
+    assert tile_plan.plan(8, pitch, 8, a_pitch=8, b_pitch=pitch, b_ptr=ptr,
+                          elem=elem).b_bytes == want
+    with pytest.raises(ValueError):
+        tile_plan.plan(8, 8, 8, 8, 8, elem=8)
+
+
+# --------------------------------------------------------------------------
+# int8 fake-quant
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dim", [None, 0, 1, -1])
+def test_fake_quant_matches_jax(dim):
+    rng = np.random.default_rng(5)
+    t = (rng.standard_normal((33, 17)) * rng.random((33, 1)) * 3).astype(np.float32)
+    q = int8_train.fake_quant(torch.from_numpy(t), dim).numpy()
+    jq = np.asarray(jint8._fq(jnp.asarray(t), dim))
+    np.testing.assert_array_equal(q, jq)
+    s = np.abs(t).max(axis=dim, keepdims=dim is not None) / np.float32(127.0) + np.float32(1e-12)
+    assert len(np.unique(np.round(q / s))) <= 255
+
+
+# the stochastic-rounding quantizer with injected uniform noise, against
+# the numpy formula in f32 (bit for bit): floor(t/s + u), clipped, times s;
+# the forward value is the quantized one, the gradient the identity
+@pytest.mark.parametrize("dim", [None, -1])
+def test_fake_quant_ste_with_injected_noise_matches_formula(dim):
+    rng = np.random.default_rng(6)
+    t = (2 * rng.standard_normal((24, 11))).astype(np.float32)
+    u = rng.random((24, 11)).astype(np.float32)
+    tt = torch.from_numpy(t).requires_grad_(True)
+    out = int8_train.fake_quant_ste(tt, dim, torch.from_numpy(u))
+    s = np.abs(t).max(axis=dim, keepdims=dim is not None) / np.float32(127.0) + np.float32(1e-12)
+    q = np.clip(np.floor(t / s + u), -127, 127).astype(np.float32) * s
+    np.testing.assert_array_equal(out.detach().numpy(), t + (q - t))
+    out.sum().backward()
+    np.testing.assert_array_equal(tt.grad.numpy(), np.ones_like(t))
+    # without noise: round half to even, as jnp.round
+    rq = int8_train.fake_quant_ste(torch.from_numpy(t), dim).numpy()
+    np.testing.assert_array_equal(rq, t + (np.clip(np.round(t / s), -127, 127) * s - t))
+
+
+# forward, dgrad and wgrad of int8full's matmul within f32 summation order
+# (rtol 1e-5, atol 1e-6) of JAX's custom VJP
+def test_qmatmul_forward_and_backward_match_jax():
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((40, 23)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((23, 15))).astype(np.float32)
+    g = rng.standard_normal((40, 15)).astype(np.float32)
+    jy, vjp = jax.vjp(jint8.qmatmul, jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    xt, wt = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+    y = int8_train.qmatmul(xt, wt)
+    y.backward(torch.from_numpy(g))
+    for t, j in ((y, jy), (xt.grad, jdx), (wt.grad, jdw)):
+        np.testing.assert_allclose(_f32(t), np.asarray(j), rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the Trainer per compute dtype
+# --------------------------------------------------------------------------
+
+# tolerances after one epoch (~20 SGD steps) and a CV of its model:
+# int8, int8pf, int8full are f32 arithmetic (fake-quant), so Xent within
+# 1e-5 relative, params within rtol 1e-4, atol 1e-5, correct exact, as the
+# f32 epochs; bf16: Xent within 1e-3 relative, params within 2e-3 absolute
+# (where the two packages' f32 sums round a gradient to neighbouring bf16
+# values, the step moves a weight by lr times one bf16 step of it; measured
+# at most 8.2e-4 here), correct within 2 frames (an argmax tie in bf16)
+DTYPE_TOL = {"bf16": dict(xent=1e-3, rtol=0.0, atol=2e-3, corr=2),
+             "int8": dict(xent=1e-5, rtol=1e-4, atol=1e-5, corr=0),
+             "int8pf": dict(xent=1e-5, rtol=1e-4, atol=1e-5, corr=0),
+             "int8full": dict(xent=1e-5, rtol=1e-4, atol=1e-5, corr=0)}
+
+
+def _check_epoch(tr, jtr, tol):
+    assert tr.stats.frames == jtr.stats.frames > 0
+    assert abs(tr.stats.corr - jtr.stats.corr) <= tol["corr"]
+    np.testing.assert_allclose(tr.stats.error, jtr.stats.error, rtol=tol["xent"])
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", sorted(DTYPE_TOL))
+def test_trainer_compute_dtype_epoch_and_crossvalidate_match_jax(dtype, momentum):
+    tol = DTYPE_TOL[dtype]
+    text = _mlp_text()
+    utts = _utts(5)
+    common = dict(bunchsize=16, cachesize=64, seed=5, compute_dtype=dtype)
+    sgd = dict(learning_rate=0.1, momentum=momentum)
+    jtr = JTrainer(JNetwork.read(text), JTrainerConfig(
+        **common, sgd=jsgd.SgdConfig(**sgd), use_pallas=True))
+    jtr.run_epoch(iter(utts), batch_utts=5)
+    ttr = Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                  device="cpu")
+    # the momentum hooks: every BiasedLinearity under bf16, none under int8
+    assert ttr._fused == ([0, 2, 4] if momentum and dtype == "bf16" else [])
+    ttr.run_epoch(iter(utts), batch_utts=5)
+    _check_epoch(ttr, jtr, tol)
+    tnet = ttr.updated_network()
+    for a, b in zip(tnet.to_numpy_params(), jtr.updated_network().params):
+        for k in a:
+            assert a[k].dtype == np.float32       # the masters stay f32
+            np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=tol["rtol"],
+                                       atol=tol["atol"])
+
+    cv_utts = _utts(6, n=6)
+    cv = dict(bunchsize=16, cachesize=64, randomize=False, crossvalidate=True,
+              compute_dtype=dtype)
+    jcv = JTrainer(jtr.updated_network(), JTrainerConfig(**cv, use_pallas=True))
+    jcv.run_epoch(iter(cv_utts))
+    tcv = Trainer(tnet, TrainerConfig(**cv), device="cpu")
+    tcv.run_epoch(iter(cv_utts))
+    _check_epoch(tcv, jcv, tol)
+
+
+# jnp's promotion: the SparseLinearity (f32 parameters) turns the bf16
+# input into f32, so both later BiasedLinearities compute in f32 with their
+# parameters rounded through bf16, and with momentum none takes the fused
+# hook (their gradients are rounded to bf16 by the casts). Tolerances of
+# the bf16 epochs above
+@pytest.mark.parametrize("momentum", [0.0, 0.5])
+def test_trainer_bf16_after_an_f32_layer_matches_jax(momentum):
+    tol = DTYPE_TOL["bf16"]
+    text = _mlp_text().replace("<biasedlinearity>", "<sparselinearity>", 1)
+    utts = _utts(5)
+    common = dict(bunchsize=16, cachesize=64, seed=5, compute_dtype="bf16")
+    sgd = dict(learning_rate=0.1, momentum=momentum)
+    jtr = JTrainer(JNetwork.read(text), JTrainerConfig(
+        **common, sgd=jsgd.SgdConfig(**sgd), use_pallas=True))
+    jtr.run_epoch(iter(utts), batch_utts=5)
+    ttr = Trainer(TNetwork.read(text), TrainerConfig(**common, sgd=tsgd.SgdConfig(**sgd)),
+                  device="cpu")
+    assert ttr._bf16_in == [True, False, False, False, False] and ttr._fused == []
+    ttr.run_epoch(iter(utts), batch_utts=5)
+    _check_epoch(ttr, jtr, tol)
+    for a, b in zip(ttr.updated_network().to_numpy_params(), jtr.params):
+        for k in a:
+            np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=0, atol=tol["atol"])
+
+
+def _sr_net():
+    from nnet_asr_torch.models import components as TC
+
+    rng = np.random.default_rng(5)
+    layers = [TC.BiasedLinearity(10, 16), TC.Sigmoid(16, 16), TC.BiasedLinearity(16, 6),
+              TC.Softmax(6, 6)]
+    params = [{"weight": (0.3 * rng.standard_normal((10, 16))).astype(np.float32),
+               "bias": np.zeros(16, np.float32)}, {},
+              {"weight": (0.3 * rng.standard_normal((16, 6))).astype(np.float32),
+               "bias": np.zeros(6, np.float32)}, {}]
+    return TNetwork(layers).from_numpy_params(params)
+
+
+def _sr_data():
+    rng = np.random.default_rng(15)
+    return (rng.standard_normal((64, 10)).astype(np.float32),
+            rng.integers(0, 6, 64).astype(np.int32))
+
+
+# int8pfsr against tests/test_pallas.py's properties: training (a) differs
+# from int8pf, (b) repeats for a seed, (c) draws new noise every step, across
+# caches, from one stream, and (d) evaluation rounds to nearest: the same CV
+# twice, equal to int8pf's
+def test_int8pfsr_stochastic_rounding_properties():
+    X, y = _sr_data()
+
+    def run(dtype, seed=9):
+        cfg = TrainerConfig(bunchsize=32, cachesize=64, randomize=False, seed=seed,
+                            sgd=tsgd.SgdConfig(learning_rate=0.05), compute_dtype=dtype)
+        tr = Trainer(_sr_net(), cfg, device="cpu")
+        tr.run_epoch(iter([(X, y), (X, y)]))          # two caches of two bunches
+        return tr
+
+    w_pf = run("int8pf").net.layers[0].weight.detach().numpy()
+    tr_sr = run("int8pfsr")
+    w_sr = tr_sr.net.layers[0].weight.detach().numpy()
+    w_sr2 = run("int8pfsr").net.layers[0].weight.detach().numpy()
+    w_other = run("int8pfsr", seed=10).net.layers[0].weight.detach().numpy()
+    assert not np.array_equal(w_sr, w_pf)
+    np.testing.assert_array_equal(w_sr, w_sr2)
+    assert not np.array_equal(w_sr, w_other)
+    assert np.abs(w_sr - w_pf).max() < 0.05           # unbiased: close to int8pf
+    # 4 steps x 2 BiasedLinearities, each one draw of the layer input's shape
+    fresh = torch.Generator().manual_seed(9)
+    for _ in range(4):
+        for width in (10, 16):
+            torch.rand((32, width), generator=fresh)
+    assert torch.equal(tr_sr._sr_gen.get_state(), fresh.get_state())
+
+    evals = {}
+    for dtype in ("int8pfsr", "int8pfsr", "int8pf"):
+        cfg = TrainerConfig(bunchsize=32, cachesize=64, randomize=False, crossvalidate=True,
+                            compute_dtype=dtype)
+        net = _sr_net()
+        net.layers[0].weight.data.copy_(torch.from_numpy(w_sr))
+        tr = Trainer(net, cfg, device="cpu")
+        tr.run_epoch(iter([(X, y)]))
+        evals.setdefault(dtype, []).append((tr.stats.error, tr.stats.corr))
+    assert evals["int8pfsr"][0] == evals["int8pfsr"][1] == evals["int8pf"][0]
+
+
+def test_trainer_rejects_an_unknown_compute_dtype():
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TrainerConfig(compute_dtype="fp8")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TransformPipeline(None, compute_dtype="int8pf")
+
+
+# --------------------------------------------------------------------------
+# the pipeline's inference modes
+# --------------------------------------------------------------------------
+
+# valid rows against JAX's transform_block. bf16 folded: the bf16 product
+# (one rounding of an f32 sum, which may land on the neighbouring bf16
+# value) plus the f32 bias, so within one bf16 step of the row's largest
+# product; bf16 layered: the same for the BiasedLinearity, then the f32
+# sigmoid; int8: int32 products are exact and the scales f32 arithmetic,
+# within 1e-5 (a quantum may flip where x/s lands on a rounding tie)
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("kind", ["folded", "layered"])
+def test_transform_block_compute_dtype_matches_jax(kind, dtype):
+    ext = 2
+    text = {"folded": _hamm_norm_text(), "layered": _nonlinear_text()}[kind]
+    jp = JPipeline(JNetwork.read(text), ext, ext, chunk=16, compute_dtype=dtype)
+    tp = TransformPipeline(TNetwork.read(text), ext, ext, chunk=16, device="cpu",
+                           compute_dtype=dtype)
+    assert (tp._folded is not None) == (kind == "folded")
+    utts = _ext_utts(7, 9, 4, ext)
+    jrows, jvalid = jp.transform_block(utts)
+    rows, valid = tp.transform_block(utts)
+    assert valid == jvalid and rows.shape[0] == valid and rows.dtype == torch.float32
+    t, j = rows.numpy(), np.asarray(jrows, np.float32)[:valid]
+    f32 = TransformPipeline(TNetwork.read(text), ext, ext, chunk=16,
+                            device="cpu").transform_block(utts)[0].numpy()
+    if dtype == "bf16":
+        tol = bf16_step(np.abs(f32).max(axis=1, keepdims=True)) + 1e-6
+        assert (np.abs(t - j) <= tol).all()
+    else:
+        np.testing.assert_allclose(t, j, rtol=0, atol=1e-5)
+    # the reduced precision shows: not the f32 rows
+    assert not np.array_equal(t, f32)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (40, 598, 135), (17, 16, 8)])
+def test_int_mm_is_exact(shape):
+    M, K, N = shape
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    out = int_mm(a, b)
+    assert out.dtype == torch.int32
+    assert torch.equal(out, a.int() @ b.int())

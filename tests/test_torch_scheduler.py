@@ -17,6 +17,7 @@ import torch
 
 from nnet_asr_tpu.models.network import Network as JNetwork
 from nnet_asr_tpu.tools import scheduler as jscheduler
+from nnet_asr_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from nnet_asr_torch.tools import scheduler as tscheduler
 from nnet_asr_torch.tools.synth_corpus import CorpusShape, make_corpus
 
@@ -82,10 +83,33 @@ def test_scheduler_momentum_newbob_matches_jax(corpus, tmp_path, learnrate, want
     assert sorted(os.listdir(tmp_path / "torch")) == sorted(os.listdir(tmp_path / "jax"))
 
 
+# --compute-dtype=bf16 passed on as tnet --COMPUTEDTYPE: the same
+# decisions and best model as the JAX scheduler, whose tnet takes its
+# Pallas path here (the rounding the port's kernels follow; see
+# test_torch_tnet.py). At learning rate 2 the bf16 trajectories stay
+# together (at 8 and 10, as above, a bf16 rounding that flips between the
+# two packages' f32 sums grows over the steps until the CV accuracies
+# part); the best models within atol 1e-2 after three epochs
+def test_scheduler_bf16_newbob_matches_jax(corpus, tmp_path, monkeypatch):
+    monkeypatch.setattr(JTrainerConfig, "pallas_enabled", lambda self: True)
+    extra = ("--learnrate", "2.0", "--momentum=0.5", "--max-iter=3",
+             "--start-halving-inc=10", "--compute-dtype=bf16")
+    jlog, jbest = _run(jscheduler.main, _argv(corpus, tmp_path / "jax", *extra))
+    tlog, tbest = _run(tscheduler.main, _argv(corpus, tmp_path / "torch", *extra),
+                       device="cpu")
+    assert tlog[:-1] == jlog[:-1]
+    assert [line for line in tlog if not line.startswith(("Initial", "Best"))] == [
+        "accepting weights", "accepting weights", "lrate=1", "accepting weights", "lrate=0.5"]
+    assert os.path.basename(tbest) == os.path.basename(jbest)
+    for a, b in zip(JNetwork.read(tbest).params, JNetwork.read(jbest).params):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-2, rtol=0)
+
+
 @pytest.mark.parametrize("extra,item", [
     (("--resident",), "queue 1 item 10"),
     (("--mesh=2x1",), "queue 1 item 14"),
-    (("--compute-dtype=bf16",), "queue 1 item 7"),
+    (("--compute-dtype=bf16", "--resident"), "queue 1 item 10"),
 ])
 def test_scheduler_mode_outside_slice_raises(corpus, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
