@@ -24,7 +24,10 @@ final line):
      TFLOP/s for 3xTF32 on the tensor cores) and the bytes at 3.35 TB/s;
      softmax-CE also with L2 flushed between launches, its bound share
      taken against that time, and torch.softmax and a copy at the same
-     shape as same-bytes yardsticks;
+     shape as same-bytes yardsticks; each bf16 shape's route (WGMMA: TMA +
+     wgmma, the production shapes; MMA_SYNC: MLP3's) held by the per-route
+     launch counters, and the wrappers' host us per call on both routes at
+     the production shapes;
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -45,7 +48,9 @@ final line):
      0.9, and under the bf16 compute dtype at momentum 0 and 0.9 (TFLOP/s
      also against the bf16 bound); then a torch.profiler window of steps
      with momentum 0 and 0.9, MSE and BlockSoftmax at momentum 0, and bf16
-     at momentum 0 and 0.9, device time summed by kernel name;
+     at momentum 0 and 0.9, device time summed by kernel name; the bf16
+     steps' profiler windows hold exact per-route launches (4 WGMMA
+     affine_sigmoid a step, 5 WGMMA wgrad a momentum step);
   7. objectives and tags, on phase 4's corpus (run before phase 6): tnet
      -O mse (epoch + CV, CV Mse must fall), a BlockSoftmax(90, 45) head
      (epoch + CV, CV accuracy must rise), a --CONFUSIONMODE=max CV whose
@@ -63,7 +68,9 @@ final line):
      and int8 epochs again on the CPU must agree; the scheduler with
      --compute-dtype=bf16 for 2 newbob iterations; tfeacat --BF16 and --INT8
      on cuda:0 against the CPU.
-The line before the last is the kernels' JSON record; the last line is
+Phase 2 also fails on a ptxas spill in a WGMMA-route kernel. The line
+before the last is the kernels' JSON record (the two WGMMA-route kernels
+as entries of their own, launched by phase 6); the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
@@ -194,6 +201,36 @@ def cuda_ms(torch, fn, reps: int = 30, warmup: int = 5, before=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, calls: int = 1000, chunk: int = 100) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls: the launch
+    loops alone, timed by perf_counter with no sync inside, in chunks of
+    ``chunk`` separated by a sync (outside the clock) so that the launch
+    queue never fills and the host never waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // chunk):
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def route_name(tile_plan, plan) -> str:
+    return "WGMMA" if plan.route == tile_plan.WGMMA else "MMA_SYNC"
+
+
+def misaligned_copy(torch, t):
+    """A contiguous copy of ``t`` whose base lies one element past a 16-byte
+    boundary: the same shape on the MMA_SYNC route."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +461,7 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     rounded to bf16, f32 GEMMs each rounded once) within two bf16 steps of
     the largest, against the same formula on the plain y."""
     from nnet_asr_torch.ops.kernels import matmul_act as MA
+    from nnet_asr_torch.ops.kernels import tile_plan
 
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -433,13 +471,18 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     g = torch.randn((M, N), generator=gen, device=dev).to(bf)
     what = f"affine_sigmoid bf16 {M}x{K}->{N}"
     ts = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    before = MA.matmul_act.launches_bf16
+    plan = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=ts[0].data_ptr(),
+                          b_ptr=ts[1].data_ptr(), elem=2)
+    route = route_name(tile_plan, plan)
+    check(route == ("MMA_SYNC" if K == 598 else "WGMMA"), f"{what}: route {route}")
+    before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma)
     y = MA.affine_sigmoid(*ts)
     y.backward(g)
     yp = MA.matmul_act_plain(x, w, b)
     torch.cuda.synchronize()
-    check(MA.matmul_act.launches_bf16 == before + 1 and y.dtype == bf,
-          f"{what}: not one bf16 launch, or y not bf16")
+    check((MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma)
+          == (before[0] + 1, before[1] + (route == "WGMMA")) and y.dtype == bf,
+          f"{what}: not one bf16 launch on the {route} route, or y not bf16")
     dy = (y.float() - yp.float()).abs()
     err_y = dy.max().item()
     check(bool((dy <= bf16_tol(torch, y, yp)).all()), f"{what}: y beyond one bf16 step")
@@ -459,8 +502,20 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     devt = tuple(device_us(torch, f) for f in fns)
     r = record(f"{M}x{K}->{N} bf16", err_y, ms, plain_ms, lib_ms, devt, 2.0 * M * N * K,
                2.0 * (M * K + K * N + N + M * N), PEAK_BF16)
-    log(f"kernel {what}: max|y-plain| {err_y:.3e} (within one bf16 step + 1e-5 max), grad "
-        f"rel err dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}")
+    r["route"] = route
+    r["plan"] = {"tile": f"{plan.bm}x{plan.bn}", "blocks": plan.blocks}
+    if route == "WGMMA" and K == 1024:
+        # host us a call, this route beside MMA_SYNC at the same shape (x
+        # one element off a 16-byte boundary)
+        xm = misaligned_copy(torch, x)
+        check(tile_plan.plan(M, N, K, K, N, xm.data_ptr(), w.data_ptr(), elem=2).route
+              == tile_plan.MMA_SYNC, f"{what}: the misaligned copy is not on MMA_SYNC")
+        r["host_us"] = host_us(torch, lambda: MA.matmul_act(x, w, b, "sigmoid"))
+        r["host_us_mma_sync"] = host_us(torch, lambda: MA.matmul_act(xm, w, b, "sigmoid"))
+        log(f"host {what}: {r['host_us']:.2f} us a wrapper call on WGMMA, "
+            f"{r['host_us_mma_sync']:.2f} us on MMA_SYNC (1000 calls, no sync)")
+    log(f"kernel {what} ({route}): max|y-plain| {err_y:.3e} (within one bf16 step + 1e-5 max), "
+        f"grad rel err dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}")
     log_times(f"{what} (plain: cuBLAS f32 of the upcast operands + bias + sigmoid + "
               f"rounding; library: bf16 addmm + sigmoid_)", r,
               2.0 * M * N * K / (ms * 1e-3) / 1e12)
@@ -484,9 +539,17 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
     a, m = 1e-3, 0.9
     what = f"wgrad_momentum_update bf16 x,e {B}x{In}->{Out} v {vdt}"
     pk, vk, pp, vp = p.clone(), v.clone(), p.clone(), v.clone()
-    before = SF.wgrad_momentum_update.launches_bf16
+    plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
+                          b_ptr=e.data_ptr(), split_k=True, elem=2,
+                          out_ptrs=(pk.data_ptr(), vk.data_ptr()))
+    route = route_name(tile_plan, plan)
+    check(route == ("MMA_SYNC" if B == BUNCH else "WGMMA"), f"{what}: route {route}")
+    before = (SF.wgrad_momentum_update.launches_bf16,
+              SF.wgrad_momentum_update.launches_bf16_wgmma)
     SF.wgrad_momentum_update(x, e, pk, vk, a, m)
-    check(SF.wgrad_momentum_update.launches_bf16 == before + 1, f"{what}: not one bf16 launch")
+    check((SF.wgrad_momentum_update.launches_bf16, SF.wgrad_momentum_update.launches_bf16_wgmma)
+          == (before[0] + 1, before[1] + (route == "WGMMA")),
+          f"{what}: not one bf16 launch on the {route} route")
     SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
     torch.cuda.synchronize()
     g = x.float().T @ e.float()
@@ -502,8 +565,6 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
     SF.wgrad_momentum_update(x, e, pk2, vk2, a, m)
     torch.cuda.synchronize()
     check(torch.equal(pk, pk2) and torch.equal(vk, vk2), f"{what}: a second run differs")
-    plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
-                          b_ptr=e.data_ptr(), split_k=True, elem=2)
     pl, vl = p.clone(), v.clone()
 
     def library():          # bf16 x.T @ e, then the f32 update passes
@@ -521,9 +582,17 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
     r = record(f"{B}x{In}->{Out} bf16 x,e v {vdt}", max(dp.max().item(), dv.max().item()),
                *times, devt, 2.0 * B * In * Out,
                2.0 * (B * In + B * Out) + In * Out * (8 + 2 * vbytes), PEAK_BF16)
+    r["route"] = route
     r["plan"] = {"tile": f"{plan.bm}x{plan.bn}", "splits": plan.splits,
-                 "x_bytes": plan.a_bytes, "e_bytes": plan.b_bytes}
-    log(f"kernel {what}: max|p-plain| {dp.max().item():.3e}, max|v-plain| "
+                 "x_bytes": plan.a_bytes, "e_bytes": plan.b_bytes, "blocks": plan.blocks}
+    if route == "WGMMA" and vdt == "f32" and In == 1024:   # as for affine_sigmoid bf16
+        xm = misaligned_copy(torch, x)
+        r["host_us"] = host_us(torch, lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m))
+        r["host_us_mma_sync"] = host_us(torch,
+                                        lambda: SF.wgrad_momentum_update(xm, e, pk, vk, a, m))
+        log(f"host {what}: {r['host_us']:.2f} us a wrapper call on WGMMA, "
+            f"{r['host_us_mma_sync']:.2f} us on MMA_SYNC (1000 calls, no sync)")
+    log(f"kernel {what} ({route}): max|p-plain| {dp.max().item():.3e}, max|v-plain| "
         f"{dv.max().item():.3e}, {differ} of {dv.numel()} elements a bf16 rounding of g apart; "
         f"plan {r['plan']}; two runs equal bit for bit")
     log_times(f"{what} (plain: cuBLAS f32 of the upcast operands, rounded, + elementwise; "
@@ -925,8 +994,8 @@ def objectives_path(torch, card: str, d: str, n: dict):
 #    tfeacat --BF16/--INT8
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("matmul_act", "matmul_act_bf16", "wgrad_momentum_update",
-            "wgrad_momentum_update_bf16", "softmax_xent")
+COUNTERS = ("matmul_act", "matmul_act_bf16", "matmul_act_bf16_wgmma", "wgrad_momentum_update",
+            "wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
 
 
 def _counters():
@@ -937,8 +1006,11 @@ def _counters():
 
     return {"matmul_act": (MA.matmul_act, "launches"),
             "matmul_act_bf16": (MA.matmul_act, "launches_bf16"),
+            "matmul_act_bf16_wgmma": (MA.matmul_act, "launches_bf16_wgmma"),
             "wgrad_momentum_update": (SF.wgrad_momentum_update, "launches"),
             "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
+            "wgrad_momentum_update_bf16_wgmma": (SF.wgrad_momentum_update,
+                                                 "launches_bf16_wgmma"),
             "softmax_xent": (SC.softmax_xent, "launches")}
 
 
@@ -1092,6 +1164,7 @@ def production(torch, dev, card: str):
     from nnet_asr_torch.train.sgd import SgdConfig
     from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
 
+    zero_counts()
     rng = np.random.default_rng(7)
     layers, params = [], []
     for i in range(len(PROD_DIMS) - 1):
@@ -1170,22 +1243,53 @@ def production(torch, dev, card: str):
                         f"TFLOP/s" for t, f in zip(ms, fps)) + bound)
     check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
           "production weights not finite after the momentum steps")
+    # per step in the profiler window: the bf16 steps' GEMM kernels all on
+    # the WGMMA route (4 affine_sigmoid; at momentum 0.9 5 wgrad), the f32
+    # steps' on none
+    hidden, weights = len(PROD_DIMS) - 2, len(PROD_DIMS) - 1
+    routes = {"bf16 momentum 0": {"matmul_act_bf16": hidden, "matmul_act_bf16_wgmma": hidden},
+              "bf16 momentum 0.9": {"matmul_act_bf16": hidden, "matmul_act_bf16_wgmma": hidden,
+                                    "wgrad_momentum_update_bf16": weights,
+                                    "wgrad_momentum_update_bf16_wgmma": weights}}
     for name in ("momentum 0", "momentum 0.9 f32 velocity", "mse momentum 0",
                  "blocksoftmax(4096,4096) momentum 0", "bf16 momentum 0", "bf16 momentum 0.9"):
-        trace_steps(torch, name, lambda: steps[name]._train_step(feats, labels), card)
+        launched = trace_steps(torch, name, lambda: steps[name]._train_step(feats, labels), card)
+        bf16_keys = [k for k in COUNTERS if "bf16" in k]
+        got = {k: launched[k] for k in bf16_keys}
+        want = {k: routes.get(name, {}).get(k, 0) for k in bf16_keys}
+        check(got == want, f"production {name}: bf16 launches a step {got}, want {want}")
+    return read_counts()
 
 
 # (group, pattern searched in the kernel's name), first match wins; the
 # operand type is the template argument after the Tile (the wgrad reduce
-# kernel's first)
-KERNEL_GROUPS = (("affine_sigmoid bf16 (ours)", r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16"),
+# kernel's first); the WGMMA-route kernels take bf16 operands only
+KERNEL_GROUPS = (("affine_sigmoid bf16 (ours)",
+                  r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16|matmul_act_wgmma_kernel"),
                  ("affine_sigmoid (ours)", "matmul_act_kernel"),
                  ("wgrad_momentum_update bf16 (ours)",
                   r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|"
-                  r"wgrad_reduce_kernel<__nv_bfloat16"),
+                  r"wgrad_reduce_kernel<__nv_bfloat16|wgrad_momentum_wgmma_kernel"),
                  ("wgrad_momentum_update (ours)", "wgrad_"),
                  ("softmax_xent (ours)", "softmax_xent_"),
                  ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"))
+
+
+def wgmma_spills(build_log: str) -> dict:
+    """Spill bytes (stores + loads) by WGMMA-route kernel, from ptxas's -v
+    report: each kernel's "Compiling entry function" line, then its
+    "bytes spill stores, ... bytes spill loads" line."""
+    spills, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S*wgmma_kernel\S*)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name is not None:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return spills
 
 
 def trace_steps(torch, name, step, card, n_steps=5):
@@ -1195,7 +1299,6 @@ def trace_steps(torch, name, step, card, n_steps=5):
     on). The wrappers' launch counts over the same steps stand beside it."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    counters = _counters()
     # one cycle; no step() after the last active step, which would end the
     # cycle and clear its events before key_averages reads them
     with profile(activities=[ProfilerActivity.CUDA],
@@ -1218,7 +1321,7 @@ def trace_steps(torch, name, step, card, n_steps=5):
     busy = sum(us for _, us, _ in rows)
     if busy <= 0:
         log(f"trace {name}: the profiler recorded no device time")
-        return
+        return launched
     groups = {}
     for key, us, _ in rows:
         group = next((g for g, pat in KERNEL_GROUPS if re.search(pat, key)), "other")
@@ -1230,6 +1333,7 @@ def trace_steps(torch, name, step, card, n_steps=5):
         + f"; wrapper launches per step {json.dumps(launched)}")
     for key, us, count in rows[:12]:
         log(f"  {us:9.1f} us x{count:<4.1f} {key[:110]}")
+    return launched
 
 
 def main() -> int:
@@ -1264,6 +1368,10 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+    spills = wgmma_spills(_build.build_log)
+    log(f"ptxas, WGMMA-route kernels: {json.dumps(spills)}")
+    check(not _build.build_log or (len(spills) == 3 and not any(spills.values())),
+          f"a WGMMA-route kernel spills, or is missing from the build log: {spills}")
 
     # 3. kernels against their plain versions; the first shape of each is
     # the MLP3 shape the kernels line reports
@@ -1292,27 +1400,43 @@ def main() -> int:
         launches_mom = momentum_path(torch, card, d, n)
         launches_obj = objectives_path(torch, card, d, n)
         launches_dt = dtypes_path(torch, card, d, n)
-    production(torch, dev, card)
+    launches_prod = production(torch, dev, card)
     launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj,
                                              launches_dt)) for k in COUNTERS}
+    log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
+
+    # the WGMMA-route kernels as entries of their own: the production shapes
+    # of phase 3, launched by phase 6
+    for name in ("affine_sigmoid_bf16", "wgrad_momentum_update_bf16"):
+        shapes[f"{name}_wgmma"] = [r for r in shapes[name] if r["route"] == "WGMMA"]
 
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
-        f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, every shape "
-        f"under 'shapes'; launches summed over the frame-CE, momentum, objectives and "
-        f"compute-dtype paths")
-    meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act"),
-            "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent"),
+        f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, the WGMMA-route "
+        f"kernels' at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape under "
+        f"'shapes'; launches summed over the frame-CE, momentum, objectives and "
+        f"compute-dtype paths, for the WGMMA-route kernels over the production path")
+    # name: (source, TPU kernel, counter, launches by path, main shape's index)
+    meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act", launches, 0),
+            "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent",
+                                   launches, 0),
             "wgrad_momentum_update": ("sgd_fused.cu", "sgd_fused.py:105",
-                                      "wgrad_momentum_update"),
-            "affine_sigmoid_bf16": ("matmul_act.cu", "matmul_act.py:86", "matmul_act_bf16"),
+                                      "wgrad_momentum_update", launches, 0),
+            "affine_sigmoid_bf16": ("matmul_act.cu", "matmul_act.py:86", "matmul_act_bf16",
+                                    launches, 0),
             "wgrad_momentum_update_bf16": ("sgd_fused.cu", "sgd_fused.py:105",
-                                           "wgrad_momentum_update_bf16")}
+                                           "wgrad_momentum_update_bf16", launches, 0),
+            "affine_sigmoid_bf16_wgmma": ("matmul_act.cu", "matmul_act.py:86",
+                                          "matmul_act_bf16_wgmma", launches_prod, -1),
+            "wgrad_momentum_update_bf16_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",
+                                                 "wgrad_momentum_update_bf16_wgmma",
+                                                 launches_prod, -2)}
     kernels = []
-    for name, (src, tpu, counter) in meta.items():
-        main_shape = shapes[name][0]
+    for name, (src, tpu, counter, counts, main) in meta.items():
+        main_shape = shapes[name][main]
+        check(counts[counter] > 0, f"{name} was not launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": f"nnet_asr_torch/csrc/{src}",
-            "replaces": f"nnet_asr_tpu/ops/pallas/{tpu}", "launches": launches[counter],
+            "replaces": f"nnet_asr_tpu/ops/pallas/{tpu}", "launches": counts[counter],
             "max_abs_err": max(r["max_abs_err"] for r in shapes[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_us"] * 1e-3, "bound_us": main_shape["bound_us"],

@@ -26,15 +26,33 @@
 // astype), masked at the ragged edges (598, 135 and 960 are not tile
 // multiples; loads outside the matrix read 0).
 //
+// bf16 operands whose rows TMA can describe (pitches of 16-byte multiples,
+// 16-byte aligned bases: every production shape) take the WGMMA route
+// instead: wgmma_gemm.cuh's warp-specialised TMA ring and m64n256k16 wgmma
+// on 128x256 tiles (matmul_act_wgmma_kernel). Its epilogue works on the
+// accumulator fragments with the same order of operations (the tile's bias
+// upcast into shared memory before the main loop and added in f32, the
+// sigmoid in f32, one rounding of y). Its sigmoid takes __expf and
+// __fdividef: a few f32 ulps (~1e-6 relative) from expf and an IEEE divide,
+// far under the bf16 step (2^-8) that y is rounded to, as the summation
+// order already is; the IEEE form made the sigmoid a seventh of the
+// kernel's time (tools/gemm_ceiling.py, wgmma_ieee_sigmoid). It stages y
+// in the drained ring one 64-column box at a time and writes each box by a
+// TMA store as soon as it is staged, so the stores overlap the next box's
+// sigmoids; the stores clip the ragged edge.
+//
 // Layout: x (M, K), W (K, N), b (N,), y (M, N), all row-major contiguous.
 
 #include <cuda_runtime.h>
 
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace nnet_tile;
+namespace W = nnet_wgmma;
+using Coop = W::Cooperative;
 
 template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS)
@@ -79,6 +97,78 @@ int dispatch(const E* x, const E* w, const E* b, E* y, int M, int N, int K, int 
                    : launch<SmallTile>(x, w, b, y, M, N, K, act, x_bytes, w_bytes, s);
 }
 
+// The WGMMA route's epilogue for consumer warpgroup c (rows 64c..64c+63 of
+// the tile): the bias (the tile's 256 values, upcast to f32 in shared
+// memory) added in f32, the sigmoid in f32 (__expf, __fdividef; see the
+// note at the top), y rounded once to bf16 (nearest even). The warpgroup
+// stages its 64 x 256 rows in the ring as four 64 x 64 boxes,
+// 128B-swizzled as TMA expects (a warp's bf16 pairs then fall in 32
+// distinct banks); one thread writes each box by a TMA store once it is
+// staged. The stores clip at M and N.
+__device__ __forceinline__ void store_y_tile(const W::Smem& s, const CUtensorMap* ty,
+                                             const float* bias, int c, int m0, int n0, int act,
+                                             const float (&acc)[128]) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = 16 * (t / 32) + lane / 4;   // the fragment's first row of the 64
+  uint8_t* stage = s.ring + c * (Coop::BN / W::BOX) * W::BOX_BYTES;
+  W::named_sync(1, 256);   // both consumer warpgroups are done with the ring
+#pragma unroll
+  for (int j = 0; j < Coop::BN / W::BOX; ++j) {
+#pragma unroll
+    for (int i = 8 * j; i < 8 * j + 8; ++i) {
+      const float b0 = bias[8 * i + 2 * (lane % 4)], b1 = bias[8 * i + 2 * (lane % 4) + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float z0 = acc[4 * i + 2 * h] + b0, z1 = acc[4 * i + 2 * h + 1] + b1;
+        if (act == 1) {
+          z0 = __fdividef(1.0f, 1.0f + __expf(-z0));
+          z1 = __fdividef(1.0f, 1.0f + __expf(-z1));
+        }
+        const int row = r + 8 * h, unit = (i % 8) ^ (row % 8);
+        *reinterpret_cast<__nv_bfloat162*>(stage + j * W::BOX_BYTES + row * 128 + unit * 16 +
+                                           (lane % 4) * 4) = __floats2bfloat162_rn(z0, z1);
+      }
+    }
+    W::fence_proxy_async();
+    W::named_sync(2 + c, 128);
+    if (t == 0) {
+      W::tma_store(ty, W::smem_u32(stage + j * W::BOX_BYTES), n0 + j * W::BOX,
+                   m0 + c * W::BM / 2);
+      W::tma_store_commit();
+    }
+  }
+  if (t == 0) W::tma_store_wait_read();
+}
+
+// y = act(x @ W + b), bf16, one 128 x 256 tile a block (wgmma_gemm.cuh)
+__global__ void __launch_bounds__(W::THREADS, 1)
+matmul_act_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw,
+                        const __grid_constant__ CUtensorMap ty, const bf16* __restrict__ b, int N,
+                        int K, int act) {
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ float bias[Coop::BN];
+  const W::Smem s = W::setup_smem<Coop>(wg_smem);
+  const int m0 = blockIdx.y * W::BM, n0 = blockIdx.x * Coop::BN;
+  const int ktiles = (K + W::BK - 1) / W::BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    W::setmaxnreg_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      W::RingPos<Coop> pos;
+      W::produce_tile<Coop, true>(s, &tx, &tw, m0, n0, ktiles, pos);
+    }
+  } else {
+    W::setmaxnreg_inc<W::CONSUMER_REGS>();
+    const int col = threadIdx.x - 128;   // one of the tile's 256 columns
+    bias[col] = n0 + col < N ? __bfloat162float(b[n0 + col]) : 0.0f;
+    float acc[128];
+    W::RingPos<Coop> pos;
+    W::consume_tile<true>(s, wg - 1, ktiles, pos, acc);
+    store_y_tile(s, &ty, bias, wg - 1, m0, n0, act, acc);
+  }
+}
+
 }  // namespace
 
 // act: 0 = none, 1 = sigmoid. tile: 0 = 128x128, 1 = 64x64. x_vec, w_vec:
@@ -99,4 +189,23 @@ extern "C" int matmul_act_bf16(const void* x, const void* w, const void* b, void
   return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                   static_cast<const bf16*>(b), static_cast<bf16*>(y), M, N, K, act, tile,
                   x_bytes, w_bytes, stream);
+}
+
+// The WGMMA route of matmul_act_bf16: x, w and y with row pitches of
+// 16-byte multiples and 16-byte aligned bases (tile_plan.plan's route).
+// Returns the CUDA error code of the tensor-map encodes and the launch.
+extern "C" int matmul_act_bf16_wgmma(const void* x, const void* w, const void* b, void* y, int M,
+                                     int N, int K, int act, void* stream) {
+  const int smem_err = allow_smem(matmul_act_wgmma_kernel, Coop::SMEM_BYTES);
+  if (smem_err != 0) return smem_err;
+  CUtensorMap tx, tw, ty;
+  int err = W::tensor_map(&tx, x, M, K, W::BOX, W::BM);
+  if (err == 0) err = W::tensor_map(&tw, w, K, N, W::BOX, W::BK);
+  if (err == 0) err = W::tensor_map(&ty, y, M, N, W::BOX, W::BM / 2);
+  if (err != 0) return err;
+  const dim3 grid((N + Coop::BN - 1) / Coop::BN, (M + W::BM - 1) / W::BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  matmul_act_wgmma_kernel<<<grid, W::THREADS, Coop::SMEM_BYTES, s>>>(
+      tx, tw, ty, static_cast<const bf16*>(b), N, K, act);
+  return static_cast<int>(cudaGetLastError());
 }

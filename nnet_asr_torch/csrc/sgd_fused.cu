@@ -44,6 +44,22 @@
 // JAX versions do; bf16 velocity is stored round-to-nearest-even
 // (__float2bfloat16_rn), as JAX's astype.
 //
+// bf16 x and e whose rows TMA can describe (pitches of 16-byte multiples,
+// 16-byte aligned bases, and p and v 16-byte aligned: every production
+// shape) take the WGMMA route instead (wgrad_momentum_wgmma_kernel):
+// wgmma_gemm.cuh's warp-specialised TMA ring with m64n128k16 wgmma reading
+// x M-major and e N-major, on a persistent grid of min(tiles, SMs) blocks
+// that walk the 128x128 output tiles in a fixed order. The epilogue bounds
+// this route (each tile reads and writes 256 KB of f32 p and v against
+// ~4 us of wgmma work), so the two consumer warpgroups take turns
+// (PingPong): one runs a tile's wgmma while the other updates p and v for
+// the tile before. The epilogue stages g, rounded once to bf16, in shared
+// memory and then walks whole rows, so each warp reads and writes 512
+// contiguous bytes of f32 p and v with 16-byte accesses; the rows a warp
+// has in flight are all loaded before the first store, and the arithmetic
+// is the mma.sync epilogue's. It never splits the bunch (the production
+// shapes have >= 256 tiles).
+//
 // Layout: x (B, In), e (B, Out), p (In, Out), v (In, Out), all row-major
 // contiguous; scratch (S, In, Out) f32 when S > 1.
 
@@ -52,10 +68,12 @@
 #include <type_traits>
 
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace nnet_tile;
+namespace W = nnet_wgmma;
 
 // The weight gradient as the update takes it: the f32 sum, or for bf16
 // operands that sum rounded to bf16 (to nearest even).
@@ -183,6 +201,145 @@ int dispatch(const E* x, const E* e, float* p, void* v, float* part, float a, fl
                                        x_bytes, e_bytes, s);
 }
 
+__device__ __forceinline__ float4 load4(const float* q) {
+  return *reinterpret_cast<const float4*>(q);
+}
+__device__ __forceinline__ float4 load4(const bf16* q) {
+  const uint2 u = *reinterpret_cast<const uint2*>(q);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* q, float4 x) {
+  *reinterpret_cast<float4*>(q) = x;
+}
+// round to nearest even, as JAX's astype
+__device__ __forceinline__ void store4(bf16* q, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(q) = u;
+}
+
+// v <- g + m v; p <- p - a v for one element, in f32 with no contraction
+__device__ __forceinline__ void momentum(float g, float& p, float& v, float a, float m) {
+  v = __fadd_rn(g, __fmul_rn(v, m));
+  p = __fsub_rn(p, __fmul_rn(v, a));
+}
+
+// The WGMMA route's epilogue for one ping-pong tile (rows m0.., columns
+// n0.. of p and v): g rounded once to bf16 (the rounding grad_at<bf16>
+// makes) and staged row-major in the consumer's buffer gs (G_PITCH), then
+// each warp takes rows w, w + 4, ..., R at a time, lane l columns n0 + 4l
+// .. n0 + 4l + 3: a warp reads and writes 512 contiguous bytes of f32 p (and
+// of f32 v) a row, 16 bytes a lane. The fragments hold rows 16w + l/4 + 8h
+// (+ 64 for acc1), columns 8i + 2(l%4) + e at d[4i + 2h + e].
+template <class V>
+__device__ __forceinline__ void update_tile(bf16* __restrict__ gs, float* __restrict__ p,
+                                            V* __restrict__ v, float a, float m, int In,
+                                            int Out, int m0, int n0, const float (&acc0)[64],
+                                            const float (&acc1)[64]) {
+  constexpr int R = 8;   // rows a warp has in flight
+  const int t = threadIdx.x % 128, lane = t % 32, warp = t / 32;
+  const int bar = 2 + threadIdx.x / 128;   // the consumer's own barrier: 3 or 4
+  W::named_sync(bar, 128);   // its last tile's update has read gs
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + lane / 4 + 8 * h, col = 8 * i + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(gs + row * W::G_PITCH + col) =
+          __floats2bfloat162_rn(acc0[4 * i + 2 * h], acc0[4 * i + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(gs + (row + 64) * W::G_PITCH + col) =
+          __floats2bfloat162_rn(acc1[4 * i + 2 * h], acc1[4 * i + 2 * h + 1]);
+    }
+  W::named_sync(bar, 128);
+  const int col = n0 + 4 * lane;
+  if (col >= Out) return;   // Out is a multiple of 4 on this route
+#pragma unroll 1
+  for (int r0 = warp; r0 < W::BM; r0 += 4 * R) {
+    float4 pv[R], vv[R];   // every load before the first store
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = m0 + r0 + 4 * j;
+      const size_t o = (size_t)r * Out + col;
+      pv[j] = r < In ? load4(p + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vv[j] = r < In ? load4(v + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = m0 + r0 + 4 * j;
+      if (r >= In) continue;
+      const size_t o = (size_t)r * Out + col;
+      const uint2 gu = *reinterpret_cast<const uint2*>(gs + (r0 + 4 * j) * W::G_PITCH + 4 * lane);
+      const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gu.x));
+      const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gu.y));
+      momentum(g01.x, pv[j].x, vv[j].x, a, m);
+      momentum(g01.y, pv[j].y, vv[j].y, a, m);
+      momentum(g23.x, pv[j].z, vv[j].z, a, m);
+      momentum(g23.y, pv[j].w, vv[j].w, a, m);
+      store4(v + o, vv[j]);
+      store4(p + o, pv[j]);
+    }
+  }
+}
+
+// g = x^T e, bf16; v, p updated in place. A persistent grid: block k takes
+// tiles k, k + gridDim.x, ... (tile t at rows (t % m_tiles) * 128, columns
+// (t / m_tiles) * 128), the producer loading them in that order and the
+// two consumers taking turns (wgmma_gemm.cuh, PingPong): consumer c the
+// block's tiles c, c + 2, ..., skipping the other's stages in the ring.
+template <class V>
+__global__ void __launch_bounds__(W::THREADS, 1)
+wgrad_momentum_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap te, float* __restrict__ p,
+                            V* __restrict__ v, float a, float m, int B, int In, int Out) {
+  using S = W::PingPong;
+  extern __shared__ uint8_t wg_smem[];
+  const W::Smem s = W::setup_smem<S>(wg_smem);
+  const int m_tiles = (In + W::BM - 1) / W::BM;
+  const int tiles = m_tiles * ((Out + S::BN - 1) / S::BN);
+  const int ktiles = (B + W::BK - 1) / W::BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    W::setmaxnreg_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      W::RingPos<S> pos;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        W::produce_tile<S, false>(s, &tx, &te, (tile % m_tiles) * W::BM,
+                                  (tile / m_tiles) * S::BN, ktiles, pos);
+    }
+  } else {
+    W::setmaxnreg_inc<W::CONSUMER_REGS>();
+    const int c = wg - 1;
+    bf16* gs = reinterpret_cast<bf16*>(s.extra + c * W::G_BYTES);
+    float acc0[64], acc1[64];
+    W::RingPos<S> pos;
+    pos.skip(c * ktiles);
+    for (int tile = blockIdx.x + c * gridDim.x; tile < tiles; tile += 2 * gridDim.x) {
+      const int m0 = (tile % m_tiles) * W::BM, n0 = (tile / m_tiles) * S::BN;
+      // main loops in turn (wgmma_gemm.cuh): consumer c waits at barrier
+      // 1 + c for the other's main loop of the tile before
+      if (tile >= gridDim.x) W::named_sync(1 + c, 256);
+      W::consume_tile<false>(s, ktiles, pos, acc0, acc1);
+      if (tile + gridDim.x < tiles) W::named_arrive(2 - c, 256);
+      pos.skip(ktiles);
+      update_tile(gs, p, v, a, m, In, Out, m0, n0, acc0, acc1);
+    }
+  }
+}
+
+template <class V>
+int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& te, float* p, V* v, float a, float m,
+                 int B, int In, int Out, int blocks, cudaStream_t stream) {
+  const int smem_err = allow_smem(wgrad_momentum_wgmma_kernel<V>, W::PingPong::SMEM_BYTES);
+  if (smem_err != 0) return smem_err;
+  wgrad_momentum_wgmma_kernel<V><<<blocks, W::THREADS, W::PingPong::SMEM_BYTES, stream>>>(
+      tx, te, p, v, a, m, B, In, Out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). tile:
@@ -207,4 +364,20 @@ extern "C" int wgrad_momentum_update_bf16(const void* x, const void* e, float* p
                                           int k_chunk, int x_bytes, int e_bytes, void* stream) {
   return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(e), p, v, part, a, m,
                   B, In, Out, v_is_bf16, tile, splits, k_chunk, x_bytes, e_bytes, stream);
+}
+
+// The WGMMA route of wgrad_momentum_update_bf16: x, e with row pitches of
+// 16-byte multiples, x, e, p and v 16-byte aligned (tile_plan.plan's
+// route); blocks: the persistent grid, min(tiles, SMs); no split-K.
+// Returns the CUDA error code of the tensor-map encodes and the launch.
+extern "C" int wgrad_momentum_update_bf16_wgmma(const void* x, const void* e, float* p, void* v,
+                                                float a, float m, int B, int In, int Out,
+                                                int v_is_bf16, int blocks, void* stream) {
+  CUtensorMap tx, te;
+  int err = W::tensor_map(&tx, x, B, In, W::BOX, W::BK);
+  if (err == 0) err = W::tensor_map(&te, e, B, Out, W::BOX, W::BK);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return v_is_bf16 ? launch_wgmma(tx, te, p, static_cast<bf16*>(v), a, m, B, In, Out, blocks, s)
+                   : launch_wgmma(tx, te, p, static_cast<float*>(v), a, m, B, In, Out, blocks, s);
 }

@@ -18,14 +18,17 @@
 // memory by ldmatrix, .trans for an operand stored MN-major (W and e, and
 // the x of x^T e), so the shared tiles keep the global row layout here too.
 //
-// Why mma.sync and not wgmma: TF32 wgmma takes both operands K-major from
-// shared memory, but affine_sigmoid's W (K x N) is N-major and both x and e
-// of the wgrad product x^T e are M/N-major. mma.sync fragments are loaded by
-// each thread from a shared tile of either layout, and the hi/lo split
-// happens in those registers. The price: on an H100, mma.sync issues TF32
-// at about half of wgmma's rate, so this loop stays under half of the
-// 3xTF32 bound (tools/gemm_ceiling.py times it with the split taken out).
-// The bf16 loop keeps the same simple form; wgmma and TMA are later work.
+// Why mma.sync and not wgmma for f32: TF32 wgmma takes both operands
+// K-major from shared memory, but affine_sigmoid's W (K x N) is N-major and
+// both x and e of the wgrad product x^T e are M/N-major. mma.sync fragments
+// are loaded by each thread from a shared tile of either layout, and the
+// hi/lo split happens in those registers. The price: on an H100, mma.sync
+// issues TF32 at about half of wgmma's rate, so this loop stays under half
+// of the 3xTF32 bound (tools/gemm_ceiling.py times it with the split taken
+// out). That reason holds for TF32 only: 16-bit wgmma reads MN-major tiles
+// too (its transpose bits), so bf16 operands that TMA can describe (row
+// pitches of 16-byte multiples) run on wgmma_gemm.cuh instead. The bf16
+// loop here serves the rest: MLP3's rows of 598 and 135 elements.
 //
 // Tiles. A block computes a BM x BN output tile with WARPS_M x WARPS_N
 // warps, each a WM x WN sub-tile of (WM/16) x (WN/8) mma tiles. The

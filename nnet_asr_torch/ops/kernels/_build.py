@@ -42,6 +42,8 @@ SIGNATURES = {
     "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # the same, bf16; x_bytes, w_bytes in place of x_vec, w_vec
     "matmul_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # bf16 on the WGMMA route: x, w, b, y, M, N, K, act, stream
+    "matmul_act_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # logits, labels, err, part, ticket, xent, corr, B, C, variant, blocks,
     # threads, vpt, vec, stream
     "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -52,6 +54,9 @@ SIGNATURES = {
     # the same, bf16 x and e; x_bytes, e_bytes in place of x_vec, e_vec
     "wgrad_momentum_update_bf16": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
+    # bf16 x and e on the WGMMA route: x, e, p, v, a, m, B, In, Out,
+    # v_is_bf16, blocks, stream
+    "wgrad_momentum_update_bf16_wgmma": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

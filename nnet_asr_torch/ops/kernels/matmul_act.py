@@ -6,6 +6,10 @@ CUDA kernel ``nnet_asr_torch/csrc/matmul_act.cu``: the tensor-core GEMM of
 ``csrc/tile_gemm.cuh`` (3xTF32 ``mma.sync`` for f32 operands, f32-accurate;
 one bf16 ``mma.sync`` pass for bf16 ones, accumulated in f32) fed by a
 ``cp.async`` ring, with the bias + sigmoid epilogue in registers, in f32.
+bf16 operands that TMA can read (``tile_plan``'s WGMMA route: every
+production shape) go to ``csrc/wgmma_gemm.cuh`` instead: ``wgmma`` on
+128x256 tiles fed by TMA through a warp-specialised ring, y written by TMA
+stores.
 As in the TPU kernel, ``y`` has x's dtype: bf16 y is the f32 result rounded
 once. It is bound by operations, not bytes, at the main path's shapes
 (960x598->1024 on example-01's MLP3, 1024x{1024,4096}->4096 on the
@@ -16,7 +20,8 @@ copy width from the shapes, pointers and element size.
 plain PyTorch version (``matmul_act_plain``), a CUDA tensor launches the
 kernel or raises — there is no fallback, and x, w and b must share one
 dtype. ``matmul_act.launches`` counts f32 launches,
-``matmul_act.launches_bf16`` bf16 ones. ``affine_sigmoid`` is the
+``matmul_act.launches_bf16`` bf16 ones (both routes), and
+``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route. ``affine_sigmoid`` is the
 ``autograd.Function``; its backward is the JAX ``_bwd``, roundings
 included: the elementwise ``dz`` in f32, rounded to x's dtype, then ``dx``
 and ``dW`` by ``torch.matmul`` (which JAX also left outside Pallas; at bf16
@@ -97,17 +102,21 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     lib = _build.load_library()
     M, K = x.shape
     N = w.shape[1]
-    p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=x.data_ptr(),
-                       b_ptr=w.data_ptr(), elem=x.element_size())
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=x.data_ptr(),
+                       b_ptr=w.data_ptr(), elem=x.element_size(), out_ptrs=(y.data_ptr(),))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act], p.tile)
-    if x.dtype == torch.bfloat16:
-        _build.check(lib.matmul_act_bf16(*args, p.a_bytes, p.b_bytes, stream),
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act])
+    if p.route == tile_plan.WGMMA:
+        _build.check(lib.matmul_act_bf16_wgmma(*args, stream), "matmul_act_bf16_wgmma")
+        matmul_act.launches_bf16 += 1
+        matmul_act.launches_bf16_wgmma += 1
+    elif x.dtype == torch.bfloat16:
+        _build.check(lib.matmul_act_bf16(*args, p.tile, p.a_bytes, p.b_bytes, stream),
                      "matmul_act_bf16")
         matmul_act.launches_bf16 += 1
     else:
-        _build.check(lib.matmul_act_f32(*args, int(p.a_vec), int(p.b_vec), stream),
+        _build.check(lib.matmul_act_f32(*args, p.tile, int(p.a_vec), int(p.b_vec), stream),
                      "matmul_act_f32")
         matmul_act.launches += 1
     return y
@@ -115,6 +124,7 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 matmul_act.launches = 0
 matmul_act.launches_bf16 = 0
+matmul_act.launches_bf16_wgmma = 0
 
 
 def _affine_backward(ctx, x, w, dz):

@@ -1,22 +1,37 @@
-"""What holds the 3xTF32 GEMM main loop back: the kernels beside two variants.
+"""What holds the GEMM main loops back: the kernels beside variants of them.
 
     python -m nnet_asr_torch.tools.gemm_ceiling [--reps N]
 
-Builds ``csrc/`` three times, each into its own directory under
+Builds ``csrc/`` six times, each into its own directory under
 ``build/gemm_ceiling/``, and times ``matmul_act`` (no activation) at
-1024x4096->4096 and ``wgrad_momentum_update`` at 1024x4096->8192 with each
-build, in turns, by CUDA events:
+1024x4096->4096 and ``wgrad_momentum_update`` at 1024x4096->8192 with f32
+operands, and with bf16 operands on the WGMMA route ``matmul_act`` with the
+sigmoid and without at 1024x4096->4096, with it at 1024x1024->4096, and
+the wgrad at 1024x4096->8192 and ->4096 (f32 velocity), with each build,
+in turns, by CUDA events (a sleep kernel first, so that the host queues
+every call before the device starts and short kernels are timed by the
+device alone):
 
-  3xtf32         the kernels as they are;
-  3pass_nosplit  the same three mma.sync per tile with the raw f32 bits as
-                 both hi and lo (no split work; the results are wrong): the
-                 tensor-core issue of the main loop alone;
-  1pass          one mma.sync per tile, no split: plain one-pass TF32
-                 (three decimal digits; not f32-accurate).
+  3xtf32              the kernels as they are;
+  3pass_nosplit       the same three mma.sync per tile with the raw f32 bits
+                      as both hi and lo (no split work; the results are
+                      wrong): the tensor-core issue of the 3xTF32 main loop;
+  1pass               one mma.sync per tile, no split: plain one-pass TF32
+                      (three decimal digits; not f32-accurate);
+  wgmma_mainloop      the bf16 WGMMA-route kernels without their epilogues
+                      (no y, p or v written; the results are wrong): TMA,
+                      the ring and wgmma alone;
+  wgmma_wgrad_r4      the bf16 wgrad's epilogue with 4 rows a warp in flight
+                      in place of 8;
+  wgmma_ieee_sigmoid  matmul_act bf16's sigmoid by expf and an IEEE divide in
+                      place of __expf and __fdividef.
 
-The gap between the first two is the hi/lo split's cost; the second against
-the 3xTF32 bound is what mma.sync's issue rate allows. Needs the card and
-nvcc; prints the card's name and power limit first.
+For f32, the gap between the first two is the hi/lo split's cost, the
+second against the 3xTF32 bound what mma.sync's issue rate allows. For
+bf16, the kernel's time less the main loop's is what its epilogue adds
+(bias, sigmoid and y's TMA stores; the p and v update, which the wgrad's
+ping-pong schedule overlaps with the other consumer's main loop). Needs
+the card and nvcc; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -41,24 +56,35 @@ MMA3 = ("        mma_tf32(acc[i][j], alo[i], bhi);\n"
         "        mma_tf32(acc[i][j], ahi[i], blo);\n"
         "        mma_tf32(acc[i][j], ahi[i], bhi);")
 MMA1 = "        mma_tf32(acc[i][j], ahi[i], bhi);"
-VARIANTS = {"3xtf32": [], "3pass_nosplit": [(SPLIT, RAW)],
-            "1pass": [(SPLIT, RAW), (MMA3, MMA1)]}
+# the WGMMA-route kernels' epilogue calls, and the wgrad epilogue's chunk
+STORE_Y = "    store_y_tile(s, &ty, bias, wg - 1, m0, n0, act, acc);"
+UPDATE_PV = "      update_tile(gs, p, v, a, m, In, Out, m0, n0, acc0, acc1);"
+ROWS8 = "  constexpr int R = 8;"
+ROWS4 = "  constexpr int R = 4;"
+FAST_SIGMOID = "__fdividef(1.0f, 1.0f + __expf(-z{}))"
+IEEE_SIGMOID = "1.0f / (1.0f + expf(-z{}))"
+# variant: [(file in csrc/, text, replacement)]
+VARIANTS = {"3xtf32": [], "3pass_nosplit": [("tile_gemm.cuh", SPLIT, RAW)],
+            "1pass": [("tile_gemm.cuh", SPLIT, RAW), ("tile_gemm.cuh", MMA3, MMA1)],
+            "wgmma_mainloop": [("matmul_act.cu", STORE_Y, ""), ("sgd_fused.cu", UPDATE_PV, "")],
+            "wgmma_wgrad_r4": [("sgd_fused.cu", ROWS8, ROWS4)],
+            "wgmma_ieee_sigmoid": [("matmul_act.cu", FAST_SIGMOID.format(i), IEEE_SIGMOID.format(i))
+                                   for i in (0, 1)]}
 
 
 def build_variant(name, subs, root):
-    """Compile csrc/ with the text substitutions ``subs`` in tile_gemm.cuh."""
+    """Compile csrc/ with the text substitutions ``subs``."""
     d = os.path.join(root, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
-    path = os.path.join(d, "tile_gemm.cuh")
-    with open(path) as f:
-        src = f.read()
-    for old, new in subs:
+    for fname, old, new in subs:
+        path = os.path.join(d, fname)
+        with open(path) as f:
+            src = f.read()
         if old not in src:
-            raise RuntimeError(f"{name}: tile_gemm.cuh no longer holds {old!r}")
-        src = src.replace(old, new)
-    with open(path, "w") as f:
-        f.write(src)
+            raise RuntimeError(f"{name}: {fname} no longer holds {old!r}")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
     so = os.path.join(d, "lib.so")
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
            *sorted(os.path.join(d, s) for s in os.listdir(d) if s.endswith(".cu"))]
@@ -76,10 +102,14 @@ def load(so):
 
 
 def event_us(fn, reps):
+    """Device us a call by CUDA events. A sleep kernel holds the device
+    while the host queues every call, so a kernel shorter than its
+    wrapper's host time is still timed by the device alone."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)   # ~10 ms at the H100's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -118,10 +148,26 @@ def main(argv=None) -> int:
     xs = torch.randn((B, In), generator=gen, device=dev)
     es = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)
     p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
+    bf = torch.bfloat16
+    xb, wb, bb, xsb, esb = (t.to(bf) for t in (x, w, b, xs, es))
+    xb1, wb1 = xb[:, :1024].contiguous(), wb[:1024].contiguous()
+    esb4 = esb[:, :4096].contiguous()
+    p4, v4 = torch.zeros((In, 4096), device=dev), torch.zeros((In, 4096), device=dev)
     cases = [(f"matmul_act {M}x{K}->{N}", 2.0 * M * N * K,
               lambda: MA.matmul_act(x, w, b, "none")),
              (f"wgrad_momentum_update {B}x{In}->{Out}", 2.0 * B * In * Out,
-              lambda: SF.wgrad_momentum_update(xs, es, p, v, 0.0, 0.0))]
+              lambda: SF.wgrad_momentum_update(xs, es, p, v, 0.0, 0.0)),
+             (f"matmul_act bf16 sigmoid {M}x{K}->{N}", 2.0 * M * N * K,
+              lambda: MA.matmul_act(xb, wb, bb, "sigmoid")),
+             (f"matmul_act bf16 none {M}x{K}->{N}", 2.0 * M * N * K,
+              lambda: MA.matmul_act(xb, wb, bb, "none")),
+             (f"matmul_act bf16 sigmoid {M}x1024->{N}", 2.0 * M * N * 1024,
+              lambda: MA.matmul_act(xb1, wb1, bb, "sigmoid")),
+             (f"wgrad_momentum_update bf16 {B}x{In}->{Out}", 2.0 * B * In * Out,
+              lambda: SF.wgrad_momentum_update(xsb, esb, p, v, 0.0, 0.0)),
+             (f"wgrad_momentum_update bf16 {B}x{In}->4096", 2.0 * B * In * 4096,
+              lambda: SF.wgrad_momentum_update(xsb, esb4, p4, v4, 0.0, 0.0))]
+    before = MA.matmul_act.launches_bf16_wgmma, SF.wgrad_momentum_update.launches_bf16_wgmma
     saved = _build._lib
     try:
         for turn in range(2):
@@ -134,6 +180,8 @@ def main(argv=None) -> int:
                 print(f"gemm_ceiling turn {turn} {name}: " + "; ".join(row))
     finally:
         _build._lib = saved
+    if (MA.matmul_act.launches_bf16_wgmma, SF.wgrad_momentum_update.launches_bf16_wgmma) == before:
+        raise RuntimeError("the bf16 cases did not take the WGMMA route")
     return 0
 
 

@@ -22,7 +22,13 @@ near zero the sum's own error exceeds a bf16 step).
 The bf16 variants (one bf16 ``mma.sync`` pass, f32 accumulation) are held to
 their plain versions within one bf16 step: both round an f32 value that
 differs only by summation order. Their shapes add the 2-byte copy path (an
-odd bf16 pitch, or a base that is not 4-byte aligned).
+odd bf16 pitch, or a base that is not 4-byte aligned), and the WGMMA route
+(``csrc/wgmma_gemm.cuh``: TMA and ``wgmma``, pitches of 16-byte multiples),
+asserted by the per-route launch counters: a minimal tile (128x256 for the
+forward, two 128x128 ones for the ping-pong weight gradient), K not a
+multiple of 64, ragged M and N, a persistent grid walking several tiles a
+block, and each operand layout alone with small integers, where every sum
+is exact.
 """
 
 import numpy as np
@@ -103,15 +109,23 @@ def test_cuda_matmul_act_matches_plain(cuda, shape):
     assert (z - zp).abs().max().item() <= 1e-4 * (zp.abs().max().item() or 1.0)
 
 
+# (M, K, N) of the bf16 forward on the WGMMA route: one 128x256 tile, K
+# not a multiple of 64, ragged M and N (pitches still 16-byte multiples),
+# the production stack's first layer
+WGMMA_AFFINE = ((128, 64, 256), (256, 1000, 512), (1000, 1000, 4104), (1024, 1024, 4096))
+
+
 # bf16 x, w, b: y within one bf16 step of the plain version's (both round
 # the f32 result once; _bf16_tol); the JAX _bwd gradients (dz rounded to bf16, f32
 # GEMMs, each rounded once) within two bf16 steps of the largest, against
-# the same formula on the plain y. Shapes: both tiles, 16-, 4- and 2-byte
-# copies (K = 135 and a 1-element offset have no 4-byte rows)
+# the same formula on the plain y. Shapes: both mma.sync tiles, 16-, 4- and
+# 2-byte copies (K = 135 and a 1-element offset have no 4-byte rows), and
+# the WGMMA route (WGMMA_AFFINE)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1, 1), (67, 598, 135), (130, 33, 70), (960, 598, 1024),
                                    (1024, 1024, 4096), (67, 135, 70), (200, 256, 132, 1),
-                                   (64, 128, 520, 2)])
+                                   (64, 128, 520, 2), (128, 64, 256), (256, 1000, 512),
+                                   (1000, 1000, 4104)])
 def test_cuda_matmul_act_bf16_matches_plain(cuda, shape):
     M, K, N, offset = (*shape, 0)[:4]
     x, w, b, g = _affine_inputs(16, M, K, N)
@@ -120,11 +134,15 @@ def test_cuda_matmul_act_bf16_matches_plain(cuda, shape):
                         b_ptr=ts[1].data_ptr(), elem=2)
     if K == 135 or offset == 1:
         assert pl.a_bytes == 2
-    before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16)
+    wgmma = shape in WGMMA_AFFINE
+    assert (pl.route == tile_plan.WGMMA) == wgmma
+    before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16,
+              MA.matmul_act.launches_bf16_wgmma)
     y = MA.affine_sigmoid(*ts)
     gt = _on_card(g, cuda, dtype=torch.bfloat16)
     y.backward(gt)
-    assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16) == (before[0], before[1] + 1)
+    assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16,
+            MA.matmul_act.launches_bf16_wgmma) == (before[0], before[1] + 1, before[2] + wgmma)
     assert y.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in ts)
     xs, ws, bs = (t.detach() for t in ts)
     yp = MA.matmul_act_plain(xs, ws, bs)
@@ -300,15 +318,23 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         assert pl.splits > 1
 
 
+# (B, In, Out) of the bf16 wgrad on the WGMMA route: two 128x128 tiles
+# (a block each, the second consumer idle) in one 64-row step, a bunch not a multiple of 64, ragged
+# In and Out (pitches still 16-byte multiples; 297 tiles on 132 blocks, so
+# some walk an odd count), the production stack's first layer
+WGMMA_WGRAD = ((64, 128, 256), (1000, 128, 256), (1000, 1032, 4104), (1024, 1024, 4096))
+
+
 # bf16 x and e: g accumulated in f32 and rounded to bf16 once, in both
 # versions, so p and v within one bf16 step of g (the f32 sums, taken in
 # another order, may round to neighbouring bf16 values) plus v's own bf16
-# step; two runs equal bit for bit
+# step; two runs equal bit for bit; the WGMMA route at WGMMA_WGRAD
 @pytest.mark.cuda
 @pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (67, 61, 135), (960, 598, 1024),
                                    (960, 1024, 135), (1024, 1024, 4096), (300, 256, 520, 1),
-                                   (960, 1024, 135, 2)])
+                                   (960, 1024, 135, 2), (64, 128, 256), (1000, 128, 256),
+                                   (1000, 1032, 4104)])
 def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
     B, In, Out, offset = (*shape, 0)[:4]
     rng = np.random.default_rng(18)
@@ -319,13 +345,16 @@ def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
                         b_ptr=es.data_ptr(), split_k=True, elem=2)
     if Out == 135:
         assert pl.b_bytes == 2
+    wgmma = shape in WGMMA_WGRAD
+    assert (pl.route == tile_plan.WGMMA) == wgmma
     pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
     vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
-    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_bf16)
+    counters = ("launches", "launches_bf16", "launches_bf16_wgmma")
+    before = [getattr(SF.wgrad_momentum_update, k) for k in counters]
     a, m = 0.003, 0.9
     SF.wgrad_momentum_update(xs, es, pk, vk, a, m)
-    assert (SF.wgrad_momentum_update.launches,
-            SF.wgrad_momentum_update.launches_bf16) == (before[0], before[1] + 1)
+    assert [getattr(SF.wgrad_momentum_update, k) for k in counters] == [
+        before[0], before[1] + 1, before[2] + wgmma]
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, a, m)
     torch.cuda.synchronize()
     assert vk.dtype == vdt and pk.dtype == torch.float32
@@ -368,6 +397,68 @@ def test_cuda_wgrad_bf16_rounds_g_after_the_split_k_sum(cuda, shape):
         (xs[k:k + pl.k_chunk].double().T @ es[k:k + pl.k_chunk].double()).float()
         .to(torch.bfloat16).float() for k in range(0, B, pl.k_chunk))
     assert not torch.equal(v, per_split)
+
+
+# Each wgmma operand layout alone, with small integers so that every f32
+# sum is exact and y or g is a bf16 value: x K-major and W N-major (the
+# forward, act "none"), x M-major and e N-major (the weight gradient at
+# momentum 0, read back from an f32 velocity). A wrong shared-memory
+# descriptor or swizzle moves whole blocks of the result.
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["forward K-major x, N-major W", "wgrad M-major x, N-major e"])
+def test_cuda_wgmma_layouts_exact(cuda, which):
+    rng = np.random.default_rng(21)
+    bf = torch.bfloat16
+    if which.startswith("forward"):
+        M, K, N = 128, 128, 256
+        x = torch.from_numpy(rng.integers(-1, 2, (M, K)).astype(np.float32)).to(cuda, bf)
+        w = torch.from_numpy(rng.integers(-1, 2, (K, N)).astype(np.float32)).to(cuda, bf)
+        b = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32)).to(cuda, bf)
+        before = MA.matmul_act.launches_bf16_wgmma
+        y = MA.matmul_act(x, w, b, "none")
+        assert MA.matmul_act.launches_bf16_wgmma == before + 1
+        exact = x.double() @ w.double() + b.double()
+        assert torch.equal(y.double(), exact)
+    else:
+        B, In, Out = 128, 128, 256
+        x = torch.from_numpy(rng.integers(-1, 2, (B, In)).astype(np.float32)).to(cuda, bf)
+        e = torch.from_numpy(rng.integers(-1, 2, (B, Out)).astype(np.float32)).to(cuda, bf)
+        p = torch.zeros((In, Out), device=cuda)
+        v = torch.zeros((In, Out), device=cuda)
+        before = SF.wgrad_momentum_update.launches_bf16_wgmma
+        SF.wgrad_momentum_update(x, e, p, v, 1.0, 0.0)
+        assert SF.wgrad_momentum_update.launches_bf16_wgmma == before + 1
+        exact = x.double().T @ e.double()
+        assert torch.equal(v.double(), exact) and torch.equal(p, -v)
+
+
+# The persistent grid: 2048 output tiles of 128x128 on 132 blocks, each
+# walking 15 or 16 tiles through one ring, its two consumer warpgroups
+# taking turns (an odd count leaves the first one more). Integer inputs
+# make g exact, so g (read back from an f32 velocity at momentum 0) equals
+# the exact sum rounded once to bf16 on every tile; three runs give the
+# same bits in p and v.
+@pytest.mark.cuda
+def test_cuda_wgrad_bf16_wgmma_persistent_exact_and_repeatable(cuda):
+    B, In, Out = 192, 4096, 8192
+    rng = np.random.default_rng(22)
+    xs = torch.from_numpy(rng.integers(-3, 4, (B, In)).astype(np.float32)).to(cuda, torch.bfloat16)
+    es = torch.from_numpy(rng.integers(-5, 6, (B, Out)).astype(np.float32)).to(cuda, torch.bfloat16)
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
+                        b_ptr=es.data_ptr(), split_k=True, elem=2)
+    assert pl.route == tile_plan.WGMMA and pl.splits == 1
+    assert pl.blocks == tile_plan.SM_COUNT < tile_plan.tile_count(In, Out, pl.tile)
+    runs = []
+    for _ in range(3):
+        p = torch.zeros((In, Out), device=cuda)
+        v = torch.zeros((In, Out), device=cuda)
+        SF.wgrad_momentum_update(xs, es, p, v, 1.0, 0.0)
+        runs.append((p, v))
+    torch.cuda.synchronize()
+    exact = (xs.double().T @ es.double()).float().to(torch.bfloat16).float()
+    assert torch.equal(runs[0][1], exact) and torch.equal(runs[0][0], -exact)
+    for p, v in runs[1:]:
+        assert torch.equal(p, runs[0][0]) and torch.equal(v, runs[0][1])
 
 
 @pytest.mark.cuda

@@ -139,25 +139,30 @@ def test_wgrad_momentum_bf16_plain_matches_jax_apply_updates(vdt):
 # the launch plan at two bytes an element
 # --------------------------------------------------------------------------
 
-# (M, N, K, a_pitch, b_pitch, split_k) -> (tile, splits, k_chunk, a_bytes, b_bytes)
+# (M, N, K, a_pitch, b_pitch, split_k) -> (tile, splits, k_chunk, a_bytes,
+# b_bytes, route): MLP3's rows of 598 and 135 bf16 are no multiple of 16
+# bytes, so its shapes keep mma.sync; every production shape takes WGMMA
+# (no split; 128x256 tiles for the forward, 128x128 for the ping-pong
+# weight gradient)
+W, MS = tile_plan.WGMMA, tile_plan.MMA_SYNC
 BF16_PLANS = {
     "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
-                                    (tile_plan.SMALL, 1, 598, 4, 16)),
+                                    (tile_plan.SMALL, 1, 598, 4, 16, MS)),
     "affine 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, False),
-                               (tile_plan.BIG, 1, 1024, 16, 16)),
+                               (tile_plan.WIDE, 1, 1024, 16, 16, W)),
     "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
-                               (tile_plan.BIG, 1, 4096, 16, 16)),
+                               (tile_plan.WIDE, 1, 4096, 16, 16, W)),
     "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
-                                   (tile_plan.SMALL, 2, 480, 4, 16)),
+                                   (tile_plan.SMALL, 2, 480, 4, 16, MS)),
     # e's rows of 135 bf16 are 270 bytes: an odd pitch in 4-byte words
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
-                                   (tile_plan.SMALL, 6, 160, 16, 2)),
+                                   (tile_plan.SMALL, 6, 160, 16, 2, MS)),
     "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
-                              (tile_plan.BIG, 1, 1024, 16, 16)),
+                              (tile_plan.BIG, 1, 1024, 16, 16, W)),
     "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
-                              (tile_plan.BIG, 1, 1024, 16, 16)),
+                              (tile_plan.BIG, 1, 1024, 16, 16, W)),
     "wgrad 1024x4096->8192": ((4096, 8192, 1024, 4096, 8192, True),
-                              (tile_plan.BIG, 1, 1024, 16, 16)),
+                              (tile_plan.BIG, 1, 1024, 16, 16, W)),
 }
 
 
@@ -166,10 +171,52 @@ def test_bf16_plan_of_main_path_shapes(name):
     (M, N, K, ap, bp, split), want = BF16_PLANS[name]
     p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split,
                        elem=2)
-    assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes) == want
-    # the tile and split do not depend on the element size
+    assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes, p.route) == want
     f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split)
-    assert (f.tile, f.splits, f.k_chunk) == (p.tile, p.splits, p.k_chunk)
+    assert f.route == tile_plan.MMA_SYNC
+    if p.route == tile_plan.MMA_SYNC:
+        # the mma.sync tile and split do not depend on the element size
+        assert (f.tile, f.splits, f.k_chunk) == (p.tile, p.splits, p.k_chunk)
+        assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
+    else:
+        # one block a 128x256 tile; the weight gradient's grid persistent
+        tiles = tile_plan.tile_count(M, N, p.tile)
+        assert p.blocks == (min(tiles, tile_plan.SM_COUNT) if split else tiles)
+
+
+# The route rule: WGMMA exactly where the elements are 2 bytes, both row
+# pitches are 16-byte multiples and every pointer (operands and outputs)
+# is 16-byte aligned; ragged M, N and K with such pitches stay on WGMMA;
+# f32 never takes it. (M, N, K, a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs,
+# elem) -> WGMMA?
+@pytest.mark.parametrize("args,wgmma", [
+    ((128, 256, 64, 64, 256, 0, 0, (), 2), True),             # one tile
+    ((1000, 4104, 1000, 1000, 4104, 0, 0, (), 2), True),      # ragged M, N, K
+    ((1, 8, 8, 8, 8, 0, 0, (), 2), True),                     # smaller than one box
+    ((1032, 4104, 1000, 1032, 4104, 16, 32, (48, 4096), 2), True),
+    ((960, 1024, 598, 598, 1024, 0, 0, (), 2), False),        # a pitch of 1,196 bytes
+    ((1024, 135, 960, 1024, 135, 0, 0, (), 2), False),        # a pitch of 270 bytes
+    ((64, 128, 100, 100, 128, 0, 0, (), 2), False),           # 200 bytes: 4-byte rows only
+    ((64, 128, 128, 128, 128, 8, 0, (), 2), False),           # A base 8 bytes off
+    ((64, 128, 128, 128, 128, 0, 2, (), 2), False),           # B base 2 bytes off
+    ((64, 128, 128, 128, 128, 0, 0, (4,), 2), False),         # an output 4 bytes off
+    ((64, 128, 128, 128, 128, 0, 0, (0, 8), 2), False),       # the second output off
+    ((1024, 4096, 4096, 4096, 4096, 0, 0, (), 4), False),     # f32: never
+    ((128, 256, 64, 64, 256, 0, 0, (0,), 4), False),
+])
+def test_wgmma_route_rule(args, wgmma):
+    M, N, K, ap, bp, a_ptr, b_ptr, outs, elem = args
+    for split in (False, True):
+        p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=a_ptr, b_ptr=b_ptr,
+                           split_k=split, elem=elem, out_ptrs=outs)
+        assert (p.route == tile_plan.WGMMA) == wgmma
+        assert tile_plan.wgmma_route(elem, (ap, bp), (a_ptr, b_ptr, *outs)) == wgmma
+        if wgmma:
+            want = (tile_plan.BIG, 128, 128) if split else (tile_plan.WIDE, 128, 256)
+            assert (p.tile, p.bm, p.bn, p.splits, p.k_chunk) == (*want, 1, K)
+            assert (p.a_bytes, p.b_bytes) == (16, 16)
+        else:
+            assert p.tile in (tile_plan.BIG, tile_plan.SMALL)
 
 
 @pytest.mark.parametrize("pitch,ptr,elem,want", [
