@@ -67,10 +67,29 @@ final line):
      the bf16 wgrad twice a momentum bunch; int8: no GEMM kernel); the bf16
      and int8 epochs again on the CPU must agree; the scheduler with
      --compute-dtype=bf16 for 2 newbob iterations; tfeacat --BF16 and --INT8
-     on cuda:0 against the CPU.
+     on cuda:0 against the CPU;
+  9. RBM pretraining, on phase 4's corpus (run before phase 6): the recipe
+     of examples/run_rbm_pretrain_example01.sh at MLP3's width (rbm_init
+     598:1024 Gaussian-Bernoulli, trbm twice, Mse/frame must fall;
+     rbm2mlplayer, netjoin into the second transform, rbm_init 1024:1024,
+     trbm twice; rbm2mlplayer, a gen_mlp_init 1024:135 top, netjoin), then
+     one tnet epoch and a CV of the stacked 598->1024->1024->135 net and of
+     a random init (CV must rise over the random init's), each with exact
+     launches (affine_sigmoid twice a bunch, fused_softmax_xent once); an
+     <rbmsparse> epoch, an --RNGIMPL=rbg epoch; one CD-1 step with injected
+     noise on cuda:0 against the CPU; the CD-1 step timed by CUDA events and
+     a profiler window (598->1024 and 1024->1024, bunch 256 and 960);
+ 10. recurrent BPTT, on phase 4's corpus (run before phase 6): a
+     598-><recurrent> 500->135 net from the generators, one trecurrent
+     epoch (--BPTT=4) and CVs (CV must rise), the epoch on its first
+     utterances and --FRAMESERIAL=TRUE on 4 utterances again on the CPU;
+     RecurrentTrainer.train_batch timed on the stack of
+     scripts/recurrent_roofline.py (368->500->rec 500->39, K 4, T 512, B 32
+     and 128) by CUDA events and a profiler window.
 Phase 2 also fails on a ptxas spill in a WGMMA-route kernel. The line
 before the last is the kernels' JSON record (the two WGMMA-route kernels
-as entries of their own, launched by phase 6); the last line is
+as entries of their own, launched by phase 6; the others' launches summed
+over phases 4, 5, 7, 8 and 9); the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
@@ -119,6 +138,21 @@ PEAK_BF16 = 989e12          # dense bf16 tensor cores, the same data sheet
 # the compute dtypes of phase 8, and the learning rate of its scheduler run
 DTYPES = ("bf16", "int8", "int8pf", "int8pfsr", "int8full")
 DTYPE_SCHED_ITERS = 2
+# phase 9: examples/run_rbm_pretrain_example01.sh at MLP3's hidden width
+RBM_HID, RBM_BUNCH, RBM_CACHE = 1024, 256, 12800
+# the timed CD-1 steps: (visible, hidden, unit types), each at both bunches
+CD1_SHAPES = ((FEAT_DIM * DCT, RBM_HID, "gauss", "bern"), (RBM_HID, RBM_HID, "bern", "bern"))
+CD1_BUNCHES = (256, 960)
+# phase 10: the recurrent width of scripts/recurrent_roofline.py:55-65; the
+# CPU's agreement run takes the first REC_CPU_UTTS training utterances
+REC_HID, REC_BPTT, REC_LR = 500, 4, 0.004
+REC_CPU_UTTS, REC_SERIAL_UTTS = 8, 4
+ROOFLINE_DIMS, ROOFLINE_T, ROOFLINE_BATCHES = (368, 500, 39), 512, (32, 128)
+# (group, pattern in the kernel's name) of a CD-1 or BPTT step's device
+# time; what matches none is an elementwise pass
+STEP_GROUPS = (("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"),
+               ("RNG", "philox|distribution|random|normal_|uniform"),
+               ("reductions", "reduce"))
 
 
 def log(*args) -> None:
@@ -1153,6 +1187,329 @@ def dtypes_path(torch, card: str, d: str, n: dict):
 
 
 # ---------------------------------------------------------------------------
+# 9. RBM pretraining: rbm_init -> trbm -> rbm2mlplayer -> netjoin -> tnet
+# ---------------------------------------------------------------------------
+
+MSE_LINE = re.compile(r"Mse:(\S+) frames:(\d+) err/frm:(\S+)")
+
+
+def generate(d, name, module, argv) -> str:
+    """Write what the port's ``module.main(argv)`` prints to ``d/name``."""
+    path = os.path.join(d, name)
+    with open(path, "w") as f:
+        f.write(stdout_of(module.main, argv))
+    return path
+
+
+def run_trbm(d, mmf, transform, lr, seed, *extra, device=None):
+    """One trbm epoch over the training part, updating ``mmf`` in place as
+    the recipe does."""
+    from nnet_asr_torch.tools import trbm
+
+    argv = ["trbm", "-H", mmf, "-S", os.path.join(d, "train.scp"), f"--TARGETMMF={mmf}",
+            f"--FEATURETRANSFORM={transform}", f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}",
+            f"--LEARNINGRATE={lr}", "--MOMENTUM=0.5", f"--BUNCHSIZE={RBM_BUNCH}",
+            f"--CACHESIZE={RBM_CACHE}", f"--SEED={seed}", *extra]
+    out = stdout_of(trbm.main, argv, device=device)
+    m = MSE_LINE.search(out)
+    fps = re.search(r"FPS:([\d.]+)", out)
+    check(m is not None and fps is not None, f"no Mse or FPS line in trbm output:\n{out}")
+    return {"mse": float(m.group(1)), "frames": int(m.group(2)),
+            "per_frame": float(m.group(3)), "fps": float(fps.group(1))}
+
+
+def no_threshold_ties(torch, spec, params, x, noise):
+    """The noise, moved 1e-4 away from the CPU's hidden probabilities where
+    it lies within 1e-5 of one: a Bernoulli threshold then falls the same
+    way under either device's summation order."""
+    if spec.hid_type != "bern":
+        return noise
+    p = spec.apply(params, x)
+    near = (p - noise).abs() < 1e-5
+    return torch.where(near, (p - 1e-4).clamp_min(0.0), noise)
+
+
+def rbm_path(torch, card: str, d: str, n: dict):
+    import numpy as np
+
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.tools import gen_mlp_init, generators
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    dim = FEAT_DIM * DCT
+    want_frames = drained_frames(n["train"], RBM_CACHE, RBM_BUNCH)
+
+    def epochs(what, mmf, transform, lr, seeds, *extra):
+        rs = []
+        for seed in seeds:
+            t0 = time.perf_counter()
+            r = run_trbm(d, mmf, transform, lr, seed, *extra)
+            log(f"trbm cuda:0 {what}, seed {seed}: Mse {r['mse']:.10g} frames {r['frames']} "
+                f"Mse/frame {r['per_frame']:.10g} FPS {r['fps']} ({time.perf_counter() - t0:.2f}s)")
+            check(r["frames"] == want_frames, f"{what}: {r['frames']} frames, want {want_frames}")
+            check(math.isfinite(r["mse"]), f"{what}: Mse not finite")
+            rs.append(r)
+        return rs
+
+    # layer 1: Gaussian visible units on the transformed features
+    rbm1 = generate(d, "rbm1.mmf", generators, ["rbm_init", f"--dim={dim}:{RBM_HID}", "--gauss",
+                                                "--vistype=gauss", "--seed=11"])
+    l1 = epochs(f"layer 1 {dim}:{RBM_HID} gauss-bern", rbm1, j("transform"), 0.001, (101, 102))
+    check(l1[1]["per_frame"] < l1[0]["per_frame"],
+          f"layer 1 Mse/frame did not fall: {l1[0]['per_frame']} -> {l1[1]['per_frame']}")
+    layer1 = generate(d, "layer1.mmf", generators, ["rbm2mlplayer", rbm1, "-"])
+    transf2 = generate(d, "transf2.mmf", generators, ["netjoin", j("transform"), layer1])
+    # layer 2 on layer 1's activations
+    rbm2 = generate(d, "rbm2.mmf", generators, ["rbm_init", f"--dim={RBM_HID}:{RBM_HID}",
+                                                "--gauss", "--seed=12"])
+    l2 = epochs(f"layer 2 {RBM_HID}:{RBM_HID} bern-bern", rbm2, transf2, 0.1, (201, 202))
+    layer2 = generate(d, "layer2.mmf", generators, ["rbm2mlplayer", rbm2, "-"])
+    top = generate(d, "top.mmf", gen_mlp_init, [f"--dim={RBM_HID}:{CLASSES}", "--gauss",
+                                                "--seed=13"])
+    pre = generate(d, "pretrained.mmf", generators, ["netjoin", layer1, layer2, top])
+    rnd = generate(d, "random.mmf", gen_mlp_init, [f"--dim={dim}:{RBM_HID}:{RBM_HID}:{CLASSES}",
+                                                   "--gauss", "--negbias", "--seed=14"])
+    net = Network.read(pre)
+    check([l.tag for l in net.layers] == ["<biasedlinearity>", "<sigmoid>"] * 2
+          + ["<biasedlinearity>", "<softmax>"] and (net.n_inputs, net.n_outputs) == (dim, CLASSES)
+          and net.layers[2].n_inputs == RBM_HID, "the stacked net has the wrong structure")
+    check(all(np.isfinite(v).all() for p in net.to_numpy_params() for v in p.values()),
+          "the stacked net has non-finite weights")
+    # an <rbmsparse> epoch and an --RNGIMPL=rbg epoch
+    sparse = generate(d, "rbmsparse.mmf", generators, [
+        "rbm_init", f"--dim={dim}:{RBM_HID}", "--gauss", "--vistype=gauss", "--sparsitycost=1e-4",
+        "--seed=15"])
+    with open(sparse) as f:
+        check(f.read(12).startswith("<rbmsparse>"), "rbm_init --sparsitycost wrote no <rbmsparse>")
+    epochs("<rbmsparse> --sparsitycost=1e-4", sparse, j("transform"), 0.001, (301,))
+    rbg = generate(d, "rbm_rbg.mmf", generators, ["rbm_init", f"--dim={dim}:{RBM_HID}", "--gauss",
+                                                  "--vistype=gauss", "--seed=11"])
+    epochs("layer 1 --RNGIMPL=rbg", rbg, j("transform"), 0.001, (101,), "--RNGIMPL=rbg")
+
+    # the CE fine-tune through the kernels, beside the random init
+    n_train = drained_frames(n["train"], CACHE, BUNCH) // BUNCH
+    n_cv = drained_frames(n["cv"], CACHE, BUNCH) // BUNCH
+    totals = dict.fromkeys(COUNTERS, 0)
+
+    def counted(what, bunches, *args):
+        """A cuda:0 tnet run: affine_sigmoid twice a bunch (two
+        BL->Sigmoid pairs), fused_softmax_xent once, nothing else."""
+        zero_counts()
+        r = run_tnet(d, *args)
+        got = read_counts()
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(matmul_act=2 * bunches, softmax_xent=bunches)
+        log(f"tnet cuda:0 {what}: Xent {r['xent']:.10g} frames {r['frames']} correct "
+            f"{r['acc']}% FPS {r['fps']}; launches {json.dumps(got)}")
+        check(r["frames"] == bunches * BUNCH and math.isfinite(r["xent"]), f"{what}: frames/Xent")
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        return r
+
+    train, cv = ("-S", j("train.scp")), ("-S", j("cv.scp"), "-c")
+    cv_rnd0 = counted("cv random init 598->1024->1024->135", n_cv, rnd, *cv)
+    counted("epoch 1 pretrained", n_train, pre, *train, f"--TARGETMMF={j('pre1.mmf')}")
+    cv_pre1 = counted("cv pretrained epoch 1", n_cv, j("pre1.mmf"), *cv)
+    counted("epoch 1 random init", n_train, rnd, *train, f"--TARGETMMF={j('rnd1.mmf')}")
+    cv_rnd1 = counted("cv random-init epoch 1", n_cv, j("rnd1.mmf"), *cv)
+    log(f"RBM recipe on {card}: cv accuracy random init {cv_rnd0['acc']}%, after one CE epoch: "
+        f"pretrained {cv_pre1['acc']}%, random init {cv_rnd1['acc']}%; layer 2 Mse/frame "
+        f"{l2[0]['per_frame']:.6g} -> {l2[1]['per_frame']:.6g}")
+    check(cv_pre1["acc"] > cv_rnd0["acc"], f"cv accuracy of the fine-tuned pretrained net "
+          f"{cv_pre1['acc']}% not above the random init's {cv_rnd0['acc']}%")
+    log(f"RBM fine-tune launches (5 tnet runs on cuda:0): {json.dumps(totals)}")
+    return totals
+
+
+def cd1_agreement(torch, dev):
+    """One CD-1 step, 598->1024 Gaussian-Bernoulli at bunch 256, on cuda:0
+    and on the CPU with the same injected noise: every tensor within rtol
+    1e-4 and 1e-4 of its largest value (f32 GEMMs in two summation orders)."""
+    from nnet_asr_torch.models.components import Rbm
+    from nnet_asr_torch.train import rbm as R
+
+    gen = torch.Generator().manual_seed(31)
+    V, H, B = FEAT_DIM * DCT, RBM_HID, RBM_BUNCH
+    spec = Rbm(V, H, vis_type="gauss", hid_type="bern")
+    p = {"weight": 0.1 * torch.randn((V, H), generator=gen), "vis_bias": torch.zeros(V),
+         "hid_bias": 0.1 * torch.randn((H,), generator=gen)}
+    x = torch.randn((B, V), generator=gen)
+    noise = no_threshold_ties(torch, spec, p, x, R.hidden_noise(spec, gen, (B, H)))
+    cfg = R.RbmTrainConfig(learning_rate=0.001)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        params = {k: v.to(d, copy=True) for k, v in p.items()}
+        state = R.init_rbm_state(spec, params, cfg)
+        mse = R.cd1_step(spec, cfg, params, state, x.to(d), noise=noise.to(d))
+        out.append({k: v.cpu() for k, v in {**params, **state, "mse": mse}.items()})
+    worst = 0.0
+    for k, c in out[1].items():
+        g = out[0][k]
+        tol = 1e-4 * (c.abs() + c.abs().max())
+        err = float(((g - c).abs() / (c.abs() + c.abs().max()).clamp_min(1e-30)).max())
+        worst = max(worst, err)
+        check(bool(((g - c).abs() <= tol).all()), f"CD-1 cuda vs cpu: {k} differs ({err:.2e})")
+    log(f"CD-1 step {V}->{H} gauss-bern bunch {B}, injected noise: cuda:0 vs CPU max "
+        f"|d|/(|cpu| + max|cpu|) {worst:.2e} over params, corrections and Mse")
+
+
+def time_cd1(torch, dev, card):
+    """The CD-1 step by CUDA events and by a profiler window, at each shape
+    and bunch: us a step, frames/s, TFLOP/s of the 5 GEMMs (5*2*V*H*B) beside
+    the bound at 165 TFLOP/s and the bytes at 3.35 TB/s."""
+    from nnet_asr_torch.models.components import Rbm
+    from nnet_asr_torch.train import rbm as R
+
+    for V, H, vt, ht in CD1_SHAPES:
+        for B in CD1_BUNCHES:
+            gen = torch.Generator(device=dev).manual_seed(V + B)
+            spec = Rbm(V, H, vis_type=vt, hid_type=ht)
+            params = {"weight": 0.05 * torch.randn((V, H), generator=gen, device=dev),
+                      "vis_bias": torch.zeros(V, device=dev),
+                      "hid_bias": torch.zeros(H, device=dev)}
+            x = torch.randn((B, V), generator=gen, device=dev)
+            if vt == "bern":
+                x = (x > 0).float()
+            cfg = R.RbmTrainConfig(learning_rate=1e-4)
+            state = R.init_rbm_state(spec, params, cfg)
+
+            def step():
+                R.cd1_step(spec, cfg, params, state, x, gen)
+
+            ms = cuda_ms(torch, step, reps=30, warmup=5)
+            rows, wall_us, _ = profile_window(torch, step, n_steps=10)
+            busy = sum(us for _, us, _ in rows)
+            flops = 5 * 2.0 * V * H * B
+            # x read; W and its correction read and written; the vectors
+            nbytes = 4.0 * (B * V + 4 * V * H + 4 * (V + H))
+            b_us, by = bound_us(flops, nbytes, PEAK_3XTF32)
+            groups = group_times(rows, STEP_GROUPS, "elementwise and update passes")
+            log(f"CD-1 {V}->{H} {vt}-{ht} bunch {B}, {card}: {ms * 1e3:.1f} us a step by events "
+                f"= {B / (ms * 1e-3):.0f} frames/s = {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s over "
+                f"the 5 GEMMs ({flops / 1e9:.3f} GFLOP); bound {b_us:.2f} us ({by}; 165 TFLOP/s "
+                f"3xTF32, {nbytes / HBM_BYTES_S * 1e6:.2f} us of bytes at 3.35 TB/s); "
+                + (split_line(busy, wall_us, groups) if busy > 0 else "no device time recorded"))
+
+
+# ---------------------------------------------------------------------------
+# 10. recurrent BPTT: recurrent_init -> trecurrent (segments, frame-serial)
+# ---------------------------------------------------------------------------
+
+def run_trecurrent(d, src, scp, *extra, device=None):
+    """One trecurrent run over ``scp``: Xent, frames, accuracy, FPS."""
+    from nnet_asr_torch.tools import trecurrent
+
+    argv = ["trec", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
+            "-S", scp, "-m", os.path.join(d, "map"), "-n", repr(REC_LR), f"--BPTT={REC_BPTT}",
+            f"--FEATURETRANSFORM={os.path.join(d, 'transform')}", f"--STARTFRMEXT={EXT}",
+            f"--ENDFRMEXT={EXT}", *extra]
+    t0 = time.perf_counter()
+    out = stdout_of(trecurrent.main, argv, device=device)
+    m = XENT.search(out)
+    fps = re.search(r"FPS:([\d.]+)", out)
+    check(m is not None and fps is not None, f"no Xent or FPS line in trecurrent output:\n{out}")
+    return {"xent": float(m.group(1)), "frames": int(m.group(2)), "acc": float(m.group(3)),
+            "fps": float(fps.group(1)), "seconds": time.perf_counter() - t0}
+
+
+def recurrent_path(torch, dev, card: str, d: str, n: dict):
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.tools import gen_mlp_init, generators
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    dim = FEAT_DIM * DCT
+    rec = generate(d, "rec_layer.mmf", generators, ["recurrent_init", f"--dim={dim}:{REC_HID}",
+                                                    "--gauss", "--seed=21"])
+    top = generate(d, "rec_top.mmf", gen_mlp_init, [f"--dim={REC_HID}:{CLASSES}", "--gauss",
+                                                    "--seed=22"])
+    init = generate(d, "rec_init.mmf", generators, ["netjoin", rec, top])
+    net = Network.read(init)
+    check([l.tag for l in net.layers] == ["<recurrent>", "<biasedlinearity>", "<softmax>"]
+          and tuple(net.layers[0].weight.shape) == (dim + REC_HID, REC_HID),
+          "the recurrent net has the wrong structure")
+
+    def logged(what, r):
+        log(f"trecurrent {what}: Xent {r['xent']:.10g} frames {r['frames']} correct "
+            f"{r['acc']:.4f}% FPS {r['fps']} ({r['seconds']:.2f}s)")
+        check(math.isfinite(r["xent"]), f"trecurrent {what}: Xent not finite")
+        return r
+
+    cv0 = logged("cuda:0 cv init", run_trecurrent(d, init, j("cv.scp"), "-c"))
+    e1 = logged(f"cuda:0 epoch 1 (--BPTT={REC_BPTT}, {dim}->rec {REC_HID}->{CLASSES})",
+                run_trecurrent(d, init, j("train.scp"), f"--TARGETMMF={j('rec1.mmf')}"))
+    cv1 = logged("cuda:0 cv epoch 1", run_trecurrent(d, j("rec1.mmf"), j("cv.scp"), "-c"))
+    check(e1["frames"] == n["train"] and cv0["frames"] == cv1["frames"] == n["cv"],
+          "trecurrent frame counts")
+    check(cv1["acc"] > cv0["acc"], f"trecurrent: cv accuracy {cv0['acc']}% -> {cv1['acc']}%")
+
+    # the epoch's first utterances, and frame-serial training, on the CPU too
+    with open(j("train.scp")) as f:
+        scp = f.read().split()
+    for what, k, extra in ((f"epoch over the first {REC_CPU_UTTS} utterances", REC_CPU_UTTS, ()),
+                           (f"--FRAMESERIAL=TRUE over the first {REC_SERIAL_UTTS} utterances",
+                            REC_SERIAL_UTTS, ("--FRAMESERIAL=TRUE",))):
+        sub = j(f"rec_first{k}.scp")
+        with open(sub, "w") as f:
+            f.write("".join(p + "\n" for p in scp[:k]))
+        tag = "serial" if extra else "sub"
+        g = logged(f"cuda:0 {what}", run_trecurrent(d, init, sub, *extra,
+                                                     f"--TARGETMMF={j(f'rec_{tag}_cuda.mmf')}"))
+        c = logged(f"cpu {what}", run_trecurrent(d, init, sub, *extra,
+                                                  f"--TARGETMMF={j(f'rec_{tag}_cpu.mmf')}",
+                                                  device="cpu"))
+        check_cpu_epoch(f"trecurrent {what}", c, g, j(f"rec_{tag}_cpu.mmf"),
+                        j(f"rec_{tag}_cuda.mmf"), c["seconds"])
+    time_bptt(torch, dev, card)
+
+
+def time_bptt(torch, dev, card):
+    """RecurrentTrainer.train_batch on scripts/recurrent_roofline.py's stack
+    by CUDA events and a profiler window: ms a batch, frames/s, idle share."""
+    import numpy as np
+
+    from nnet_asr_torch.models.components import BiasedLinearity, Recurrent, Sigmoid, Softmax
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.train.recurrent import RecurrentTrainer, RecurrentTrainerConfig
+    from nnet_asr_torch.train.sgd import SgdConfig
+
+    din, dr, dout = ROOFLINE_DIMS
+    T = ROOFLINE_T
+    rng = np.random.default_rng(1)
+    params = [{"weight": (0.05 * rng.standard_normal((din, dr))).astype(np.float32),
+               "bias": np.zeros(dr, np.float32)}, {},
+              {"weight": (0.05 * rng.standard_normal((2 * dr, dr))).astype(np.float32),
+               "bias": np.zeros(dr, np.float32)},
+              {"weight": (0.05 * rng.standard_normal((dr, dout))).astype(np.float32),
+               "bias": np.zeros(dout, np.float32)}, {}]
+    for B in ROOFLINE_BATCHES:
+        net = Network([BiasedLinearity(din, dr), Sigmoid(dr, dr), Recurrent(dr, dr),
+                       BiasedLinearity(dr, dout), Softmax(dout, dout)]).from_numpy_params(params)
+        tr = RecurrentTrainer(net, RecurrentTrainerConfig(
+            bptt_order=REC_BPTT, sgd=SgdConfig(learning_rate=0.01)), device=dev)
+        feats = [torch.from_numpy((0.3 * rng.standard_normal((T, din))).astype(np.float32)).to(dev)
+                 for _ in range(B)]
+        labels = [rng.integers(0, dout, T) for _ in range(B)]
+
+        def step():
+            tr.train_batch(feats, labels)
+
+        ms = cuda_ms(torch, step, reps=3, warmup=1)
+        rows, wall_us, _ = profile_window(torch, step, n_steps=1)
+        busy = sum(us for _, us, _ in rows)
+        groups = group_times(rows, STEP_GROUPS, "elementwise and update passes")
+        log(f"BPTT batch {din}->{dr}->rec {dr}->{dout}, K {REC_BPTT}, T {T}, B {B} "
+            f"({T // REC_BPTT} segment steps), {card}: {ms:.2f} ms a batch by events = "
+            f"{B * T / (ms * 1e-3):.0f} frames/s; "
+            + (split_line(busy, wall_us, groups) if busy > 0 else "no device time recorded"))
+        check(math.isfinite(tr.stats.error), "BPTT batch stats not finite")
+
+
+# ---------------------------------------------------------------------------
 # 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
@@ -1292,11 +1649,11 @@ def wgmma_spills(build_log: str) -> dict:
     return spills
 
 
-def trace_steps(torch, name, step, card, n_steps=5):
-    """Device time per train step by kernel name, from a torch.profiler
+def profile_window(torch, step, n_steps=5):
+    """(rows, wall us a step, wrapper launches a step) of a torch.profiler
     window of ``n_steps`` steps after one warm-up step (the schedule drops
-    its events); the idle share is that of the window's wall time (profiler
-    on). The wrappers' launch counts over the same steps stand beside it."""
+    its events): rows are (kernel name, device us a step, calls a step) with
+    device time, longest first; the wall is the window's (profiler on)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     # one cycle; no step() after the last active step, which would end the
@@ -1317,19 +1674,35 @@ def trace_steps(torch, name, step, card, n_steps=5):
         launched = {k: (v - before[k]) / n_steps for k, v in read_counts().items()}
     rows = sorted(((e.key, getattr(e, "self_device_time_total", 0) / n_steps, e.count / n_steps)
                    for e in prof.key_averages()), key=lambda r: -r[1])
-    rows = [r for r in rows if r[1] > 0]
+    return [r for r in rows if r[1] > 0], wall_us, launched
+
+
+def group_times(rows, groups, other="other"):
+    """Device us by group: each row's first matching pattern, else ``other``."""
+    out = {}
+    for key, us, _ in rows:
+        group = next((g for g, pat in groups if re.search(pat, key)), other)
+        out[group] = out.get(group, 0.0) + us
+    return out
+
+
+def split_line(busy, wall_us, groups) -> str:
+    return (f"device {busy:.1f} us of {wall_us:.1f} us wall under the profiler (idle share "
+            f"{1 - busy / wall_us:.3f}); "
+            + "; ".join(f"{g} {us:.1f} us ({us / busy:.1%})"
+                        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+def trace_steps(torch, name, step, card, n_steps=5):
+    """Device time per production train step by kernel name, the idle
+    share, and the wrappers' launch counts over the same steps."""
+    rows, wall_us, launched = profile_window(torch, step, n_steps)
     busy = sum(us for _, us, _ in rows)
     if busy <= 0:
         log(f"trace {name}: the profiler recorded no device time")
         return launched
-    groups = {}
-    for key, us, _ in rows:
-        group = next((g for g, pat in KERNEL_GROUPS if re.search(pat, key)), "other")
-        groups[group] = groups.get(group, 0.0) + us
-    log(f"trace production step, {name}, {card}: device {busy:.1f} us per step of "
-        f"{wall_us:.1f} us wall under the profiler (idle share {1 - busy / wall_us:.3f}); "
-        + "; ".join(f"{g} {us:.1f} us ({us / busy:.1%})"
-                    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
+    log(f"trace production step, {name}, {card}: "
+        + split_line(busy, wall_us, group_times(rows, KERNEL_GROUPS))
         + f"; wrapper launches per step {json.dumps(launched)}")
     for key, us, count in rows[:12]:
         log(f"  {us:9.1f} us x{count:<4.1f} {key[:110]}")
@@ -1389,8 +1762,9 @@ def main() -> int:
             check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed=B + In + Out + 1)
             for B, In, Out, _ in WGRAD_SHAPES for vdt in ("f32", "bf16")]}
 
-    # 4. the frame-CE path, 5. the momentum newbob path, on one corpus;
-    # then 6. production width
+    # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
+    # 8. compute dtypes, 9. RBM pretraining, 10. recurrent BPTT, on one
+    # corpus; then 6. production width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         t0 = time.perf_counter()
         n = make_corpus(d, CorpusShape(), seed=SEED)
@@ -1400,9 +1774,16 @@ def main() -> int:
         launches_mom = momentum_path(torch, card, d, n)
         launches_obj = objectives_path(torch, card, d, n)
         launches_dt = dtypes_path(torch, card, d, n)
+        t0 = time.perf_counter()
+        launches_rbm = rbm_path(torch, card, d, n)
+        cd1_agreement(torch, dev)
+        time_cd1(torch, dev, card)
+        t9 = time.perf_counter() - t0
+        recurrent_path(torch, dev, card, d, n)
+        log(f"phases 9 and 10: {t9:.1f}s and {time.perf_counter() - t0 - t9:.1f}s")
     launches_prod = production(torch, dev, card)
     launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj,
-                                             launches_dt)) for k in COUNTERS}
+                                             launches_dt, launches_rbm)) for k in COUNTERS}
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
@@ -1413,8 +1794,9 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, the WGMMA-route "
         f"kernels' at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape under "
-        f"'shapes'; launches summed over the frame-CE, momentum, objectives and "
-        f"compute-dtype paths, for the WGMMA-route kernels over the production path")
+        f"'shapes'; launches summed over the frame-CE, momentum, objectives, "
+        f"compute-dtype and RBM fine-tune paths, for the WGMMA-route kernels over the "
+        f"production path")
     # name: (source, TPU kernel, counter, launches by path, main shape's index)
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act", launches, 0),
             "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent",

@@ -16,9 +16,9 @@ Parameters that the JAX package keeps as Python lists (DiscreteLinearity's
 BlockArray's ``blocks`` is a list (one per block) of lists of its
 sub-layers' dicts, as in JAX.
 
-Every tag of the JAX package is ported but <recurrent>, whose forward is a
-scan over time that belongs with BPTT (ROADMAP.md queue 1 item 12): reading
-it raises NotImplementedError.
+Every tag of the JAX package is ported. <recurrent>'s forward is a Python
+loop over time (the rows of its input) after one GEMM of every frame's
+input half.
 """
 
 from __future__ import annotations
@@ -617,7 +617,7 @@ class Log(Component):
 
 
 # ---------------------------------------------------------------------------
-# RBM layers as MLP layers (CD-1 pretraining is ROADMAP.md queue 1 item 11)
+# RBM layers (as MLP layers; CD-1 pretraining is train/rbm.py)
 # ---------------------------------------------------------------------------
 
 BERNOULLI = "bern"
@@ -681,6 +681,60 @@ class RbmSparse(Rbm):
 
 
 # ---------------------------------------------------------------------------
+# Recurrent layer
+# ---------------------------------------------------------------------------
+
+class Recurrent(Component):
+    """``y_t = sigmoid(x_t @ W[:in] + y_{t-1} @ W[in:] + b)`` over the rows
+    of the input taken as time, W (in+out, out) (CuTNetLib/cuRecurrent.cc);
+    MMF stores W transposed as (out, in+out)."""
+
+    tag = "<recurrent>"
+    updatable = True
+    trainable_keys = ("weight", "bias")
+    param_keys = ("weight", "bias")
+
+    def __init__(self, n_inputs, n_outputs):
+        super().__init__(n_inputs, n_outputs)
+        self._init_params({"weight": (n_inputs + n_outputs, n_outputs), "bias": (n_outputs,)})
+
+    def apply(self, params, x):
+        return self.apply_with_state(params, x, None)[0]
+
+    def apply_with_state(self, params: Params, x: torch.Tensor,
+                         h0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ys, h_last) over x (..., T, in) from the state h0 (..., out),
+        zeros when None; leading dimensions are independent sequences. The
+        input half of every frame is one GEMM before the loop; each step
+        adds ``x_t @ W[:in] + h @ W[in:]``, then ``b``, in JAX's order."""
+        w, b = params["weight"], params["bias"]
+        if h0 is None:
+            h0 = x.new_zeros(x.shape[:-2] + (self.n_outputs,))
+        xw = x @ w[:self.n_inputs]
+        w_h = w[self.n_inputs:]
+        h, ys = h0, []
+        for t in range(x.shape[-2]):
+            h = torch.sigmoid(xw[..., t, :] + h @ w_h + b)
+            ys.append(h)
+        if not ys:
+            return xw, h
+        return torch.stack(ys, dim=-2), h
+
+    @classmethod
+    def read(cls, n_inputs, n_outputs, ts):
+        wt = mmf.read_matrix(ts)          # (out, in+out)
+        b = mmf.read_vector(ts)
+        if wt.shape != (n_outputs, n_inputs + n_outputs) or b.shape != (n_outputs,):
+            raise ValueError("Wrong recurrent dimensions in network file")
+        return cls(n_inputs, n_outputs).load_params({"weight": wt.T, "bias": b})
+
+    def write(self, out):
+        mmf.write_matrix(out, _np(self.weight).T)
+        mmf.write_vector(out, _np(self.bias))
+        out.write("\n")
+
+
+# ---------------------------------------------------------------------------
 # BlockArray: sub-networks over consecutive input column blocks
 # ---------------------------------------------------------------------------
 
@@ -739,16 +793,10 @@ class BlockArray(Component):
 
 COMPONENT_TYPES = [
     BiasedLinearity, DiscreteLinearity, SharedLinearity, SparseLinearity,
-    Rbm, RbmSparse,
+    Rbm, RbmSparse, Recurrent,
     Softmax, Sigmoid, BlockSoftmax,
     Expand, Copy, Transpose, BlockLinearity, Bias, Window, Log,
     BlockArray, ClusterLinearity,
 ]
 
 TAG_TO_TYPE = {c.tag: c for c in COMPONENT_TYPES}
-
-# tags the JAX package reads that this port does not yet (ROADMAP.md queue 1)
-UNPORTED_TAGS = {
-    "<recurrent>": "queue 1 item 12 (recurrent: its forward is a scan over time, "
-                   "ported with BPTT)",
-}

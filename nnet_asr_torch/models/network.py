@@ -17,7 +17,7 @@ from torch import nn
 
 from ..io.mmf import TokenStream
 
-from .components import TAG_TO_TYPE, UNPORTED_TAGS, Component, Params
+from .components import TAG_TO_TYPE, Component, Params, Recurrent
 
 
 def _to_numpy(v):
@@ -46,10 +46,6 @@ def read_components(ts: TokenStream, stop_tag: Optional[str] = None) -> List[Com
             break
         if not (tag.startswith("<") and tag.endswith(">")):
             raise ValueError(f"Invalid component tag: {tok}")
-        if tag in UNPORTED_TAGS:
-            raise NotImplementedError(
-                f"Component {tag} is not ported to nnet_asr_torch yet "
-                f"(ROADMAP.md {UNPORTED_TAGS[tag]})")
         if tag not in TAG_TO_TYPE:
             raise ValueError(f"Unknown Component tag: {tok}")
         ts.next()
@@ -153,7 +149,7 @@ class Network(nn.Module):
         return self.apply(params[:n_layers], x)
 
     def has_recurrent(self) -> bool:
-        return any(layer.tag == "<recurrent>" for layer in self.layers)
+        return any(isinstance(layer, Recurrent) for layer in self.layers)
 
     # -- streaming inference ----------------------------------------------
 

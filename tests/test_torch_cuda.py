@@ -596,3 +596,79 @@ def test_cuda_trainer_compute_dtype_launch_counts(cuda, dtype):
             assert np.isfinite(g[k]).all()
             if dtype != "int8pfsr" and k == "xent":
                 np.testing.assert_allclose(g[k], c[k], rtol=rtol)
+
+
+# one CD-1 step of each unit pairing on the card against the CPU with the
+# same injected noise (f32 GEMMs in another summation order, TF32 off):
+# parameters, corrections and the MSE within rtol 1e-4, atol 1e-6; and a
+# draw from the trainer's generator lands on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [("gauss", "bern"), ("bern", "bern"), ("gauss", "gauss")])
+def test_cuda_cd1_step_matches_cpu(cuda, units):
+    from nnet_asr_torch.models.components import Rbm
+    from nnet_asr_torch.train import rbm as R
+
+    rng = np.random.default_rng(20)
+    nv, nh, B = 598, 1024, 256
+    spec = Rbm(nv, nh, vis_type=units[0], hid_type=units[1])
+    p = {"weight": (0.05 * rng.standard_normal((nv, nh))).astype(np.float32),
+         "vis_bias": np.zeros(nv, np.float32), "hid_bias": np.zeros(nh, np.float32)}
+    x = rng.standard_normal((B, nv)).astype(np.float32)
+    noise = R.hidden_noise(spec, torch.Generator().manual_seed(1), (B, nh))
+    if units[1] == "bern":
+        # no threshold within 1e-5 of a hidden probability, where the two
+        # devices' summation orders could sample differently
+        probs = spec.apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x))
+        noise = torch.where((probs - noise).abs() < 1e-5, (probs - 1e-4).clamp_min(0), noise)
+    cfg = R.RbmTrainConfig(learning_rate=0.001)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+        state = R.init_rbm_state(spec, params, cfg)
+        mse = R.cd1_step(spec, cfg, params, state, torch.from_numpy(x).to(dev),
+                         noise=noise.to(dev))
+        out[dev.type] = {**params, **state, "mse": mse}
+    for k, v in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][k].cpu().numpy(), v.numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    tr = R.RbmTrainer(spec, p, cfg, device=cuda)
+    assert tr.generator.device.type == "cuda"
+    assert R.hidden_noise(spec, tr.generator, (4, 8)).device.type == "cuda"
+
+
+# one recurrent segment batch (forward, CE, gradient, momentum update) and
+# a frame-serial utterance on the card against the CPU: parameters within
+# rtol 1e-4, atol 1e-6, Xent within 1e-5 relative
+@pytest.mark.cuda
+@pytest.mark.parametrize("serial", [False, True])
+def test_cuda_recurrent_matches_cpu(cuda, serial):
+    from nnet_asr_torch.models.components import BiasedLinearity, Recurrent, Softmax
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.train.recurrent import RecurrentTrainer, RecurrentTrainerConfig
+    from nnet_asr_torch.train.sgd import SgdConfig
+
+    rng = np.random.default_rng(21)
+    din, dh, dout = 40, 64, 12
+    params = [{"weight": (0.2 * rng.standard_normal((din + dh, dh))).astype(np.float32),
+               "bias": np.zeros(dh, np.float32)},
+              {"weight": (0.2 * rng.standard_normal((dh, dout))).astype(np.float32),
+               "bias": np.zeros(dout, np.float32)}, {}]
+    utts = [(rng.standard_normal((T, din)).astype(np.float32),
+             rng.integers(0, dout, T).astype(np.int32)) for T in (37, 50, 21)]
+    nets, stats = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        net = Network([Recurrent(din, dh), BiasedLinearity(dh, dout),
+                       Softmax(dout, dout)]).from_numpy_params(params)
+        tr = RecurrentTrainer(net, RecurrentTrainerConfig(
+            bptt_order=4, frame_serial=serial,
+            sgd=SgdConfig(learning_rate=0.02, momentum=0.5, grad_div_frm=False)), device=dev)
+        if serial:
+            tr.train_utterance_serial(*utts[0])
+        else:
+            tr.run_epoch(iter(utts), batch_utts=3)
+        nets[dev.type], stats[dev.type] = tr.updated_network(), tr.stats
+    assert stats["cuda"].frames == stats["cpu"].frames
+    np.testing.assert_allclose(stats["cuda"].error, stats["cpu"].error, rtol=1e-5)
+    for a, b in zip(nets["cuda"].to_numpy_params(), nets["cpu"].to_numpy_params()):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-6, err_msg=k)

@@ -2,7 +2,8 @@
 
 ``nnet_asr_torch`` keeps its own copy of every jax-free host module it uses
 (``io/``, ``utils/``, ``train/newbob.py``, ``tools/gen_mlp_init.py``,
-``tools/generators.py`` ``hamm_dct``). Each case feeds one copy and its
+``tools/generators.py``'s jax-free subcommands, ``train/rbm_scheduler.py``).
+Each case feeds one copy and its
 original the same inputs and holds the outputs equal: streams, parsed
 values, decisions, and written files byte for byte.
 """
@@ -23,6 +24,7 @@ from nnet_asr_torch.io import scp as t_scp
 from nnet_asr_torch.tools import gen_mlp_init as t_gen_mlp_init
 from nnet_asr_torch.tools import generators as t_generators
 from nnet_asr_torch.train import newbob as t_newbob
+from nnet_asr_torch.train import rbm_scheduler as t_rbm_scheduler
 from nnet_asr_torch.utils import config as t_config
 from nnet_asr_torch.utils import prefetch as t_prefetch
 from nnet_asr_torch.utils import profiler as t_profiler
@@ -36,6 +38,7 @@ from nnet_asr_tpu.io import scp as j_scp
 from nnet_asr_tpu.tools import gen_mlp_init as j_gen_mlp_init
 from nnet_asr_tpu.tools import generators as j_generators
 from nnet_asr_tpu.train import newbob as j_newbob
+from nnet_asr_tpu.train import rbm_scheduler as j_rbm_scheduler
 from nnet_asr_tpu.utils import config as j_config
 from nnet_asr_tpu.utils import prefetch as j_prefetch
 from nnet_asr_tpu.utils import profiler as j_profiler
@@ -226,6 +229,55 @@ def case_hamm_dct(m, d):
                             "--endFrmExt=25", "--dctBaseCnt=26"])
 
 
+# the jax-free subcommands of generators.py, each with its options (netjoin
+# and rbm2mlplayer read through each package's models/:
+# tests/test_torch_generators.py)
+GENERATORS = {
+    "rbm_init": [["rbm_init", "--dim=7:5", "--seed=3"],
+                 ["rbm_init", "--dim=6:4", "--gauss", "--negbias", "--vistype=gauss", "--seed=4"],
+                 ["rbm_init", "--dim=5:3", "--hidtype=gauss", "--sparsitycost=1e-4", "--seed=5"]],
+    "recurrent_init": [["recurrent_init", "--dim=4:6:3", "--gauss", "--negbias", "--seed=6"],
+                       ["recurrent_init", "--dim=3:2", "--seed=7"]],
+    "sharedlinearity_init": [["sharedlinearity_init", "--dim=8:6:4", "--inst=2:2", "--seed=8"],
+                             ["sharedlinearity_init", "--dim=8:6", "--inst=2", "--gauss",
+                              "--linBNdim=6", "--seed=9"]],
+    "discretelinearity_init": [["discretelinearity_init", "--dim=8:6:4", "--blocks=2",
+                                "--gauss", "--negbias", "--seed=10"]],
+    "splice": [["splice", "--dimIn=5", "--startFrmExt=3", "--endFrmExt=2"]],
+    "empty": [["empty", "--dimIn=7"]],
+    "lcrc_hamm_dct": [["lcrc_hamm_dct", "--dimIn=4", "--startFrmExt=5", "--endFrmExt=5",
+                       "--dctBaseCnt=3"]],
+    "rasta": [["rasta", "--dimIn=3"]],
+}
+
+
+def _case_generator(name):
+    def case(m, d):
+        return [_stdout(m.main, argv) for argv in GENERATORS[name]]
+    return case
+
+
+def case_rbm_scheduler(m, d):
+    out = []
+    for gaussian in (False, True):
+        rbm = os.path.join(d, f"rbm{int(gaussian)}.mmf")
+        with open(rbm, "w") as f:
+            f.write("rbm\n")
+        calls, logs = [], []
+
+        def train_iter(mmf, lrate, momentum, weightcost):
+            calls.append((os.path.basename(mmf), lrate, momentum, weightcost))
+            with open(mmf, "a") as f:
+                f.write(f"{lrate!r} {momentum!r}\n")
+
+        cfg = m.RbmSchedulerConfig(iters=7, iters_high=9, savepoints=3)
+        m.run_rbm_schedule(cfg, rbm, train_iter, gaussian, log=logs.append)
+        saved = sorted(f for f in os.listdir(d) if f.startswith(f"rbm{int(gaussian)}.mmf_"))
+        out.append((calls, [line.replace(d, "") for line in logs], saved,
+                    [_read(os.path.join(d, f), "r") for f in saved]))
+    return out
+
+
 def case_gen_mlp_init(m, d):
     return _stdout(m.main, ["--dim=40:16:9", "--gauss", "--negbias", "--seed=999"]), \
         _stdout(m.main, ["--dim=12:7:5:3", "--seed=5"])
@@ -246,6 +298,9 @@ CASES = {
     "newbob": (case_newbob, t_newbob, j_newbob),
     "hamm_dct": (case_hamm_dct, t_generators, j_generators),
     "gen_mlp_init": (case_gen_mlp_init, t_gen_mlp_init, j_gen_mlp_init),
+    "rbm_scheduler": (case_rbm_scheduler, t_rbm_scheduler, j_rbm_scheduler),
+    **{f"generators_{name}": (_case_generator(name), t_generators, j_generators)
+       for name in GENERATORS},
 }
 
 

@@ -34,10 +34,15 @@ MODULES = [
     "nnet_asr_torch.train.cache",
     "nnet_asr_torch.train.sgd",
     "nnet_asr_torch.train.trainer",
+    "nnet_asr_torch.train.rbm",
+    "nnet_asr_torch.train.rbm_scheduler",
+    "nnet_asr_torch.train.recurrent",
     "nnet_asr_torch.tools.tnet",
     "nnet_asr_torch.tools.scheduler",
     "nnet_asr_torch.tools.tfeacat",
     "nnet_asr_torch.tools.tnorm",
+    "nnet_asr_torch.tools.trbm",
+    "nnet_asr_torch.tools.trecurrent",
     "nnet_asr_torch.tools.synth_corpus",
     "nnet_asr_torch.tools.gen_mlp_init",
     "nnet_asr_torch.tools.generators",

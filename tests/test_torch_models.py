@@ -105,6 +105,9 @@ def _case(name, rng):
         j, t = (JC.RbmSparse, TC.RbmSparse) if name == "rbmsparse" else (JC.Rbm, TC.Rbm)
         kw = dict(vis_type=units[0], hid_type=units[1])
         return j(6, 4, **kw), t(6, 4, **kw), p, 9, 6
+    if name == "recurrent":
+        p = {"weight": 0.5 * _rand(rng, 5 + 4, 4), "bias": _rand(rng, 4)}
+        return JC.Recurrent(5, 4), TC.Recurrent(5, 4), p, 9, 5
     if name == "blockarray":
         # two blocks over 4 input columns each: affine + sigmoid, and an
         # affine alone
@@ -119,7 +122,7 @@ def _case(name, rng):
 TAGS = ["biasedlinearity", "sharedlinearity", "sigmoid", "softmax", "expand",
         "expand_clamped", "copy", "transpose", "blocklinearity", "bias", "window",
         "log", "blocksoftmax", "sparselinearity", "clusterlinearity", "discretelinearity",
-        "rbm", "rbm_gauss", "rbmsparse", "blockarray"]
+        "rbm", "rbm_gauss", "rbmsparse", "recurrent", "blockarray"]
 
 
 @pytest.mark.parametrize("name", TAGS)
@@ -272,12 +275,6 @@ def test_numpy_params_round_trip():
     bad[0] = {"weight": np.zeros((3, 3), np.float32), "bias": new[0]["bias"]}
     with pytest.raises(ValueError):
         tnet.from_numpy_params(bad)
-
-
-@pytest.mark.parametrize("tag", ["<recurrent>"])
-def test_unported_tag_raises_naming_it(tag):
-    with pytest.raises(NotImplementedError, match=tag):
-        TNetwork.read(f"{tag} 3 3\nv 3\n1 1 1\n")
 
 
 # the JAX package's checks on malformed files, with its messages
