@@ -85,11 +85,25 @@ final line):
      utterances and --FRAMESERIAL=TRUE on 4 utterances again on the CPU;
      RecurrentTrainer.train_batch timed on the stack of
      scripts/recurrent_roofline.py (368->500->rec 500->39, K 4, T 512, B 32
-     and 128) by CUDA events and a profiler window.
+     and 128) by CUDA events and a profiler window;
+ 11. MPE/MMI sequence training (run before phase 6): a phone-structured
+     corpus (45 phones x 3 states, MLP3's widths) with seeded SLF phone
+     lattices and gen_gmmbypass's HMM set, one tnet epoch, then tmpe with
+     the native engine: -c, one MPE iteration (kappa 0.3, lr 0.02), -c,
+     an --MMI and a --DELAYEDUPDATE iteration, with exact affine_sigmoid
+     launches (one an utterance under -c, two in training), and a
+     profiler window over one more iteration (device time by group, idle
+     share); affine_sigmoid against its plain version at one utterance's
+     rows; the device engine against the native one on 8 utterances' card
+     log-posteriors (gammas within 1e-5, ms an utterance each);
+     --MPEENGINE=auto's probe; an MPE iteration over 8 utterances again on
+     the CPU (MMF within 1e-4 relative, accuracy within 1e-4, the card's
+     update within MPE_UPDATE_TOL of the CPU's in L2, which a card run at
+     half the learning rate must fail).
 Phase 2 also fails on a ptxas spill in a WGMMA-route kernel. The line
 before the last is the kernels' JSON record (the two WGMMA-route kernels
 as entries of their own, launched by phase 6; the others' launches summed
-over phases 4, 5, 7, 8 and 9); the last line is
+over phases 4, 5, 7, 8, 9 and 11); the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
@@ -148,6 +162,17 @@ CD1_BUNCHES = (256, 960)
 REC_HID, REC_BPTT, REC_LR = 500, 4, 0.004
 REC_CPU_UTTS, REC_SERIAL_UTTS = 8, 4
 ROOFLINE_DIMS, ROOFLINE_T, ROOFLINE_BATCHES = (368, 500, 39), 512, (32, 128)
+# phase 11: 45 phones x 3 states (example-01's 135 outputs), the kappa and
+# learning rate of scripts/mpe_example01.sh; the engine and CPU checks take
+# the first MPE_CHECK_UTTS utterances
+MPE_PHONES, MPE_KAPPA, MPE_LR, MPE_CHECK_UTTS = 45, 0.3, 0.02, 8
+# card against CPU over those utterances: |update_card - update_cpu| /
+# |update_cpu| in L2 norm; 4.25e-4 on an H100 (the f32 rounding of w + d),
+# 0.5 for an update at half the learning rate
+MPE_UPDATE_TOL = 4e-3
+# (group, pattern in the kernel's name) of an MPE iteration's device time
+MPE_GROUPS = (("affine_sigmoid (ours)", "matmul_act"), ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"),
+              ("copies", "Memcpy|Memset|copy"), ("reductions", "reduce"))
 # (group, pattern in the kernel's name) of a CD-1 or BPTT step's device
 # time; what matches none is an elementwise pass
 STEP_GROUPS = (("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"),
@@ -1510,6 +1535,211 @@ def time_bptt(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# 11. MPE/MMI sequence training: tnet -> tmpe (native and device engines)
+# ---------------------------------------------------------------------------
+
+MPE_LINE = re.compile(r"Avg MPE accuracy: (\S+) utts: (\d+)")
+MPE_TIMES = re.compile(r"T-read: (\S+)s T-fwd: (\S+)s T-decode: (\S+)s T-update: (\S+)s")
+
+
+def run_tmpe(d, src, scp, *extra, device=None, lr=MPE_LR):
+    """One tmpe run over ``scp`` (scripts/mpe_example01.sh's kappa, and its
+    learning rate unless ``lr`` is given): Avg MPE accuracy, utterances,
+    FPS, the time split."""
+    from nnet_asr_torch.tools import tmpe
+
+    argv = ["tmpe", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
+            "-m", os.path.join(d, "map"), "-S", scp, f"--HMM={os.path.join(d, 'hmms.mmf')}",
+            f"--LATTICEDIR={os.path.join(d, 'lats')}",
+            f"--FEATURETRANSFORM={os.path.join(d, 'transform')}", f"--STARTFRMEXT={EXT}",
+            f"--ENDFRMEXT={EXT}", f"--OUTPSCALE={MPE_KAPPA}", f"--LEARNINGRATE={lr}", *extra]
+    out = stdout_of(tmpe.main, argv, device=device)
+    m, t, fps = MPE_LINE.search(out), MPE_TIMES.search(out), re.search(r"FPS:([\d.]+)", out)
+    check(m is not None and t is not None and fps is not None, f"tmpe output:\n{out}")
+    return {"acc": float(m.group(1)), "utts": int(m.group(2)), "fps": float(fps.group(1)),
+            "split": dict(zip(("read", "fwd", "decode", "update"), map(float, t.groups()))),
+            "log": out}
+
+
+def mmf_rel_diff(a_mmf, b_mmf) -> float:
+    """The largest |a - b| of the two MMFs' weights over the largest |b|;
+    NaN if a weight of ``a`` is not finite."""
+    import numpy as np
+
+    from nnet_asr_torch.models.network import Network
+
+    pairs = [(a[k], b[k]) for a, b in zip(Network.read(a_mmf).to_numpy_params(),
+                                          Network.read(b_mmf).to_numpy_params()) for k in a]
+    if not all(np.isfinite(a).all() for a, _ in pairs):
+        return math.nan
+    return (max(float(np.abs(a - b).max()) for a, b in pairs)
+            / max(float(np.abs(b).max()) for _, b in pairs))
+
+
+def mmf_update_diff(a_mmf, b_mmf, base_mmf) -> tuple[float, float]:
+    """How far the update of ``a`` (its weights less ``base``'s) is from
+    ``b``'s, relative to ``b``'s update: the L2 norm of the difference over
+    the norm of b's update, and the largest |difference| over b's largest
+    |update|, over every weight and bias, in float64."""
+    import numpy as np
+
+    from nnet_asr_torch.models.network import Network
+
+    def flat(mmf):
+        return np.concatenate([p[k].astype(np.float64).ravel()
+                               for p in Network.read(mmf).to_numpy_params() for k in sorted(p)])
+
+    base = flat(base_mmf)
+    da, db = flat(a_mmf) - base, flat(b_mmf) - base
+    check(np.isfinite(da).all() and np.abs(db).max() > 0, f"{a_mmf}/{b_mmf}: the updates")
+    return (float(np.linalg.norm(da - db) / np.linalg.norm(db)),
+            float(np.abs(da - db).max() / np.abs(db).max()))
+
+
+def mpe_path(torch, dev, card: str, d: str):
+    """tmpe on a phone-structured corpus at MLP3's widths: the CE model of
+    one tnet epoch, -c, one MPE iteration, -c, an --MMI and a
+    --DELAYEDUPDATE iteration, each with exact affine_sigmoid launches; the
+    device engine against the native one on the same card log-posteriors;
+    the first utterances again on the CPU, their update held against the
+    card's; affine_sigmoid against its plain version at one utterance's
+    rows. Returns the path's launch counts and that shape's record."""
+    import numpy as np
+
+    from nnet_asr_torch.io.htk_hmm import parse_mmf
+    from nnet_asr_torch.io.labels import LabelRepository
+    from nnet_asr_torch.io.slf import LatticeArchive
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.tools import gen_gmmbypass
+    from nnet_asr_torch.tools.synth_corpus import CorpusShape, make_corpus, write_phone_lattices
+    from nnet_asr_torch.train.mpe import MpeComputer, MpeConfig, labels_to_phone_segments
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    t0 = time.perf_counter()
+    n = make_corpus(d, CorpusShape(phones=MPE_PHONES), seed=SEED)
+    lats = write_phone_lattices(d, seed=SEED)
+    stdout_of(gen_gmmbypass.main, [j("map"), j("hmms.mmf"), "--state-sep=_s"])
+    hmms = parse_mmf(j("hmms.mmf"))
+    check(len(hmms) == MPE_PHONES and all(h.n_emitting == 3 for h in hmms.values()),
+          "gen_gmmbypass: the HMM set")
+    log(f"phase 11 corpus: {n['train']} training frames, {n['cv']} cv frames, "
+        f"{lats['lattices']} lattices of {lats['arcs']} phone arcs, {len(hmms)} 3-state HMMs "
+        f"({time.perf_counter() - t0:.1f}s to make)")
+    ce = run_tnet(d, j("init.mmf"), "-S", j("train.scp"), f"--TARGETMMF={j('ce1.mmf')}")
+    log(f"tnet cuda:0 CE epoch (phase 11 corpus): Xent {ce['xent']:.10g} correct {ce['acc']}% "
+        f"FPS {ce['fps']}")
+    with open(j("train.scp")) as f:
+        n_utts = len(f.read().split())
+
+    # the main path: every count from 0 here, read after the last tmpe run
+    train = j("train.scp")
+    runs = {}
+    zero_counts()
+    for name, src, extra in (("-c, CE model", j("ce1.mmf"), ("-c",)),
+                             ("MPE iteration 1", j("ce1.mmf"), (f"--TARGETMMF={j('mpe1.mmf')}",)),
+                             ("-c, MPE iteration 1", j("mpe1.mmf"), ("-c",)),
+                             ("--MMI iteration", j("ce1.mmf"),
+                              ("--MMI=TRUE", f"--TARGETMMF={j('mmi1.mmf')}")),
+                             ("--DELAYEDUPDATE iteration", j("ce1.mmf"),
+                              ("--DELAYEDUPDATE=TRUE", f"--TARGETMMF={j('del1.mmf')}"))):
+        r = runs[name] = run_tmpe(d, src, train, "--MPEENGINE=native", *extra)
+        log(f"tmpe cuda:0 {name} (native engine): Avg MPE accuracy {r['acc']:.6g} utts "
+            f"{r['utts']} FPS {r['fps']} T-read {r['split']['read']:.2f}s T-fwd "
+            f"{r['split']['fwd']:.2f}s T-decode {r['split']['decode']:.2f}s T-update "
+            f"{r['split']['update']:.2f}s")
+        check(r["utts"] == n_utts and math.isfinite(r["acc"]), f"tmpe {name}: utts/accuracy")
+    got = read_counts()
+    # one forward an utterance under -c, two (forward, then the update's) in training
+    want = dict.fromkeys(COUNTERS, 0)
+    want["matmul_act"] = n_utts * (1 + 2 + 1 + 2 + 2)
+    log(f"MPE path launches (5 tmpe runs on cuda:0, {n_utts} utterances each): {json.dumps(got)}")
+    check(got == want, f"MPE path launches {got}, want {want}")
+    log(f"MPE on {card}: Avg MPE accuracy (training set) {runs['-c, CE model']['acc']:.6g} "
+        f"before, {runs['-c, MPE iteration 1']['acc']:.6g} after one iteration")
+    for mmf in ("mpe1.mmf", "mmi1.mmf", "del1.mmf"):
+        moved = mmf_rel_diff(j(mmf), j("ce1.mmf"))
+        log(f"{mmf}: max|w - w_ce| / max|w_ce| = {moved:.3e}")
+        check(0 < moved < 1, f"{mmf}: the update moved the weights by {moved} of their scale")
+    # where an MPE iteration's wall goes: a profiler window over one more
+    # (no model written), after a warm-up run
+    rows, wall_us, _ = profile_window(
+        torch, lambda: run_tmpe(d, j("ce1.mmf"), train, "--MPEENGINE=native"), n_steps=1)
+    busy = sum(us for _, us, _ in rows)
+    log(f"tmpe MPE iteration, {n_utts} utterances, {card}: "
+        + (split_line(busy, wall_us, group_times(rows, MPE_GROUPS, "elementwise and update passes"))
+           if busy > 0 else "no device time recorded"))
+
+    # the device engine against the native one on the same card log-posteriors
+    lp = run_tfeacat(d, j("mpe1.mmf"), j("lpost_mpe"), "--LOGPOSTERIOR=TRUE")
+    # tmpe forwards one utterance at a time: the kernel at such a ragged row count
+    rows = lp[sorted(lp)[0]].shape[0]
+    k, n = Network.read(j("mpe1.mmf")).to_numpy_params()[0]["weight"].shape
+    ragged = check_matmul_act(torch, dev, rows, k, n, seed=rows)
+    repo = LabelRepository(j("labs.mlf"), j("map"), "*/", "lab")
+    names = [None] * repo.n_outputs
+    for tag, i in repo.label_map.items():
+        names[i] = tag
+    archive = LatticeArchive(j("lats"))
+    cfg = MpeConfig(outprb_scale=MPE_KAPPA)
+    native = MpeComputer(hmms, repo.label_map, cfg, engine="native")
+    device = MpeComputer(hmms, repo.label_map, cfg, engine="jax", device=dev)
+    check(native._native is not None, "the native MPE engine did not build")
+    utts = []
+    for f in sorted(lp)[:MPE_CHECK_UTTS]:
+        post = lp[f].astype(np.float32)
+        logical = os.path.splitext(f)[0] + ".fea"
+        segs = labels_to_phone_segments(repo.get_frame_labels(post.shape[0], 100000, logical),
+                                        names)
+        utts.append((archive.get(logical), post, segs))
+    device.compute(*utts[0])                       # warm-up
+    ms, worst = {"native": [], "jax": []}, 0.0
+    for lat, post, segs in utts:
+        out = {}
+        for name, comp in (("native", native), ("jax", device)):
+            t1 = time.perf_counter()
+            out[name] = comp.compute(lat, post, segs)
+            if name == "jax":
+                torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t1) * 1e3)
+        worst = max(worst, float(np.abs(out["jax"][0] - out["native"][0]).max()))
+        check(abs(out["jax"][1] - out["native"][1]) < 1e-6, "device/native MPE accuracy")
+    log(f"MPE engines on {MPE_CHECK_UTTS} cv utterances ({card}): device (torch, cuda:0) "
+        f"{statistics.median(ms['jax']):.2f} ms, native {statistics.median(ms['native']):.2f} "
+        f"ms an utterance (median); max|gamma_device - gamma_native| {worst:.3e}")
+    check(worst <= 1e-5, f"device/native MPE gammas differ by {worst}")
+    first = j("mpe_first.scp")
+    with open(train) as f, open(first, "w") as g:
+        g.write("".join(p + "\n" for p in f.read().split()[:MPE_CHECK_UTTS]))
+    auto = run_tmpe(d, j("ce1.mmf"), first, "-c", "--MPEENGINE=auto")
+    log("tmpe --MPEENGINE=auto: " + " ".join(line for line in auto["log"].splitlines()
+                                            if line.startswith("[MPEENGINE auto]")))
+
+    # the first utterances' MPE iteration on the card and on the CPU: the
+    # update is ~1e-5 of the weights' scale, so the card's update is held
+    # against the CPU's, and a control at half the learning rate (update
+    # diff 0.5; a flipped sign gives 2) must fail the same limit
+    g = run_tmpe(d, j("ce1.mmf"), first, "--MPEENGINE=native", f"--TARGETMMF={j('mpe_g.mmf')}")
+    run_tmpe(d, j("ce1.mmf"), first, "--MPEENGINE=native", f"--TARGETMMF={j('mpe_h.mmf')}",
+             lr=MPE_LR / 2)
+    t1 = time.perf_counter()
+    c = run_tmpe(d, j("ce1.mmf"), first, "--MPEENGINE=native", f"--TARGETMMF={j('mpe_c.mmf')}",
+                 device="cpu")
+    rel = mmf_rel_diff(j("mpe_c.mmf"), j("mpe_g.mmf"))
+    upd = mmf_update_diff(j("mpe_g.mmf"), j("mpe_c.mmf"), j("ce1.mmf"))
+    ctl = mmf_update_diff(j("mpe_h.mmf"), j("mpe_c.mmf"), j("ce1.mmf"))
+    log(f"MPE iteration over the first {MPE_CHECK_UTTS} utterances, cpu vs cuda:0: Avg MPE "
+        f"accuracy {c['acc']:.6g} vs {g['acc']:.6g}, MMF rel diff {rel:.2e}; update diff "
+        f"(L2, max) {upd[0]:.3e} {upd[1]:.3e}, control at lr/2 {ctl[0]:.3e} {ctl[1]:.3e}, "
+        f"limit {MPE_UPDATE_TOL:g} on L2 ({time.perf_counter() - t1:.1f}s on the CPU)")
+    check(abs(c["acc"] - g["acc"]) <= 1e-4 and rel <= 1e-4, "MPE cpu/cuda disagree")
+    check(upd[0] <= MPE_UPDATE_TOL, f"MPE update cpu/cuda: L2 diff {upd[0]} > {MPE_UPDATE_TOL}")
+    check(ctl[0] > MPE_UPDATE_TOL, f"the update check cannot see the lr/2 control ({ctl[0]})")
+    return got, ragged
+
+
+# ---------------------------------------------------------------------------
 # 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
@@ -1764,7 +1994,7 @@ def main() -> int:
 
     # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
     # 8. compute dtypes, 9. RBM pretraining, 10. recurrent BPTT, on one
-    # corpus; then 6. production width
+    # corpus; 11. MPE on a phone-structured one; then 6. production width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         t0 = time.perf_counter()
         n = make_corpus(d, CorpusShape(), seed=SEED)
@@ -1781,9 +2011,15 @@ def main() -> int:
         t9 = time.perf_counter() - t0
         recurrent_path(torch, dev, card, d, n)
         log(f"phases 9 and 10: {t9:.1f}s and {time.perf_counter() - t0 - t9:.1f}s")
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(d, "mpe"))
+        launches_mpe, ragged = mpe_path(torch, dev, card, os.path.join(d, "mpe"))
+        shapes["affine_sigmoid"].append(ragged)
+        log(f"phase 11: {time.perf_counter() - t0:.1f}s")
     launches_prod = production(torch, dev, card)
     launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj,
-                                             launches_dt, launches_rbm)) for k in COUNTERS}
+                                             launches_dt, launches_rbm, launches_mpe))
+                for k in COUNTERS}
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
@@ -1795,7 +2031,7 @@ def main() -> int:
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, the WGMMA-route "
         f"kernels' at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape under "
         f"'shapes'; launches summed over the frame-CE, momentum, objectives, "
-        f"compute-dtype and RBM fine-tune paths, for the WGMMA-route kernels over the "
+        f"compute-dtype, RBM fine-tune and MPE paths, for the WGMMA-route kernels over the "
         f"production path")
     # name: (source, TPU kernel, counter, launches by path, main shape's index)
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act", launches, 0),

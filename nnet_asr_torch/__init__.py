@@ -13,10 +13,11 @@ its layout so each module's counterpart is easy to find:
   utils/     option parsing, Rand48, profiler, prefetch
 
 The host code it shares with the JAX package is copied, never imported:
-``io/{htk,mmf,scp,labels,mlf,native}.py`` and ``native/htkio.cc``,
-``utils/{config,prefetch,profiler,rand48}.py``, ``train/newbob.py``,
-``tools/gen_mlp_init.py`` and ``tools/generators.py`` (``hamm_dct`` only)
-are copies at the original's relative path. This package imports ``torch``
+``io/{htk,mmf,scp,labels,mlf,native,htk_hmm,slf,dictionary}.py``,
+``native/{htkio,mpefb}.cc``, ``utils/{config,prefetch,profiler,rand48}.py``,
+``train/{newbob,rbm_scheduler,mpe,mpe_native,lattice_expand}.py``,
+``tools/{gen_mlp_init,generators,gen_gmmbypass}.py`` are copies at the
+original's relative path. This package imports ``torch``
 and nothing of ``jax`` or ``nnet_asr_tpu``.
 """
 

@@ -9,7 +9,13 @@ cross-validation part, example-01's transform (``generators hamm_dct``
 followed by a ``<bias>``/``<window>`` normalisation to the data's mean and
 standard deviation, as in its ``Hamm_dct_norm``) and a ``gen_mlp_init``
 initial model. Files are written with the port's own host tools (HTK,
-MLF and the generators).
+MLF, SLF and the generators).
+
+For sequence training, ``CorpusShape(phones=P)`` makes the labels
+phone-structured (P phones of 3 states, tags ``pK_s2..pK_s4``, the three
+states in order within each phone, no phone twice in a row), and
+``write_phone_lattices`` writes a seeded SLF phone lattice per utterance
+around its reference phone segmentation.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 from ..io import htk
-from ..io.mlf import MlfWriter
+from ..io.mlf import MlfReader, MlfWriter
+from ..io.slf import Lattice, LatticeArc, LatticeNode, write_slf
 from ..tools import gen_mlp_init, generators
 
 from ..models.network import Network
@@ -41,6 +48,14 @@ class CorpusShape:
     n_cv: int = 24
     min_frames: int = 250
     max_frames: int = 350
+    # > 0: phone-structured labels, classes == 3 * phones; state segments
+    # of 1-4 frames, and each utterance ends at the end of a phone (its
+    # length may pass max_frames by up to a phone)
+    phones: int = 0
+
+    def tag(self, c: int) -> str:
+        """The label-map tag of class ``c``."""
+        return f"p{c // 3}_s{c % 3 + 2}" if self.phones else f"s{c}"
 
 
 def _stdout_of(fn, argv) -> str:
@@ -50,11 +65,29 @@ def _stdout_of(fn, argv) -> str:
     return buf.getvalue()
 
 
+def _phone_segments(rng, min_frames: int, phones: int):
+    """(state segment ends, state classes) of whole phones covering at
+    least ``min_frames`` frames: each phone's three states in order, 1-4
+    frames each, and a phone never follows itself."""
+    ends, states = [], []
+    p, t = int(rng.integers(0, phones)), 0
+    while t < min_frames:
+        for j, n in enumerate(rng.integers(1, 5, 3)):
+            t += int(n)
+            ends.append(t)
+            states.append(3 * p + j)
+        p = (p + int(rng.integers(1, phones))) % phones
+    return np.asarray(ends), np.asarray(states)
+
+
 def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> Dict[str, int]:
     """Write the corpus into directory ``d``: ``labs.mlf``, ``map``,
     ``train.scp``, ``cv.scp``, ``transform`` and ``init.mmf``. Returns the
     frame count of each part."""
     s = shape
+    if s.phones and (s.phones < 2 or s.classes != 3 * s.phones):
+        raise ValueError(f"phones={s.phones} needs at least 2 phones and classes == 3 * phones, "
+                         f"got classes={s.classes}")
     rng = np.random.default_rng(seed)
     means = rng.standard_normal((s.classes, s.feat_dim)).astype(np.float32)
     mlf = MlfWriter(os.path.join(d, "labs.mlf"))
@@ -64,23 +97,27 @@ def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> 
     for u in range(s.n_train + s.n_cv):
         part = "train" if u < s.n_train else "cv"
         T = int(rng.integers(s.min_frames, s.max_frames + 1))
-        ends = np.minimum(np.cumsum(rng.integers(3, 13, T)), T)
-        ends = ends[:np.searchsorted(ends, T) + 1]     # segments ending at T
-        states = rng.integers(0, s.classes, len(ends))
+        if s.phones:
+            ends, states = _phone_segments(rng, T, s.phones)
+            T = int(ends[-1])
+        else:
+            ends = np.minimum(np.cumsum(rng.integers(3, 13, T)), T)
+            ends = ends[:np.searchsorted(ends, T) + 1]     # segments ending at T
+            states = rng.integers(0, s.classes, len(ends))
         begs = np.concatenate([[0], ends[:-1]])
         x = (means[np.repeat(states, ends - begs)]
              + rng.standard_normal((T, s.feat_dim)).astype(np.float32))
         path = os.path.join(d, f"u{u:03d}.fea")
         htk.write_htk_file(path, x, htk.PARMKIND_USER)
         mlf.write_record(f"*/u{u:03d}.lab", [
-            f"{b * 100000} {e * 100000} s{c}" for b, e, c in zip(begs, ends, states)])
+            f"{b * 100000} {e * 100000} {s.tag(c)}" for b, e, c in zip(begs, ends, states)])
         scps[part].append(path)
         n_frames[part] += T
         if part == "train":
             train_feats.append(x)
     mlf.close()
     with open(os.path.join(d, "map"), "w") as f:
-        f.write(" ".join(f"s{i}" for i in range(s.classes)) + "\n")
+        f.write(" ".join(s.tag(i) for i in range(s.classes)) + "\n")
     for part, paths in scps.items():
         with open(os.path.join(d, f"{part}.scp"), "w") as f:
             f.write("".join(p + "\n" for p in paths))
@@ -104,3 +141,43 @@ def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> 
             f"--dim={dim}:{s.hidden}:{s.classes}", "--gauss", "--negbias",
             f"--seed={seed}"]))
     return n_frames
+
+
+def write_phone_lattices(d: str, seed: int = 123, competitors: int = 3) -> Dict[str, int]:
+    """Write ``lats/<utt>.lat`` for every utterance of a phone-structured
+    corpus in ``d``: one node at each reference phone boundary; for each
+    reference phone segment the reference arc plus ``competitors`` other
+    phones on the same nodes, and one arc of a random phone across each
+    pair of adjacent segments. Every arc spans at least one whole phone
+    (3 frames or more); LM scores are uniform in [-4, 0]. Returns the
+    counts of lattices and arcs."""
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(d, "map")) as f:
+        names = list(dict.fromkeys(t.rsplit("_s", 1)[0] for t in f.read().split()))
+    os.makedirs(os.path.join(d, "lats"), exist_ok=True)
+    mlf = MlfReader(os.path.join(d, "labs.mlf"))
+    recs = sorted(mlf.names())
+    n_arcs = 0
+    for rec in recs:
+        segs = []                       # (start frame, end frame, phone)
+        for b, e, tag in mlf.read_intervals(rec):
+            phone, state = tag.rsplit("_s", 1)
+            if state == "2":
+                segs.append([b // 100000, e // 100000, phone])
+            else:
+                segs[-1][1] = e // 100000
+        lat = Lattice(nodes=[LatticeNode(time=t / 100.0)
+                             for t in [segs[0][0]] + [e for _, e, _ in segs]])
+        for k, (_, _, phone) in enumerate(segs):
+            others = [p for p in names if p != phone]
+            for p in [phone] + list(rng.choice(others, competitors, replace=False)):
+                lat.arcs.append(LatticeArc(k, k + 1, str(p), lm=float(rng.uniform(-4, 0))))
+            if k + 1 < len(segs):
+                lat.arcs.append(LatticeArc(k, k + 2, str(rng.choice(names)),
+                                           lm=float(rng.uniform(-4, 0))))
+        base = os.path.splitext(os.path.basename(rec))[0]
+        with open(os.path.join(d, "lats", f"{base}.lat"), "w") as f:
+            write_slf(lat, f)
+        n_arcs += len(lat.arcs)
+    mlf.close()
+    return {"lattices": len(recs), "arcs": n_arcs}

@@ -70,7 +70,7 @@ import functools
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,11 +95,48 @@ INT8_MODES = ("int8", "int8pf", "int8pfsr", "int8full")
 COMPUTE_DTYPES = (None, "bf16") + INT8_MODES
 
 
+def forward_body(body, x: torch.Tensor, updates: Optional[dict] = None,
+                 weights: Optional[Callable] = None,
+                 layer: Optional[Callable] = None) -> torch.Tensor:
+    """The forward of ``body`` (a network's layers without its softmax
+    head), as the JAX package's Pallas path computes it: every
+    BiasedLinearity → Sigmoid pair through ``affine_sigmoid``, any other
+    BiasedLinearity through ``affine``, every other layer plain.
+    ``updates`` maps a layer index to its weight-update hook (the momentum
+    step through the fused wgrad+momentum kernel); ``weights(i, spec)``
+    gives a BiasedLinearity's (w, b), by default its own f32 tensors;
+    ``layer(spec, x)`` applies any other layer, by default ``spec(x)``."""
+    updates = updates or {}
+    i = 0
+    while i < len(body):
+        spec = body[i]
+        if isinstance(spec, BiasedLinearity):
+            w, b = (spec.weight, spec.bias) if weights is None else weights(i, spec)
+            if i + 1 < len(body) and isinstance(body[i + 1], Sigmoid):
+                x = affine_sigmoid(x, w, b, updates.get(i))
+                i += 2
+            else:
+                x = affine(x, w, b, updates.get(i))
+                i += 1
+            continue
+        x = spec(x) if layer is None else layer(spec, x)
+        i += 1
+    return x
+
+
 def _promotes(spec) -> bool:
     """Whether the layer has f32 parameters, against which jnp promotes a
     bf16 input to f32."""
     return any(t.is_floating_point() for t in itertools.chain(spec.parameters(),
                                                                 spec.buffers()))
+
+
+def _promoting_call(spec, x: torch.Tensor) -> torch.Tensor:
+    """``spec(x)``, with a bf16 ``x`` promoted to f32 first where the layer
+    has f32 parameters."""
+    if x.dtype == torch.bfloat16 and _promotes(spec):
+        x = x.float()
+    return spec(x)
 
 
 @dataclass
@@ -199,36 +236,22 @@ class Trainer:
                         train: bool = False) -> torch.Tensor:
         """f32 logits; ``updates`` maps a layer index to its weight-update
         hook; ``train`` draws int8pfsr's rounding noise."""
-        updates = updates or {}
         mode = self.cfg.compute_dtype
-        body = self._body
+        if mode is None:
+            return forward_body(self._body, x, updates)
         if mode == "bf16":
-            x = x.to(torch.bfloat16)
-        i = 0
-        while i < len(body):
-            spec = body[i]
-            if isinstance(spec, BiasedLinearity) and mode in INT8_MODES:
-                x = self._int8_affine(spec, x, train)
-                i += 1
-                continue
-            if isinstance(spec, BiasedLinearity):
-                w, b = spec.weight, spec.bias
-                if mode == "bf16":
-                    w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
-                    if not self._bf16_in[i]:      # promoted: f32 x @ bf16 W
-                        w, b = w.float(), b.float()
-                if i + 1 < len(body) and isinstance(body[i + 1], Sigmoid):
-                    x = affine_sigmoid(x, w, b, updates.get(i))
-                    i += 2
-                else:
-                    x = affine(x, w, b, updates.get(i))
-                    i += 1
-                continue
-            if x.dtype == torch.bfloat16 and _promotes(spec):
-                x = x.float()
-            x = spec(x)
-            i += 1
-        return x.float()
+            return forward_body(self._body, x.to(torch.bfloat16), updates,
+                                self._bf16_weights, _promoting_call).float()
+        for spec in self._body:
+            x = (self._int8_affine(spec, x, train) if isinstance(spec, BiasedLinearity)
+                 else spec(x))
+        return x
+
+    def _bf16_weights(self, i: int, spec: BiasedLinearity):
+        """A BiasedLinearity's (w, b) under bf16: bf16 where its input is
+        bf16, else promoted back to f32 (f32 x @ bf16 W, as jnp does)."""
+        w, b = spec.weight.to(torch.bfloat16), spec.bias.to(torch.bfloat16)
+        return (w, b) if self._bf16_in[i] else (w.float(), b.float())
 
     def _int8_affine(self, spec: BiasedLinearity, x: torch.Tensor,
                      train: bool) -> torch.Tensor:

@@ -2,41 +2,59 @@
 
 ``nnet_asr_torch`` keeps its own copy of every jax-free host module it uses
 (``io/``, ``utils/``, ``train/newbob.py``, ``tools/gen_mlp_init.py``,
-``tools/generators.py``'s jax-free subcommands, ``train/rbm_scheduler.py``).
+``tools/generators.py``'s jax-free subcommands, ``train/rbm_scheduler.py``,
+and the MPE host code: ``io/{htk_hmm,slf,dictionary}.py``,
+``train/{lattice_expand,mpe_native,mpe}.py``, ``tools/gen_gmmbypass.py``).
 Each case feeds one copy and its
 original the same inputs and holds the outputs equal: streams, parsed
 values, decisions, and written files byte for byte.
 """
 
 import contextlib
+import gzip
+import importlib
 import io
 import os
 
 import numpy as np
 import pytest
 
+from nnet_asr_torch.io import dictionary as t_dictionary
 from nnet_asr_torch.io import htk as t_htk
+from nnet_asr_torch.io import htk_hmm as t_htk_hmm
+from nnet_asr_torch.io import slf as t_slf
 from nnet_asr_torch.io import labels as t_labels
 from nnet_asr_torch.io import mlf as t_mlf
 from nnet_asr_torch.io import mmf as t_mmf
 from nnet_asr_torch.io import native as t_native
 from nnet_asr_torch.io import scp as t_scp
+from nnet_asr_torch.tools import gen_gmmbypass as t_gen_gmmbypass
 from nnet_asr_torch.tools import gen_mlp_init as t_gen_mlp_init
 from nnet_asr_torch.tools import generators as t_generators
+from nnet_asr_torch.train import lattice_expand as t_lattice_expand
+from nnet_asr_torch.train import mpe as t_mpe
+from nnet_asr_torch.train import mpe_native as t_mpe_native
 from nnet_asr_torch.train import newbob as t_newbob
 from nnet_asr_torch.train import rbm_scheduler as t_rbm_scheduler
 from nnet_asr_torch.utils import config as t_config
 from nnet_asr_torch.utils import prefetch as t_prefetch
 from nnet_asr_torch.utils import profiler as t_profiler
 from nnet_asr_torch.utils import rand48 as t_rand48
+from nnet_asr_tpu.io import dictionary as j_dictionary
 from nnet_asr_tpu.io import htk as j_htk
+from nnet_asr_tpu.io import htk_hmm as j_htk_hmm
+from nnet_asr_tpu.io import slf as j_slf
 from nnet_asr_tpu.io import labels as j_labels
 from nnet_asr_tpu.io import mlf as j_mlf
 from nnet_asr_tpu.io import mmf as j_mmf
 from nnet_asr_tpu.io import native as j_native
 from nnet_asr_tpu.io import scp as j_scp
+from nnet_asr_tpu.tools import gen_gmmbypass as j_gen_gmmbypass
 from nnet_asr_tpu.tools import gen_mlp_init as j_gen_mlp_init
 from nnet_asr_tpu.tools import generators as j_generators
+from nnet_asr_tpu.train import lattice_expand as j_lattice_expand
+from nnet_asr_tpu.train import mpe as j_mpe
+from nnet_asr_tpu.train import mpe_native as j_mpe_native
 from nnet_asr_tpu.train import newbob as j_newbob
 from nnet_asr_tpu.train import rbm_scheduler as j_rbm_scheduler
 from nnet_asr_tpu.utils import config as j_config
@@ -94,8 +112,8 @@ def case_native(m, d):
     path = os.path.join(d, "n.fea")
     j_htk.write_htk_file(path, _feats(3, n=15, dim=4), j_htk.PARMKIND_USER)
     if not m.available():
-        return False
-    return True, m.read_header(path), m.read_frames(path, True, 2, 10, 3, 2).tobytes()
+        pytest.skip(f"{m.__name__}: g++ did not build the library")
+    return m.read_header(path), m.read_frames(path, True, 2, 10, 3, 2).tobytes()
 
 
 def case_mmf(m, d):
@@ -283,6 +301,233 @@ def case_gen_mlp_init(m, d):
         _stdout(m.main, ["--dim=12:7:5:3", "--seed=5"])
 
 
+# --------------------------------------------------------------------------
+# the MPE host code: HMM sets, lattices, dictionaries, expansion, engines
+# --------------------------------------------------------------------------
+
+def _sibling(m, name):
+    """Module ``name`` (e.g. "io.slf") of the package ``m`` belongs to."""
+    return importlib.import_module(f"{m.__name__.split('.')[0]}.{name}")
+
+
+HMM_MMF = """~o <STREAMINFO> 1 4 <VECSIZE> 4 <USER>
+~h "a"
+<BEGINHMM>
+<NUMSTATES> 4
+<STATE> 2
+~s "a_s2"
+<STATE> 3
+~s "a_s3"
+<TRANSP> 4
+ 0.0 1.0 0.0 0.0
+ 0.0 0.3 0.7 0.0
+ 0.0 0.0 0.6 0.4
+ 0.0 0.0 0.0 0.0
+<ENDHMM>
+~h "b"
+<BEGINHMM>
+<NUMSTATES> 3
+<STATE> 2
+<MEAN> 4
+ 0 0 0 0
+<TRANSP> 3
+ 0.0 1.0 0.0
+ 0.0 0.5 0.5
+ 0.0 0.0 0.0
+<ENDHMM>
+~h "c"
+<BEGINHMM>
+<NUMSTATES> 3
+<STATE> 2
+~s "c_s2"
+<TRANSP> 3
+ 0.0 1.0 0.0
+ 0.0 0.8 0.2
+ 0.0 0.0 0.0
+<ENDHMM>
+"""
+MPE_LABELS = {"a_s2": 0, "a_s3": 1, "b_s2": 2, "c_s2": 3}
+
+
+def _hmms(m, d):
+    path = os.path.join(d, "hmms.mmf")
+    with open(path, "w") as f:
+        f.write(HMM_MMF)
+    return _sibling(m, "io.htk_hmm").parse_mmf(path)
+
+
+def case_htk_hmm(m, d):
+    hmms = _hmms(m, d)
+    return [(n, h.n_states, h.n_emitting, h.transp.tobytes(), h.state_names,
+             h.senone_ids(MPE_LABELS)) for n, h in hmms.items()]
+
+
+# a phone lattice: a diamond with a !NULL arc and same-time nodes
+SLF = """VERSION=1.0
+lmscale=9.0
+N=6 L=7
+I=0 t=0.00
+I=1 t=0.07
+I=2 t=0.07
+I=3 t=0.10
+I=4 t=0.10
+I=5 t=0.16
+J=0 S=0 E=1 W=a a=-1.5 l=-0.3
+J=1 S=0 E=2 W=b l=-0.1
+J=2 S=1 E=3 W=c l=0.0
+J=3 S=2 E=3 W=b l=-0.2
+J=4 S=3 E=4 W=!NULL
+J=5 S=4 E=5 W=a l=-0.5
+J=6 S=4 E=5 W=c l=-1.0
+"""
+# the STK node-list dialect (SVite output)
+STK_NET = "0 t=0.00\n1 t=0.05 W=a\n2 t=0.10 M=b\n0 1 a=-3.5 l=-1\n1 2 a=-2\n"
+
+
+def case_slf(m, d):
+    lat = m.read_slf(io.StringIO(SLF))
+    out = io.StringIO()
+    m.write_slf(lat, out)
+    again = io.StringIO()
+    m.write_slf(m.read_slf(io.StringIO(out.getvalue())), again)
+    stk = m.read_slf(io.StringIO(STK_NET))
+    # the two transports of LatticeArchive: a directory (plain and .gz) and
+    # an MLF of lattice records
+    lats = os.path.join(d, "lats")
+    os.makedirs(lats)
+    with open(os.path.join(lats, "u1.lat"), "w") as f:
+        f.write(out.getvalue())
+    with gzip.open(os.path.join(lats, "u2.lat.gz"), "wt") as f:
+        f.write(STK_NET)
+    mlf = os.path.join(d, "lats.mlf")
+    with open(mlf, "w") as f:
+        f.write('#!MLF!#\n"*/u1.lat"\n' + out.getvalue() + '.\n"*/u2.lat"\n'
+                + STK_NET + ".\n")
+    got = [m.LatticeArchive(src).get(f"feats/{u}.fea") for src in (lats, mlf)
+           for u in ("u1", "u2")]
+    with pytest.raises(FileNotFoundError):
+        m.LatticeArchive(lats).get("u9.fea")
+    return (out.getvalue(), again.getvalue() == out.getvalue(), lat, lat.lmscale,
+            [lat.arc_word(a) for a in lat.arcs], lat.frame(5), stk, got)
+
+
+DICT = """A a
+B [bee] 0.25 b
+AB a b
+AB 0.5 a a b
+'C D' [] c
+SIL
+"""
+
+
+def _dictionary(m, d):
+    path = os.path.join(d, "words.dic")
+    with open(path, "w") as f:
+        f.write(DICT)
+    return _sibling(m, "io.dictionary").read_dictionary(path)
+
+
+def case_dictionary(m, d):
+    return _dictionary(m, d)
+
+
+# a word lattice over 16 frames: AB or A then B, with competitors
+WORD_SLF = """N=4 L=5
+I=0 t=0.00
+I=1 t=0.07
+I=2 t=0.16
+I=3 t=0.16
+J=0 S=0 E=2 W=AB l=-0.5
+J=1 S=0 E=1 W=A l=-0.2
+J=2 S=1 E=2 W=B l=-0.1
+J=3 S=0 E=2 W=c l=-2.0
+J=4 S=2 E=3 W=SIL
+"""
+
+
+def _log_post(T=16, C=4, seed=21):
+    return np.log(np.random.default_rng(seed).dirichlet(np.ones(C), size=T))
+
+
+def case_lattice_expand(m, d):
+    hmms, words = _hmms(m, d), _dictionary(m, d)
+    lat = _sibling(m, "io.slf").read_slf(io.StringIO(WORD_SLF))
+    comp = m.compose_hmms([hmms["a"], hmms["b"]], [[0, 1], [2]])
+    out = [comp.entry.tobytes(), comp.trans.tobytes(), comp.exit.tobytes(), comp.tee,
+           comp.phone_of_state.tobytes(), comp.senones.tobytes(),
+           [m.min_duration(h) for h in hmms.values()]]
+    score, path = m.viterbi_segment(comp, _log_post(7, 3), transp_scale=1.5)
+    out.append((score, path.tobytes()))
+    for kw in ({}, {"multiple_pronun": False, "pron_scale": 2.0, "word_penalty": -0.5},
+               {"segmentation": "exact"}, {"segmentation": "exact", "exact_window": 1}):
+        exp = m.LatticeExpander(hmms, MPE_LABELS, words, outprb_scale=0.5, **kw)
+        out.append((exp.needs_expansion(lat), exp.expand(lat, _log_post())))
+    return out
+
+
+MPE_CONFIGS = [({}, {}), ({"outprb_scale": 0.3, "lm_scale": 2.0}, {}), ({"ml_gamma": True}, {}),
+               ({"occup_scale": 0.7, "ml_gamma": True}, {}),
+               ({"transp_scale": 2.0, "model_penalty": -1.5}, {}),
+               ({"start_time_shift": 0.01, "end_time_shift": 0.01}, {}),
+               ({}, {"utt_weight": 0.6, "frame_weights": np.linspace(0.5, 1.5, 16)}),
+               ({}, {"pruning": 1e6}), ({"ml_gamma": True}, {"pruning": 3.0})]
+REF_SEGS = [(0, 7, "a"), (7, 10, "b"), (10, 16, "c")]
+
+
+def _case_mpe(engine):
+    """Every configuration's (gammas, c_avg, logZ) of one engine, bits
+    compared; then a word lattice through the expander."""
+    def case(m, d):
+        hmms = _hmms(m, d)
+        slf = _sibling(m, "io.slf")
+        if engine == "native" and not _sibling(m, "train.mpe_native").available():
+            pytest.skip(f"{m.__name__}: g++ did not build the MPE library")
+        out = []
+        for cfg, kw in MPE_CONFIGS:
+            comp = m.MpeComputer(hmms, MPE_LABELS, m.MpeConfig(**cfg), engine=engine)
+            assert (comp._native is not None) == (engine == "native")
+            g, c, z = comp.compute(slf.read_slf(io.StringIO(SLF)), _log_post(), REF_SEGS, **kw)
+            out.append((g.tobytes(), c, z))
+        comp = m.MpeComputer(hmms, MPE_LABELS, m.MpeConfig(exact_segmentation=True),
+                             engine=engine, dictionary=_dictionary(m, d))
+        g, c, z = comp.compute(slf.read_slf(io.StringIO(WORD_SLF)), _log_post(), REF_SEGS)
+        out.append((g.tobytes(), c, z))
+        out.append([m.labels_to_phone_segments(np.array([0, 0, 1, 2, 2, 3]),
+                                               ["a_s2", "a_s3", "b_s2", "c_s2"]),
+                    m.povey_phone_accuracy("a", 5, 15, REF_SEGS)])
+        return out
+    return case
+
+
+def case_mpe_native(m, d):
+    if not m.available():
+        pytest.skip(f"{m.__name__}: g++ did not build the MPE library")
+    hmms = _hmms(m, d)
+    mpe = _sibling(m, "train.mpe")
+    comp = mpe.MpeComputer(hmms, MPE_LABELS, mpe.MpeConfig(), engine="numpy")
+    tables = m.NativeTables(list(hmms), comp._senone_cache, comp._log_tp)
+    lat = _sibling(m, "io.slf").read_slf(io.StringIO(SLF))
+    flat = m.flatten_lattice(lat, tables)
+    assert m.flatten_lattice(lat, tables) is flat           # cached on the lattice
+    g, c, z = m.compute_native(lat, _log_post(), REF_SEGS, tables, mpe.MpeConfig(),
+                               kappa=0.5, beam=4.0)
+    return ([a.tobytes() for a in flat], tables.h_S.tobytes(), tables.h_sen.tobytes(),
+            tables.h_tp.tobytes(), tables.seg_code("zz"), tables.seg_code("b"),
+            g.tobytes(), c, z)
+
+
+def case_gen_gmmbypass(m, d):
+    mapf = os.path.join(d, "map")
+    with open(mapf, "w") as f:
+        f.write("p0_s2 p0_s3 p0_s4 p1_s2 p1_s3 p1_s4 sil\n")
+    out = []
+    for extra in (["--state-sep=_s"], ["--variance=2.5"]):
+        hmm = os.path.join(d, "hmms.mmf")
+        text = _stdout(m.main, [mapf, hmm, *extra])
+        out.append((text[0].replace(d, ""), text[1], _read(hmm)))
+    return out
+
+
 CASES = {
     "rand48": (case_rand48, t_rand48, j_rand48),
     "htk": (case_htk, t_htk, j_htk),
@@ -299,6 +544,14 @@ CASES = {
     "hamm_dct": (case_hamm_dct, t_generators, j_generators),
     "gen_mlp_init": (case_gen_mlp_init, t_gen_mlp_init, j_gen_mlp_init),
     "rbm_scheduler": (case_rbm_scheduler, t_rbm_scheduler, j_rbm_scheduler),
+    "htk_hmm": (case_htk_hmm, t_htk_hmm, j_htk_hmm),
+    "slf": (case_slf, t_slf, j_slf),
+    "dictionary": (case_dictionary, t_dictionary, j_dictionary),
+    "lattice_expand": (case_lattice_expand, t_lattice_expand, j_lattice_expand),
+    "mpe_native": (case_mpe_native, t_mpe_native, j_mpe_native),
+    "gen_gmmbypass": (case_gen_gmmbypass, t_gen_gmmbypass, j_gen_gmmbypass),
+    "mpe_numpy": (_case_mpe("numpy"), t_mpe, j_mpe),
+    "mpe_native_engine": (_case_mpe("native"), t_mpe, j_mpe),
     **{f"generators_{name}": (_case_generator(name), t_generators, j_generators)
        for name in GENERATORS},
 }
@@ -338,3 +591,20 @@ def test_native_library_is_the_ports_own():
         orig_src = f.read()
     # the copy adds a note at the top and changes no line of code
     assert port_src.endswith(orig_src.split("\n", 3)[3])
+
+
+def test_mpe_library_is_the_ports_own():
+    """The port builds its own copy of mpefb.cc into its own cache, beside
+    its htkio library, and loads that one."""
+    pkg = os.path.realpath(os.path.dirname(os.path.dirname(t_mpe_native.__file__)))
+    assert os.path.realpath(t_mpe_native._source_path()).startswith(pkg)
+    assert t_mpe_native.CACHE_DIR == t_native.CACHE_DIR
+    if t_mpe_native.available():
+        assert os.path.realpath(t_mpe_native.get_lib()._name).startswith(
+            os.path.realpath(t_native.CACHE_DIR))
+    with open(t_mpe_native._source_path()) as f:
+        port_src = f.read()
+    with open(j_mpe_native._source_path()) as f:
+        orig_src = f.read()
+    # the copy adds a note under the first line and changes no line of code
+    assert port_src.endswith(orig_src.split("\n", 1)[1])

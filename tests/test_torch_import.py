@@ -61,6 +61,15 @@ MODULES = [
     "nnet_asr_torch.utils.profiler",
     "nnet_asr_torch.utils.rand48",
     "nnet_asr_torch.train.newbob",
+    "nnet_asr_torch.io.htk_hmm",
+    "nnet_asr_torch.io.slf",
+    "nnet_asr_torch.io.dictionary",
+    "nnet_asr_torch.ops.mpe_device",
+    "nnet_asr_torch.train.mpe",
+    "nnet_asr_torch.train.mpe_native",
+    "nnet_asr_torch.train.lattice_expand",
+    "nnet_asr_torch.tools.tmpe",
+    "nnet_asr_torch.tools.gen_gmmbypass",
 ]
 
 
