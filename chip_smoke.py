@@ -100,10 +100,29 @@ final line):
      the CPU (MMF within 1e-4 relative, accuracy within 1e-4, the card's
      update within MPE_UPDATE_TOL of the CPU's in L2, which a card run at
      half the learning rate must fail).
+ 12. resident newbob (run before phase 6): phase 5's momentum scheduler
+     and phase 8's bf16 one again with --resident, every weight file
+     byte-identical to theirs and the launches equal; then
+     examples/run_timit_scale.sh stages 2-4 through the port's CLIs on a
+     TIMIT-scale corpus (tools/synth_corpus.py TIMIT: 4620 + 200
+     utterances, ~1.11M training frames): tjoiner --STARTFRMEXT=15,
+     generators hamm_dct (DCT 16) + tnorm on the joined script,
+     gen_mlp_init 368:500:39 --seed=4242, and the scheduler (lr 4.0, bunch
+     1024, cache 65536, 2 iterations) streaming, --resident, and
+     --resident with half the training stacks' MiB as --hbm-budget-mb: the
+     same newbob history and byte-identical weight files in all three,
+     "host-parked" in the budgeted run, affine_sigmoid and
+     fused_softmax_xent exactly once a drained bunch, CV rising; each
+     run's wall, intake seconds, resident and parked bytes, peak device
+     memory and per-epoch frames/s logged; a profiler window over one more
+     resident epoch (device busy and idle share, time by kernel group),
+     its weights byte-identical to epoch 1's. Phase 3 also holds
+     affine_sigmoid at 1024x368->500 (f32 and bf16) and fused_softmax_xent
+     at 1024x39, this path's shapes.
 Phase 2 also fails on a ptxas spill in a WGMMA-route kernel. The line
 before the last is the kernels' JSON record (the two WGMMA-route kernels
 as entries of their own, launched by phase 6; the others' launches summed
-over phases 4, 5, 7, 8, 9 and 11); the last line is
+over phases 4, 5, 7, 8, 9, 11 and 12); the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
@@ -136,13 +155,14 @@ WGRAD_SHAPES = ((BUNCH, 598, 1024, ("f32",)), (BUNCH, 1024, CLASSES, ("f32",)),
                 (1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf16")),
                 (1024, 4096, 8192, ("f32", "bf16")))
 # (M, K, N) of affine_sigmoid: MLP3's hidden layer, the production stack's
-# first layer and its 4096->4096 layers
-AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096))
+# first layer and its 4096->4096 layers, and phase 12's TIMIT hidden layer
+AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096),
+                 (1024, 368, 500))
 # (B, C) of fused_softmax_xent, one per shape of its plan: MLP3's output
 # (one warp per row), the production stack's (a row in a block's
 # registers), a row width with 4-byte accesses, and one past the register
-# limit (two walks)
-SOFTMAX_SHAPES = ((BUNCH, CLASSES), (1024, 8192), (1000, 3001), (1024, 16384))
+# limit (two walks); then phase 12's TIMIT output (156-byte rows)
+SOFTMAX_SHAPES = ((BUNCH, CLASSES), (1024, 8192), (1000, 3001), (1024, 16384), (1024, 39))
 FLUSH_BYTES = 256 << 20     # written between launches to time with L2 cold
 # NVIDIA H100 SXM data sheet: 495 TFLOP/s dense TF32, of which 3xTF32 gives
 # a third as f32-accurate work; 67 TFLOP/s f32 outside the tensor cores;
@@ -170,6 +190,9 @@ MPE_PHONES, MPE_KAPPA, MPE_LR, MPE_CHECK_UTTS = 45, 0.3, 0.02, 8
 # |update_cpu| in L2 norm; 4.25e-4 on an H100 (the f32 rounding of w + d),
 # 0.5 for an update at half the learning rate
 MPE_UPDATE_TOL = 4e-3
+# phase 12: examples/run_timit_scale.sh:28-35 (learning rate 4.0, bunch
+# 1024, cache 65536, gen_mlp_init --seed=4242), newbob cut to 2 iterations
+TS_LR, TS_BUNCH, TS_CACHE, TS_ITERS, TS_INIT_SEED = 4.0, 1024, 65536, 2, 4242
 # (group, pattern in the kernel's name) of an MPE iteration's device time
 MPE_GROUPS = (("affine_sigmoid (ours)", "matmul_act"), ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"),
               ("copies", "Memcpy|Memset|copy"), ("reductions", "reduce"))
@@ -533,7 +556,9 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     plan = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=ts[0].data_ptr(),
                           b_ptr=ts[1].data_ptr(), elem=2)
     route = route_name(tile_plan, plan)
-    check(route == ("MMA_SYNC" if K == 598 else "WGMMA"), f"{what}: route {route}")
+    # WGMMA needs rows of 16-byte multiples (598 and 500 bf16 values are not)
+    check(route == ("MMA_SYNC" if (2 * K) % 16 or (2 * N) % 16 else "WGMMA"),
+          f"{what}: route {route}")
     before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma)
     y = MA.affine_sigmoid(*ts)
     y.backward(g)
@@ -809,6 +834,21 @@ def run_tnorm(d, target, device=None):
     return [v for p in net.to_numpy_params() for v in p.values()]
 
 
+def sched_argv(d, iters, weights, *extra):
+    """The scheduler's arguments for momentum newbob on phase 4's corpus
+    (phases 5, 8 and 12)."""
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    return ["--nn-init", j("init.mmf"), "--mlf-train", j("labs.mlf"),
+            "--mlf-cv", j("labs.mlf"), "--scp-train", j("train.scp"),
+            "--scp-cv", j("cv.scp"), "--phonelist", j("map"),
+            "--feature-transform", j("transform"), f"--frm-ext={EXT}",
+            f"--bunchsize={BUNCH}", f"--cachesize={CACHE}", f"--seed={SEED}",
+            f"--learnrate={MOM_LR!r}", f"--momentum={MOM!r}", f"--max-iter={iters}",
+            "--weights-dir", weights, *extra]
+
+
 def momentum_path(torch, card: str, d: str, n: dict):
     import glob
 
@@ -823,13 +863,7 @@ def momentum_path(torch, card: str, d: str, n: dict):
         return os.path.join(d, name)
 
     weights = j("weights")
-    sched = ["--nn-init", j("init.mmf"), "--mlf-train", j("labs.mlf"),
-             "--mlf-cv", j("labs.mlf"), "--scp-train", j("train.scp"),
-             "--scp-cv", j("cv.scp"), "--phonelist", j("map"),
-             "--feature-transform", j("transform"), f"--frm-ext={EXT}",
-             f"--bunchsize={BUNCH}", f"--cachesize={CACHE}", f"--seed={SEED}",
-             f"--learnrate={MOM_LR!r}", f"--momentum={MOM!r}", f"--max-iter={MOM_ITERS}",
-             "--weights-dir", weights]
+    sched = sched_argv(d, MOM_ITERS, weights)
     MA.matmul_act.launches = 0
     SC.softmax_xent.launches = 0
     SF.wgrad_momentum_update.launches = 0
@@ -1169,13 +1203,7 @@ def dtypes_path(torch, card: str, d: str, n: dict):
     # newbob under bf16 with momentum: every epoch's weights through the bf16
     # wgrad, every bunch through the bf16 affine_sigmoid
     iters = DTYPE_SCHED_ITERS
-    sched = ["--nn-init", j("init.mmf"), "--mlf-train", j("labs.mlf"),
-             "--mlf-cv", j("labs.mlf"), "--scp-train", j("train.scp"),
-             "--scp-cv", j("cv.scp"), "--phonelist", j("map"),
-             "--feature-transform", j("transform"), f"--frm-ext={EXT}",
-             f"--bunchsize={BUNCH}", f"--cachesize={CACHE}", f"--seed={SEED}",
-             f"--learnrate={MOM_LR!r}", f"--momentum={MOM!r}", f"--max-iter={iters}",
-             "--compute-dtype=bf16", "--weights-dir", j("weights_bf16")]
+    sched = sched_argv(d, iters, j("weights_bf16"), "--compute-dtype=bf16")
     zero_counts()
     t0 = time.perf_counter()
     out = stdout_of(scheduler.main, sched)
@@ -1208,7 +1236,7 @@ def dtypes_path(torch, card: str, d: str, n: dict):
         compare_posteriors(f"tfeacat {flag} cuda:0 ({secs:.2f}s) vs cpu", post, post_cpu, tol)
     log(f"compute-dtype launches (12 tnet runs and the scheduler on cuda:0): "
         f"{json.dumps(totals)}")
-    return totals
+    return totals, got
 
 
 # ---------------------------------------------------------------------------
@@ -1740,6 +1768,234 @@ def mpe_path(torch, dev, card: str, d: str):
 
 
 # ---------------------------------------------------------------------------
+# 12. resident newbob: the TIMIT-scale recipe, and phases 5 and 8 again
+# ---------------------------------------------------------------------------
+
+DONE_LINE = re.compile(r"^Done (\d+) frames in (\S+)s \[FPS:([\d.]+)", re.M)
+HISTORY_LINE = re.compile(r"^(?:Initial CV|TR|CV) accuracy:.*$", re.M)
+DECISION_LINE = re.compile(r"^(?:accepting weights|reverting the weights.*|lrate=.*)$", re.M)
+
+
+@contextlib.contextmanager
+def timed_intake(torch, intakes: list):
+    """Record each ResidentNewbob and the seconds of its one-time intake."""
+    from nnet_asr_torch.train.resident import ResidentNewbob
+
+    prepare = ResidentNewbob.prepare
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        prepare(self, *args, **kw)
+        torch.cuda.synchronize()
+        intakes.append((self, time.perf_counter() - t0))
+
+    ResidentNewbob.prepare = timed
+    try:
+        yield
+    finally:
+        ResidentNewbob.prepare = prepare
+
+
+def run_scheduler(torch, argv) -> dict:
+    """One scheduler run from zeroed counts and peak-memory stats: its
+    output, wall, launches, peak device bytes, newbob lines, Done lines
+    and, resident, its intake and its ResidentNewbob (whose stacks stay
+    allocated until the caller drops it)."""
+    from nnet_asr_torch.tools import scheduler
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    intakes = []
+    t0 = time.perf_counter()
+    with timed_intake(torch, intakes):
+        out = stdout_of(scheduler.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    best = re.search(r"Best model: (\S+) \(CV ([\d.]+)%, (\d+) iterations\)", out)
+    init = re.search(r"Initial CV accuracy: (\S+)", out)
+    check(best is not None and init is not None, f"scheduler output:\n{out}")
+    return {"out": out, "wall": wall, "launches": read_counts(),
+            "peak": torch.cuda.max_memory_allocated(),
+            "history": HISTORY_LINE.findall(out), "decisions": DECISION_LINE.findall(out),
+            "done": [(int(f), float(t), float(fps)) for f, t, fps in DONE_LINE.findall(out)],
+            "best": best.group(1), "best_cv": float(best.group(2)), "iters": int(best.group(3)),
+            "init_cv": float(init.group(1)),
+            "runner": intakes[0][0] if intakes else None,
+            "intake": {"seconds": intakes[0][1], "resident_bytes": intakes[0][0].resident_bytes,
+                       "parked_bytes": intakes[0][0].parked_bytes} if intakes else None}
+
+
+def same_files(dir_a: str, dir_b: str, what: str) -> int:
+    """Every file of two weights directories byte-identical; their count."""
+    names = sorted(os.listdir(dir_a))
+    check(names == sorted(os.listdir(dir_b)), f"{what}: weight files {names} vs "
+                                              f"{sorted(os.listdir(dir_b))}")
+    for name in names:
+        with open(os.path.join(dir_a, name), "rb") as a, open(os.path.join(dir_b, name), "rb") as b:
+            check(a.read() == b.read(), f"{what}: {name} differs")
+    return len(names)
+
+
+def timit_path(torch, card: str, d: str):
+    """examples/run_timit_scale.sh stages 2-4 through the port's CLIs on a
+    TIMIT-scale corpus: tjoiner, hamm_dct + tnorm, gen_mlp_init 368:500:39,
+    then newbob streaming, --resident, and --resident with half the
+    training stacks' bytes as the device budget: the same history and
+    byte-identical weights in all three, exact launches, CV rising; a
+    profiler window over one more resident epoch. Returns the launches of
+    the three runs."""
+    from nnet_asr_torch.tools import gen_mlp_init, generators, tjoiner, tnorm
+    from nnet_asr_torch.tools.synth_corpus import TIMIT, make_corpus
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    s = TIMIT
+    ext, dim = s.ext, s.feat_dim * s.dct
+    t_phase = t0 = time.perf_counter()
+    n = make_corpus(d, s, seed=SEED, transform=False)
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = stdout_of(tjoiner.main, ["tjoiner", "-T", "01", "-S", j("train.scp"), "-l", j("joined"),
+                                   f"--OUTPUTSCRIPT={j('train_join.scp')}",
+                                   f"--STARTFRMEXT={ext}", f"--ENDFRMEXT={ext}"])
+    t_join = time.perf_counter() - t0
+    check(f"TJoiner: {s.n_train} files -> " in out, f"tjoiner: {out}")
+    hamm = j(f"tr_{s.feat_dim}Tcontext{2 * ext + 1}_Ham_dct{s.dct}")
+    with open(hamm, "w") as f:
+        f.write(stdout_of(generators.main, ["hamm_dct", f"--dimIn={s.feat_dim}",
+                                            f"--startFrmExt={ext}", f"--endFrmExt={ext}",
+                                            f"--dctBaseCnt={s.dct}"]))
+    t0 = time.perf_counter()
+    stdout_of(tnorm.main, ["tnorm", "-T", "1", "-S", j("train_join.scp"), "-H", hamm,
+                           f"--TARGETMMF={hamm}.norm", f"--STARTFRMEXT={ext}",
+                           f"--ENDFRMEXT={ext}"])
+    torch.cuda.synchronize()
+    t_norm = time.perf_counter() - t0
+    with open(hamm + ".transf", "w") as f:
+        for part in (hamm, hamm + ".norm"):
+            with open(part) as g:
+                f.write(g.read())
+    nn_init = j(f"nnet_{dim}_{s.hidden}_{s.classes}.init")
+    with open(nn_init, "w") as f:
+        f.write(stdout_of(gen_mlp_init.main, [f"--dim={dim}:{s.hidden}:{s.classes}", "--gauss",
+                                              "--negbias", f"--seed={TS_INIT_SEED}"]))
+    log(f"phase 12 recipe, {card}: corpus {s.n_train} + {s.n_cv} utterances, {n['train']} "
+        f"training + {n['cv']} cv frames ({t_corpus:.1f}s to make); tjoiner {t_join:.1f}s "
+        f"({out.strip()}); tnorm over the joined script {t_norm:.1f}s")
+
+    argv = ["--nn-init", nn_init, "--mlf-train", j("labs.mlf"), "--mlf-cv", j("labs.mlf"),
+            "--scp-train", j("train_join.scp"), "--scp-cv", j("cv.scp"), "--phonelist", j("map"),
+            f"--learnrate={TS_LR!r}", f"--frm-ext={ext}", "--feature-transform", hamm + ".transf",
+            f"--bunchsize={TS_BUNCH}", f"--cachesize={TS_CACHE}", f"--max-iter={TS_ITERS}"]
+    n_train = drained_frames(n["train"], TS_CACHE, TS_BUNCH) // TS_BUNCH
+    n_cv = drained_frames(n["cv"], TS_CACHE, TS_BUNCH) // TS_BUNCH
+    stack_bytes = n_train * TS_BUNCH * (4 * dim + 4)
+    budget_mb = stack_bytes / 2 / 2 ** 20
+    runs = {"streaming": run_scheduler(torch, argv + ["--weights-dir", j("w_stream")]),
+            "resident": run_scheduler(torch, argv + ["--weights-dir", j("w_res"), "--resident"])}
+    profile_resident_epoch(torch, card, runs["resident"].pop("runner"), nn_init, j("w_res"),
+                           j("profiled.mmf"), n_train)
+    runs["budget"] = run_scheduler(torch, argv + ["--weights-dir", j("w_budget"), "--resident",
+                                                  f"--hbm-budget-mb={budget_mb!r}"])
+    runs["budget"].pop("runner")
+    ref = runs["streaming"]
+    for name, r in runs.items():
+        want = dict.fromkeys(COUNTERS, 0)
+        want["matmul_act"] = want["softmax_xent"] = r["iters"] * n_train + (r["iters"] + 1) * n_cv
+        intake = ("" if r["intake"] is None else
+                  f"; intake {r['intake']['seconds']:.2f}s, {r['intake']['resident_bytes']} "
+                  f"bytes resident, {r['intake']['parked_bytes']} bytes host-parked")
+        log(f"scheduler {name} (368:500:39, lr {TS_LR}, {r['iters']} iterations), {card}: "
+            f"{r['wall']:.1f}s; CV {r['init_cv']}% -> best {r['best_cv']}%; decisions "
+            f"{r['decisions']}; peak device memory {r['peak']} bytes{intake}; launches "
+            f"{json.dumps(r['launches'])}")
+        check(r["iters"] == TS_ITERS and len(r["done"]) == 2 * r["iters"] + 1,
+              f"{name}: {r['iters']} iterations, {len(r['done'])} Done lines")
+        check(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+        check(r["history"] == ref["history"] and r["decisions"] == ref["decisions"],
+              f"{name}: newbob history {r['history']} differs from streaming's {ref['history']}")
+        check(os.path.basename(r["best"]) == os.path.basename(ref["best"]), f"{name}: best model")
+        check(r["best_cv"] > r["init_cv"], f"{name}: cv {r['init_cv']}% -> {r['best_cv']}%")
+    files = [same_files(j("w_stream"), j(w), f"{name} weights")
+             for name, w in (("resident", "w_res"), ("budget", "w_budget"))]
+    res, bud = runs["resident"]["intake"], runs["budget"]["intake"]
+    check("host-parked" not in runs["resident"]["out"] and res["parked_bytes"] == 0,
+          "full residency parked a stack")
+    check("host-parked" in runs["budget"]["out"] and bud["parked_bytes"] > 0
+          and 0 < bud["resident_bytes"] <= budget_mb * 2 ** 20,
+          f"budget run: {bud['resident_bytes']} resident, {bud['parked_bytes']} parked")
+    check(res["resident_bytes"] == bud["resident_bytes"] + bud["parked_bytes"],
+          "stack bytes differ")
+    log(f"weights: {files[0]} files of streaming, resident and budgeted ({budget_mb:.2f} MiB) "
+        f"runs byte-identical; newbob histories equal: {ref['history']}")
+    for k, what in enumerate(["cv init"] + [f"{p} {i}" for i in range(1, TS_ITERS + 1)
+                                            for p in ("epoch", "cv")]):
+        log(f"  {what}: frames/s streaming {ref['done'][k][2]}, resident "
+            f"{runs['resident']['done'][k][2]}, budgeted {runs['budget']['done'][k][2]} "
+            f"({ref['done'][k][0]} frames; {ref['done'][k][1]} / "
+            f"{runs['resident']['done'][k][1]} / {runs['budget']['done'][k][1]} s)")
+    log(f"phase 12 recipe: {time.perf_counter() - t_phase:.1f}s")
+    return {k: sum(r["launches"][k] for r in runs.values()) for k in COUNTERS}
+
+
+def profile_resident_epoch(torch, card, runner, nn_init, weights, dst, n_train):
+    """One more resident epoch from ``nn_init`` at phase 12's learning
+    rate (epoch 1 again) in a profiler window: device busy and idle share,
+    time by kernel group; its weights byte-identical to epoch 1's."""
+    import glob
+
+    e1 = glob.glob(os.path.join(weights, "*_iter01_*"))
+    check(len(e1) == 1, f"resident epoch-1 model: {e1}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stdout_of(runner.train_epoch, nn_init, TS_LR, dst)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.key, getattr(e, "self_device_time_total", 0), e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows = [r for r in rows if r[1] > 0]
+    busy = sum(us for _, us, _ in rows)
+    if busy > 0:
+        log(f"trace resident epoch (368:500:39, {n_train} bunches), {card}: "
+            + split_line(busy, wall_us, group_times(rows, KERNEL_GROUPS + MPE_GROUPS[2:])))
+        for key, us, count in rows[:10]:
+            log(f"  {us:11.1f} us x{count:<6d} {key[:100]}")
+    else:
+        log("trace resident epoch: the profiler recorded no device time")
+    with open(e1[0], "rb") as a, open(dst, "rb") as b:
+        check(a.read() == b.read(), "the profiled resident epoch differs from epoch 1")
+
+
+def resident_reruns(torch, card: str, d: str, want_mom: dict, want_bf16: dict):
+    """Phase 5's momentum newbob and phase 8's bf16 one again with
+    --resident: every weight file byte-identical to theirs, the same
+    launches. Returns the launches of both."""
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    total = dict.fromkeys(COUNTERS, 0)
+    for name, iters, extra, ref, want in (
+            ("momentum", MOM_ITERS, (), "weights", want_mom),
+            ("bf16 momentum", DTYPE_SCHED_ITERS, ("--compute-dtype=bf16",), "weights_bf16",
+             want_bf16)):
+        r = run_scheduler(torch, sched_argv(d, iters, j(ref + "_res"), *extra, "--resident"))
+        got = {k: r["launches"][k] for k in want}
+        files = same_files(j(ref), j(ref + "_res"), f"resident {name} newbob")
+        log(f"scheduler --resident {name} (phase {5 if ref == 'weights' else 8}'s run), {card}: "
+            f"{r['wall']:.1f}s, intake {r['intake']['seconds']:.2f}s; {files} weight files "
+            f"byte-identical to {ref}/; launches {json.dumps(r['launches'])}; epoch frames/s "
+            f"{[fps for _, _, fps in r['done'][1::2]]}")
+        check(got == want and sum(r["launches"].values()) == sum(want.values()),
+              f"resident {name}: launches {r['launches']}, want {want}")
+        for k in total:
+            total[k] += r["launches"][k]
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
@@ -1994,7 +2250,8 @@ def main() -> int:
 
     # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
     # 8. compute dtypes, 9. RBM pretraining, 10. recurrent BPTT, on one
-    # corpus; 11. MPE on a phone-structured one; then 6. production width
+    # corpus; 11. MPE on a phone-structured one; 12. resident newbob on the
+    # first and on a TIMIT-scale one; then 6. production width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         t0 = time.perf_counter()
         n = make_corpus(d, CorpusShape(), seed=SEED)
@@ -2003,7 +2260,7 @@ def main() -> int:
         launches_ce = main_path(torch, card, d, n)
         launches_mom = momentum_path(torch, card, d, n)
         launches_obj = objectives_path(torch, card, d, n)
-        launches_dt = dtypes_path(torch, card, d, n)
+        launches_dt, launches_dt_sched = dtypes_path(torch, card, d, n)
         t0 = time.perf_counter()
         launches_rbm = rbm_path(torch, card, d, n)
         cd1_agreement(torch, dev)
@@ -2016,9 +2273,15 @@ def main() -> int:
         launches_mpe, ragged = mpe_path(torch, dev, card, os.path.join(d, "mpe"))
         shapes["affine_sigmoid"].append(ragged)
         log(f"phase 11: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        launches_res = resident_reruns(torch, card, d, launches_mom, launches_dt_sched)
+        os.makedirs(os.path.join(d, "timit"))
+        launches_ts = timit_path(torch, card, os.path.join(d, "timit"))
+        log(f"phase 12: {time.perf_counter() - t0:.1f}s")
     launches_prod = production(torch, dev, card)
     launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj,
-                                             launches_dt, launches_rbm, launches_mpe))
+                                             launches_dt, launches_rbm, launches_mpe,
+                                             launches_res, launches_ts))
                 for k in COUNTERS}
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
 
@@ -2031,8 +2294,8 @@ def main() -> int:
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, the WGMMA-route "
         f"kernels' at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape under "
         f"'shapes'; launches summed over the frame-CE, momentum, objectives, "
-        f"compute-dtype, RBM fine-tune and MPE paths, for the WGMMA-route kernels over the "
-        f"production path")
+        f"compute-dtype, RBM fine-tune, MPE and resident paths, for the WGMMA-route "
+        f"kernels over the production path")
     # name: (source, TPU kernel, counter, launches by path, main shape's index)
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act", launches, 0),
             "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent",

@@ -1,5 +1,5 @@
-"""Training scheduler CLI: newbob over the port's tnet (port of the
-streaming mode of nnet_asr_tpu/tools/scheduler.py).
+"""Training scheduler CLI: newbob over the port's tnet, or resident (port
+of the single-device modes of nnet_asr_tpu/tools/scheduler.py).
 
 Runs the newbob loop (initial CV, per-epoch train + CV, accept/reject, LR
 halving) of ``train/newbob.py`` ``run_newbob`` (the port's copy of the JAX
@@ -11,11 +11,20 @@ CACHESIZE, MAX_ITER, MOMENTUM, ...), and its ``Best model:`` line. Every
 epoch passes ``--MOMENTUM`` to tnet, so a nonzero ``--momentum`` trains
 through the fused wgrad+momentum kernel.
 
-``main(argv, device)`` passes ``device`` to ``tnet.main`` (None: tnet's
-``--GPUSELECT`` default, cuda:0; the tests pass "cpu"). ``--compute-dtype``
-(or COMPUTE_DTYPE) other than f32 is passed on to every tnet run as
-``--COMPUTEDTYPE``. ``--resident`` and ``--mesh`` raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+``--resident`` (or RESIDENT) runs newbob over ``train/resident.py``
+``ResidentNewbob`` in process instead: the corpus is read, transformed
+and shuffled once into bunch stacks kept in device memory, and each epoch
+only drains them, with the trajectory (and every weight file) of the
+streaming mode. ``--hbm-budget-mb`` (or HBM_BUDGET_MB) caps the device
+memory those stacks take, in MiB; the stacks beyond it wait on the host
+and are copied to the device once an epoch.
+
+``main(argv, device)`` passes ``device`` to ``tnet.main`` or
+``ResidentNewbob`` (None: cuda:0, as tnet's ``--GPUSELECT`` default; the
+tests pass "cpu"). ``--compute-dtype`` (or COMPUTE_DTYPE) other than f32
+is passed on to every tnet run as ``--COMPUTEDTYPE``, or to the resident
+Trainer. ``--mesh`` raises NotImplementedError naming the ROADMAP.md item
+that brings it.
 
     python -m nnet_asr_torch.tools.scheduler --nn-init init.mmf \\
         --mlf-train labs.mlf --mlf-cv labs.mlf --scp-train train.scp \\
@@ -32,9 +41,16 @@ import os
 import re
 import sys
 
+from ..io.htk import FeatureReader
+from ..io.labels import LabelRepository
+from ..io.scp import read_scp
 from ..train.newbob import NewbobConfig, run_newbob
 
 from ..device import DeviceLike
+from ..models.network import Network
+from ..train.resident import ResidentNewbob
+from ..train.sgd import SgdConfig
+from ..train.trainer import TrainerConfig
 from . import not_ported, tnet
 
 
@@ -74,11 +90,15 @@ def main(argv=None, device: DeviceLike = None) -> int:
                     default=float(_env("WEIGHTCOST", "0")))
     ap.add_argument("--weights-dir", default="weights")
     ap.add_argument("--seed", type=int, default=123)
-    # the JAX tool's resident and sharded modes: refused below
-    # (--hbm-budget-mb only acts with --resident)
+    # read, transform and shuffle once into device-resident bunch stacks;
+    # each epoch only drains them (train/resident.py)
     ap.add_argument("--resident", action="store_true",
                     default=bool(_env("RESIDENT")))
+    # the JAX tool's device mesh: refused below
     ap.add_argument("--mesh", default=_env("MESH"))
+    # resident mode's device-memory budget in MiB (the JAX tool's HBM
+    # budget): stacks beyond it wait on the host and are copied to the
+    # device once an epoch
     ap.add_argument("--hbm-budget-mb", type=float,
                     default=float(_env("HBM_BUDGET_MB", "0")) or None)
     ap.add_argument("--compute-dtype", default=_env("COMPUTE_DTYPE"),
@@ -91,10 +111,9 @@ def main(argv=None, device: DeviceLike = None) -> int:
         if getattr(args, req) is None:
             raise SystemExit(f"--{req.replace('_', '-')} (or its env var) "
                              "is required")
-    if args.resident:
-        raise not_ported("--resident", "queue 1 item 10")
     if args.mesh:
-        raise not_ported("--mesh", "queue 1 item 14")
+        raise not_ported("--resident --mesh" if args.resident else "--mesh",
+                         "queue 1 item 14")
 
     common = [
         "-m", args.phonelist,
@@ -143,11 +162,36 @@ def main(argv=None, device: DeviceLike = None) -> int:
         start_halving_inc=args.start_halving_inc,
         end_halving_inc=args.end_halving_inc,
         halving_factor=args.halving_factor)
+    if args.resident:
+        train_epoch, crossvalidate = _resident(args, device)
     best, st = run_newbob(cfg, args.nn_init, args.weights_dir,
                           train_epoch, crossvalidate)
     print(f"Best model: {best} (CV {st.accu_best:.4f}%, "
           f"{len(st.history)} iterations)")
     return 0
+
+
+def _resident(args, device: DeviceLike):
+    """(train_epoch, crossvalidate) of a ResidentNewbob after its intake."""
+    reader = FeatureReader(start_frm_ext=args.frm_ext, end_frm_ext=args.frm_ext)
+    labels_repo = LabelRepository(args.mlf_train, args.phonelist, "*/", "lab")
+    cv_repo = (labels_repo if args.mlf_cv == args.mlf_train else
+               LabelRepository(args.mlf_cv, args.phonelist, "*/", "lab"))
+    transform = (Network.read(args.feature_transform)
+                 if args.feature_transform else None)
+    tcfg = TrainerConfig(
+        bunchsize=args.bunchsize, cachesize=args.cachesize, seed=args.seed,
+        randomize=True,
+        compute_dtype=None if args.compute_dtype in (None, "f32") else args.compute_dtype,
+        sgd=SgdConfig(learning_rate=args.learnrate, momentum=args.momentum,
+                      weightcost=args.weightcost))
+    budget = (int(args.hbm_budget_mb * 1024 * 1024)
+              if args.hbm_budget_mb else None)
+    runner = ResidentNewbob(args.nn_init, transform, reader, labels_repo, tcfg,
+                            args.frm_ext, hbm_budget_bytes=budget, device=device)
+    runner.prepare(read_scp(args.scp_train), read_scp(args.scp_cv),
+                   cv_labels_repo=cv_repo)
+    return runner.train_epoch, runner.crossvalidate
 
 
 def _cli():

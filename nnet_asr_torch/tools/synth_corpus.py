@@ -11,6 +11,12 @@ standard deviation, as in its ``Hamm_dct_norm``) and a ``gen_mlp_init``
 initial model. Files are written with the port's own host tools (HTK,
 MLF, SLF and the generators).
 
+``TIMIT`` is the shape of the TIMIT-scale recipe
+(``examples/run_timit_scale.sh``: example-02's MLP3 368:500:39 at FRM_EXT
+15 and DCT 16, TIMIT's 4620 training utterances, ~1.11M frames); its
+recipe makes the transform itself (``generators hamm_dct`` and ``tnorm``),
+so ``make_corpus(..., transform=False)`` leaves it out.
+
 For sequence training, ``CorpusShape(phones=P)`` makes the labels
 phone-structured (P phones of 3 states, tags ``pK_s2..pK_s4``, the three
 states in order within each phone, no phone twice in a row), and
@@ -58,6 +64,14 @@ class CorpusShape:
         return f"p{c // 3}_s{c % 3 + 2}" if self.phones else f"s{c}"
 
 
+# examples/run_timit_scale.sh:28-35 and examples/prepare_timit_scale.py:20:
+# 23 filter-bank energies, 31-frame context, 16 DCT bases (368 inputs), 500
+# hidden units, TIMIT's 39 folded phones; 4620 + 200 utterances of 160-320
+# frames (240 on average: 4620 x 240 = 1.11M training frames)
+TIMIT = CorpusShape(feat_dim=23, ext=15, dct=16, hidden=500, classes=39, n_train=4620,
+                    n_cv=200, min_frames=160, max_frames=320)
+
+
 def _stdout_of(fn, argv) -> str:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -80,10 +94,11 @@ def _phone_segments(rng, min_frames: int, phones: int):
     return np.asarray(ends), np.asarray(states)
 
 
-def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> Dict[str, int]:
+def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123,
+                transform: bool = True) -> Dict[str, int]:
     """Write the corpus into directory ``d``: ``labs.mlf``, ``map``,
-    ``train.scp``, ``cv.scp``, ``transform`` and ``init.mmf``. Returns the
-    frame count of each part."""
+    ``train.scp``, ``cv.scp``, ``init.mmf`` and, with ``transform``,
+    ``transform``. Returns the frame count of each part."""
     s = shape
     if s.phones and (s.phones < 2 or s.classes != 3 * s.phones):
         raise ValueError(f"phones={s.phones} needs at least 2 phones and classes == 3 * phones, "
@@ -113,7 +128,7 @@ def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> 
             f"{b * 100000} {e * 100000} {s.tag(c)}" for b, e, c in zip(begs, ends, states)])
         scps[part].append(path)
         n_frames[part] += T
-        if part == "train":
+        if part == "train" and transform:
             train_feats.append(x)
     mlf.close()
     with open(os.path.join(d, "map"), "w") as f:
@@ -122,6 +137,13 @@ def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> 
         with open(os.path.join(d, f"{part}.scp"), "w") as f:
             f.write("".join(p + "\n" for p in paths))
 
+    dim = s.feat_dim * s.dct
+    with open(os.path.join(d, "init.mmf"), "w") as f:
+        f.write(_stdout_of(gen_mlp_init.main, [
+            f"--dim={dim}:{s.hidden}:{s.classes}", "--gauss", "--negbias",
+            f"--seed={seed}"]))
+    if not transform:
+        return n_frames
     hamm = _stdout_of(generators.main, [
         "hamm_dct", f"--dimIn={s.feat_dim}", f"--startFrmExt={s.ext}",
         f"--endFrmExt={s.ext}", f"--dctBaseCnt={s.dct}"])
@@ -129,17 +151,12 @@ def make_corpus(d: str, shape: CorpusShape = CorpusShape(), seed: int = 123) -> 
     with torch.no_grad():
         ys = np.concatenate([net(torch.from_numpy(x)).numpy()
                              for x in train_feats]).astype(np.float64)
-    dim = s.feat_dim * s.dct
     with open(os.path.join(d, "transform"), "w") as f:
         f.write(hamm)
         f.write(f"<bias> {dim} {dim}\nv {dim}\n"
                 + " ".join(repr(float(v)) for v in -ys.mean(0)) + "\n")
         f.write(f"<window> {dim} {dim}\nv {dim}\n"
                 + " ".join(repr(float(v)) for v in 1.0 / ys.std(0)) + "\n")
-    with open(os.path.join(d, "init.mmf"), "w") as f:
-        f.write(_stdout_of(gen_mlp_init.main, [
-            f"--dim={dim}:{s.hidden}:{s.classes}", "--gauss", "--negbias",
-            f"--seed={seed}"]))
     return n_frames
 
 

@@ -26,22 +26,19 @@ that brings them.
 
 from __future__ import annotations
 
-import copy
 import sys
-import threading
 import time
 
 from ..io.labels import LabelRepository
 from ..io.scp import parse_scp_entry, read_scp
 from ..utils.config import UserInterface
-from ..utils.prefetch import prefetch_map
 from ..utils.profiler import enable_from_trace, profiler
 
 from .. import __version__
 from ..device import DeviceLike, gpuselect_device, resolve_device
 from ..models.network import Network
 from ..train.sgd import SgdConfig
-from ..train.trainer import Trainer, TrainerConfig
+from ..train.trainer import Trainer, TrainerConfig, read_utterances
 from . import not_ported
 
 OPTION_STRING = (
@@ -173,23 +170,10 @@ def main(argv=None, device: DeviceLike = None) -> int:
 
     t0 = time.time()
 
-    # FeatureReader keeps per-read state (last_header, norm caches): one
-    # instance per reader thread
-    tls = threading.local()
-
-    def read_one(e):
-        rd = getattr(tls, "reader", None)
-        if rd is None:
-            rd = tls.reader = copy.copy(reader)
-        feats = rd.read(e.physical, e.logical)
-        n_real = feats.shape[0] - feaparams["start_frm_ext"] - feaparams["end_frm_ext"]
-        labs = labels_repo.get_frame_labels(
-            n_real, rd.last_header.sample_period, e.logical)
-        return feats, labs
-
     def utterance_iter():
-        # background reader pool (the Platform reader-thread analog)
-        for feats, labs in prefetch_map(read_one, entries, workers=4):
+        for feats, labs in read_utterances(reader, entries, labels_repo,
+                                           feaparams["start_frm_ext"],
+                                           feaparams["end_frm_ext"]):
             if trace & 2:
                 print(".", end="", flush=True)
             yield feats, labs

@@ -68,13 +68,15 @@ from __future__ import annotations
 import copy
 import functools
 import itertools
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.prefetch import prefetch_map
 from ..utils.profiler import profiler
 
 from ..device import DeviceLike, resolve_device
@@ -137,6 +139,27 @@ def _promoting_call(spec, x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and _promotes(spec):
         x = x.float()
     return spec(x)
+
+
+def read_utterances(reader, entries, labels_repo, start_frm_ext: int = 0,
+                    end_frm_ext: int = 0, workers: int = 4
+                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(ext_feats, frame labels) of each SCP entry, in order, read by a
+    pool of ``workers`` threads (the Platform reader-thread analog); the
+    ``FeatureReader`` keeps per-read state (last_header, norm caches), so
+    each thread reads through its own copy."""
+    tls = threading.local()
+
+    def read_one(e):
+        rd = getattr(tls, "reader", None)
+        if rd is None:
+            rd = tls.reader = copy.copy(reader)
+        feats = rd.read(e.physical, e.logical)
+        n_real = feats.shape[0] - start_frm_ext - end_frm_ext
+        return feats, labels_repo.get_frame_labels(n_real, rd.last_header.sample_period,
+                                                   e.logical)
+
+    return prefetch_map(read_one, entries, workers=workers)
 
 
 @dataclass
@@ -314,47 +337,63 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         return self._loss(self._forward_logits(feats), labels)[1]
 
-    def _drain_cache(self, cache: DeviceFrameCache) -> None:
-        with profiler.phase("cache-randomize"):
-            stacked = cache.take_stacked()
-        if stacked is None:
-            return
-        feats_all, labels_all = stacked
+    def _drain(self, step, feats_all: torch.Tensor, labels_all: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
         acc: Dict[str, torch.Tensor] = {}
-        step = self._eval_step if self.cfg.crossvalidate else self._train_step
-        with profiler.phase("eval-step" if self.cfg.crossvalidate else "train-step"):
-            for feats, labels in zip(feats_all, labels_all):
-                for k, v in step(feats, labels).items():
-                    # f32/int32 sums in bunch order, as the JAX drain's
-                    acc[k] = v.clone() if k not in acc else acc[k].add_(v)
-        self._accs.append((acc, feats_all.shape[0] * feats_all.shape[1]))
+        for feats, labels in zip(feats_all, labels_all):
+            for k, v in step(feats, labels).items():
+                # f32/int32 sums in bunch order, as the JAX drain's
+                acc[k] = v.clone() if k not in acc else acc[k].add_(v)
+        return acc
+
+    def drain_train(self, feats_all: torch.Tensor, labels_all: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+        """Train on every bunch of a stack ((nb, bunch, D) feats, (nb,
+        bunch) labels, on the Trainer's device) in order; the per-stack
+        device stats (JAX ``Trainer._drain_train``)."""
+        with profiler.phase("train-step"):
+            return self._drain(self._train_step, feats_all, labels_all)
+
+    def drain_eval(self, feats_all: torch.Tensor, labels_all: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        """Evaluate every bunch of a stack with the current parameters; the
+        per-stack device stats (JAX ``Trainer._drain_eval``)."""
+        with profiler.phase("eval-step"):
+            return self._drain(self._eval_step, feats_all, labels_all)
+
+    def merge_acc(self, stats, acc: Dict[str, torch.Tensor], frames: int) -> None:
+        """Add one stack's device stats over ``frames`` frames into the
+        float64 host totals ``stats`` (JAX ``Trainer._merge_acc``)."""
+        if self.cfg.objective == "mse":
+            stats.add(float(acc["mse"]), frames)
+            return
+        stats.add(float(acc["xent"]), frames, int(acc["correct"]))
+        if self.cfg.confusion_mode != "no":
+            stats.confusion_mode = self.cfg.confusion_mode
+            stats._ensure_confusion(self.net.n_outputs)
+            conf = acc["confusion"].cpu().double().numpy()
+            stats.confusion += conf
+            stats.diag_confusion += np.diag(conf)
+            stats.confusion_count += acc["confusion_count"].cpu().double().numpy()
 
     def _flush_acc(self) -> None:
         for acc, frames in self._accs:
-            if self.cfg.objective == "mse":
-                self.stats.add(float(acc["mse"]), frames)
-                continue
-            self.stats.add(float(acc["xent"]), frames, int(acc["correct"]))
-            if self.cfg.confusion_mode != "no":
-                st = self.stats
-                st.confusion_mode = self.cfg.confusion_mode
-                st._ensure_confusion(self.net.n_outputs)
-                conf = acc["confusion"].cpu().double().numpy()
-                st.confusion += conf
-                st.diag_confusion += np.diag(conf)
-                st.confusion_count += acc["confusion_count"].cpu().double().numpy()
+            self.merge_acc(self.stats, acc, frames)
         self._accs = []
 
-    def run_epoch(self, utterances: Iterable[Tuple[np.ndarray, np.ndarray]],
-                  batch_utts: int = 32) -> None:
-        """Train/evaluate one epoch.
-
-        ``utterances`` yields (ext_feats (T+ext, D_in) float32, labels (T,) int32);
-        ``batch_utts`` utterances go through the transform together.
-        """
-        t0 = time.time()
+    def stacks(self, utterances: Iterable[Tuple[np.ndarray, np.ndarray]],
+               randomize: bool, batch_utts: int = 32
+               ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """The intake of an epoch (TNetCu.cc:376-442): yields each cache's
+        stacked bunches, ((nb, bunch, D) feats, (nb, bunch) int32 labels) on
+        the device, as soon as the cache fills (then the last, partial
+        cache). ``utterances`` yields (ext_feats (T+ext, D_in) float32,
+        labels (T,) int32); ``batch_utts`` utterances go through the
+        transform together; ``total_frames`` counts the frames read. The
+        streaming epoch drains each stack as it comes; resident newbob
+        keeps them (``train/resident.py``)."""
         cache = DeviceFrameCache(self.cfg.cachesize, self.cfg.bunchsize,
-                                 self.cfg.seed, self.cfg.randomize)
+                                 self.cfg.seed, randomize)
         pend_feats, pend_labels = [], []
 
         def flush_pending():
@@ -367,19 +406,38 @@ class Trainer:
                 raise ValueError(f"{labels_block.shape[0]} labels for {valid} frames")
             self.total_frames += valid
             cache.add_block(rows, valid, labels_block)
-            while cache.full:
-                self._drain_cache(cache)
             pend_feats.clear()
             pend_labels.clear()
+
+        def take():
+            with profiler.phase("cache-randomize"):
+                stacked = cache.take_stacked()
+            if stacked is not None:
+                yield stacked
+
+        def take_full():
+            while cache.full:
+                yield from take()
 
         for ext_feats, labels in utterances:
             pend_feats.append(np.asarray(ext_feats, dtype=np.float32))
             pend_labels.append(np.asarray(labels, dtype=np.int32))
             if len(pend_feats) >= batch_utts:
                 flush_pending()
+                yield from take_full()
         flush_pending()
-        if cache.rows > 0:          # last (partial) cache
-            self._drain_cache(cache)
+        yield from take_full()
+        if cache.rows > 0:          # the last (partial) cache
+            yield from take()
+
+    def run_epoch(self, utterances: Iterable[Tuple[np.ndarray, np.ndarray]],
+                  batch_utts: int = 32) -> None:
+        """Train/evaluate one epoch over ``utterances`` (see ``stacks``)."""
+        t0 = time.time()
+        drain = self.drain_eval if self.cfg.crossvalidate else self.drain_train
+        for feats_all, labels_all in self.stacks(utterances, self.cfg.randomize, batch_utts):
+            self._accs.append((drain(feats_all, labels_all),
+                               feats_all.shape[0] * feats_all.shape[1]))
         self._flush_acc()
         self.wall += time.time() - t0
 

@@ -4,8 +4,9 @@
 (``io/``, ``utils/``, ``train/newbob.py``, ``tools/gen_mlp_init.py``,
 ``tools/generators.py``'s jax-free subcommands, ``train/rbm_scheduler.py``,
 and the MPE host code: ``io/{htk_hmm,slf,dictionary}.py``,
-``train/{lattice_expand,mpe_native,mpe}.py``, ``tools/gen_gmmbypass.py``).
-Each case feeds one copy and its
+``train/{lattice_expand,mpe_native,mpe}.py``, ``tools/gen_gmmbypass.py``;
+the file-level tools: ``io/wav.py``, ``ops/mfcc.py``, ``tools/{thcopy,
+tjoiner,tsegmenter,sresults,gen_phone_loop}.py``). Each case feeds one copy and its
 original the same inputs and holds the outputs equal: streams, parsed
 values, decisions, and written files byte for byte.
 """
@@ -15,6 +16,8 @@ import gzip
 import importlib
 import io
 import os
+import re
+import struct
 
 import numpy as np
 import pytest
@@ -28,9 +31,16 @@ from nnet_asr_torch.io import mlf as t_mlf
 from nnet_asr_torch.io import mmf as t_mmf
 from nnet_asr_torch.io import native as t_native
 from nnet_asr_torch.io import scp as t_scp
+from nnet_asr_torch.io import wav as t_wav
+from nnet_asr_torch.ops import mfcc as t_mfcc
 from nnet_asr_torch.tools import gen_gmmbypass as t_gen_gmmbypass
 from nnet_asr_torch.tools import gen_mlp_init as t_gen_mlp_init
+from nnet_asr_torch.tools import gen_phone_loop as t_gen_phone_loop
 from nnet_asr_torch.tools import generators as t_generators
+from nnet_asr_torch.tools import sresults as t_sresults
+from nnet_asr_torch.tools import thcopy as t_thcopy
+from nnet_asr_torch.tools import tjoiner as t_tjoiner
+from nnet_asr_torch.tools import tsegmenter as t_tsegmenter
 from nnet_asr_torch.train import lattice_expand as t_lattice_expand
 from nnet_asr_torch.train import mpe as t_mpe
 from nnet_asr_torch.train import mpe_native as t_mpe_native
@@ -49,9 +59,16 @@ from nnet_asr_tpu.io import mlf as j_mlf
 from nnet_asr_tpu.io import mmf as j_mmf
 from nnet_asr_tpu.io import native as j_native
 from nnet_asr_tpu.io import scp as j_scp
+from nnet_asr_tpu.io import wav as j_wav
+from nnet_asr_tpu.ops import mfcc as j_mfcc
 from nnet_asr_tpu.tools import gen_gmmbypass as j_gen_gmmbypass
 from nnet_asr_tpu.tools import gen_mlp_init as j_gen_mlp_init
+from nnet_asr_tpu.tools import gen_phone_loop as j_gen_phone_loop
 from nnet_asr_tpu.tools import generators as j_generators
+from nnet_asr_tpu.tools import sresults as j_sresults
+from nnet_asr_tpu.tools import thcopy as j_thcopy
+from nnet_asr_tpu.tools import tjoiner as j_tjoiner
+from nnet_asr_tpu.tools import tsegmenter as j_tsegmenter
 from nnet_asr_tpu.train import lattice_expand as j_lattice_expand
 from nnet_asr_tpu.train import mpe as j_mpe
 from nnet_asr_tpu.train import mpe_native as j_mpe_native
@@ -528,6 +545,203 @@ def case_gen_gmmbypass(m, d):
     return out
 
 
+# --------------------------------------------------------------------------
+# the file-level tools: audio, the front end, thcopy, tjoiner, tsegmenter,
+# sresults, gen_phone_loop
+# --------------------------------------------------------------------------
+
+HCOPY_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "hcopy_oracle")
+
+
+def _samples(seed=5, n=8000):
+    """Half a second at 16 kHz: two tones and noise, as int16."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    x = (6000 * np.sin(2 * np.pi * 440 * t) + 2500 * np.sin(2 * np.pi * 2300 * t)
+         + 800 * rng.standard_normal(n))
+    return x.astype(np.int16)
+
+
+def _clean(text, d):
+    """Stdout without the run's directory and wall times."""
+    return re.sub(r"\d+\.\d+s|FPS:[\d.]+", "T", text.replace(d, ""))
+
+
+def case_wav(m, d):
+    s = _samples()
+    out = []
+    p = os.path.join(d, "a.wav")
+    m.write_wav(p, s, 16000)
+    got, rate = m.read_wav(p)
+    out.append((_read(p), got.tobytes(), rate, m.sniff_audio(p)))
+    for order, dt in (("vax", "<i2"), ("be", ">i2")):
+        p = os.path.join(d, f"{order}.raw")
+        with open(p, "wb") as f:
+            f.write(s.astype(dt).tobytes())
+        out.append((m.read_raw(p, order).tobytes(), m.sniff_audio(p)))
+    for fmt in ("01", "10"):
+        p = os.path.join(d, f"s{fmt}.sph")
+        m.write_sphere(p, s, 16000, byte_format=fmt)
+        got, rate = m.read_sphere(p)
+        out.append((_read(p), got.tobytes(), rate, m.sniff_audio(p),
+                    m.read_audio_auto(p)[0].tobytes()))
+    for tag, endian in (("be", ">"), ("le", "<")):
+        p = os.path.join(d, f"w_{tag}.htk")
+        with open(p, "wb") as f:
+            f.write(struct.pack(f"{endian}iihH", s.size, 625, 2, 0)
+                    + s.astype(f"{endian}i2").tobytes())
+        got, period = m.read_htk_waveform(p, endian == ">")
+        auto, rate = m.read_audio_auto(p)
+        out.append((got.tobytes(), period, m.sniff_audio(p), auto.tobytes(), rate))
+    return out
+
+
+FRONTENDS = [
+    dict(target_kind="FBANK", numchans=23, use_power=True, preemcoef=0.0, lofreq=0,
+         hifreq=8000),
+    dict(target_kind="MFCC_0_D_A", numchans=26, numceps=12, ceplifter=22, preemcoef=0.97,
+         lofreq=0, hifreq=8000, enormalise=False),
+    dict(target_kind="MFCC_E_D_Z", numchans=20, numceps=13, zmean_source=True),
+    dict(target_kind="MELSPEC_T", numchans=16, use_hamming=False, raw_energy=False),
+    dict(target_kind="MFCC_0_E", numchans=20, numceps=12, enormalise=True, escale=0.2),
+]
+
+
+def case_mfcc(m, d):
+    wav = _sibling(m, "io.wav")
+    out = []
+    for kw in FRONTENDS:
+        fe = m.Frontend(m.FrontendConfig(**kw))
+        feats = fe.extract(_samples())
+        out.append((feats.tobytes(), feats.shape, fe.kind, fe.sample_period))
+    # the HCopy oracle's recorded audio through its two configurations
+    samples, rate = wav.read_wav(os.path.join(HCOPY_ORACLE, "oracle.wav"))
+    for kw in FRONTENDS[:2]:
+        cfg = m.FrontendConfig(**kw, use_hamming=True, source_rate=625.0,
+                               target_rate=100000.0, window_size=250000.0)
+        out.append((m.Frontend(cfg).extract(samples).tobytes(), rate))
+    out.append(m.htk_regression_deltas(_feats(6, n=15, dim=3), 2).tobytes())
+    with pytest.raises(ValueError, match="qualifier"):
+        m.Frontend(m.FrontendConfig(target_kind="MFCC_C"))
+    return out
+
+
+THCOPY_CFG = ("SOURCEKIND = WAVEFORM\nSOURCERATE = 625\nTARGETKIND = FBANK\nLOFREQ = 0\n"
+              "HIFREQ = 8000\nNUMCHANS = 23\nUSEPOWER = T\nPREEMCOEF = 0\n"
+              "TARGETRATE = 100000\nWINDOWSIZE = 250000\n")
+
+
+def case_thcopy(m, d):
+    wav = _sibling(m, "io.wav")
+    s = _samples(7)
+    srcs = {"NOHEAD": os.path.join(d, "u.raw"), "WAV": os.path.join(d, "u.wav"),
+            "NIST": os.path.join(d, "u.sph"), "HTK": os.path.join(d, "u.htk")}
+    with open(srcs["NOHEAD"], "wb") as f:
+        f.write(s.astype("<i2").tobytes())
+    wav.write_wav(srcs["WAV"], s, 16000)
+    wav.write_sphere(srcs["NIST"], s, 16000)
+    with open(srcs["HTK"], "wb") as f:
+        f.write(struct.pack(">iihH", s.size, 625, 2, 0) + s.astype(">i2").tobytes())
+    out = []
+    for fmt, extra in (("NOHEAD", "BYTEORDER = VAX\n"), ("NOHEAD", ""), ("WAV", ""),
+                       ("NIST", ""), ("HTK", "TARGETKIND = MFCC_0_D_A\n")):
+        cfg = os.path.join(d, f"{fmt}.cfg")
+        with open(cfg, "w") as f:
+            f.write(THCOPY_CFG + f"SOURCEFORMAT = {fmt}\n" + extra)
+        dst = os.path.join(d, f"{fmt}{len(out)}.fea")
+        text, rc = _stdout(m.main, ["thcopy", "-C", cfg, "-T", "1", srcs[fmt], dst])
+        out.append((_clean(text, d), rc, _read(dst)))
+    # a two-column script of pairs
+    wav.write_wav(os.path.join(d, "v.wav"), _samples(8), 16000)
+    scp = os.path.join(d, "pairs.scp")
+    with open(scp, "w") as f:
+        f.write(f"# src dst\n{srcs['WAV']} {d}/p1.fea\n{d}/v.wav {d}/p2.fea\n")
+    cfg = os.path.join(d, "WAV.cfg")
+    text, rc = _stdout(m.main, ["thcopy", "-C", cfg, "-S", scp])
+    out.append((_clean(text, d), rc, _read(f"{d}/p1.fea"), _read(f"{d}/p2.fea")))
+    return out
+
+
+def _feature_files(d, lengths, dim, seed):
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, n in enumerate(lengths):
+        p = os.path.join(d, f"u{i}.fea")
+        j_htk.write_htk_file(p, rng.standard_normal((n, dim)).astype(np.float32),
+                             j_htk.PARMKIND_USER)
+        paths.append(p)
+    scp = os.path.join(d, "in.scp")
+    with open(scp, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return scp
+
+
+def _tree(d, sub):
+    """(relative path, bytes) of every file under ``d/sub``."""
+    root = os.path.join(d, sub)
+    return sorted((os.path.relpath(os.path.join(r, n), d), _read(os.path.join(r, n)))
+                  for r, _, names in os.walk(root) for n in names)
+
+
+def case_tjoiner(m, d):
+    out = []
+    scp = _feature_files(d, [12, 13, 14, 10, 11], 4, seed=3)
+    # frame extension with stored margins and NaN separators; a TARGETSIZE
+    # that rolls archives; the TARGETSCRIPT alias and the FBANK target kind
+    for k, extra in enumerate((["--STARTFRMEXT=2", "--ENDFRMEXT=2"],
+                               ["--TARGETSIZE=30", "--STARTFRMEXT=1", "--ENDFRMEXT=3"],
+                               ["--TARGETSIZE=25", "-y", "fj"])):
+        outscp = os.path.join(d, f"out{k}.scp")
+        name = "--OUTPUTSCRIPT=" if k < 2 else "--TARGETSCRIPT="
+        text, rc = _stdout(m.main, ["tjoiner", "-S", scp, "-l", os.path.join(d, f"j{k}"),
+                                    name + outscp, *extra])
+        out.append((text, rc, _read(outscp, "r").replace(d, ""), _tree(d, f"j{k}")))
+    return out
+
+
+def case_tsegmenter(m, d):
+    scp_in = _feature_files(d, [30, 25], 3, seed=1)
+    with open(scp_in) as f:
+        paths = f.read().split()
+    scp = os.path.join(d, "seg.scp")
+    with open(scp, "w") as f:
+        f.write(f"{paths[0]}[5,14]\nlogical={paths[1]}[0,9]\n{paths[1]}\n")
+    out = []
+    for k, extra in enumerate(([], ["--NOSUBDIRS=TRUE", "--EXTRACTSEGMENTS=FALSE"])):
+        outscp = os.path.join(d, f"out{k}.scp")
+        text, rc = _stdout(m.main, ["tsegmenter", "-S", scp,
+                                    "--TARGETPARAMDIR=" + os.path.join(d, f"l{k}"),
+                                    "--TARGETSCRIPT=" + outscp, *extra])
+        out.append((text.replace(d, ""), rc, _read(outscp, "r").replace(d, ""),
+                    _tree(d, f"l{k}")))
+    return out
+
+
+def case_sresults(m, d):
+    ref = j_mlf.MlfWriter(os.path.join(d, "ref.mlf"))
+    ref.write_record("*/u1.lab", ["a", "b", "c", "d"])
+    ref.write_record("*/u2.lab", ["0 10 a", "10 20 a", "20 30 b"])
+    ref.write_record("*/u3.lab", ["sil", "x", "sil"])
+    ref.close()
+    hyp = j_mlf.MlfWriter(os.path.join(d, "hyp.mlf"))
+    hyp.write_record("*/u1.rec", ["0 1 a -1.0", "1 2 x -1.0", "2 3 c -1.0"])
+    hyp.write_record("*/u2.rec", ["0 1 a -1.0", "1 2 a -1.0", "2 3 b -1.0", "3 4 b -2.0"])
+    hyp.write_record("*/u3.rec", ["sil", "x", "sil"])
+    hyp.write_record("*/u9.rec", ["a"])
+    hyp.close()
+    return (_stdout(m.main, ["-I", os.path.join(d, "ref.mlf"), os.path.join(d, "hyp.mlf")]),
+            m.align_counts(list("abcab"), list("acbba")), m.align_counts([], list("ab")))
+
+
+def case_gen_phone_loop(m, d):
+    phones = os.path.join(d, "phones")
+    with open(phones, "w") as f:
+        f.write("aa ae\nah sil\n")
+    net = os.path.join(d, "net")
+    text, rc = _stdout(m.main, [phones, net])
+    return text.replace(d, ""), rc, _read(net)
+
+
 CASES = {
     "rand48": (case_rand48, t_rand48, j_rand48),
     "htk": (case_htk, t_htk, j_htk),
@@ -552,6 +766,13 @@ CASES = {
     "gen_gmmbypass": (case_gen_gmmbypass, t_gen_gmmbypass, j_gen_gmmbypass),
     "mpe_numpy": (_case_mpe("numpy"), t_mpe, j_mpe),
     "mpe_native_engine": (_case_mpe("native"), t_mpe, j_mpe),
+    "wav": (case_wav, t_wav, j_wav),
+    "mfcc": (case_mfcc, t_mfcc, j_mfcc),
+    "thcopy": (case_thcopy, t_thcopy, j_thcopy),
+    "tjoiner": (case_tjoiner, t_tjoiner, j_tjoiner),
+    "tsegmenter": (case_tsegmenter, t_tsegmenter, j_tsegmenter),
+    "sresults": (case_sresults, t_sresults, j_sresults),
+    "gen_phone_loop": (case_gen_phone_loop, t_gen_phone_loop, j_gen_phone_loop),
     **{f"generators_{name}": (_case_generator(name), t_generators, j_generators)
        for name in GENERATORS},
 }

@@ -70,6 +70,15 @@ MODULES = [
     "nnet_asr_torch.train.lattice_expand",
     "nnet_asr_torch.tools.tmpe",
     "nnet_asr_torch.tools.gen_gmmbypass",
+    "nnet_asr_torch.train.resident",
+    "nnet_asr_torch.io.wav",
+    "nnet_asr_torch.ops.mfcc",
+    "nnet_asr_torch.tools.thcopy",
+    "nnet_asr_torch.tools.tjoiner",
+    "nnet_asr_torch.tools.tsegmenter",
+    "nnet_asr_torch.tools.sresults",
+    "nnet_asr_torch.tools.gen_phone_loop",
+    "nnet_asr_torch.tools.tnet2snet",
 ]
 
 

@@ -107,9 +107,8 @@ def test_scheduler_bf16_newbob_matches_jax(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--resident",), "queue 1 item 10"),
     (("--mesh=2x1",), "queue 1 item 14"),
-    (("--compute-dtype=bf16", "--resident"), "queue 1 item 10"),
+    (("--resident", "--mesh=2x1"), "queue 1 item 14"),
 ])
 def test_scheduler_mode_outside_slice_raises(corpus, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
