@@ -119,10 +119,28 @@ final line):
      its weights byte-identical to epoch 1's. Phase 3 also holds
      affine_sigmoid at 1024x368->500 (f32 and bf16) and fused_softmax_xent
      at 1024x39, this path's shapes.
+ 13. multi-device (run before phase 6): ranks are processes started from
+     this script (``--mesh-rank``: fresh interpreters that load the built
+     kernels), each with a timeout; a rank that fails or hangs fails the
+     phase. tnet --MESH=1x1 (one rank, NCCL) byte-identical to phase 4's
+     first epoch, with its CV; then 4 ranks on the card (gloo): which
+     collectives gloo carries for CUDA tensors, tnet --MESH=2x2 (135
+     senones padded to 136) within 1e-4 of phase 4's epoch, scheduler
+     --resident --mesh=2x2 on phase 5's newbob (the decisions of phase 12's
+     single-device resident run, best model within 1e-4), the production
+     stack at momentum 0.9 on a 2x2 mesh (3 steps after a warm-up, ms a
+     step and memory a rank, labelled as no scaling figure; parameters
+     within 1e-4 of the single-device Trainer), a RecurrentTrainer batch
+     (3e-4) and a CD-1 step (2e-4) over data=2; then 2 ranks: tnet
+     --DISTRIBUTED=TRUE --MESH=2x1 (its shard and drop lines; within 1e-4
+     of the single-device Trainer fed the replayed global bunches) and
+     tmpe --MESH=2x1 (its update within MPE_UPDATE_TOL of phase 11's).
+     Launches exact per rank: affine_sigmoid on every mesh step,
+     fused_softmax_xent only at model 1, wgrad_momentum_update never.
 Phase 2 also fails on a ptxas spill in a WGMMA-route kernel. The line
 before the last is the kernels' JSON record (the two WGMMA-route kernels
 as entries of their own, launched by phase 6; the others' launches summed
-over phases 4, 5, 7, 8, 9, 11 and 12); the last line is
+over phases 4, 5, 7, 8, 9, 11, 12 and 13, every rank); the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
@@ -698,17 +716,25 @@ XENT = re.compile(r"Xent:(\S+) frames:(\d+) err/frm:\S+ correct\[(\S+)%\]")
 MSE = re.compile(r"Mse:(\S+) frames:(\d+) err/frm:\S+")
 
 
+def tnet_argv(d, src, *extra):
+    """tnet's arguments for phase 4's corpus (the frame-CE path)."""
+    return ["tnet", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
+            "-m", os.path.join(d, "map"), "-n", "0.008", "--GRAD-DIV-FRM=F",
+            f"--BUNCHSIZE={BUNCH}", f"--CACHESIZE={CACHE}", "--RANDOMIZE=TRUE",
+            f"--SEED={SEED}", f"--FEATURETRANSFORM={os.path.join(d, 'transform')}",
+            f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}", *extra]
+
+
 def run_tnet(d, src, *extra, device=None):
     """One tnet run: ``xent`` holds the Xent (or, with -O mse, the Mse)
     total, ``acc`` the accuracy (None for MSE)."""
     from nnet_asr_torch.tools import tnet
 
-    argv = ["tnet", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
-            "-m", os.path.join(d, "map"), "-n", "0.008", "--GRAD-DIV-FRM=F",
-            f"--BUNCHSIZE={BUNCH}", f"--CACHESIZE={CACHE}", "--RANDOMIZE=TRUE",
-            f"--SEED={SEED}", f"--FEATURETRANSFORM={os.path.join(d, 'transform')}",
-            f"--STARTFRMEXT={EXT}", f"--ENDFRMEXT={EXT}", *extra]
-    out = stdout_of(tnet.main, argv, device=device)
+    out = stdout_of(tnet.main, tnet_argv(d, src, *extra), device=device)
+    return tnet_result(out)
+
+
+def tnet_result(out: str) -> dict:
     m = XENT.search(out) or MSE.search(out)
     check(m is not None, f"no Xent or Mse line in tnet output:\n{out}")
     fps = re.search(r"FPS:([\d.]+)", out)
@@ -1520,28 +1546,42 @@ def recurrent_path(torch, dev, card: str, d: str, n: dict):
     time_bptt(torch, dev, card)
 
 
+def roofline_params(rng):
+    """scripts/recurrent_roofline.py's stack's parameters, 0.05 N(0, 1)."""
+    import numpy as np
+
+    din, dr, dout = ROOFLINE_DIMS
+    return [{"weight": (0.05 * rng.standard_normal((din, dr))).astype(np.float32),
+             "bias": np.zeros(dr, np.float32)}, {},
+            {"weight": (0.05 * rng.standard_normal((2 * dr, dr))).astype(np.float32),
+             "bias": np.zeros(dr, np.float32)},
+            {"weight": (0.05 * rng.standard_normal((dr, dout))).astype(np.float32),
+             "bias": np.zeros(dout, np.float32)}, {}]
+
+
+def roofline_network(params):
+    from nnet_asr_torch.models.components import BiasedLinearity, Recurrent, Sigmoid, Softmax
+    from nnet_asr_torch.models.network import Network
+
+    din, dr, dout = ROOFLINE_DIMS
+    return Network([BiasedLinearity(din, dr), Sigmoid(dr, dr), Recurrent(dr, dr),
+                    BiasedLinearity(dr, dout), Softmax(dout, dout)]).from_numpy_params(params)
+
+
 def time_bptt(torch, dev, card):
     """RecurrentTrainer.train_batch on scripts/recurrent_roofline.py's stack
     by CUDA events and a profiler window: ms a batch, frames/s, idle share."""
     import numpy as np
 
-    from nnet_asr_torch.models.components import BiasedLinearity, Recurrent, Sigmoid, Softmax
-    from nnet_asr_torch.models.network import Network
     from nnet_asr_torch.train.recurrent import RecurrentTrainer, RecurrentTrainerConfig
     from nnet_asr_torch.train.sgd import SgdConfig
 
     din, dr, dout = ROOFLINE_DIMS
     T = ROOFLINE_T
     rng = np.random.default_rng(1)
-    params = [{"weight": (0.05 * rng.standard_normal((din, dr))).astype(np.float32),
-               "bias": np.zeros(dr, np.float32)}, {},
-              {"weight": (0.05 * rng.standard_normal((2 * dr, dr))).astype(np.float32),
-               "bias": np.zeros(dr, np.float32)},
-              {"weight": (0.05 * rng.standard_normal((dr, dout))).astype(np.float32),
-               "bias": np.zeros(dout, np.float32)}, {}]
+    params = roofline_params(rng)
     for B in ROOFLINE_BATCHES:
-        net = Network([BiasedLinearity(din, dr), Sigmoid(dr, dr), Recurrent(dr, dr),
-                       BiasedLinearity(dr, dout), Softmax(dout, dout)]).from_numpy_params(params)
+        net = roofline_network(params)
         tr = RecurrentTrainer(net, RecurrentTrainerConfig(
             bptt_order=REC_BPTT, sgd=SgdConfig(learning_rate=0.01)), device=dev)
         feats = [torch.from_numpy((0.3 * rng.standard_normal((T, din))).astype(np.float32)).to(dev)
@@ -1570,18 +1610,26 @@ MPE_LINE = re.compile(r"Avg MPE accuracy: (\S+) utts: (\d+)")
 MPE_TIMES = re.compile(r"T-read: (\S+)s T-fwd: (\S+)s T-decode: (\S+)s T-update: (\S+)s")
 
 
-def run_tmpe(d, src, scp, *extra, device=None, lr=MPE_LR):
-    """One tmpe run over ``scp`` (scripts/mpe_example01.sh's kappa, and its
-    learning rate unless ``lr`` is given): Avg MPE accuracy, utterances,
-    FPS, the time split."""
-    from nnet_asr_torch.tools import tmpe
-
-    argv = ["tmpe", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
+def tmpe_argv(d, src, scp, *extra, lr=MPE_LR):
+    """tmpe's arguments for phase 11's corpus (scripts/mpe_example01.sh's
+    kappa, and its learning rate unless ``lr`` is given)."""
+    return ["tmpe", "-H", src, "-I", os.path.join(d, "labs.mlf"), "-L", "*/", "-X", "lab",
             "-m", os.path.join(d, "map"), "-S", scp, f"--HMM={os.path.join(d, 'hmms.mmf')}",
             f"--LATTICEDIR={os.path.join(d, 'lats')}",
             f"--FEATURETRANSFORM={os.path.join(d, 'transform')}", f"--STARTFRMEXT={EXT}",
             f"--ENDFRMEXT={EXT}", f"--OUTPSCALE={MPE_KAPPA}", f"--LEARNINGRATE={lr}", *extra]
-    out = stdout_of(tmpe.main, argv, device=device)
+
+
+def run_tmpe(d, src, scp, *extra, device=None, lr=MPE_LR):
+    """One tmpe run over ``scp``: Avg MPE accuracy, utterances, FPS, the
+    time split."""
+    from nnet_asr_torch.tools import tmpe
+
+    return tmpe_result(stdout_of(tmpe.main, tmpe_argv(d, src, scp, *extra, lr=lr),
+                                 device=device))
+
+
+def tmpe_result(out: str) -> dict:
     m, t, fps = MPE_LINE.search(out), MPE_TIMES.search(out), re.search(r"FPS:([\d.]+)", out)
     check(m is not None and t is not None and fps is not None, f"tmpe output:\n{out}")
     return {"acc": float(m.group(1)), "utts": int(m.group(2)), "fps": float(fps.group(1)),
@@ -1972,7 +2020,7 @@ def profile_resident_epoch(torch, card, runner, nn_init, weights, dst, n_train):
 def resident_reruns(torch, card: str, d: str, want_mom: dict, want_bf16: dict):
     """Phase 5's momentum newbob and phase 8's bf16 one again with
     --resident: every weight file byte-identical to theirs, the same
-    launches. Returns the launches of both."""
+    launches. Returns the launches of both, and the momentum run."""
     def j(name: str) -> str:
         return os.path.join(d, name)
 
@@ -1992,6 +2040,445 @@ def resident_reruns(torch, card: str, d: str, want_mom: dict, want_bf16: dict):
               f"resident {name}: launches {r['launches']}, want {want}")
         for k in total:
             total[k] += r["launches"][k]
+        if ref == "weights":
+            momentum_run = {k: r[k] for k in ("decisions", "best", "launches")}
+    return total, momentum_run
+
+
+# ---------------------------------------------------------------------------
+# 13. multi-device: the (data, model) mesh, one process per rank on the card
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT = 420          # seconds a fleet may run before its ranks are killed
+MESH_COLLECTIVE_S = 180     # init_process_group's timeout: a lost rank raises
+MESH_PROD_STEPS = 3         # timed production steps after one warm-up step
+MESH_REC_B, MESH_CD1_B = 32, 256
+
+
+def run_mesh_fleet(world: int, cases: list, d: str, name: str):
+    """``world`` ranks of this script (``--mesh-rank``: fresh interpreters,
+    never a fork of this CUDA process) run ``cases`` ([name, case, kwargs])
+    in order on a group formed through a file in ``d``. The phase fails when
+    a rank exits non-zero (its peers are killed at once) or the fleet
+    outlives MESH_TIMEOUT. Returns (each rank's results, each rank's log)."""
+    spec = os.path.join(d, f"{name}.json")
+    with open(spec, "w") as f:
+        json.dump({"cases": cases, "rdv": "file://" + os.path.join(d, f"{name}.rdv")}, f)
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="2")
+    logs = [os.path.join(d, f"{name}.r{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", spec],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=f,
+                stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.perf_counter() - t0 > MESH_TIMEOUT
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    text = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            text.append(f.read())
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{name}: rank {r} exited {p.returncode} after "
+                                 f"{time.perf_counter() - t0:.0f}s:\n{text[r][-3000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(d, f"{name}.r{r}.json")) as f:
+            results.append(json.load(f))
+    return results, text
+
+
+def mesh_rank_main(spec_path: str) -> int:
+    """One rank of a phase-13 fleet: load the built kernels, join the group
+    (backend by parallel/mesh.py's rule), run the cases with the launch
+    counts zeroed before each, write their results as JSON."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from nnet_asr_torch.ops.kernels import _build
+    from nnet_asr_torch.parallel import mesh as M
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    M.init_process_group(M.rank_device(), init_method=spec["rdv"],
+                         timeout=timedelta(seconds=MESH_COLLECTIVE_S))
+    out = {"_backend": dist.get_backend()}
+    for name, case, kw in spec["cases"]:
+        zero_counts()
+        t0 = time.perf_counter()
+        r = MESH_CASES[case](torch, **kw)
+        torch.cuda.synchronize()
+        r.update(launches=read_counts(), seconds=time.perf_counter() - t0)
+        out[name] = r
+        log(f"rank {rank}: {name} {r['seconds']:.1f}s, launches {json.dumps(r['launches'])}")
+    with open(spec_path[:-len(".json")] + f".r{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_case_tool(torch, module: str, argv: list) -> dict:
+    """A tool's ``main(argv)`` on this rank (its device: the rank's card)."""
+    import importlib
+
+    return {"log": stdout_of(importlib.import_module(f"nnet_asr_torch.tools.{module}").main,
+                             argv)}
+
+
+def mesh_case_probe(torch) -> dict:
+    """Which collectives the group's backend carries for CUDA tensors."""
+    import torch.distributed as dist
+
+    world, dev = dist.get_world_size(), torch.device("cuda", torch.cuda.current_device())
+    t = torch.full((4,), float(dist.get_rank() + 1), device=dev)
+    ops = {"all_reduce(SUM)": lambda: dist.all_reduce(t.clone()),
+           "all_reduce(MAX)": lambda: dist.all_reduce(t.clone(), dist.ReduceOp.MAX),
+           "all_reduce(MIN)": lambda: dist.all_reduce(t.clone(), dist.ReduceOp.MIN),
+           "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+           "broadcast": lambda: dist.broadcast(t.clone(), 0),
+           "barrier": dist.barrier}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return {"collectives": out}
+
+
+def rel_max_diff(got: list, want: list) -> float:
+    """The largest |got - want| over the largest |want|, tensor by tensor."""
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(a[k], np.float64) - b[k]).max() / np.abs(b[k]).max())
+               for a, b in zip(got, want) for k in b if np.abs(b[k]).max() > 0)
+
+
+def restore_counts(counts: dict) -> None:
+    """Set the launch counters back (launches made to compare paths do not count)."""
+    for name, (f, k) in _counters().items():
+        setattr(f, k, counts[name])
+
+
+def mesh_case_production(torch, data: int, model: int) -> dict:
+    """The production stack (momentum 0.9) on the mesh: one warm-up step,
+    MESH_PROD_STEPS timed by CUDA events on this rank, its peak device
+    memory; rank 0 holds the parameters against the single-device
+    Trainer's on the same bunches on the card."""
+    from nnet_asr_torch.parallel.mesh import make_mesh
+    from nnet_asr_torch.parallel.sharded_step import make_sharded_train_step, zero_acc
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+    mesh = make_mesh(data, model)
+    dev = mesh.device
+    sgd = SgdConfig(learning_rate=0.01, momentum=0.9)
+    state, step, _, _ = make_sharded_train_step(production_network(), sgd, mesh)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bunches = [(0.1 * torch.randn((PROD_BUNCH, PROD_DIMS[0]), generator=gen, device=dev),
+                torch.randint(0, PROD_DIMS[-1], (PROD_BUNCH,), generator=gen, device=dev,
+                              dtype=torch.int32)) for _ in range(1 + MESH_PROD_STEPS)]
+    rows = mesh.rows(PROD_BUNCH)
+    acc = step(zero_acc("xent", dev), bunches[0][0][rows], bunches[0][1][rows])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for X, y in bunches[1:]:
+        acc = step(acc, X[rows], y[rows])
+    end.record()
+    torch.cuda.synchronize()
+    out = {"ms": start.elapsed_time(end) / MESH_PROD_STEPS,
+           "peak": torch.cuda.max_memory_allocated(dev), "xent": float(acc["xent"]),
+           "frames": int(acc["frames"])}
+    got = state.host_params()
+    if mesh.is_main:
+        before = read_counts()
+        tr = Trainer(production_network(), TrainerConfig(
+            bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, sgd=sgd), device=dev)
+        for X, y in bunches:
+            tr._train_step(X, y)
+        out["rel"] = rel_max_diff(got, tr.net.to_numpy_params())
+        restore_counts(before)
+        del tr
+    mesh.barrier()
+    return out
+
+
+def mesh_case_recurrent(torch, data: int, model: int) -> dict:
+    """A RecurrentTrainer batch on the mesh (368->500->rec 500->39, T 512,
+    B MESH_REC_B: the utterances over ``data``); rank 0 holds it against
+    the single-device batch on the card."""
+    import numpy as np
+
+    from nnet_asr_torch.parallel.mesh import make_mesh
+    from nnet_asr_torch.train.recurrent import RecurrentTrainer, RecurrentTrainerConfig
+    from nnet_asr_torch.train.sgd import SgdConfig
+
+    mesh = make_mesh(data, model)
+    rng = np.random.default_rng(1)
+    params = roofline_params(rng)
+    feats = [(0.3 * rng.standard_normal((ROOFLINE_T, ROOFLINE_DIMS[0]))).astype(np.float32)
+             for _ in range(MESH_REC_B)]
+    labels = [rng.integers(0, ROOFLINE_DIMS[2], ROOFLINE_T) for _ in range(MESH_REC_B)]
+    cfg = RecurrentTrainerConfig(bptt_order=REC_BPTT, sgd=SgdConfig(learning_rate=0.01))
+    tr = RecurrentTrainer(roofline_network(params), cfg, mesh=mesh)
+    t0 = time.perf_counter()
+    tr.train_batch(feats, labels)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "frames": tr.stats.frames}
+    if mesh.is_main:
+        ref = RecurrentTrainer(roofline_network(params), cfg, device=mesh.device)
+        ref.train_batch(feats, labels)
+        out["rel"] = rel_max_diff(tr.net.to_numpy_params(), ref.net.to_numpy_params())
+        out["ref_frames"] = ref.stats.frames
+    mesh.barrier()
+    return out
+
+
+def mesh_case_cd1(torch, data: int, model: int) -> dict:
+    """One CD-1 step 598->1024 Gaussian-Bernoulli at bunch MESH_CD1_B on the
+    mesh (rows over ``data``, the global noise row-sliced); rank 0 holds it
+    against the single-device step with the same noise on the card."""
+    from nnet_asr_torch.models.components import Rbm
+    from nnet_asr_torch.parallel.mesh import make_mesh
+    from nnet_asr_torch.parallel.sharded_aux import make_sharded_cd1_step, place_cd1_inputs
+    from nnet_asr_torch.train import rbm as R
+
+    mesh = make_mesh(data, model)
+    dev = mesh.device
+    gen = torch.Generator().manual_seed(31)
+    V, H, B = FEAT_DIM * DCT, RBM_HID, MESH_CD1_B
+    spec = Rbm(V, H, vis_type="gauss", hid_type="bern")
+    p = {"weight": 0.1 * torch.randn((V, H), generator=gen), "vis_bias": torch.zeros(V),
+         "hid_bias": 0.1 * torch.randn((H,), generator=gen)}
+    x = torch.randn((B, V), generator=gen)
+    noise = no_threshold_ties(torch, spec, p, x, R.hidden_noise(spec, gen, (B, H))).to(dev)
+    cfg = R.RbmTrainConfig(learning_rate=0.001)
+    state0 = R.init_rbm_state(spec, p, cfg)
+    params, state, xb = place_cd1_inputs(mesh, {k: v.numpy() for k, v in p.items()},
+                                         {k: v.numpy() for k, v in state0.items()}, x.numpy())
+    mse = make_sharded_cd1_step(spec, cfg, mesh)(params, state, xb, noise=noise)
+    out = {"mse": float(mse)}
+    if mesh.is_main:
+        rp = {k: v.to(dev, copy=True) for k, v in p.items()}
+        rs = R.init_rbm_state(spec, rp, cfg)
+        rmse = R.cd1_step(spec, cfg, rp, rs, x.to(dev), noise=noise)
+        out["rel"] = rel_max_diff([{**{k: v.cpu().numpy() for k, v in params.items()},
+                                    **{k: v.cpu().numpy() for k, v in state.items()},
+                                    "mse": mse.cpu().numpy()}],
+                                  [{**{k: v.cpu().numpy() for k, v in rp.items()},
+                                    **{k: v.cpu().numpy() for k, v in rs.items()},
+                                    "mse": rmse.cpu().numpy()}])
+    mesh.barrier()
+    return out
+
+
+MESH_CASES = {"tool": mesh_case_tool, "probe": mesh_case_probe,
+              "production": mesh_case_production, "recurrent": mesh_case_recurrent,
+              "cd1": mesh_case_cd1}
+
+
+def replay_distributed(torch, d: str, dev, data: int, target: str):
+    """The global bunch sequence of ``tnet --DISTRIBUTED --MESH=<data>x1``
+    on phase 4's corpus (``data`` local caches, each round's agreed bunch
+    count, data rank 0's rows first) through the single-device Trainer on
+    the card, as tests/test_multihost.py replays it; the model is written to
+    ``target``. Returns (bunches drained, frames left in each cache)."""
+    from nnet_asr_torch.io.htk import FeatureReader
+    from nnet_asr_torch.io.labels import LabelRepository
+    from nnet_asr_torch.io.scp import read_scp
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.parallel.sharded_trainer import fill_cache
+    from nnet_asr_torch.train.cache import DeviceFrameCache
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig, read_utterances
+
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    cfg = TrainerConfig(bunchsize=BUNCH, cachesize=CACHE, seed=SEED, randomize=True,
+                        sgd=SgdConfig(learning_rate=0.008, grad_div_frm=False))
+    tr = Trainer(Network.read(j("init.mmf")), cfg, Network.read(j("transform")), EXT, EXT,
+                 device=dev)
+    reader = FeatureReader(start_frm_ext=EXT, end_frm_ext=EXT)
+    labels = LabelRepository(j("labs.mlf"), j("map"), "*/", "lab")
+    entries = read_scp(j("train.scp"))
+    caches = [DeviceFrameCache(CACHE // data, BUNCH // data, SEED, True) for _ in range(data)]
+    its = [iter(read_utterances(reader, entries[k::data], labels, EXT, EXT))
+           for k in range(data)]
+    drained = 0
+    while True:
+        for cache, it in zip(caches, its):
+            fill_cache(cache, it, tr.pipeline)
+        agreed = min(min(c.rows, c.cachesize) // (BUNCH // data) for c in caches)
+        if agreed == 0:
+            break
+        parts = [c.take_stacked(max_bunches=agreed) for c in caches]
+        tr.drain_train(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1))
+        drained += agreed
+    tr.updated_network().write(target)
+    return drained, [c.rows for c in caches]
+
+
+def mesh_path(torch, card: str, d: str, n: dict, resident_mom: dict) -> dict:
+    """Phase 13 (the module doc); returns the launches summed over every
+    rank of its fleets."""
+    def j(name: str) -> str:
+        return os.path.join(d, name)
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    per_epoch = drained_frames(n["train"], CACHE, BUNCH) // BUNCH
+    per_cv = drained_frames(n["cv"], CACHE, BUNCH) // BUNCH
+    train = ("-S", j("train.scp"))
+
+    def launched(results, case, want, what):
+        for r, res in enumerate(results):
+            got = res[case]["launches"]
+            for k in total:
+                total[k] += got[k]
+            check(all(got[k] == v for k, v in want.items()),
+                  f"{what}: rank {r} launches {got}, want {want}")
+
+    # 13.1 --MESH=1x1: one rank, NCCL, the single-device epoch byte for byte
+    r1, _ = run_mesh_fleet(1, [
+        ["e1", "tool", {"module": "tnet", "argv": tnet_argv(
+            d, j("init.mmf"), *train, f"--TARGETMMF={j('mesh1x1_e1.mmf')}", "--MESH=1x1")}],
+        ["cv", "tool", {"module": "tnet", "argv": tnet_argv(
+            d, j("mesh1x1_e1.mmf"), "-S", j("cv.scp"), "-c", "--MESH=1x1")}]], d, "mesh1x1")
+    e1 = tnet_result(r1[0]["e1"]["log"])
+    with open(j("mesh1x1_e1.mmf"), "rb") as a, open(j("e1.mmf"), "rb") as b:
+        same = a.read() == b.read()
+    rel = mmf_rel_diff(j("mesh1x1_e1.mmf"), j("e1.mmf"))
+    log(f"tnet --MESH=1x1 (1 rank, {r1[0]['_backend']}), {card}: Xent {e1['xent']:.10g} "
+        f"frames {e1['frames']}, FPS {e1['fps']}; MMF "
+        f"{'byte-identical to' if same else 'differs from'} phase 4's epoch 1 (max rel "
+        f"{rel:.2e}); {r1[0]['e1']['seconds']:.1f}s")
+    check(r1[0]["_backend"] == "nccl", f"--MESH=1x1: backend {r1[0]['_backend']}, want nccl")
+    check(same or rel <= 1e-6, f"--MESH=1x1 epoch differs from the single-device one: {rel}")
+    launched(r1, "e1", {"matmul_act": per_epoch, "softmax_xent": per_epoch,
+                        "wgrad_momentum_update": 0}, "--MESH=1x1 epoch")
+    launched(r1, "cv", {"matmul_act": per_cv, "softmax_xent": per_cv}, "--MESH=1x1 cv")
+
+    # 13.2 --MESH=2x2, 13.4 scheduler --resident --mesh=2x2, 13.6 production
+    # width, a recurrent batch and a CD-1 step: 4 ranks on the one card
+    r4, logs4 = run_mesh_fleet(4, [
+        ["probe", "probe", {}],
+        ["tnet", "tool", {"module": "tnet", "argv": tnet_argv(
+            d, j("init.mmf"), *train, f"--TARGETMMF={j('mesh2x2_e1.mmf')}", "--MESH=2x2")}],
+        ["sched", "tool", {"module": "scheduler", "argv": sched_argv(
+            d, MOM_ITERS, j("weights_mesh"), "--resident", "--mesh=2x2")}],
+        ["prod", "production", {"data": 2, "model": 2}],
+        ["rec", "recurrent", {"data": 2, "model": 2}],
+        ["cd1", "cd1", {"data": 2, "model": 2}]], d, "mesh2x2")
+    log(f"4 ranks on {card}: backend {r4[0]['_backend']}; collectives on CUDA tensors "
+        f"{json.dumps(r4[0]['probe']['collectives'])}; "
+        + "; ".join(line for line in logs4[0].splitlines() if line.startswith("[mesh]")))
+    check(r4[0]["_backend"] == "gloo", "4 ranks on one card must take gloo")
+    e22 = tnet_result(r4[0]["tnet"]["log"])
+    xrel = abs(e22["xent"] - e1["xent"]) / abs(e1["xent"])
+    wrel = mmf_rel_diff(j("mesh2x2_e1.mmf"), j("e1.mmf"))
+    log(f"tnet --MESH=2x2 (135 senones padded to 136 over model=2), {card}: Xent "
+        f"{e22['xent']:.10g} (rel {xrel:.2e} to phase 4's epoch 1), MMF max rel {wrel:.2e}; "
+        f"FPS {e22['fps']} (rank 0; 4 ranks sharing one card over gloo: not a scaling "
+        f"figure); {r4[0]['tnet']['seconds']:.1f}s")
+    check("mesh=data:2xmodel:2" in r4[0]["tnet"]["log"], "--MESH=2x2: the FPS line's mesh")
+    check(xrel <= 1e-4 and wrel <= 1e-4, f"--MESH=2x2 epoch: Xent rel {xrel}, MMF rel {wrel}")
+    launched(r4, "tnet", {"matmul_act": per_epoch, "softmax_xent": 0,
+                          "wgrad_momentum_update": 0}, "--MESH=2x2 epoch")
+    sched = r4[0]["sched"]["log"]
+    decisions = DECISION_LINE.findall(sched)
+    best = re.search(r"Best model: (\S+) \(CV", sched).group(1)
+    brel = mmf_rel_diff(best, resident_mom["best"])
+    log(f"scheduler --resident --mesh=2x2 (phase 5's momentum newbob), {card}: decisions "
+        f"{decisions} (single-device resident {resident_mom['decisions']}); best "
+        f"{os.path.basename(best)}, max rel {brel:.2e} to the single-device best; "
+        f"{r4[0]['sched']['seconds']:.1f}s")
+    check(decisions == resident_mom["decisions"], "resident mesh: newbob decisions differ")
+    check(brel <= 1e-4, f"resident mesh: best model rel {brel}")
+    check(all(DECISION_LINE.findall(res["sched"]["log"]) == decisions for res in r4),
+          "resident mesh: the ranks' decisions differ")
+    launched(r4, "sched", {"matmul_act": resident_mom["launches"]["matmul_act"],
+                           "softmax_xent": 0, "wgrad_momentum_update": 0},
+             "resident mesh scheduler")
+    prod = [res["prod"] for res in r4]
+    log(f"production 1024->4096x4->8192 f32 momentum 0.9, bunch {PROD_BUNCH}, 2x2 mesh, "
+        f"{card}: 4 ranks sharing one card over gloo: not a scaling figure: rank 0 "
+        f"{prod[0]['ms']:.1f} ms a step by CUDA events ({MESH_PROD_STEPS} steps after a "
+        f"warm-up); peak device memory a rank {[p['peak'] for p in prod]} bytes; parameters "
+        f"max rel {prod[0]['rel']:.2e} to the single-device Trainer on the same bunches")
+    check(prod[0]["rel"] <= 1e-4, f"production mesh: parameters rel {prod[0]['rel']}")
+    check(prod[0]["frames"] == PROD_BUNCH * (1 + MESH_PROD_STEPS), "production mesh: frames")
+    launched(r4, "prod", {"matmul_act": (len(PROD_DIMS) - 2) * (1 + MESH_PROD_STEPS),
+                          "softmax_xent": 0, "wgrad_momentum_update": 0}, "production mesh")
+    rec, cd1 = r4[0]["rec"], r4[0]["cd1"]
+    log(f"RecurrentTrainer batch 368->500->rec 500->39, T {ROOFLINE_T}, B {MESH_REC_B} over "
+        f"data=2 of the 2x2 mesh, {card}: {rec['ms']:.1f} ms (host clock), max rel "
+        f"{rec['rel']:.2e} to the single-device batch; CD-1 598->1024 bunch {MESH_CD1_B} over "
+        f"data=2: max rel {cd1['rel']:.2e} to the single-device step")
+    check(rec["rel"] <= 3e-4 and rec["frames"] == rec["ref_frames"], f"recurrent mesh: {rec}")
+    check(cd1["rel"] <= 2e-4, f"CD-1 mesh: rel {cd1['rel']}")
+    launched(r4, "probe", {}, "probe")
+    launched(r4, "rec", {}, "recurrent mesh")
+    launched(r4, "cd1", {}, "CD-1 mesh")
+
+    # 13.3 tnet --DISTRIBUTED --MESH=2x1 and 13.5 tmpe --MESH=2x1: 2 ranks
+    mpe = j("mpe")
+    r2, logs2 = run_mesh_fleet(2, [
+        ["dist", "tool", {"module": "tnet", "argv": tnet_argv(
+            d, j("init.mmf"), *train, f"--TARGETMMF={j('mesh_dist.mmf')}",
+            "--DISTRIBUTED=TRUE", "--MESH=2x1")}],
+        ["tmpe", "tool", {"module": "tmpe", "argv": tmpe_argv(
+            mpe, os.path.join(mpe, "ce1.mmf"), os.path.join(mpe, "train.scp"),
+            "--MPEENGINE=native", "--MESH=2x1",
+            f"--TARGETMMF={os.path.join(mpe, 'mpe_mesh.mmf')}")}]], d, "mesh2x1")
+    drained, left = replay_distributed(torch, d, torch.device("cuda", 0), 2, j("dist_replay.mmf"))
+    drel = mmf_rel_diff(j("mesh_dist.mmf"), j("dist_replay.mmf"))
+    lines = [line for text in logs2 for line in text.splitlines()
+             if line.startswith(("[distributed]", "[sharded]"))]
+    log(f"tnet --DISTRIBUTED=TRUE --MESH=2x1, {card}: {drained} global bunches, FPS "
+        f"{tnet_result(r2[0]['dist']['log'])['fps']} (rank 0), MMF max rel {drel:.2e} to the "
+        f"single-device Trainer fed the replayed bunches; " + "; ".join(lines))
+    check(drel <= 1e-4, f"--DISTRIBUTED: MMF rel {drel} to the replay")
+    for r in range(2):
+        check(any(line.startswith(f"[distributed] rank {r} ") for line in lines),
+              f"--DISTRIBUTED: rank {r}'s shard line")
+        check((f"[sharded] rank {r}: dropping {left[r]} unmatched" in logs2[r]) == (left[r] > 0),
+              f"--DISTRIBUTED: rank {r}'s drop line ({left[r]} frames left)")
+    launched(r2, "dist", {"matmul_act": drained, "softmax_xent": drained,
+                          "wgrad_momentum_update": 0}, "--DISTRIBUTED epoch")
+    t = tmpe_result(r2[0]["tmpe"]["log"])
+    upd = mmf_update_diff(os.path.join(mpe, "mpe_mesh.mmf"), os.path.join(mpe, "mpe1.mmf"),
+                          os.path.join(mpe, "ce1.mmf"))
+    log(f"tmpe --MESH=2x1 (rank 0's forward-backward, err broadcast), {card}: Avg MPE "
+        f"accuracy {t['acc']:.6g} over {t['utts']} utterances; update vs the single-device "
+        f"iteration: L2 {upd[0]:.2e}, max {upd[1]:.2e} (tolerance {MPE_UPDATE_TOL:g} L2); "
+        f"{r2[0]['tmpe']['seconds']:.1f}s")
+    check(upd[0] <= MPE_UPDATE_TOL, f"tmpe mesh: update L2 {upd[0]}")
+    launched(r2, "tmpe", {"matmul_act": 2 * t["utts"], "softmax_xent": 0,
+                          "wgrad_momentum_update": 0}, "tmpe mesh")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f}s; launches over every rank "
+        f"{json.dumps(total)}")
     return total
 
 
@@ -1999,15 +2486,14 @@ def resident_reruns(torch, card: str, d: str, want_mom: dict, want_bf16: dict):
 # 6. production width through the Trainer
 # ---------------------------------------------------------------------------
 
-def production(torch, dev, card: str):
+def production_network():
+    """The production-width stack 1024->4096x4->8192 + softmax, weights
+    0.05 N(0, 1) from numpy seed 7, zero biases, on the CPU."""
     import numpy as np
 
-    from nnet_asr_torch.models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
+    from nnet_asr_torch.models.components import BiasedLinearity, Sigmoid, Softmax
     from nnet_asr_torch.models.network import Network
-    from nnet_asr_torch.train.sgd import SgdConfig
-    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
 
-    zero_counts()
     rng = np.random.default_rng(7)
     layers, params = [], []
     for i in range(len(PROD_DIMS) - 1):
@@ -2020,7 +2506,19 @@ def production(torch, dev, card: str):
             params.append({})
     layers.append(Softmax(PROD_DIMS[-1], PROD_DIMS[-1]))
     params.append({})
-    net = Network(layers).from_numpy_params(params)
+    return Network(layers).from_numpy_params(params)
+
+
+def production(torch, dev, card: str):
+    import numpy as np
+
+    from nnet_asr_torch.models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+    zero_counts()
+    net = production_network()
     n_params = sum(p.numel() for p in net.parameters())
     cfg = TrainerConfig(bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES,
                         seed=1, sgd=SgdConfig(learning_rate=0.01))
@@ -2251,7 +2749,8 @@ def main() -> int:
     # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
     # 8. compute dtypes, 9. RBM pretraining, 10. recurrent BPTT, on one
     # corpus; 11. MPE on a phone-structured one; 12. resident newbob on the
-    # first and on a TIMIT-scale one; then 6. production width
+    # first and on a TIMIT-scale one; 13. the mesh on the first and phase
+    # 11's; then 6. production width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         t0 = time.perf_counter()
         n = make_corpus(d, CorpusShape(), seed=SEED)
@@ -2274,14 +2773,16 @@ def main() -> int:
         shapes["affine_sigmoid"].append(ragged)
         log(f"phase 11: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        launches_res = resident_reruns(torch, card, d, launches_mom, launches_dt_sched)
+        launches_res, resident_mom = resident_reruns(torch, card, d, launches_mom,
+                                                     launches_dt_sched)
         os.makedirs(os.path.join(d, "timit"))
         launches_ts = timit_path(torch, card, os.path.join(d, "timit"))
         log(f"phase 12: {time.perf_counter() - t0:.1f}s")
+        launches_mesh = mesh_path(torch, card, d, n, resident_mom)
     launches_prod = production(torch, dev, card)
     launches = {k: sum(p.get(k, 0) for p in (launches_ce, launches_mom, launches_obj,
                                              launches_dt, launches_rbm, launches_mpe,
-                                             launches_res, launches_ts))
+                                             launches_res, launches_ts, launches_mesh))
                 for k in COUNTERS}
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
 
@@ -2294,8 +2795,8 @@ def main() -> int:
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, the WGMMA-route "
         f"kernels' at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape under "
         f"'shapes'; launches summed over the frame-CE, momentum, objectives, "
-        f"compute-dtype, RBM fine-tune, MPE and resident paths, for the WGMMA-route "
-        f"kernels over the production path")
+        f"compute-dtype, RBM fine-tune, MPE, resident and mesh paths (every rank), for "
+        f"the WGMMA-route kernels over the production path")
     # name: (source, TPU kernel, counter, launches by path, main shape's index)
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act", launches, 0),
             "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent",
@@ -2331,4 +2832,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(sys.argv[2]))
     sys.exit(main())

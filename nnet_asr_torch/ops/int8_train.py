@@ -42,10 +42,14 @@ def _div127(t: torch.Tensor) -> torch.Tensor:
     return t / d
 
 
-def scale(t: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+def scale(t: torch.Tensor, dim: Optional[int] = None,
+          amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """max|t| / 127 + 1e-12 over the whole tensor (``dim`` None, a 0-d
-    tensor) or along ``dim`` (kept as a size-1 axis)."""
-    m = t.abs().amax() if dim is None else t.abs().amax(dim=dim, keepdim=True)
+    tensor) or along ``dim`` (kept as a size-1 axis); ``amax`` gives the
+    max instead (a mesh's max over the global bunch)."""
+    m = amax
+    if m is None:
+        m = t.abs().amax() if dim is None else t.abs().amax(dim=dim, keepdim=True)
     return _div127(m) + 1e-12
 
 
@@ -57,12 +61,13 @@ def fake_quant(t: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
 
 
 def fake_quant_ste(t: torch.Tensor, dim: Optional[int] = None,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   noise: Optional[torch.Tensor] = None,
+                   amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The trainer's fake-quant with a straight-through gradient: the
     forward value is the quantized ``q``, the gradient that of ``t``.
     ``noise`` (uniform in [0, 1), t's shape): round stochastically,
-    ``floor(t / s + noise)``, which is unbiased."""
-    s = scale(t, dim)
+    ``floor(t / s + noise)``, which is unbiased. ``amax``: see ``scale``."""
+    s = scale(t, dim, amax)
     r = torch.round(t / s) if noise is None else torch.floor(t / s + noise)
     q = torch.clamp(r, -127, 127) * s
     return t + (q - t).detach()

@@ -23,8 +23,17 @@ and are copied to the device once an epoch.
 ``ResidentNewbob`` (None: cuda:0, as tnet's ``--GPUSELECT`` default; the
 tests pass "cpu"). ``--compute-dtype`` (or COMPUTE_DTYPE) other than f32
 is passed on to every tnet run as ``--COMPUTEDTYPE``, or to the resident
-Trainer. ``--mesh`` raises NotImplementedError naming the ROADMAP.md item
-that brings it.
+Trainer.
+
+``--mesh=DxM`` (or MESH) trains on a (data, model) mesh of ``D*M`` ranks,
+one process each (``torchrun --nproc-per-node=D*M -m
+nnet_asr_torch.tools.scheduler --mesh=DxM ...``): every rank runs the same
+newbob decisions; streaming passes ``--MESH`` to the in-process tnet,
+``--resident`` keeps each rank's row block of the stacks. Rank 0 alone
+writes and renames the weight files, and every rank meets a barrier before
+the next epoch reads them. ``--distributed`` (or DISTRIBUTED) adds tnet's
+``--DISTRIBUTED`` per-rank SCP shards, to both modes. From the command line
+only rank 0 prints.
 
     python -m nnet_asr_torch.tools.scheduler --nn-init init.mmf \\
         --mlf-train labs.mlf --mlf-cv labs.mlf --scp-train train.scp \\
@@ -48,10 +57,11 @@ from ..train.newbob import NewbobConfig, run_newbob
 
 from ..device import DeviceLike
 from ..models.network import Network
+from ..parallel.mesh import make_mesh, parse_mesh, quiet_unless_rank0
 from ..train.resident import ResidentNewbob
 from ..train.sgd import SgdConfig
 from ..train.trainer import TrainerConfig
-from . import not_ported, tnet
+from . import tnet
 
 
 def _env(name, default=None):
@@ -94,8 +104,12 @@ def main(argv=None, device: DeviceLike = None) -> int:
     # each epoch only drains them (train/resident.py)
     ap.add_argument("--resident", action="store_true",
                     default=bool(_env("RESIDENT")))
-    # the JAX tool's device mesh: refused below
+    # a (data, model) mesh 'DxM' of D*M ranks: streaming passes --MESH to
+    # tnet, resident keeps each rank's row block of the stacks
     ap.add_argument("--mesh", default=_env("MESH"))
+    # per-rank SCP shards (tnet --DISTRIBUTED), streaming or resident
+    ap.add_argument("--distributed", action="store_true",
+                    default=bool(_env("DISTRIBUTED")))
     # resident mode's device-memory budget in MiB (the JAX tool's HBM
     # budget): stacks beyond it wait on the host and are copied to the
     # device once an epoch
@@ -111,9 +125,9 @@ def main(argv=None, device: DeviceLike = None) -> int:
         if getattr(args, req) is None:
             raise SystemExit(f"--{req.replace('_', '-')} (or its env var) "
                              "is required")
-    if args.mesh:
-        raise not_ported("--resident --mesh" if args.resident else "--mesh",
-                         "queue 1 item 14")
+    mesh = None
+    if args.mesh or args.distributed:
+        mesh = make_mesh(*(parse_mesh(args.mesh) if args.mesh else (None, 1)), device=device)
 
     common = [
         "-m", args.phonelist,
@@ -127,6 +141,10 @@ def main(argv=None, device: DeviceLike = None) -> int:
         common.append("--FEATURETRANSFORM=" + args.feature_transform)
     if args.compute_dtype not in (None, "f32"):
         common.append("--COMPUTEDTYPE=" + args.compute_dtype)
+    if args.mesh:
+        common.append("--MESH=" + args.mesh)
+    if args.distributed:
+        common.append("--DISTRIBUTED=TRUE")
 
     def parse_accu(log: str) -> float:
         hits = re.findall(r"correct\[([\d.]+)%\]", log)
@@ -163,15 +181,18 @@ def main(argv=None, device: DeviceLike = None) -> int:
         end_halving_inc=args.end_halving_inc,
         halving_factor=args.halving_factor)
     if args.resident:
-        train_epoch, crossvalidate = _resident(args, device)
+        train_epoch, crossvalidate = _resident(args, device, mesh)
+    # every rank replays the same decisions; rank 0 alone moves the weight
+    # files, behind barriers
+    fleet = {} if mesh is None else dict(fs_ops=mesh.is_main, barrier=mesh.barrier)
     best, st = run_newbob(cfg, args.nn_init, args.weights_dir,
-                          train_epoch, crossvalidate)
+                          train_epoch, crossvalidate, **fleet)
     print(f"Best model: {best} (CV {st.accu_best:.4f}%, "
           f"{len(st.history)} iterations)")
     return 0
 
 
-def _resident(args, device: DeviceLike):
+def _resident(args, device: DeviceLike, mesh=None):
     """(train_epoch, crossvalidate) of a ResidentNewbob after its intake."""
     reader = FeatureReader(start_frm_ext=args.frm_ext, end_frm_ext=args.frm_ext)
     labels_repo = LabelRepository(args.mlf_train, args.phonelist, "*/", "lab")
@@ -188,14 +209,20 @@ def _resident(args, device: DeviceLike):
     budget = (int(args.hbm_budget_mb * 1024 * 1024)
               if args.hbm_budget_mb else None)
     runner = ResidentNewbob(args.nn_init, transform, reader, labels_repo, tcfg,
-                            args.frm_ext, hbm_budget_bytes=budget, device=device)
-    runner.prepare(read_scp(args.scp_train), read_scp(args.scp_cv),
-                   cv_labels_repo=cv_repo)
+                            args.frm_ext, mesh=mesh, hbm_budget_bytes=budget, device=device,
+                            distributed=args.distributed)
+    train_entries, cv_entries = read_scp(args.scp_train), read_scp(args.scp_cv)
+    if args.distributed:
+        d = mesh.shape["data"]
+        train_entries = train_entries[mesh.data_index::d]
+        cv_entries = cv_entries[mesh.data_index::d]
+    runner.prepare(train_entries, cv_entries, cv_labels_repo=cv_repo)
     return runner.train_epoch, runner.crossvalidate
 
 
 def _cli():
     """Reference-style top-level error handling (TNet.cc:371-376)."""
+    quiet_unless_rank0()
     try:
         sys.exit(main())
     except SystemExit:

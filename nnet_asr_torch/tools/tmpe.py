@@ -19,7 +19,17 @@ CUDA; only ``main(argv, device="cpu")`` runs on the CPU, through the
 kernels' plain versions. ``--MPEENGINE=jax`` names the port's torch device
 engine (``ops/mpe_device.py``); ``auto`` takes the native engine if g++
 built it, else numpy, and on a CUDA device measures the device engine
-against it on the first utterance. ``--MESH`` is not ported yet.
+against it on the first utterance.
+
+``--MESH=DxM`` runs the NN forward and the error backprop frame-sharded
+over the ``data`` axis of a mesh of ``D*M`` ranks (``parallel/
+sharded_aux.py``; launched as tnet's ``--MESH`` is): every rank reads and
+transforms the utterance, pads its frames to a multiple of D with zero
+rows (and zero ``err`` rows, which add nothing), forwards its row block
+and gathers the log posteriors. The lattice forward-backward runs on rank
+0 alone, which broadcasts its outcome and ``err`` to the others, so the
+engine probe of ``--MPEENGINE=auto`` and the ``--FBWORKERS`` pool are rank
+0's too. Rank 0 writes the MMF.
 
     python -m nnet_asr_torch.tools.tmpe -H nn.mmf --HMM=hmms.mmf \\
         -I labs.mlf -L '*/' -X lab -m label_map -S train.scp \\
@@ -51,7 +61,6 @@ from ..train.sgd import SgdConfig, apply_updates, init_momentum, layer_lr_factor
 from ..train.trainer import forward_body
 from ..utils.config import UserInterface
 from ..utils.prefetch import prefetch_map
-from . import not_ported
 
 
 def _fb_worker_init(hmm_path, label_map, cfg, engine):
@@ -191,8 +200,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
     if ui.get_bool("PRINTVERSION", False):
         print(f"\n======= TMPECU v{__version__} (nnet_asr_torch) =======\n")
     ui.check_command_line_param_use()
-    if mesh_spec:
-        raise not_ported("--MESH", "queue 1 item 14")
 
     for req, msg in ((p_source_mmf, "Source MMF must be specified [-H]"),
                      (p_hmm, "HMM MMF must be specified [--HMM]"),
@@ -205,7 +212,15 @@ def main(argv=None, device: DeviceLike = None) -> int:
     net = Network.read(p_source_mmf)
     if not isinstance(net.layers[-1], Softmax):
         raise SystemExit("MPE training expects a terminal <softmax>")
-    dev = gpuselect_device(gpuselect) if device is None else resolve_device(device)
+    mesh = None
+    if mesh_spec:
+        from ..parallel.mesh import make_mesh, parse_mesh
+        mesh = make_mesh(*parse_mesh(mesh_spec), device=device)
+        dev = mesh.device
+    else:
+        dev = gpuselect_device(gpuselect) if device is None else resolve_device(device)
+    # rank 0 runs the lattice forward-backward (and prints, and writes)
+    main_rank = mesh is None or mesh.is_main
     net.to(dev)
     transform = Network.read(p_transform) if p_transform else None
     pipe = TransformPipeline(transform, feaparams["start_frm_ext"],
@@ -256,22 +271,48 @@ def main(argv=None, device: DeviceLike = None) -> int:
     trainable = [(i, k) for i, (spec, f) in enumerate(zip(net.layers, factors))
                  if spec.updatable and f != 0.0 for k in spec.trainable_keys]
 
-    @torch.no_grad()
-    def forward_logpost(feats):
-        # no autograd graph: under --DELAYEDUPDATE the next utterance's
-        # forward is queued before this utterance's in-place update
-        return torch.log_softmax(forward_body(body, feats), dim=-1)
+    if mesh is None:
+        @torch.no_grad()
+        def forward_logpost(feats):
+            # no autograd graph: under --DELAYEDUPDATE the next utterance's
+            # forward is queued before this utterance's in-place update
+            return torch.log_softmax(forward_body(body, feats), dim=-1)
 
-    def update(feats, err, n_frames):
-        # backprop the externally-computed error through the logits
-        # (softmax backward = identity, as the reference does)
-        logits = forward_body(body, feats)
-        ts = [params[i][k] for i, k in trainable]
-        gs = torch.autograd.grad((logits * err).sum(), ts) if ts else []
-        grads = [{} for _ in params]
-        for (i, k), g in zip(trainable, gs):
-            grads[i][k] = g
-        apply_updates(net, params, velocity, grads, sgd_cfg, n_frames, factors)
+        def update(feats, err, n_frames):
+            # backprop the externally-computed error through the logits
+            # (softmax backward = identity, as the reference does)
+            logits = forward_body(body, feats)
+            ts = [params[i][k] for i, k in trainable]
+            gs = torch.autograd.grad((logits * err).sum(), ts) if ts else []
+            grads = [{} for _ in params]
+            for (i, k), g in zip(trainable, gs):
+                grads[i][k] = g
+            apply_updates(net, params, velocity, grads, sgd_cfg, n_frames, factors)
+    else:
+        from ..parallel.sharded_aux import make_sharded_mpe_step
+        forward_mesh, update_mesh = make_sharded_mpe_step(net, sgd_cfg, mesh)
+        d_size = mesh.shape["data"]
+
+        def block(x):
+            """This rank's rows of ``x`` padded with zero rows to a multiple of D."""
+            x = torch.nn.functional.pad(x, (0, 0, 0, -x.shape[0] % d_size))
+            return x[mesh.rows(x.shape[0])]
+
+        def forward_logpost(feats):
+            return forward_mesh(block(feats))
+
+        def update(feats, err, n_frames):
+            update_mesh(velocity, block(feats), block(err), n_frames)
+
+    def share(ok, avg_acc, err, T):
+        """Rank 0's FB outcome on every rank: (ok, avg_acc, err)."""
+        head = mesh.broadcast(torch.tensor([float(ok), avg_acc], dtype=torch.float64,
+                                           device=dev))
+        if head[0] == 0:
+            return False, 0.0, None
+        if err is None:
+            err = torch.empty((T, net.n_outputs), dtype=torch.float32, device=dev)
+        return True, float(head[1]), mesh.broadcast(err)
 
     print(f"===== TMpe {'CROSSVALIDATION' if crossval else 'TRAINING'} "
           f"STARTED =====")
@@ -310,7 +351,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
         return e, feats_ext, T, labs, segs, lat
 
     def to_host(log_post_dev, T):
-        return log_post_dev[:T].cpu().numpy()
+        return log_post_dev[:T].cpu().numpy() if main_rank else None
 
     def lattice_fb(e, T, labs, segs, lat, log_post):
         """Per-utterance FB with the reference's widen-and-retry pruning
@@ -374,19 +415,25 @@ def main(argv=None, device: DeviceLike = None) -> int:
         """FB + (in training mode) error backprop + update."""
         nonlocal frames, acc_sum, n_utts, t_decode, t_update
         td = time.time()
-        gammas, avg_acc = lattice_fb(e, T, labs, segs, lat, log_post)
+        gammas, avg_acc = (lattice_fb(e, T, labs, segs, lat, log_post) if main_rank
+                           else (None, 0.0))
         t_decode += time.time() - td
-        if gammas is None:
-            return
-        if not crossval:
+        err = None
+        if gammas is not None and not crossval:
             if mmi:
                 # numerator = forced alignment one-hot; denominator = ML
                 # occupancies of the lattice
                 num = np.zeros_like(gammas)
                 num[np.arange(T), labs] = 1.0
                 gammas = num - gammas
-            tu = time.time()
             err = torch.from_numpy((-outprb_scale * gammas).astype(np.float32)).to(dev)
+        ok = gammas is not None
+        if mesh is not None and not crossval:
+            ok, avg_acc, err = share(ok, avg_acc, err, T)
+        if not ok:
+            return
+        if not crossval:
+            tu = time.time()
             update(feats, err, T)
             t_update += time.time() - tu
         frames += T
@@ -413,7 +460,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
         pend = deque()
         pool = None
         fb_futures = []
-        if fb_workers > 1:
+        if fb_workers > 1 and main_rank:
             import multiprocessing
             from concurrent.futures import ProcessPoolExecutor
 
@@ -514,8 +561,15 @@ def main(argv=None, device: DeviceLike = None) -> int:
             t_fwd += time.time() - tf
             consume(e, T, labs, segs, lat, log_post, feats)
 
-    if p_targetmmf and not crossval:
+    if mesh is not None:
+        # every rank reports rank 0's totals (-c counts on rank 0 alone)
+        tot = mesh.broadcast(torch.tensor([frames, acc_sum, n_utts], dtype=torch.float64,
+                                          device=dev))
+        frames, acc_sum, n_utts = int(tot[0]), float(tot[1]), int(tot[2])
+    if p_targetmmf and not crossval and main_rank:
         net.write(p_targetmmf)
+    if mesh is not None:
+        mesh.barrier()
 
     dt = time.time() - t0
     fps = frames / max(dt, 1e-9)
@@ -530,6 +584,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
 
 def _cli():
     """Reference-style top-level error handling (TNet.cc:371-376)."""
+    from ..parallel.mesh import quiet_unless_rank0
+    quiet_unless_rank0()
     try:
         sys.exit(main())
     except SystemExit:

@@ -14,9 +14,19 @@ in the JAX tool. ``--SAVESTATE``/``--RESUMESTATE`` write and read the
 Trainer's npz state (parameters, velocities, stats) after and before the
 epoch, in the JAX tool's format. ``--COMPUTEDTYPE=bf16|int8|int8pf|
 int8pfsr|int8full`` selects the Trainer's compute dtype, as in the JAX tool
-(``train/trainer.py`` says what each does). ``--MESH``, ``--DISTRIBUTED``
-and ``--JAXPROFILE`` raise NotImplementedError naming the ROADMAP.md item
-that brings them.
+(``train/trainer.py`` says what each does). ``--JAXPROFILE=<dir>`` writes a
+``torch.profiler`` trace of the epoch into ``<dir>`` (the JAX tool's
+``jax.profiler`` trace).
+
+``--MESH=DxM`` trains on a (data, model) mesh of ``D*M`` ranks, one process
+each (``parallel/``): ``torchrun --nproc-per-node=D*M -m
+nnet_asr_torch.tools.tnet --MESH=DxM ...``; ``--MESH=1x1`` also runs with
+no launcher. Each rank's device is ``cuda:(LOCAL_RANK % device_count)``
+(``--GPUSELECT`` is not read), or the CPU when ``main`` is told so.
+``--DISTRIBUTED=TRUE`` gives the ranks of data index ``d`` the SCP entries
+``[d::D]`` and drains the bunch count all ranks agree on (the JAX tool's
+multi-host mode; alone it means ``--MESH=<world size>x1``). Rank 0 writes
+the MMF and the state file; from the command line only rank 0 prints.
 
     python -m nnet_asr_torch.tools.tnet -H init.mmf -I labs.mlf -L '*/' \\
         -X lab -S train.scp -m label_map -n 0.008 --GRAD-DIV-FRM=F \\
@@ -26,6 +36,7 @@ that brings them.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -37,9 +48,9 @@ from ..utils.profiler import enable_from_trace, profiler
 from .. import __version__
 from ..device import DeviceLike, gpuselect_device, resolve_device
 from ..models.network import Network
+from ..parallel.mesh import quiet_unless_rank0
 from ..train.sgd import SgdConfig
 from ..train.trainer import Trainer, TrainerConfig, read_utterances
-from . import not_ported
 
 OPTION_STRING = (
     " -c n   CROSSVALIDATE=TRUE"
@@ -121,11 +132,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
         ["f32", "bf16", "int8", "int8pf", "int8pfsr", "int8full"])
     ui.check_command_line_param_use()
 
-    if mesh_spec or distributed:
-        raise not_ported("--MESH/--DISTRIBUTED", "queue 1 item 14")
-    if p_jaxprofile:
-        raise not_ported("--JAXPROFILE", "queue 1 item 9")
-
     if p_script is None:
         print("WARNING: The script file is missing [-S]", file=sys.stderr)
     if p_mlf is None:
@@ -135,11 +141,24 @@ def main(argv=None, device: DeviceLike = None) -> int:
     if p_source_mmf is None:
         raise SystemExit("Source MMF must be specified [-H]")
 
-    dev = gpuselect_device(gpuselect) if device is None else resolve_device(device)
-
     entries = read_scp(p_script) if p_script else []
     for extra in argv[args_parsed:]:
         entries.append(parse_scp_entry(extra))
+
+    mesh = None
+    if mesh_spec or distributed:
+        from ..parallel.mesh import make_mesh, parse_mesh
+        data, model = parse_mesh(mesh_spec) if mesh_spec else (None, 1)
+        mesh = make_mesh(data, model, device=device)
+        if distributed:
+            # per-rank input sharding: the ranks of one data index read one
+            # stride of the SCP
+            d_size = mesh.shape["data"]
+            entries = entries[mesh.data_index::d_size]
+            print(f"[distributed] rank {mesh.rank} (data {mesh.data_index}/{d_size}): "
+                  f"{len(entries)} SCP entries in local shard", file=sys.stderr, flush=True)
+    else:
+        dev = gpuselect_device(gpuselect) if device is None else resolve_device(device)
 
     labels_repo = LabelRepository(p_mlf, p_label_map, p_lbl_dir, p_lbl_ext)
     transform = Network.read(p_transform) if p_transform else None
@@ -156,8 +175,13 @@ def main(argv=None, device: DeviceLike = None) -> int:
                                       else velocity_dtype)),
         confusion_mode=confusion_mode,
         compute_dtype=None if compute_dtype == "f32" else compute_dtype)
-    trainer = Trainer(net, cfg, transform, feaparams["start_frm_ext"],
-                      feaparams["end_frm_ext"], device=dev)
+    if mesh is not None:
+        from ..parallel.sharded_trainer import ShardedTrainer
+        trainer = ShardedTrainer(net, cfg, mesh, transform, feaparams["start_frm_ext"],
+                                 feaparams["end_frm_ext"], distributed=distributed)
+    else:
+        trainer = Trainer(net, cfg, transform, feaparams["start_frm_ext"],
+                          feaparams["end_frm_ext"], device=dev)
     if cfg.objective == "xent":
         trainer.stats.confusion_mode = confusion_mode
         trainer.stats.label_map_file = p_label_map
@@ -181,20 +205,28 @@ def main(argv=None, device: DeviceLike = None) -> int:
     enable_from_trace(trace)
     if p_resume:
         trainer.load_state(p_resume)
-    trainer.run_epoch(utterance_iter())
+    if p_jaxprofile:
+        profile_epoch(trainer, utterance_iter(), p_jaxprofile,
+                      0 if mesh is None else mesh.rank)
+    else:
+        trainer.run_epoch(utterance_iter())
     if p_save:
         trainer.save_state(p_save)
 
     if not crossval:
+        # on a mesh every rank gathers the output layer; rank 0 writes
         out_net = trainer.updated_network()
-        if p_targetmmf:
-            out_net.write(p_targetmmf)
-        elif p_trg_dir or p_trg_ext:
-            from ..io.htk import make_htk_filename
-            out_net.write(make_htk_filename(p_source_mmf, p_trg_dir, p_trg_ext))
-        else:
-            print("WARNING: no target model specified, not saving",
-                  file=sys.stderr)
+        if mesh is None or mesh.is_main:
+            if p_targetmmf:
+                out_net.write(p_targetmmf)
+            elif p_trg_dir or p_trg_ext:
+                from ..io.htk import make_htk_filename
+                out_net.write(make_htk_filename(p_source_mmf, p_trg_dir, p_trg_ext))
+            else:
+                print("WARNING: no target model specified, not saving",
+                      file=sys.stderr)
+        if mesh is not None:
+            mesh.barrier()
 
     print()
     print(f"===== TNET FINISHED ( {time.time() - t0:.1f}s ) =====")
@@ -205,8 +237,26 @@ def main(argv=None, device: DeviceLike = None) -> int:
     return 0
 
 
+def profile_epoch(trainer, utterances, trace_dir: str, rank: int = 0) -> str:
+    """``trainer.run_epoch`` under ``torch.profiler`` (host, and the card's
+    kernels when the trainer is on one); the Chrome trace is written as
+    ``<trace_dir>/tnet_rank<rank>.pt.trace.json``, whose path is returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        trainer.run_epoch(utterances)
+    path = os.path.join(trace_dir, f"tnet_rank{rank}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def _cli():
     """Reference-style top-level error handling (TNet.cc:371-376)."""
+    quiet_unless_rank0()
     try:
         sys.exit(main())
     except SystemExit:

@@ -8,8 +8,8 @@ boundaries, the overflow of the block that crossed the boundary carries
 into the next fill, and the trailing sub-bunch of a drain is discarded
 (Cache.cc:239-244). The shuffle is the bit-exact srand48 +
 std::random_shuffle permutation of the port's ``utils/rand48.py``, made on the host;
-the row gather into stacked bunches runs on the device. The multi-host
-partial drain (``max_bunches``) comes with the multi-device port.
+the row gather into stacked bunches runs on the device. ``max_bunches``
+is the partial drain of the multi-device intake (``parallel/sharded_trainer.py``).
 """
 
 from __future__ import annotations
@@ -70,14 +70,26 @@ class DeviceFrameCache:
     def rows(self) -> int:
         return self._rows
 
-    def take_stacked(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    def take_stacked(self, max_bunches: Optional[int] = None
+                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """Shuffle + stack the cache into ((nb, bunch, D) feats, (nb, bunch)
         int32 labels) on the device and carry the overflow to the front for
-        the next fill. None if fewer than one bunch is cached."""
+        the next fill. None if fewer than one bunch is cached.
+
+        ``max_bunches`` drains at most that many bunches and carries ALL
+        remaining rows (not just the overflow past cachesize), discarding
+        nothing: the ranks of a distributed intake drain the bunch count
+        they agreed on each round. Only the drained prefix is shuffled;
+        carried rows keep their arrival order."""
         if self._rows == 0:
             raise RuntimeError("take_stacked on empty cache")
         B = self.bunchsize
         n = min(self._rows, self.cachesize)
+        if max_bunches is not None:
+            n = min(n, max_bunches * B)
+            n -= n % B      # partial drains take whole bunches only
+            if n == 0:
+                return None
         nb = n // B
         labels, self._labels = self._labels[:n], self._labels[n:]
         dev = self._buf.device
@@ -94,7 +106,8 @@ class DeviceFrameCache:
             out = (feats.reshape(nb, B, self._buf.shape[1]),
                    torch.from_numpy(np.ascontiguousarray(
                        labels[:nb * B].reshape(nb, B))).to(dev))
-        self.discarded += n - nb * B
+        if max_bunches is None:
+            self.discarded += n - nb * B
         if self._rows > n:
             rest = self._rows - n
             self._buf[:rest] = self._buf[n:self._rows].clone()

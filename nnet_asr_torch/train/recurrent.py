@@ -23,6 +23,14 @@ JAX pads the segment count to multiples of 16 and frame-serial utterances
 to 64 frames to bound XLA compiles; the padded segments and frames are
 exact no-ops there, and the port has none. The frame count of each update
 comes from the host mask, so no step waits for the device.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) the utterances of a batch shard
+over ``data`` (JAX ``:140-207``): the batch is padded to a multiple of D
+with empty utterances, rank ``d`` takes the ``d``-th block, every rank
+walks the segments of the batch's global ``T_max`` (the same collectives
+everywhere; a segment with no live frame anywhere is skipped on every
+rank), sums the segment gradient over ``data`` and applies the update with
+the global frame count. The frame-serial mode has no data axis and raises.
 """
 
 from __future__ import annotations
@@ -38,7 +46,6 @@ from ..device import DeviceLike, resolve_device
 from ..models.components import Recurrent, Softmax
 from ..models.network import Network
 from ..ops.objectives import XentStats
-from ..tools import not_ported
 from .sgd import SgdConfig, apply_updates, check_updatable, init_momentum, layer_lr_factors
 
 
@@ -55,8 +62,14 @@ class RecurrentTrainerConfig:
 class RecurrentTrainer:
     def __init__(self, net: Network, cfg: RecurrentTrainerConfig, mesh=None,
                  device: DeviceLike = None):
+        """``mesh``: this rank's ``parallel.mesh.Mesh`` (its device is then
+        the Trainer's)."""
+        if mesh is not None and cfg.frame_serial:
+            raise ValueError("frame_serial parity mode is single-device "
+                             "(one frame at a time has no data axis)")
         if mesh is not None:
-            raise not_ported("RecurrentTrainer(mesh=...)", "queue 1 item 14")
+            device = mesh.device
+        self.mesh = mesh
         net.check_dims()
         if not (len(net.layers) and isinstance(net.layers[-1], Softmax)):
             raise ValueError("recurrent trainer expects terminal <softmax>")
@@ -140,20 +153,29 @@ class RecurrentTrainer:
         together: one update per segment with the gradient summed over the
         batch. One utterance is TRecurrentCu's utterance-serial schedule."""
         K, dev = self.cfg.bptt_order, self.device
-        B = len(feats_list)
         D = feats_list[0].shape[1]
+        feats_list, labels_list = list(feats_list), list(labels_list)
+        if self.mesh is not None:
+            # empty utterances to a multiple of the data axis: exact no-ops
+            while len(feats_list) % self.mesh.shape["data"]:
+                feats_list.append(np.zeros((0, D), np.float32))
+                labels_list.append(np.zeros((0,), np.int64))
         T_max = max(f.shape[0] for f in feats_list)
         n_seg = -(-T_max // K)
+        M = np.zeros((len(feats_list), n_seg * K), bool)      # the whole batch's
+        for b, f in enumerate(feats_list):
+            M[b, :f.shape[0]] = True
+        mine = slice(None) if self.mesh is None else self.mesh.rows(len(feats_list))
+        feats_list, labels_list = feats_list[mine], labels_list[mine]
+        B = len(feats_list)
         F = torch.zeros((B, n_seg * K, D), dtype=torch.float32, device=dev)
         L = np.zeros((B, n_seg * K), np.int64)
-        M = np.zeros((B, n_seg * K), bool)
         for b, (f, lab) in enumerate(zip(feats_list, labels_list)):
             T = f.shape[0]
             F[b, :T] = torch.as_tensor(f, dtype=torch.float32, device=dev)
             L[b, :T] = lab
-            M[b, :T] = True
         L_dev = torch.from_numpy(L).to(dev)
-        M_dev = torch.from_numpy(M).to(dev)
+        M_dev = torch.from_numpy(M[mine]).to(dev)
         keys = self._trainables(self.factors, range(len(self.params)))
         h_list = [torch.zeros((B, self.net.layers[i].n_outputs), device=dev)
                   for i in self.rec_idx]
@@ -172,10 +194,17 @@ class RecurrentTrainer:
             else:
                 loss, stats, h_list = self._seg_loss(x, labels, mask, h_list)
                 grads, _ = self._grads(loss, keys)
+                if self.mesh is not None:
+                    gs = self.mesh.all_reduce_flat([grads[i][k] for i, k in keys], "data")
+                    for (i, k), g in zip(keys, gs):
+                        grads[i][k] = g
                 apply_updates(self.net, self.params, self.velocity, grads, self.cfg.sgd,
                               n_frames, self.factors)
             for k in acc:
                 acc[k] += stats[k]
+        if self.mesh is not None and self.mesh.shape["data"] > 1:
+            flat = self.mesh.all_reduce(torch.stack([acc[k].double() for k in acc]), "data")
+            acc = {k: flat[n].to(acc[k].dtype) for n, k in enumerate(acc)}
         self._accs.append((acc, int(M.sum())))
 
     def train_utterance(self, feats, labels) -> None:

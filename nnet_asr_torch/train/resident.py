@@ -25,8 +25,13 @@ Trainer is on a CUDA device) and copied back to the device before each of
 its drains, once an epoch: no re-read, re-transform or re-shuffle, and
 nothing is computed on the host.
 
-The JAX package's device mesh, multi-host intake and partial drains
-(``take_stacked(max_bunches)``) come with the multi-device port.
+With ``mesh`` (``parallel/mesh.py``) the Trainer is a ``ShardedTrainer``:
+each rank keeps its row block of every stack (the budget is per rank),
+every epoch runs the sharded drains, and rank 0 alone writes the epoch
+MMF while the others wait at a barrier. ``distributed=True`` takes the
+ranks' own SCP shards through the negotiated intake of the streaming
+``--DISTRIBUTED`` epoch (JAX ``_collect_multihost``), so the stored stacks
+are the ones a streaming epoch would drain.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ import torch
 from ..device import DeviceLike
 from ..models.network import Network
 from ..ops.objectives import MseStats, XentStats
-from ..tools import not_ported
 from .sgd import init_momentum
 from .trainer import Trainer, TrainerConfig, read_utterances
 
@@ -68,16 +72,18 @@ class ResidentNewbob:
     on each side; ``labels_repo`` a ``LabelRepository``; ``device`` the
     Trainer's (None: ``cuda:0``, raising without CUDA).
     ``hbm_budget_bytes``: optional cap on the device bytes of the stacks;
-    the stacks beyond it park on the host (see the module doc).
+    the stacks beyond it park on the host (see the module doc). ``mesh``:
+    this rank's ``parallel.mesh.Mesh`` (the device is then the mesh's);
+    ``distributed``: the per-rank intake (the caller passes the rank's SCP
+    entries).
     """
 
     def __init__(self, nn_init: str, transform: Optional[Network],
                  reader, labels_repo, cfg: TrainerConfig,
                  frm_ext: int = 0, mesh=None,
                  hbm_budget_bytes: Optional[int] = None,
-                 device: DeviceLike = None):
-        if mesh is not None:
-            raise not_ported("ResidentNewbob(mesh=...)", "queue 1 item 14")
+                 device: DeviceLike = None, distributed: bool = False):
+        self.mesh = mesh
         self.reader = reader
         self.labels_repo = labels_repo
         self.cfg = cfg
@@ -85,8 +91,14 @@ class ResidentNewbob:
         self.hbm_budget = hbm_budget_bytes
         self.resident_bytes = 0
         self.parked_bytes = 0
-        self.trainer = Trainer(Network.read(nn_init), cfg, transform, frm_ext, frm_ext,
-                               device=device)
+        if mesh is None:
+            self.trainer = Trainer(Network.read(nn_init), cfg, transform, frm_ext, frm_ext,
+                                   device=device)
+        else:
+            from ..parallel.sharded_trainer import ShardedTrainer
+            self.trainer = ShardedTrainer(Network.read(nn_init), cfg, mesh, transform,
+                                          frm_ext, frm_ext, distributed=distributed)
+        self._data = 1 if mesh is None else mesh.shape["data"]
         self.device = self.trainer.device
         self._train_stacks: List[_Stack] = []
         self._cv_stacks: List[_Stack] = []
@@ -121,7 +133,9 @@ class ResidentNewbob:
         tr = self.trainer
         before = tr.total_frames
         utts = read_utterances(self.reader, entries, labels_repo, self.frm_ext, self.frm_ext)
-        stacks = [self._admit(*stacked) for stacked in tr.stacks(utts, randomize)]
+        stacked = tr.stacks(utts, randomize) if self.mesh is None else \
+            tr.local_stacks(utts, randomize)
+        stacks = [self._admit(*st) for st in stacked]
         return stacks, tr.total_frames - before
 
     def prepare(self, train_entries, cv_entries, cv_labels_repo=None) -> None:
@@ -140,14 +154,20 @@ class ResidentNewbob:
     # -- per-epoch closures ----------------------------------------------
     def _load(self, mmf: str) -> None:
         """Copy the model in ``mmf`` into the Trainer's tensors, in place
-        (the fused update hooks hold those tensors)."""
-        self.trainer.net.from_numpy_params(Network.read(mmf).to_numpy_params())
+        (the fused update hooks hold those tensors); on a mesh, this rank's
+        stripe of the output layer."""
+        params = Network.read(mmf).to_numpy_params()
+        if self.mesh is None:
+            self.trainer.net.from_numpy_params(params)
+        else:
+            self.trainer.reload_params(params)
 
     def _done(self, frames: int, t0: float) -> None:
         secs = time.time() - t0
         fps = frames / max(secs, 1e-9)
         print(f"Done {frames} frames in {secs:.2f}s"
-              f" [FPS:{fps:.1f},RT:{fps / 100.0:.4f}] (resident)")
+              f" [FPS:{fps:.1f},RT:{fps / 100.0:.4f}] (resident"
+              f"{'' if self.mesh is None else ', mesh'})")
 
     def _drain_all(self, drain, stacks: List[_Stack]):
         """Drain every stack in order, then merge their device stats into
@@ -156,7 +176,7 @@ class ResidentNewbob:
         accs = []
         for st in stacks:
             feats_all, labels_all = self._place(st)
-            accs.append((drain(feats_all, labels_all), feats_all.shape[0] * feats_all.shape[1]))
+            accs.append((drain(feats_all, labels_all), labels_all.numel() * self._data))
         stats = XentStats() if self.cfg.objective == "xent" else MseStats()
         for acc, frames in accs:
             self.trainer.merge_acc(stats, acc, frames)
@@ -177,7 +197,11 @@ class ResidentNewbob:
             tr._sr_gen.manual_seed(self.cfg.seed or 1)
         tr.set_learning_rate(lrate)
         stats = self._drain_all(tr.drain_train, self._train_stacks)
-        tr.updated_network().write(dst)
+        net = tr.updated_network()          # on a mesh: collective
+        if self.mesh is None or self.mesh.is_main:
+            net.write(dst)
+        if self.mesh is not None:
+            self.mesh.barrier()             # nobody reads dst before it is written
         self._done(self.train_frames, t0)
         return stats.accuracy
 

@@ -79,6 +79,11 @@ MODULES = [
     "nnet_asr_torch.tools.sresults",
     "nnet_asr_torch.tools.gen_phone_loop",
     "nnet_asr_torch.tools.tnet2snet",
+    "nnet_asr_torch.parallel",
+    "nnet_asr_torch.parallel.mesh",
+    "nnet_asr_torch.parallel.sharded_step",
+    "nnet_asr_torch.parallel.sharded_trainer",
+    "nnet_asr_torch.parallel.sharded_aux",
 ]
 
 

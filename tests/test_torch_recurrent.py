@@ -214,8 +214,9 @@ def test_frame_serial_matches_jax_and_the_oracle(net, momentum):
 def test_trainer_refusals():
     rng = np.random.default_rng(8)
     _, tnet = _nets(*_simple_net(rng))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
-        trec.RecurrentTrainer(tnet, trec.RecurrentTrainerConfig(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="frame_serial parity mode is single-device"):
+        trec.RecurrentTrainer(tnet, trec.RecurrentTrainerConfig(frame_serial=True),
+                              mesh=object(), device="cpu")
     no_softmax = TNetwork(list(tnet.layers)[:2])
     with pytest.raises(ValueError, match="terminal <softmax>"):
         trec.RecurrentTrainer(no_softmax, trec.RecurrentTrainerConfig(), device="cpu")

@@ -23,8 +23,6 @@ from nnet_asr_torch.io import htk
 from nnet_asr_torch.io.mlf import MlfWriter
 from nnet_asr_torch.tools import gen_mlp_init
 from nnet_asr_torch.tools import scheduler as tscheduler
-from nnet_asr_torch.train.resident import ResidentNewbob
-from nnet_asr_torch.train.trainer import TrainerConfig
 from nnet_asr_tpu.models.network import Network as JNetwork
 from nnet_asr_tpu.tools import scheduler as jscheduler
 
@@ -153,13 +151,18 @@ def test_resident_done_lines(corpus, tmp_path):
     assert "TNET" not in out
 
 
-def test_resident_mesh_raises(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
-        tscheduler.main(_argv(corpus, tmp_path / "w", "--resident", "--mesh=2x1"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
-        ResidentNewbob(str(corpus / "init.mmf"), None, None, None, TrainerConfig(),
-                       mesh=object(), device="cpu")
+def test_resident_mesh_1x1_matches_resident(corpus, tmp_path):
+    """ResidentNewbob on a one-rank mesh (formed in this process, no
+    launcher), under a budget that parks stacks on the host: the history
+    and weight files of the plain resident run at momentum 0, byte for
+    byte; the mesh's Done lines say so."""
+    base = ("--resident", "--momentum=0")
+    out_r = _run(tscheduler.main, _argv(corpus, tmp_path / "w_res", *base), device="cpu")
+    out_m = _run(tscheduler.main, _argv(corpus, tmp_path / "w_mesh", *base, "--mesh=1x1",
+                                        "--hbm-budget-mb=0.004"), device="cpu")
+    assert "(resident, mesh)" in out_m and "host-parked" in out_m
+    assert _history(out_m) == _history(out_r)
+    _assert_same_weights(tmp_path / "w_res", tmp_path / "w_mesh")
 
 
 def test_resident_needs_cuda_unless_cpu_is_named(corpus, tmp_path):

@@ -106,13 +106,26 @@ def test_scheduler_bf16_newbob_matches_jax(corpus, tmp_path, monkeypatch):
             np.testing.assert_allclose(a[k], b[k], atol=1e-2, rtol=0)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--mesh=2x1",), "queue 1 item 14"),
-    (("--resident", "--mesh=2x1"), "queue 1 item 14"),
-])
-def test_scheduler_mode_outside_slice_raises(corpus, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tscheduler.main(_argv(corpus, tmp_path / "w", *extra), device="cpu")
+# --mesh=1x1 with no launcher (a one-rank group formed in this process):
+# streaming passes --MESH=1x1 to tnet, --resident keeps the stacks on the
+# mesh; at momentum 0 both write the weight files of the single-device
+# scheduler byte for byte. A mesh of more ranks needs a launcher.
+@pytest.mark.parametrize("extra", [("--mesh=1x1",), ("--resident", "--mesh=1x1")],
+                         ids=["streaming", "resident"])
+def test_scheduler_mesh_1x1_matches_single_device(corpus, tmp_path, extra):
+    base = ("--learnrate", "8.0", "--max-iter=2")
+    _, single = _run(tscheduler.main, _argv(corpus, tmp_path / "single", *base),
+                     device="cpu")
+    log, best = _run(tscheduler.main, _argv(corpus, tmp_path / "mesh", *base, *extra),
+                     device="cpu")
+    assert os.path.basename(best) == os.path.basename(single)
+    names = sorted(os.listdir(tmp_path / "single"))
+    assert names == sorted(os.listdir(tmp_path / "mesh"))
+    for n in names:
+        assert (tmp_path / "mesh" / n).read_bytes() == (tmp_path / "single" / n).read_bytes()
+    with pytest.raises(ValueError, match="mesh 2x1 needs more than 1 devices"):
+        tscheduler.main(_argv(corpus, tmp_path / "w", "--mesh=2x1", *extra[:-1]),
+                        device="cpu")
 
 
 def test_scheduler_requires_its_inputs(tmp_path):

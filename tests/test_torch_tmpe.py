@@ -264,10 +264,18 @@ def test_tmpe_phone_corpus_matches_jax(phone_corpus, tmp_path, extra):
     _compare(tmp_path, argv, crossval="-c" in extra)
 
 
-def test_tmpe_mesh_is_not_ported(mini):
-    with pytest.raises(NotImplementedError, match="--MESH .*queue 1 item 14"):
-        ttmpe.main(["tmpe", "-H", str(mini / "init.mmf"), "--MESH=8x1"] + _common(mini),
-                   device="cpu")
+def test_tmpe_mesh_1x1_matches_single_device(mini, tmp_path):
+    """--MESH=1x1 (a one-rank group formed in this process): the single
+    device's MMF and accuracy; more ranks need a launcher."""
+    argv = ["tmpe", "-H", str(mini / "init.mmf")] + _common(mini) + TRAIN
+    single = _run(ttmpe.main, argv + ["--TARGETMMF=" + str(tmp_path / "single.mmf")],
+                  device="cpu")
+    mesh = _run(ttmpe.main, argv + ["--MESH=1x1", "--TARGETMMF=" + str(tmp_path / "mesh.mmf")],
+                device="cpu")
+    assert (mesh["acc"], mesh["utts"]) == (single["acc"], single["utts"])
+    assert (tmp_path / "mesh.mmf").read_bytes() == (tmp_path / "single.mmf").read_bytes()
+    with pytest.raises(ValueError, match="mesh 8x1 needs more than 1 devices"):
+        ttmpe.main(argv + ["--MESH=8x1"], device="cpu")
 
 
 def test_tmpe_runs_on_the_card_unless_told_otherwise(mini):

@@ -94,13 +94,59 @@ def test_tnet_matches_jax_tnet(corpus, tmp_path, extra):
     assert abs(tacc - jacc) <= 100.0 / tf       # at most one frame's argmax
 
 
+# --MESH=1x1 with no launcher: the tool forms a one-rank group itself (in
+# this process) and runs the sharded trainer with no collective, so the
+# epoch is the single-device one byte for byte; the JAX tool's --MESH=1x1
+# within the tolerances above
+def test_tnet_mesh_1x1_matches_single_device(corpus, tmp_path):
+    d = corpus
+    single, mesh, jmesh = tmp_path / "single.mmf", tmp_path / "mesh.mmf", tmp_path / "jax.mmf"
+    slog = _stdout_of(ttnet.main, _argv(d, d / "init.mmf", f"--TARGETMMF={single}"),
+                      device="cpu")
+    mlog = _stdout_of(ttnet.main, _argv(d, d / "init.mmf", f"--TARGETMMF={mesh}",
+                                        "--MESH=1x1"), device="cpu")
+    jlog = _stdout_of(jtnet.main, _argv(d, d / "init.mmf", f"--TARGETMMF={jmesh}",
+                                        "--MESH=1x1"))
+    assert mesh.read_bytes() == single.read_bytes()
+    assert XENT.search(mlog).group(0) == XENT.search(slog).group(0)
+    assert "mesh=data:1xmodel:1" in mlog
+    np.testing.assert_allclose(_xent(mlog)[0], _xent(jlog)[0], rtol=1e-5)
+    for a, b in zip(JNetwork.read(str(mesh)).params, JNetwork.read(str(jmesh)).params):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-5, rtol=0)
+
+
+# a mesh needs its ranks: with no launcher the world is one rank
 @pytest.mark.parametrize("extra", [
-    ("--MESH=2x1",), ("--DISTRIBUTED=TRUE",), ("--JAXPROFILE=trace",), ("--MESH=1x2",),
-    ("--COMPUTEDTYPE=bf16", "--MESH=2x1"), ("--COMPUTEDTYPE=int8pfsr", "--JAXPROFILE=trace"),
+    ("--MESH=2x1",), ("--MESH=1x2",), ("--COMPUTEDTYPE=bf16", "--MESH=2x1"),
+    ("--DISTRIBUTED=TRUE", "--MESH=4x1"),
 ])
-def test_tnet_option_outside_slice_raises(corpus, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_tnet_mesh_needs_its_ranks(corpus, extra):
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
         ttnet.main(_argv(corpus, corpus / "init.mmf", *extra), device="cpu")
+
+
+def test_tnet_mesh_refuses_int8full(corpus):
+    with pytest.raises(ValueError, match="int8full is single-chip-only"):
+        ttnet.main(_argv(corpus, corpus / "init.mmf", "--MESH=1x1",
+                         "--COMPUTEDTYPE=int8full"), device="cpu")
+
+
+# --JAXPROFILE=<dir>: a torch.profiler trace of the epoch in <dir>; the
+# epoch's model is the one of the same run without it
+@pytest.mark.parametrize("extra", [(), ("--COMPUTEDTYPE=int8pfsr", "--MESH=1x1")])
+def test_tnet_jaxprofile_writes_a_trace(corpus, tmp_path, extra):
+    import json
+    d = corpus
+    plain, traced = tmp_path / "plain.mmf", tmp_path / "traced.mmf"
+    _stdout_of(ttnet.main, _argv(d, d / "init.mmf", f"--TARGETMMF={plain}", *extra),
+               device="cpu")
+    _stdout_of(ttnet.main, _argv(d, d / "init.mmf", f"--TARGETMMF={traced}",
+                                 f"--JAXPROFILE={tmp_path / 'trace'}", *extra), device="cpu")
+    trace = json.loads((tmp_path / "trace" / "tnet_rank0.pt.trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("addmm" in n or "mm" in n for n in names)
+    assert traced.read_bytes() == plain.read_bytes()
 
 
 # --COMPUTEDTYPE against the JAX tnet, one epoch and a CV of its model.
