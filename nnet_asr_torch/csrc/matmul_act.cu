@@ -17,14 +17,24 @@
 // main loop near half of that bound. In bf16 the same product is bounded
 // at 34.7 us by the 989 TFLOP/s of dense bf16 (15 us of bytes); one
 // mma.sync m16n8k16 pass replaces the three TF32 ones.
+// At the recipes' widths (960x598->1024 on MLP3, 1024x368->500 on TIMIT,
+// an utterance's ~284 rows in tmpe) it is bound by latency instead: 80 to
+// 240 64x64 tiles for 132 SMs, one warp per scheduler, a few BK steps each.
 // The design: the tensor-core main loop of tile_gemm.cuh (3xTF32 or bf16
 // mma.sync, cp.async ring, 128x128 or 64x64 tiles chosen by
-// ops/kernels/tile_plan.py), with x K-major and W N-major in shared memory.
-// The epilogue adds the bias (a bf16 bias read and upcast) and applies the
-// sigmoid in f32 to the output tile, staged through shared memory so that y
-// is written in whole rows (bf16 y rounded to nearest even, as JAX's
-// astype), masked at the ragged edges (598, 135 and 960 are not tile
-// multiples; loads outside the matrix read 0).
+// ops/kernels/tile_plan.py), with x K-major and W N-major in shared memory;
+// with f32 operands the 64x64 tile takes 8 warps (SmallTile8), so that one
+// block an SM still gives each scheduler two warps. Where a split of K
+// evens the SMs' load (one tmpe utterance: 80 tiles for 132 SMs), the plan
+// splits it and the last split to reach a tile sums the f32 partials in
+// split order (tile_gemm.cuh reduce_splits), in the same launch, before the
+// epilogue, which needs the whole sum. The epilogue adds the
+// bias (a bf16 bias read and upcast) and applies the sigmoid in f32 to the
+// output tile, staged through shared memory so that y is written in whole
+// rows (bf16 y rounded to nearest even once, after the sigmoid, as JAX's
+// astype), masked at the ragged edges (598, 500, 368, 135, 284 and 960 are
+// not tile multiples; loads outside the matrix or the split's K range read
+// 0).
 //
 // bf16 operands whose rows TMA can describe (pitches of 16-byte multiples,
 // 16-byte aligned bases: every production shape) take the WGMMA route
@@ -45,6 +55,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -54,17 +66,24 @@ using namespace nnet_tile;
 namespace W = nnet_wgmma;
 using Coop = W::Cooperative;
 
+// y = act(x @ w + b) for one BM x BN tile; with gridDim.z > 1, split
+// blockIdx.z of it over k_chunk rows of K, the last split to arrive summing
+// the partials (part, counters: reduce_splits) before the epilogue.
 template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS)
 matmul_act_kernel(const E* __restrict__ x, const E* __restrict__ w, const E* __restrict__ b,
-                  E* __restrict__ y, int M, int N, int K, int act, int x_bytes, int w_bytes) {
+                  E* __restrict__ y, float* __restrict__ part, int* __restrict__ counters, int M,
+                  int N, int K, int act, int k_chunk, int x_bytes, int w_bytes) {
   extern __shared__ __align__(16) float smem[];
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk;
   float acc[T::MT][T::NT][4];
   gemm_mainloop<T, E, true>(reinterpret_cast<E*>(smem), x, K, x_bytes, w, N, w_bytes, M, N, m0,
-                            n0, 0, K, acc);
+                            n0, k_begin, min(K, k_begin + k_chunk), acc);
+  stage_acc<T>(smem, acc);
+  if (!reduce_splits<T>(smem, part, counters)) return;
   constexpr int U = 16;
-  epilogue<T, U>(smem, m0, n0, acc, [&](const int (&r)[U], const int (&c)[U], float (&z)[U]) {
+  epilogue<T, U>(smem, m0, n0, [&](const int (&r)[U], const int (&c)[U], float (&z)[U]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (r[u] >= M || c[u] >= N) continue;
@@ -78,23 +97,30 @@ matmul_act_kernel(const E* __restrict__ x, const E* __restrict__ w, const E* __r
 }
 
 template <class T, class E>
-int launch(const E* x, const E* w, const E* b, E* y, int M, int N, int K, int act, int x_bytes,
-           int w_bytes, cudaStream_t stream) {
+int launch(const E* x, const E* w, const E* b, E* y, float* part, int* counters, int M, int N,
+           int K, int act, int splits, int k_chunk, int x_bytes, int w_bytes,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T, E, true>();
   const int err = allow_smem(matmul_act_kernel<T, E>, smem);
   if (err != 0) return err;
-  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-  matmul_act_kernel<T, E><<<grid, T::THREADS, smem, stream>>>(x, w, b, y, M, N, K, act, x_bytes,
-                                                              w_bytes);
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+  matmul_act_kernel<T, E><<<grid, T::THREADS, smem, stream>>>(x, w, b, y, part, counters, M, N,
+                                                              K, act, k_chunk, x_bytes, w_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
+// tile 0: BigTile; 1: the 64x64 tile, with 8 warps for f32 operands
+// (tile_gemm.cuh SmallTile8), 4 for bf16 ones
 template <class E>
 int dispatch(const E* x, const E* w, const E* b, E* y, int M, int N, int K, int act, int tile,
-             int x_bytes, int w_bytes, void* stream) {
+             int x_bytes, int w_bytes, int splits, int k_chunk, float* part, int* counters,
+             void* stream) {
+  using Small = std::conditional_t<std::is_same<E, float>::value, SmallTile8, SmallTile>;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tile == 0 ? launch<BigTile>(x, w, b, y, M, N, K, act, x_bytes, w_bytes, s)
-                   : launch<SmallTile>(x, w, b, y, M, N, K, act, x_bytes, w_bytes, s);
+  return tile == 0 ? launch<BigTile>(x, w, b, y, part, counters, M, N, K, act, splits, k_chunk,
+                                     x_bytes, w_bytes, s)
+                   : launch<Small>(x, w, b, y, part, counters, M, N, K, act, splits, k_chunk,
+                                   x_bytes, w_bytes, s);
 }
 
 // The WGMMA route's epilogue for consumer warpgroup c (rows 64c..64c+63 of
@@ -171,24 +197,30 @@ matmul_act_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 
 }  // namespace
 
-// act: 0 = none, 1 = sigmoid. tile: 0 = 128x128, 1 = 64x64. x_vec, w_vec:
-// 16-byte copies of that operand (row pitch % 4 == 0 and base 16-byte
-// aligned), else 4-byte. Returns the CUDA error code of the launch.
+// act: 0 = none, 1 = sigmoid. tile: 0 = 128x128, 1 = 64x64. x_bytes,
+// w_bytes: the copy width of that operand, 16, 8 or 4 (tile_plan.plan).
+// splits > 1 (64x64 only): K is cut into chunks of k_chunk rows (a multiple
+// of BK), part is an f32 scratch of (tiles * splits * 64 * 64) elements and
+// counters holds an int per tile, zero, which the launch leaves at zero;
+// else both are unused. Returns the CUDA error code of the launch.
 extern "C" int matmul_act_f32(const float* x, const float* w, const float* b, float* y,
-                              int M, int N, int K, int act, int tile, int x_vec, int w_vec,
+                              int M, int N, int K, int act, int tile, int x_bytes, int w_bytes,
+                              int splits, int k_chunk, float* part, int* counters,
                               void* stream) {
-  return dispatch(x, w, b, y, M, N, K, act, tile, x_vec ? 16 : 4, w_vec ? 16 : 4, stream);
+  return dispatch(x, w, b, y, M, N, K, act, tile, x_bytes, w_bytes, splits, k_chunk, part,
+                  counters, stream);
 }
 
-// The same with bf16 x, w, b and y (f32 accumulation, bias and sigmoid in
-// f32, y rounded to nearest even). x_bytes, w_bytes: the copy width of that
-// operand, 16, 4 or 2 (tile_plan.plan with elem=2).
+// The same with bf16 x, w, b and y (f32 accumulation, the split-K sum, bias
+// and sigmoid in f32, y rounded to nearest even once). x_bytes, w_bytes:
+// 16, 8, 4 or 2 (tile_plan.plan with elem=2).
 extern "C" int matmul_act_bf16(const void* x, const void* w, const void* b, void* y, int M,
                                int N, int K, int act, int tile, int x_bytes, int w_bytes,
+                               int splits, int k_chunk, float* part, int* counters,
                                void* stream) {
   return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                   static_cast<const bf16*>(b), static_cast<bf16*>(y), M, N, K, act, tile,
-                  x_bytes, w_bytes, stream);
+                  x_bytes, w_bytes, splits, k_chunk, part, counters, stream);
 }
 
 // The WGMMA route of matmul_act_bf16: x, w and y with row pitches of

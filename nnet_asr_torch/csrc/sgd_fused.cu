@@ -31,10 +31,13 @@
 // TPU's sequential "arbitrary" grid axis becomes the loop over the bunch
 // inside each block. Where the 64x64 tiles alone give fewer than two blocks
 // per SM, the plan (ops/kernels/tile_plan.py) splits the bunch S ways: each
-// split writes its f32 partial tile to a scratch (S, In, Out) buffer the
-// wrapper allocates, and a second kernel sums the S partials in a fixed
-// order, rounds the sum to bf16 for bf16 operands, and applies the same
-// epilogue. No float atomics, so two runs give the same bits. The epilogue
+// split writes its f32 partial tile to a scratch buffer the wrapper
+// allocates, and the block that arrives last at a tile (an int counter per
+// tile) sums the S partials in split order (tile_gemm.cuh reduce_splits),
+// then, for bf16 operands, rounds the sum to bf16 once, and applies the
+// epilogue, in the same launch: the partials of one call (2 x 2.4 MB at
+// 960 x 598 -> 1024) stay in the 50 MB L2, and there is no second launch.
+// No float atomics, so two runs give the same bits. The epilogue
 // reads p and v (upcasting bf16) in whole rows, 16 elements per thread at a
 // time with every load before the first store, and writes both in place:
 // each element belongs to exactly one thread, so no other block reads it.
@@ -61,7 +64,8 @@
 // shapes have >= 256 tiles).
 //
 // Layout: x (B, In), e (B, Out), p (In, Out), v (In, Out), all row-major
-// contiguous; scratch (S, In, Out) f32 when S > 1.
+// contiguous; with S > 1 splits an f32 scratch of S partial 64x64 tiles a
+// tile and an int counter a tile.
 
 #include <cuda_runtime.h>
 
@@ -83,122 +87,76 @@ __device__ __forceinline__ float grad_at(float g) {
   return g;
 }
 
-template <class V>
-__device__ __forceinline__ void momentum_update(float* p, V* v, size_t o, float g, float a,
-                                                float m) {
-  const float corr = __fadd_rn(g, __fmul_rn(to_f32(v[o]), m));
-  store_rn(v + o, corr);
-  p[o] = __fsub_rn(p[o], __fmul_rn(corr, a));
-}
-
-// Marks the split-K GEMM: store the f32 partial of split blockIdx.z.
-struct Partial {};
-
-// E = float or bf16: the operands. V = float or bf16: the fused epilogue;
-// V = Partial: store the f32 partial of split blockIdx.z into part.
+// g = x^T e for one BM x BN tile of p and v, then the momentum update in
+// place. E = float or bf16: the operands; V = float or bf16: the velocity.
+// With gridDim.z > 1, split blockIdx.z of the bunch (k_chunk rows), the
+// last split to arrive summing the partials (part, counters: reduce_splits)
+// before the update.
 template <class T, class E, class V>
 __global__ void __launch_bounds__(T::THREADS)
 wgrad_momentum_kernel(const E* __restrict__ x, const E* __restrict__ e, float* __restrict__ p,
-                      V* __restrict__ v, float* __restrict__ part, float a, float m, int B,
-                      int In, int Out, int k_chunk, int x_bytes, int e_bytes) {
+                      V* __restrict__ v, float* __restrict__ part, int* __restrict__ counters,
+                      float a, float m, int B, int In, int Out, int k_chunk, int x_bytes,
+                      int e_bytes) {
   extern __shared__ __align__(16) float smem[];
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
   const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(B, k_begin + k_chunk);
   float acc[T::MT][T::NT][4];
   gemm_mainloop<T, E, false>(reinterpret_cast<E*>(smem), x, In, x_bytes, e, Out, e_bytes, In,
-                             Out, m0, n0, k_begin, k_end, acc);
+                             Out, m0, n0, k_begin, min(B, k_begin + k_chunk), acc);
+  stage_acc<T>(smem, acc);
+  if (!reduce_splits<T>(smem, part, counters)) return;
   constexpr int U = 16;
-  epilogue<T, U>(smem, m0, n0, acc, [&](const int (&r)[U], const int (&c)[U], float (&g)[U]) {
+  epilogue<T, U>(smem, m0, n0, [&](const int (&r)[U], const int (&c)[U], float (&g)[U]) {
     size_t o[U];
     bool in[U];
+    float pv[U], vv[U];   // every load before the first store
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       in[u] = r[u] < In && c[u] < Out;
       o[u] = (size_t)r[u] * Out + c[u];
+      pv[u] = in[u] ? p[o[u]] : 0.0f;
+      vv[u] = in[u] ? to_f32(v[o[u]]) : 0.0f;
     }
-    if constexpr (std::is_same<V, Partial>::value) {
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (in[u]) part[(size_t)blockIdx.z * In * Out + o[u]] = g[u];
-    } else {
-      float pv[U], vv[U];   // every load before the first store
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        pv[u] = in[u] ? p[o[u]] : 0.0f;
-        vv[u] = in[u] ? to_f32(v[o[u]]) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (!in[u]) continue;
-        const float corr = __fadd_rn(grad_at<E>(g[u]), __fmul_rn(vv[u], m));
-        store_rn(v + o[u], corr);
-        p[o[u]] = __fsub_rn(pv[u], __fmul_rn(corr, a));
-      }
+    for (int u = 0; u < U; ++u) {
+      if (!in[u]) continue;
+      const float corr = __fadd_rn(grad_at<E>(g[u]), __fmul_rn(vv[u], m));
+      store_rn(v + o[u], corr);
+      p[o[u]] = __fsub_rn(pv[u], __fmul_rn(corr, a));
     }
   });
 }
 
-// The S partials summed in split order, then (bf16 operands) rounded, then
-// the epilogue.
-template <class E, class V>
-__global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ p,
-                                    V* __restrict__ v, float a, float m, int S, size_t n) {
-  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < n;
-       o += (size_t)gridDim.x * blockDim.x) {
-    float g = part[o];
-    for (int s = 1; s < S; ++s) g = __fadd_rn(g, part[(size_t)s * n + o]);
-    momentum_update(p, v, o, grad_at<E>(g), a, m);
-  }
-}
-
 template <class T, class E, class V>
-int launch_gemm(const E* x, const E* e, float* p, V* v, float* part, float a, float m, int B,
-                int In, int Out, int splits, int k_chunk, int x_bytes, int e_bytes,
-                cudaStream_t stream) {
+int launch(const E* x, const E* e, float* p, V* v, float* part, int* counters, float a, float m,
+           int B, int In, int Out, int splits, int k_chunk, int x_bytes, int e_bytes,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T, E, false>();
   const int err = allow_smem(wgrad_momentum_kernel<T, E, V>, smem);
   if (err != 0) return err;
   const dim3 grid((Out + T::BN - 1) / T::BN, (In + T::BM - 1) / T::BM, splits);
   wgrad_momentum_kernel<T, E, V><<<grid, T::THREADS, smem, stream>>>(
-      x, e, p, v, part, a, m, B, In, Out, k_chunk, x_bytes, e_bytes);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// one split: the fused epilogue in the GEMM; several: partials, then reduce
-template <class T, class E, class V>
-int launch(const E* x, const E* e, float* p, V* v, float* part, float a, float m, int B, int In,
-           int Out, int splits, int k_chunk, int x_bytes, int e_bytes, cudaStream_t stream) {
-  if (splits <= 1)
-    return launch_gemm<T, E, V>(x, e, p, v, nullptr, a, m, B, In, Out, 1, B, x_bytes, e_bytes,
-                                stream);
-  const int err = launch_gemm<T, E, Partial>(x, e, nullptr, nullptr, part, a, m, B, In, Out,
-                                             splits, k_chunk, x_bytes, e_bytes, stream);
-  if (err != 0) return err;
-  const size_t n = (size_t)In * Out;
-  const int threads = 256;
-  const size_t want = (n + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  wgrad_reduce_kernel<E, V><<<blocks, threads, 0, stream>>>(part, p, v, a, m, splits, n);
+      x, e, p, v, part, counters, a, m, B, In, Out, k_chunk, x_bytes, e_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class E>
-int dispatch(const E* x, const E* e, float* p, void* v, float* part, float a, float m, int B,
-             int In, int Out, int v_is_bf16, int tile, int splits, int k_chunk, int x_bytes,
-             int e_bytes, void* stream) {
+int dispatch(const E* x, const E* e, float* p, void* v, float* part, int* counters, float a,
+             float m, int B, int In, int Out, int v_is_bf16, int tile, int splits, int k_chunk,
+             int x_bytes, int e_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* vb = static_cast<bf16*>(v);
   float* vf = static_cast<float*>(v);
   if (tile == 0)
-    return v_is_bf16 ? launch<BigTile>(x, e, p, vb, part, a, m, B, In, Out, splits, k_chunk,
-                                       x_bytes, e_bytes, s)
-                     : launch<BigTile>(x, e, p, vf, part, a, m, B, In, Out, splits, k_chunk,
-                                       x_bytes, e_bytes, s);
-  return v_is_bf16 ? launch<SmallTile>(x, e, p, vb, part, a, m, B, In, Out, splits, k_chunk,
-                                       x_bytes, e_bytes, s)
-                   : launch<SmallTile>(x, e, p, vf, part, a, m, B, In, Out, splits, k_chunk,
-                                       x_bytes, e_bytes, s);
+    return v_is_bf16 ? launch<BigTile>(x, e, p, vb, part, counters, a, m, B, In, Out, splits,
+                                       k_chunk, x_bytes, e_bytes, s)
+                     : launch<BigTile>(x, e, p, vf, part, counters, a, m, B, In, Out, splits,
+                                       k_chunk, x_bytes, e_bytes, s);
+  return v_is_bf16 ? launch<SmallTile>(x, e, p, vb, part, counters, a, m, B, In, Out, splits,
+                                       k_chunk, x_bytes, e_bytes, s)
+                   : launch<SmallTile>(x, e, p, vf, part, counters, a, m, B, In, Out, splits,
+                                       k_chunk, x_bytes, e_bytes, s);
 }
 
 __device__ __forceinline__ float4 load4(const float* q) {
@@ -343,27 +301,30 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& te, float* p, V* v, f
 }  // namespace
 
 // v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). tile:
-// 0 = 128x128, 1 = 64x64. splits > 1: the bunch is cut into chunks of
-// k_chunk rows (a multiple of the tile's BK) and part is an f32 scratch of
-// splits * In * Out elements; else part is unused. x_vec, e_vec: 16-byte
-// copies of that operand. Returns the CUDA error code of the launches.
+// 0 = 128x128, 1 = 64x64. splits > 1 (64x64 only): the bunch is cut into
+// chunks of k_chunk rows (a multiple of the tile's BK), part is an f32
+// scratch of (tiles * splits * 64 * 64) elements and counters holds an int
+// per tile, zero, which the launch leaves at zero; else both are unused.
+// x_bytes, e_bytes: the copy width of that operand, 16, 8 or 4. Returns
+// the CUDA error code of the launch.
 extern "C" int wgrad_momentum_update_f32(const float* x, const float* e, float* p, void* v,
-                                         float* part, float a, float m, int B, int In,
-                                         int Out, int v_is_bf16, int tile, int splits,
-                                         int k_chunk, int x_vec, int e_vec, void* stream) {
-  return dispatch(x, e, p, v, part, a, m, B, In, Out, v_is_bf16, tile, splits, k_chunk,
-                  x_vec ? 16 : 4, e_vec ? 16 : 4, stream);
+                                         float* part, int* counters, float a, float m, int B,
+                                         int In, int Out, int v_is_bf16, int tile, int splits,
+                                         int k_chunk, int x_bytes, int e_bytes, void* stream) {
+  return dispatch(x, e, p, v, part, counters, a, m, B, In, Out, v_is_bf16, tile, splits,
+                  k_chunk, x_bytes, e_bytes, stream);
 }
 
 // The same with bf16 x and e: g = x^T e accumulated in f32 and rounded to
 // bf16 after the whole (split-K) sum, then the f32 update. x_bytes,
-// e_bytes: the copy width of that operand, 16, 4 or 2.
+// e_bytes: 16, 8, 4 or 2.
 extern "C" int wgrad_momentum_update_bf16(const void* x, const void* e, float* p, void* v,
-                                          float* part, float a, float m, int B, int In,
-                                          int Out, int v_is_bf16, int tile, int splits,
+                                          float* part, int* counters, float a, float m, int B,
+                                          int In, int Out, int v_is_bf16, int tile, int splits,
                                           int k_chunk, int x_bytes, int e_bytes, void* stream) {
-  return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(e), p, v, part, a, m,
-                  B, In, Out, v_is_bf16, tile, splits, k_chunk, x_bytes, e_bytes, stream);
+  return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(e), p, v, part,
+                  counters, a, m, B, In, Out, v_is_bf16, tile, splits, k_chunk, x_bytes,
+                  e_bytes, stream);
 }
 
 // The WGMMA route of wgrad_momentum_update_bf16: x, e with row pitches of

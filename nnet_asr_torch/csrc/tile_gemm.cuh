@@ -48,16 +48,23 @@
 // bytes), so they fall in 8 distinct groups of 4 banks.
 //
 // Copies. Where a matrix's row pitch is a multiple of 16 bytes and its base
-// is 16-byte aligned, each copy moves 16 bytes (cp.async.cg); otherwise 4
-// bytes (cp.async.ca) where the pitch and base allow it. The main path
-// needs both: x at 598 columns and e at 135 have rows of 2,392 and 540
-// bytes in f32, which no 16-byte copy (nor TMA) can describe. A bf16 row of
-// 135 elements (270 bytes) has an odd pitch in 4-byte words, and cp.async
-// has no 2-byte size: that operand is read by plain loads into registers and
-// stored to shared memory, which the barrier ahead of the tile's use makes
-// visible. Elements outside the matrix, or past the end of this block's K
-// range (split-K), are zero-filled. The host picks the copy width per
-// operand (ops/kernels/tile_plan.py).
+// is 16-byte aligned, each copy moves 16 bytes (cp.async.cg); otherwise 8
+// or 4 bytes (cp.async.ca), the widest the pitch and base allow. The main
+// path needs all three: x at 598 columns has f32 rows of 2,392 bytes (8-byte
+// copies) and e at 135 rows of 540 (4-byte), which no 16-byte copy (nor
+// TMA) can describe. A bf16 row of 135 elements (270 bytes) has an odd pitch
+// in 4-byte words, and cp.async has no 2-byte size: that operand is read by
+// plain loads into registers and stored to shared memory, which the barrier
+// ahead of the tile's use makes visible. Elements outside the matrix, or
+// past the end of this block's K range (split-K), are zero-filled. The host
+// picks the copy width per operand (ops/kernels/tile_plan.py).
+//
+// Split-K. Where the SMALL tiles alone leave the card's warp slots empty
+// (the plan aims at two blocks an SM), gridDim.z blocks share a tile, each
+// over k_chunk rows of the contraction, and the block that arrives last sums
+// their f32 partials in split order before the epilogue, in the same launch
+// (reduce_splits): one launch a call, no float atomics, the same bits from
+// two launches.
 
 #pragma once
 
@@ -71,9 +78,15 @@ namespace nnet_tile {
 
 using bf16 = __nv_bfloat16;
 
-template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_, int STAGES_>
+// SMALL_: the SMALL route's two additions, split-K reduced in the launch
+// and (for f32 operands) 8-byte copies, compiled into its tiles only: the
+// BIG tile's kernels keep the code and registers they had without them,
+// and the bf16 ones, whose main-path rows take 4-byte copies, skip the
+// 8-byte path, which cost them 4% (tools/gemm_ceiling.py --small).
+template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_, int STAGES_, bool SMALL_ = false>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr bool SMALL = SMALL_;
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;   // warp sub-tile
@@ -82,10 +95,16 @@ struct Tile {
 };
 
 // The two tiles of ops/kernels/tile_plan.py (BIG = 0, SMALL = 1): 128x128
-// with 8 warps of 64x32 where the grid fills the card, else 64x64 with 4
-// warps of 32x32.
+// with 8 warps of 64x32 where the grid fills the card, else 64x64 with a
+// 4-stage ring (72 KB for f32 operands) and 4 warps of 32x32 (SmallTile:
+// the weight gradients and the bf16 forward, up to three blocks an SM) or,
+// for the f32 forward, 8 warps of 32x16 (SmallTile8: two blocks an SM by
+// registers), so that a grid of one block an SM (TIMIT's 1024x368->500:
+// 128 tiles, which no split evens out) still gives each scheduler two
+// warps.
 using BigTile = Tile<128, 128, 32, 2, 4, 3>;
-using SmallTile = Tile<64, 64, 32, 2, 2, 4>;
+using SmallTile = Tile<64, 64, 32, 2, 2, 4, true>;
+using SmallTile8 = Tile<64, 64, 32, 2, 4, 4, true>;
 
 // The ring's layout for operand type E (float or bf16): row pitches and
 // stage sizes in elements of E.
@@ -124,16 +143,17 @@ __device__ __forceinline__ void store_rn(bf16* p, float v) { *p = __float2bfloat
 // PTX wrappers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* s, const void* g, bool ok) {
+// cp.async of BYTES (16, 8 or 4) bytes, zero-filled where !ok; 16-byte
+// copies bypass L1 (.cg), the smaller sizes exist only as .ca
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* s, const void* g, bool ok) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa), "l"(g),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* s, const void* g, bool ok) {
-  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa), "l"(g),
-               "r"(ok ? 4 : 0));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa), "l"(g),
+                 "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(sa), "l"(g),
+                 "n"(BYTES), "r"(ok ? BYTES : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -199,35 +219,38 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
 // global -> shared
 // ---------------------------------------------------------------------------
 
+// The copies of load_tile below in runs of BYTES bytes (BYTES / sizeof(E)
+// elements), each run wholly inside or outside the matrix.
+template <int BYTES, class E, int ROWS, int COLS, int SP, int THREADS>
+__device__ __forceinline__ void copy_runs(E* s, const E* __restrict__ g, int ld, int r0, int c0,
+                                          int rows_end, int cols_end) {
+  constexpr int V = BYTES / sizeof(E), RUNS = COLS / V;
+  static_assert((ROWS * RUNS) % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int l = 0; l < ROWS * RUNS / THREADS; ++l) {
+    const int idx = threadIdx.x + l * THREADS;
+    const int r = idx / RUNS, c = (idx % RUNS) * V;
+    const bool ok = r0 + r < rows_end && c0 + c < cols_end;
+    cp_async<BYTES>(s + r * SP + c, ok ? g + (size_t)(r0 + r) * ld + (c0 + c) : g, ok);
+  }
+}
+
 // Start the copy of the ROWS x COLS tile at (r0, c0) of a row-major matrix g
 // (row pitch ld elements) into s (row pitch SP), zero-filling rows >=
-// rows_end and columns >= cols_end, in copies of `bytes` (16, 4 or 2). A
-// width of 16 or 4 bytes needs ld and g's base aligned to it (then cols_end,
-// the matrix width or a multiple of BK, holds whole runs: a run is wholly
-// inside or outside).
-template <class E, int ROWS, int COLS, int SP, int THREADS>
+// rows_end and columns >= cols_end, in copies of `bytes` (16, 8 (COPY8
+// only: f32 operands on the SMALL tiles), 4 or 2). A width of 16, 8 or 4 bytes needs ld and
+// g's base aligned to it (then cols_end, the matrix width or a multiple of
+// BK, holds whole runs: a run is wholly inside or outside).
+template <class E, int ROWS, int COLS, int SP, int THREADS, bool COPY8>
 __device__ __forceinline__ void load_tile(E* s, const E* __restrict__ g, int ld, int r0, int c0,
                                           int rows_end, int cols_end, int bytes) {
   if (bytes == 16) {
-    constexpr int V = 16 / sizeof(E), RUNS = COLS / V;
-    static_assert((ROWS * RUNS) % THREADS == 0, "16-byte copies per thread");
-#pragma unroll
-    for (int l = 0; l < ROWS * RUNS / THREADS; ++l) {
-      const int idx = threadIdx.x + l * THREADS;
-      const int r = idx / RUNS, c = (idx % RUNS) * V;
-      const bool ok = r0 + r < rows_end && c0 + c < cols_end;
-      cp_async16(s + r * SP + c, ok ? g + (size_t)(r0 + r) * ld + (c0 + c) : g, ok);
-    }
+    copy_runs<16, E, ROWS, COLS, SP, THREADS>(s, g, ld, r0, c0, rows_end, cols_end);
+  } else if (COPY8 && bytes == 8) {
+    if constexpr (COPY8)
+      copy_runs<8, E, ROWS, COLS, SP, THREADS>(s, g, ld, r0, c0, rows_end, cols_end);
   } else if (sizeof(E) == 4 || bytes == 4) {
-    constexpr int V = 4 / sizeof(E), RUNS = COLS / V;
-    static_assert((ROWS * RUNS) % THREADS == 0, "4-byte copies per thread");
-#pragma unroll
-    for (int l = 0; l < ROWS * RUNS / THREADS; ++l) {
-      const int idx = threadIdx.x + l * THREADS;
-      const int r = idx / RUNS, c = (idx % RUNS) * V;
-      const bool ok = r0 + r < rows_end && c0 + c < cols_end;
-      cp_async4(s + r * SP + c, ok ? g + (size_t)(r0 + r) * ld + (c0 + c) : g, ok);
-    }
+    copy_runs<4, E, ROWS, COLS, SP, THREADS>(s, g, ld, r0, c0, rows_end, cols_end);
   } else {
     // 2-byte elements on an odd pitch: every load, then every store
     constexpr int N = ROWS * COLS / THREADS;
@@ -256,14 +279,16 @@ __device__ __forceinline__ void load_stage(E* sa, E* sb, const E* a, int lda, in
                                            const E* b, int ldb, int b_bytes, int M, int N, int m0,
                                            int n0, int k0, int k_end) {
   using R = Ring<T, E>;
+  // 8-byte copies: f32 operands on the SMALL tile (f32 rows of 598)
+  constexpr bool COPY8 = T::SMALL && sizeof(E) == 4;
   if constexpr (A_KMAJOR) {
-    load_tile<E, T::BM, T::BK, R::A_KMAJ_PITCH, T::THREADS>(sa, a, lda, m0, k0, M, k_end,
-                                                            a_bytes);
+    load_tile<E, T::BM, T::BK, R::A_KMAJ_PITCH, T::THREADS, COPY8>(sa, a, lda, m0, k0, M, k_end,
+                                                                   a_bytes);
   } else {
-    load_tile<E, T::BK, T::BM, R::A_MMAJ_PITCH, T::THREADS>(sa, a, lda, k0, m0, k_end, M,
-                                                            a_bytes);
+    load_tile<E, T::BK, T::BM, R::A_MMAJ_PITCH, T::THREADS, COPY8>(sa, a, lda, k0, m0, k_end, M,
+                                                                   a_bytes);
   }
-  load_tile<E, T::BK, T::BN, R::B_PITCH, T::THREADS>(sb, b, ldb, k0, n0, k_end, N, b_bytes);
+  load_tile<E, T::BK, T::BN, R::B_PITCH, T::THREADS, COPY8>(sb, b, ldb, k0, n0, k_end, N, b_bytes);
 }
 
 // ---------------------------------------------------------------------------
@@ -401,23 +426,14 @@ __device__ __forceinline__ void gemm_mainloop(E* smem, const E* a, int lda, int 
   cp_async_wait<0>();
 }
 
-// The epilogue: f(row, col, value) for the block's output tile, U elements
-// per call (arrays of U), with consecutive threads on consecutive columns,
-// so each warp's reads and writes around f (bias, p, v, y) are whole
-// 128-byte rows, and f can issue all U elements' loads before any store (a
-// store through one pointer would otherwise hold back every later load
-// through another that might alias it). The fragments (c0 (g, 2t),
-// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1) of each mma tile, the same
-// for m16n8k8 and m16n8k16) go through shared memory first, reusing the
-// ring (smem_bytes makes room): a BM x BN tile of pitch BN + 8, written as
-// float2, free of bank conflicts per half-warp (8g + 2t). f checks the
-// matrix bounds itself.
-template <class T, int U, class F>
-__device__ __forceinline__ void epilogue(float* smem, int m0, int n0,
-                                         const float (&acc)[T::MT][T::NT][4], F&& f) {
+// The accumulator fragments (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
+// c3 (g+8, 2t+1) of each mma tile, the same for m16n8k8 and m16n8k16)
+// staged in shared memory, reusing the ring (smem_bytes makes room): a
+// BM x BN f32 tile of pitch BN + 8, written as float2, free of bank
+// conflicts per half-warp (8g + 2t).
+template <class T>
+__device__ __forceinline__ void stage_acc(float* smem, const float (&acc)[T::MT][T::NT][4]) {
   constexpr int CP = T::BN + 8;
-  constexpr int ELEMS = T::BM * T::BN / T::THREADS;   // per thread
-  static_assert(ELEMS % U == 0, "whole calls");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp / T::WARPS_N) * T::WM + (lane >> 2);
   const int c0 = (warp % T::WARPS_N) * T::WN + 2 * (lane & 3);
@@ -431,6 +447,93 @@ __device__ __forceinline__ void epilogue(float* smem, int m0, int n0,
         *reinterpret_cast<float2*>(smem + (r0 + i * 16 + 8 * h) * CP + c0 + j * 8) =
             make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
   __syncthreads();
+}
+
+// The staged tile's float4 number threadIdx.x + l * THREADS (row-major, 16
+// a row of 64): its offset in floats (tile pitch BN + 8).
+template <class T>
+__device__ __forceinline__ int own_at(int l) {
+  const int idx = threadIdx.x + l * T::THREADS;
+  return (idx / (T::BN / 4)) * (T::BN + 8) + 4 * (idx % (T::BN / 4));
+}
+
+// Split-K in one launch. Block (x, y, z) of a grid of gridDim.z splits holds
+// split z of the tile y * gridDim.x + x, staged by stage_acc. Each split
+// writes its f32 tile whole (no bounds: scratch) to part[tile][z] and
+// takes a ticket: after a barrier, one thread's __threadfence (cumulative
+// over the writes the barrier ordered before it, the pattern of CUTLASS's
+// split-K semaphore) makes the partial visible device-wide before its
+// atomicAdd on the tile's int counter. The block that draws the last ticket
+// fences again, reads the other partials through L2 (__ldcg, never a stale
+// L1 line) and sums all of them in split order 0, 1, ..., S-1
+// (its own from shared memory), each sum rounded on its own (__fadd_rn), so
+// the result does not depend on which split arrives last; it leaves the sum
+// in the staged tile, resets the counter to 0 for the next launch, and
+// returns true: it runs the epilogue. The others return false and exit. No
+// float atomics, so two launches on the same inputs give the same bits.
+// With one split, or on a BIG tile (never split), it returns true at once.
+template <class T>
+__device__ __forceinline__ bool reduce_splits(float* smem, float* __restrict__ part,
+                                              int* __restrict__ counters) {
+  if constexpr (!T::SMALL) {
+    return true;
+  } else {
+    const int splits = gridDim.z, split = blockIdx.z;
+    if (splits == 1) return true;
+    constexpr int TILE4 = T::BM * T::BN / 4, N = TILE4 / T::THREADS;   // float4s
+    static_assert(TILE4 % T::THREADS == 0, "whole float4s per thread");
+    __shared__ int last;
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    // this thread's float4s of split 0 of the tile; split s at + s * TILE4
+    float4* base = reinterpret_cast<float4*>(part) + (size_t)tile * splits * TILE4 + threadIdx.x;
+#pragma unroll
+    for (int l = 0; l < N; ++l)
+      __stcg(base + (size_t)split * TILE4 + l * T::THREADS,
+             *reinterpret_cast<const float4*>(smem + own_at<T>(l)));
+    __syncthreads();   // every thread's partial is issued
+    if (threadIdx.x == 0) {
+      __threadfence();   // cumulative: the block's partial is visible before its ticket
+      last = atomicAdd(counters + tile, 1) == splits - 1;
+      if (last) __threadfence();   // and the other partials before the reads below
+    }
+    __syncthreads();
+    if (!last) return false;
+    // the sum in split order, this block's own partial from shared memory;
+    // two splits' loads in flight at a time
+    float4 g[N];
+#pragma unroll
+    for (int l = 0; l < N; ++l)
+      g[l] = split == 0 ? *reinterpret_cast<const float4*>(smem + own_at<T>(l))
+                        : __ldcg(base + l * T::THREADS);
+#pragma unroll 2
+    for (int s = 1; s < splits; ++s) {
+#pragma unroll
+      for (int l = 0; l < N; ++l) {
+        const float4 q = s == split ? *reinterpret_cast<const float4*>(smem + own_at<T>(l))
+                                    : __ldcg(base + (size_t)s * TILE4 + l * T::THREADS);
+        g[l] = make_float4(__fadd_rn(g[l].x, q.x), __fadd_rn(g[l].y, q.y),
+                           __fadd_rn(g[l].z, q.z), __fadd_rn(g[l].w, q.w));
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < N; ++l) *reinterpret_cast<float4*>(smem + own_at<T>(l)) = g[l];
+    if (threadIdx.x == 0) counters[tile] = 0;
+    __syncthreads();
+    return true;
+  }
+}
+
+// The epilogue: f(row, col, value) over the staged output tile, U elements
+// per call (arrays of U), with consecutive threads on consecutive columns,
+// so each warp's reads and writes around f (bias, p, v, y) are whole
+// 128-byte rows, and f can issue all U elements' loads before any store (a
+// store through one pointer would otherwise hold back every later load
+// through another that might alias it). f checks the matrix bounds itself.
+template <class T, int U, class F>
+__device__ __forceinline__ void epilogue(const float* smem, int m0, int n0, F&& f) {
+  constexpr int CP = T::BN + 8;
+  constexpr int ELEMS = T::BM * T::BN / T::THREADS;   // per thread
+  static_assert(ELEMS % U == 0, "whole calls");
 #pragma unroll 1
   for (int l0 = 0; l0 < ELEMS; l0 += U) {
     int r[U], c[U];

@@ -12,7 +12,11 @@ raises; nothing is fetched and nothing but the package's own sources is
 compiled. ``build_log`` keeps ptxas's per-kernel register and spill report.
 
 Each C entry point returns ``cudaGetLastError()`` after its launches; the
-wrappers raise on a non-zero code.
+wrappers raise on a non-zero code. ``counters`` keeps the int32 counters
+of the kernels whose last block finishes a reduction (softmax-CE's
+ticket, the split-K GEMMs' one a tile): one zeroed buffer per (device,
+stream), which every such launch leaves at zero again, so launches on one
+stream share it and launches on other streams never do.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import threading
 import time
 from typing import Optional
 
+from . import tile_plan
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -38,21 +44,22 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: (argtypes, restype = int cudaError_t)
 SIGNATURES = {
-    # x, w, b, y, M, N, K, act, tile, x_vec, w_vec, stream
-    "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # the same, bf16; x_bytes, w_bytes in place of x_vec, w_vec
-    "matmul_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, b, y, M, N, K, act, tile, x_bytes, w_bytes, splits, k_chunk,
+    # part, counters, stream
+    "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # the same, bf16
+    "matmul_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # bf16 on the WGMMA route: x, w, b, y, M, N, K, act, stream
     "matmul_act_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # logits, labels, err, part, ticket, xent, corr, B, C, variant, blocks,
     # threads, vpt, vec, stream
     "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, e, p, v, part, a, m, B, In, Out, v_is_bf16, tile, splits, k_chunk,
-    # x_vec, e_vec, stream
-    "wgrad_momentum_update_f32": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+    # x, e, p, v, part, counters, a, m, B, In, Out, v_is_bf16, tile, splits,
+    # k_chunk, x_bytes, e_bytes, stream
+    "wgrad_momentum_update_f32": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _P],
-    # the same, bf16 x and e; x_bytes, e_bytes in place of x_vec, e_vec
-    "wgrad_momentum_update_bf16": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+    # the same, bf16 x and e
+    "wgrad_momentum_update_bf16": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
     # bf16 x and e on the WGMMA route: x, e, p, v, a, m, B, In, Out,
     # v_is_bf16, blocks, stream
@@ -143,6 +150,41 @@ def load_library() -> ctypes.CDLL:
         lib.nnet_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return _lib
+
+
+COUNTERS = 1024          # ints in a counters buffer: one a split tile
+_counters: dict = {}
+_counters_lock = threading.Lock()
+
+
+def counters(dev, stream):
+    """The zeroed int32 counters (``COUNTERS`` of them) of ``stream`` on
+    ``dev``, allocated on that stream at its first use."""
+    import torch
+
+    key = (dev.index, stream.cuda_stream)
+    with _counters_lock:
+        if key not in _counters:
+            with torch.cuda.stream(stream):
+                _counters[key] = torch.zeros(COUNTERS, dtype=torch.int32, device=dev)
+        return _counters[key]
+
+
+def split_args(p: tile_plan.Plan, dev, stream):
+    """(scratch, (splits, k_chunk, part, counters)) of a ``MMA_SYNC``
+    launch: with split-K an f32 scratch of ``blocks`` partial tiles,
+    allocated here (the caller holds it until the launch is queued), and
+    the stream's zeroed counters (``counters``); else no scratch
+    and null pointers."""
+    import torch
+
+    if p.splits == 1:
+        return None, (1, p.k_chunk, None, None)
+    if p.blocks // p.splits > COUNTERS:
+        raise ValueError(f"split-K over {p.blocks // p.splits} tiles: {COUNTERS} counters")
+    part = torch.empty(p.blocks * p.bm * p.bn, dtype=torch.float32, device=dev)
+    return part, (p.splits, p.k_chunk, part.data_ptr(),
+                  counters(dev, stream).data_ptr())
 
 
 def check(code: int, what: str) -> None:

@@ -13,7 +13,10 @@ stores.
 As in the TPU kernel, ``y`` has x's dtype: bf16 y is the f32 result rounded
 once. It is bound by operations, not bytes, at the main path's shapes
 (960x598->1024 on example-01's MLP3, 1024x{1024,4096}->4096 on the
-production stack). ``tile_plan.plan`` picks the tile and each operand's
+production stack); at the recipes' widths (960x598->1024, TIMIT's
+1024x368->500, one tmpe utterance's rows) by latency, where ``tile_plan``
+splits K and the last split to reach a tile sums the partials in the same
+launch. ``tile_plan.plan`` picks the tile, the split and each operand's
 copy width from the shapes, pointers and element size.
 
 ``matmul_act`` dispatches on the tensor's device: a CPU tensor runs the
@@ -105,19 +108,22 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=x.data_ptr(),
                        b_ptr=w.data_ptr(), elem=x.element_size(), out_ptrs=(y.data_ptr(),))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch.cuda.current_stream(x.device)
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act])
     if p.route == tile_plan.WGMMA:
-        _build.check(lib.matmul_act_bf16_wgmma(*args, stream), "matmul_act_bf16_wgmma")
+        _build.check(lib.matmul_act_bf16_wgmma(*args, stream.cuda_stream),
+                     "matmul_act_bf16_wgmma")
         matmul_act.launches_bf16 += 1
         matmul_act.launches_bf16_wgmma += 1
-    elif x.dtype == torch.bfloat16:
-        _build.check(lib.matmul_act_bf16(*args, p.tile, p.a_bytes, p.b_bytes, stream),
-                     "matmul_act_bf16")
+        return y
+    bf16 = x.dtype == torch.bfloat16
+    fn, name = ((lib.matmul_act_bf16, "matmul_act_bf16") if bf16
+                else (lib.matmul_act_f32, "matmul_act_f32"))
+    _scratch, split = _build.split_args(p, x.device, stream)
+    _build.check(fn(*args, p.tile, p.a_bytes, p.b_bytes, *split, stream.cuda_stream), name)
+    if bf16:
         matmul_act.launches_bf16 += 1
     else:
-        _build.check(lib.matmul_act_f32(*args, p.tile, int(p.a_vec), int(p.b_vec), stream),
-                     "matmul_act_f32")
         matmul_act.launches += 1
     return y
 

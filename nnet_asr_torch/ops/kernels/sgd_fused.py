@@ -17,16 +17,17 @@ the bf16 compute mode's, where ``g`` is accumulated in f32 and rounded to
 bf16 once after the whole sum, as JAX's bf16 ``dW``, before the f32
 update). ``tile_plan.plan`` picks the tile, the copy widths and, where the
 output tiles alone leave SMs idle (example-01's 960x1024->135), a split of
-the bunch: the splits' f32 partials go to a scratch buffer allocated here
-and a second kernel sums them in a fixed order before the epilogue, so
-runs repeat bit for bit. bf16 ``x`` and ``e`` that TMA can read (the
-plan's WGMMA route: every production shape) go to ``csrc/wgmma_gemm.cuh``
-instead: ``wgmma`` on 128x128 tiles fed by TMA, a persistent grid of at
-most one block an SM walking the tiles in a fixed order, its two consumer
-warpgroups taking turns so that one's p and v update overlaps the other's
-``wgmma``; no split. With f32 ``x`` and ``e`` it is bound by operations at
-the production stack's widths; with bf16 ones by the bytes of p and v; at
-example-01's widths by bytes and latency.
+the bunch: the splits' f32 partials go to a scratch buffer allocated here,
+and the last block to reach a tile sums them in a fixed order before the
+epilogue, in the same launch, so runs repeat bit for bit. bf16 ``x`` and
+``e`` that TMA can read (the plan's WGMMA route: every production shape)
+go to ``csrc/wgmma_gemm.cuh`` instead: ``wgmma`` on 128x128 tiles fed by
+TMA, a persistent grid of at most one block an SM walking the tiles in a
+fixed order, its two consumer warpgroups taking turns so that one's p and
+v update overlaps the other's ``wgmma``; no split. With f32 ``x`` and
+``e`` it is bound by operations at the production stack's widths; with
+bf16 ones by the bytes of p and v; at example-01's widths by bytes and
+latency.
 
 Unlike the JAX function, which returns ``(p_new, v_new)``, this one
 updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
@@ -99,26 +100,23 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     B, In = x.shape
     Out = e.shape[1]
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
-                        b_ptr=e.data_ptr(), split_k=True, elem=x.element_size(),
+                        b_ptr=e.data_ptr(), wgrad=True, elem=x.element_size(),
                         out_ptrs=(p.data_ptr(), v.data_ptr()))
-    part = (torch.empty((pl.splits, In, Out), dtype=torch.float32, device=p.device)
-            if pl.splits > 1 else None)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
+    stream = torch.cuda.current_stream(p.device)
     v_is_bf16 = int(v.dtype == torch.bfloat16)
-    args = (x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(),
-            None if part is None else part.data_ptr(), float(a), float(m), B, In, Out,
-            v_is_bf16, pl.tile, pl.splits, pl.k_chunk)
     if pl.route == tile_plan.WGMMA:
         _build.check(lib.wgrad_momentum_update_bf16_wgmma(
             x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
-            Out, v_is_bf16, pl.blocks, stream), "wgrad_momentum_update_bf16_wgmma")
+            Out, v_is_bf16, pl.blocks, stream.cuda_stream), "wgrad_momentum_update_bf16_wgmma")
         wgrad_momentum_update.launches_bf16_wgmma += 1
-    elif x.dtype == torch.bfloat16:
-        _build.check(lib.wgrad_momentum_update_bf16(*args, pl.a_bytes, pl.b_bytes, stream),
-                     "wgrad_momentum_update_bf16")
     else:
-        _build.check(lib.wgrad_momentum_update_f32(*args, int(pl.a_vec), int(pl.b_vec), stream),
-                     "wgrad_momentum_update_f32")
+        _scratch, (splits, k_chunk, part, counters) = _build.split_args(pl, p.device, stream)
+        fn, name = ((lib.wgrad_momentum_update_bf16, "wgrad_momentum_update_bf16")
+                    if x.dtype == torch.bfloat16
+                    else (lib.wgrad_momentum_update_f32, "wgrad_momentum_update_f32"))
+        _build.check(fn(x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), part, counters,
+                        float(a), float(m), B, In, Out, v_is_bf16, pl.tile, splits, k_chunk,
+                        pl.a_bytes, pl.b_bytes, stream.cuda_stream), name)
     # written through a raw pointer: bump the versions as an in-place op
     # would, so autograd refuses a saved copy of p or v from before
     for t in (p, v):

@@ -21,7 +21,6 @@ not differentiable.
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import torch
@@ -67,22 +66,6 @@ def _check(logits, labels):
         raise ValueError("softmax_xent: empty logits")
 
 
-# The kernel's last-block ticket: one int32 counter per (device, stream),
-# zeroed once here and set back to 0 by every launch, so launches on other
-# streams never share one.
-_tickets: dict = {}
-_tickets_lock = threading.Lock()
-
-
-def _ticket(dev: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
-    key = (dev.index, stream.cuda_stream)
-    with _tickets_lock:
-        if key not in _tickets:
-            with torch.cuda.stream(stream):
-                _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-        return _tickets[key]
-
-
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(err (B,C) f32, xent () f32, correct () int32) for int32 labels;
@@ -103,7 +86,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
     stream = torch.cuda.current_stream(dev)
     code = lib.softmax_xent_f32(
         logits.data_ptr(), labels.data_ptr(), err.data_ptr(), part.data_ptr(),
-        _ticket(dev, stream).data_ptr(), xent.data_ptr(), correct.data_ptr(), B, C,
+        _build.counters(dev, stream).data_ptr(), xent.data_ptr(), correct.data_ptr(), B, C,
         p.variant, p.blocks, p.threads, p.vpt, int(p.vec), stream.cuda_stream)
     _build.check(code, "softmax_xent_f32")
     softmax_xent.launches += 1

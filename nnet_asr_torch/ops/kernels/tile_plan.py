@@ -4,21 +4,39 @@
 tile shapes. ``plan`` picks, from the shapes and pointers alone:
 
 - the tile: 128x128 (8 warps) where that grid has at least one block per
-  SM, else 64x64 (4 warps);
-- for the weight gradient only, split-K: the 64x64 tile is planned for two
-  blocks per SM (one warp per scheduler alone leaves the mma latency bare),
-  so where its grid has fewer (example-01's 960 x 1024 -> 135 has 48
-  tiles, 960 x 598 -> 1024 has 160), the contraction is cut into
-  ``splits`` chunks of ``k_chunk`` rows (a multiple of BK, at least
-  ``MIN_K_STEPS`` steps each) to reach that;
+  SM, else 64x64 (the SMALL tile: 72 KB of shared memory for f32 operands
+  in a 4-stage ring, 4 warps of 32x32, or 8 of 32x16 for the f32 forward;
+  ``SMALL_PER_SM`` = 3 blocks' shared memory fits an SM);
+- for both kernels, split-K on the SMALL tile, where it shortens the
+  busiest SM's time (``split_count``). The grid's blocks spread evenly
+  over the SMs, so a grid of ``tiles`` tiles cut ``S`` ways puts ``B =
+  ceil(tiles * S / SM_COUNT)`` blocks of ``steps / S`` BK steps on the
+  busiest SM, ``SMALL_PER_SM`` at a time; each such wave also pays a
+  block's fixed cost (its ring's prologue, the epilogue, the partials'
+  round trip), ``BLOCK_COST`` BK steps: 3 of 3xTF32, 9 of the bf16 pass,
+  whose steps are three times cheaper. The fewest splits of the least
+  ``B * steps / S + ceil(B / SMALL_PER_SM) * BLOCK_COST``, with at least
+  ``MIN_K_STEPS`` steps a split, are taken. One tmpe utterance's
+  284x598->1024 (80 tiles: 52 SMs idle) runs 3 splits, the f32 weight
+  gradients 960x598->1024 (160 tiles) 4 and 960x1024->135 (48 tiles) 5,
+  the bf16 ones 2 and 5; TIMIT's 1024x368->500 (128 tiles) and MLP3's
+  960x598->1024 forward (240 tiles) stay whole, since no split evens
+  their load (``tools/gemm_ceiling.py --small`` measured each choice
+  against its neighbours). Each split writes its f32 partial tile to a
+  scratch buffer of ``blocks * bm * bn`` floats; the block that arrives
+  last at a tile (an int counter per tile, kept zeroed) sums the partials
+  in split order and runs the epilogue, in the same launch;
 - per operand, the copy width: 16-byte asynchronous copies need a row
   pitch that is a multiple of 16 bytes and a 16-byte aligned base pointer
-  (the main path's widths 598 and 135 are neither), else 4-byte ones a
-  pitch and base in whole 4-byte words; a bf16 matrix with an odd pitch
-  (135 columns: rows of 270 bytes, the weight gradient of MLP3's output
-  layer) gets 2-byte plain loads, since ``cp.async`` has no 2-byte size.
+  (the main path's widths 598 and 135 are neither), else 8-byte ones a
+  pitch and base in whole 8-byte units (f32 rows of 598: 2,392 bytes; f32
+  operands on the SMALL tile only, whose kernels compile that path), else
+  4-byte ones; a bf16 matrix with an odd pitch (135 columns: rows of 270
+  bytes, the weight gradient of MLP3's output layer) gets 2-byte plain
+  loads, since ``cp.async`` has no 2-byte size.
 
-The bf16 ``mma.sync`` loop shares the tiles, ``BK`` and the split.
+The bf16 ``mma.sync`` loop shares the tiles and ``BK``; its split weighs
+the fixed cost of a block against its three times cheaper steps.
 
 ``route`` names the kernel. ``WGMMA`` (``csrc/wgmma_gemm.cuh``: TMA loads
 into a warp-specialised ring, ``wgmma``, ``BK`` 64, no split; 128x256
@@ -32,9 +50,9 @@ among it MLP3's bf16 shapes: rows of 598 and 135 elements (1,196 and 270
 bytes) that no TMA map describes. ``blocks`` is the kernel's grid: for the
 weight gradient on ``WGMMA`` a persistent grid of ``min(tiles, SM_COUNT)``
 blocks walking the tiles, two at a time. Pure Python, so the CPU tests hold every
-main-path shape to its plan; the indices of ``BIG``/``SMALL`` and ``BK``
-match ``BigTile``/``SmallTile``, ``WIDE`` and ``WGMMA_BK`` match
-``wgmma_gemm.cuh``.
+main-path shape to its plan; ``BIG``/``SMALL``, ``BK``, ``STAGES`` and
+``smem_bytes`` match ``BigTile``/``SmallTile`` and ``smem_bytes`` there,
+``WIDE`` and ``WGMMA_BK`` match ``wgmma_gemm.cuh``.
 """
 
 from __future__ import annotations
@@ -42,14 +60,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 SM_COUNT = 132           # H100 SXM
+SM_SMEM = 233_472        # bytes of shared memory an SM gives its blocks (228 KB)
+BLOCK_SMEM_RESERVED = 1024   # bytes of it the runtime keeps for each block
 BK = 32                  # contraction step of both tiles
 BIG, SMALL, WIDE = 0, 1, 2
 TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256)}
+STAGES = {BIG: 3, SMALL: 4}   # depth of the cp.async ring
 MMA_SYNC, WGMMA = 0, 1
 WGMMA_BK = 64            # contraction step of the WGMMA ring
-SMALL_PER_SM = 2         # 64x64 blocks per SM that split-K aims at
+SMALL_PER_SM = 3         # SMALL blocks an SM holds (f32: 72 KB, <= 168 registers a thread)
 MIN_K_STEPS = 4          # BK steps a split keeps at least
 MAX_SPLITS = 16
+BLOCK_COST = {4: 3, 2: 9}   # a block's fixed cost in BK steps, by element size
 
 
 class Plan(NamedTuple):
@@ -58,20 +80,10 @@ class Plan(NamedTuple):
     bn: int
     splits: int          # 1: no split-K
     k_chunk: int         # rows of the contraction per split
-    a_bytes: int         # copy width of A: 16, 4 or (2-byte elements) 2
+    a_bytes: int         # copy width of A: 16, 8, 4 or (2-byte elements) 2
     b_bytes: int         # copy width of B
     route: int           # MMA_SYNC or WGMMA
     blocks: int          # blocks of the GEMM kernel's grid
-
-    @property
-    def a_vec(self) -> bool:
-        """16-byte copies of A."""
-        return self.a_bytes == 16
-
-    @property
-    def b_vec(self) -> bool:
-        """16-byte copies of B."""
-        return self.b_bytes == 16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -83,19 +95,39 @@ def tile_count(M: int, N: int, tile: int) -> int:
     return _cdiv(M, bm) * _cdiv(N, bn)
 
 
-def copy_bytes(pitch: int, ptr: int, elem: int = 4) -> int:
-    """The widest copy (16, 4 or ``elem`` bytes) that describes every row
-    of a matrix with row pitch ``pitch`` elements of ``elem`` bytes at
-    ``ptr``."""
-    for width in (16, 4):
+def split_count(tiles: int, steps: int, elem: int = 4) -> int:
+    """Splits of a SMALL grid of ``tiles`` tiles over a contraction of
+    ``steps`` BK steps of ``elem``-byte operands: the fewest of the least
+    time on the busiest SM, ``B * steps / S + ceil(B / SMALL_PER_SM) *
+    BLOCK_COST[elem]`` BK steps for ``B = ceil(tiles * S / SM_COUNT)``
+    blocks; at most ``MAX_SPLITS``, and ``MIN_K_STEPS`` steps a split at
+    least."""
+    def cost(s):
+        blocks = _cdiv(tiles * s, SM_COUNT)
+        return blocks * steps / s + _cdiv(blocks, SMALL_PER_SM) * BLOCK_COST[elem]
+
+    return min(range(1, max(1, min(MAX_SPLITS, steps // MIN_K_STEPS)) + 1),
+               key=lambda s: (cost(s), s))
+
+
+def smem_bytes(tile: int, elem: int, a_kmajor: bool) -> int:
+    """Dynamic shared memory of a BIG or SMALL block (``smem_bytes`` of
+    tile_gemm.cuh): the ring of A and B stages (rows padded as ``Ring``
+    pads them), or the epilogue's staged f32 output tile where larger."""
+    bm, bn = TILES[tile]
+    a_stage = bm * (BK + (4 if elem == 4 else 8)) if a_kmajor else BK * (bm + 8)
+    ring = elem * STAGES[tile] * (a_stage + BK * (bn + 8))
+    return max(ring, 4 * bm * (bn + 8))
+
+
+def copy_bytes(pitch: int, ptr: int, elem: int = 4, widths=(16, 8, 4)) -> int:
+    """The widest copy (one of ``widths``, else ``elem`` bytes) that
+    describes every row of a matrix with row pitch ``pitch`` elements of
+    ``elem`` bytes at ``ptr``."""
+    for width in widths:
         if (pitch * elem) % width == 0 and ptr % width == 0:
             return width
     return elem
-
-
-def vec16(pitch: int, ptr: int) -> bool:
-    """Whether 16-byte copies can describe an f32 matrix's rows."""
-    return copy_bytes(pitch, ptr) == 16
 
 
 def wgmma_route(elem: int, pitches, ptrs) -> bool:
@@ -107,31 +139,29 @@ def wgmma_route(elem: int, pitches, ptrs) -> bool:
 
 
 def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
-         b_ptr: int = 0, split_k: bool = False, elem: int = 4, out_ptrs=()) -> Plan:
+         b_ptr: int = 0, wgrad: bool = False, elem: int = 4, out_ptrs=()) -> Plan:
     """The plan of an (M, K) x (K, N) product whose operands, of ``elem``
     bytes an element (4: f32, 2: bf16), have row pitches ``a_pitch``,
     ``b_pitch`` (elements) at ``a_ptr``, ``b_ptr``; ``out_ptrs``: the
-    outputs' base pointers; ``split_k``: the weight gradient's plan."""
+    outputs' base pointers; ``wgrad``: the weight gradient's plan (its
+    WGMMA tile and grid differ)."""
     if min(M, N, K) < 1:
         raise ValueError(f"empty GEMM {M}x{K}->{N}")
     if elem not in (2, 4):
         raise ValueError(f"element size {elem}: want 4 (f32) or 2 (bf16)")
     if wgmma_route(elem, (a_pitch, b_pitch), (a_ptr, b_ptr, *out_ptrs)):
-        tile = BIG if split_k else WIDE
+        tile = BIG if wgrad else WIDE
         tiles = tile_count(M, N, tile)
         return Plan(tile, *TILES[tile], 1, K, 16, 16, WGMMA,
-                    min(tiles, SM_COUNT) if split_k else tiles)
+                    min(tiles, SM_COUNT) if wgrad else tiles)
     tile = BIG if tile_count(M, N, BIG) >= SM_COUNT else SMALL
     tiles = tile_count(M, N, tile)
     splits, k_chunk = 1, K
-    if split_k and tile == SMALL and tiles < SMALL_PER_SM * SM_COUNT:
-        steps = _cdiv(K, BK)
-        want = min(_cdiv(SMALL_PER_SM * SM_COUNT, tiles), MAX_SPLITS,
-                   max(1, steps // MIN_K_STEPS))
-        k_chunk = _cdiv(steps, want) * BK
+    want = split_count(tiles, _cdiv(K, BK), elem) if tile == SMALL else 1
+    if want > 1:
+        k_chunk = _cdiv(_cdiv(K, BK), want) * BK
         splits = _cdiv(K, k_chunk)
-        if splits == 1:
-            k_chunk = K
     bm, bn = TILES[tile]
-    return Plan(tile, bm, bn, splits, k_chunk, copy_bytes(a_pitch, a_ptr, elem),
-                copy_bytes(b_pitch, b_ptr, elem), MMA_SYNC, tiles * splits)
+    widths = (16, 8, 4) if tile == SMALL and elem == 4 else (16, 4)
+    return Plan(tile, bm, bn, splits, k_chunk, copy_bytes(a_pitch, a_ptr, elem, widths),
+                copy_bytes(b_pitch, b_ptr, elem, widths), MMA_SYNC, tiles * splits)

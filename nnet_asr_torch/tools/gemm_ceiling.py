@@ -1,6 +1,6 @@
 """What holds the GEMM main loops back: the kernels beside variants of them.
 
-    python -m nnet_asr_torch.tools.gemm_ceiling [--reps N]
+    python -m nnet_asr_torch.tools.gemm_ceiling [--reps N] [--small]
 
 Builds ``csrc/`` six times, each into its own directory under
 ``build/gemm_ceiling/``, and times ``matmul_act`` (no activation) at
@@ -25,6 +25,26 @@ device alone):
                       in place of 8;
   wgmma_ieee_sigmoid  matmul_act bf16's sigmoid by expf and an IEEE divide in
                       place of __expf and __fdividef.
+
+With ``--small`` it times the SMALL route instead, at the recipes' shapes
+(``SMALL_CASES``: the f32 forward at TIMIT's 1024x368->500, one tmpe
+utterance's 284x598->1024, MLP3's 960x598->1024 and a 2x2 mesh rank's
+480x598->1024; the bf16 forward and both weight gradients of MLP3), each
+beside its library yardstick (addmm + sigmoid_; addmm_ with beta + add_;
+bf16 x.T @ e + the f32 update passes) in the same turn, with each build and
+plan of ``SMALL_VARIANTS``:
+
+  small                   the kernels and plan as they are: the f32 forward
+                          on 8 warps of 32x16, the rest on 4 of 32x32,
+                          split-K where it shortens the busiest SM's time
+                          (tile_plan.split_count);
+  small_no_copy8          the SMALL tiles without their 8-byte copy path
+                          (f32 rows of 598 take 4-byte copies);
+  small_no_split_code     the SMALL tiles without the split-K reduction
+                          compiled in, and no split-K;
+  small_f32_forward_4w    the f32 forward on 4 warps of 32x32 too;
+  small_nosplit           no split-K (the plan's MAX_SPLITS at 1);
+  small_split_two_per_sm  split-K until the SMALL grid has two blocks an SM.
 
 For f32, the gap between the first two is the hi/lo split's cost, the
 second against the 3xTF32 bound what mma.sync's issue rate allows. For
@@ -70,6 +90,75 @@ VARIANTS = {"3xtf32": [], "3pass_nosplit": [("tile_gemm.cuh", SPLIT, RAW)],
             "wgmma_wgrad_r4": [("sgd_fused.cu", ROWS8, ROWS4)],
             "wgmma_ieee_sigmoid": [("matmul_act.cu", FAST_SIGMOID.format(i), IEEE_SIGMOID.format(i))
                                    for i in (0, 1)]}
+
+
+F32_FORWARD_TILE = "std::is_same<E, float>::value, SmallTile8, SmallTile>"
+
+
+def split_two_per_sm(tiles, steps, elem=4):
+    """The split rule tried first: cut K until the SMALL grid has two
+    blocks an SM, at least MIN_K_STEPS steps a split."""
+    from ..ops.kernels import tile_plan as tp
+
+    if tiles >= 2 * tp.SM_COUNT:
+        return 1
+    return min(-(-2 * tp.SM_COUNT // tiles), tp.MAX_SPLITS, max(1, steps // tp.MIN_K_STEPS))
+
+
+COPY8 = ("  } else if (COPY8 && bytes == 8) {\n    if constexpr (COPY8)\n"
+         "      copy_runs<8, E, ROWS, COLS, SP, THREADS>(s, g, ld, r0, c0, rows_end, cols_end);\n"
+         "  } else if")
+SPLIT_CODE = "  if constexpr (!T::SMALL) {\n    return true;"
+# name: (text substitutions, tile_plan attributes set while it is timed)
+SMALL_VARIANTS = {
+    "small": ([], {}),
+    "small_no_copy8": ([("tile_gemm.cuh", COPY8, "  } else if")], {}),
+    "small_no_split_code": ([("tile_gemm.cuh", SPLIT_CODE, SPLIT_CODE.replace("!T::SMALL", "true"))],
+                            {"MAX_SPLITS": 1}),
+    "small_f32_forward_4w": ([("matmul_act.cu", F32_FORWARD_TILE,
+                               F32_FORWARD_TILE.replace("SmallTile8", "SmallTile"))], {}),
+    "small_nosplit": ([], {"MAX_SPLITS": 1}),
+    "small_split_two_per_sm": ([], {"split_count": split_two_per_sm})}
+
+
+def small_cases(dev):
+    """(name, flops, kernel, library yardstick) at the SMALL route's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    cases = []
+
+    def affine(M, K, N, dt):
+        x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(dt)
+        b = torch.randn((N,), generator=gen, device=dev).to(dt)
+        cases.append((f"affine {'bf16' if dt == bf else 'f32'} {M}x{K}->{N}", 2.0 * M * N * K,
+                      lambda: MA.matmul_act(x, w, b, "sigmoid"),
+                      lambda: torch.addmm(b, x, w).sigmoid_()))
+
+    def wgrad(B, In, Out, dt):
+        x = torch.randn((B, In), generator=gen, device=dev).to(dt)
+        e = (torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)).to(dt)
+        p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
+        pl, vl = p.clone(), v.clone()
+        if dt == bf:
+            def library():
+                corr = (x.T @ e).float().add_(vl, alpha=0.9)
+                vl.copy_(corr)
+                pl.sub_(corr, alpha=1e-3)
+        else:
+            def library():
+                pl.add_(vl.addmm_(x.T, e, beta=0.9), alpha=-1e-3)
+        cases.append((f"wgrad {'bf16' if dt == bf else 'f32'} {B}x{In}->{Out}",
+                      2.0 * B * In * Out,
+                      lambda: SF.wgrad_momentum_update(x, e, p, v, 1e-3, 0.9), library))
+
+    for M, K, N in ((1024, 368, 500), (284, 598, 1024), (960, 598, 1024), (480, 598, 1024)):
+        affine(M, K, N, torch.float32)
+    affine(960, 598, 1024, bf)
+    for dt in (torch.float32, bf):
+        wgrad(960, 598, 1024, dt)
+        wgrad(960, 1024, 135, dt)
+    return cases
 
 
 def build_variant(name, subs, root):
@@ -121,6 +210,8 @@ def event_us(fn, reps):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="gemm_ceiling")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--small", action="store_true",
+                    help="time the SMALL route's variants at the recipes' shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_ceiling: needs a CUDA device", file=sys.stderr)
@@ -130,6 +221,8 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
     torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "gemm_ceiling")
+    if args.small:
+        return small(root, args.reps)
     builds = {name: build_variant(name, subs, root) for name, subs in VARIANTS.items()}
     libs = {}
     for name, (so, proc) in builds.items():
@@ -182,6 +275,46 @@ def main(argv=None) -> int:
         _build._lib = saved
     if (MA.matmul_act.launches_bf16_wgmma, SF.wgrad_momentum_update.launches_bf16_wgmma) == before:
         raise RuntimeError("the bf16 cases did not take the WGMMA route")
+    return 0
+
+
+def small(root, reps) -> int:
+    """Time SMALL_VARIANTS at small_cases' shapes, in two turns."""
+    from ..ops.kernels import tile_plan
+
+    builds, libs = {}, {}
+    for name, (subs, _) in SMALL_VARIANTS.items():
+        key = repr(subs)
+        if key not in builds:
+            builds[key] = build_variant(name, subs, root)
+    for key, (so, proc) in builds.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{out}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas [{os.path.basename(os.path.dirname(so))}] "
+                      f"{line.split(':', 1)[-1].strip()}")
+        libs[key] = load(so)
+    cases = small_cases(torch.device("cuda", 0))
+    saved = _build._lib, {k: getattr(tile_plan, k) for _, attrs in SMALL_VARIANTS.values()
+                          for k in attrs}
+    try:
+        for turn in range(2):
+            order = list(SMALL_VARIANTS.items())
+            for name, (subs, attrs) in (order if turn == 0 else reversed(order)):
+                _build._lib = libs[repr(subs)]
+                for k, v in {**saved[1], **attrs}.items():
+                    setattr(tile_plan, k, v)
+                row = []
+                for what, flops, kernel, library in cases:
+                    us, lib_us = event_us(kernel, reps), event_us(library, reps)
+                    row.append(f"{what} {us:.2f} us (library {lib_us:.2f} us)")
+                print(f"gemm_ceiling small turn {turn} {name}: " + "; ".join(row), flush=True)
+    finally:
+        _build._lib = saved[0]
+        for k, v in saved[1].items():
+            setattr(tile_plan, k, v)
     return 0
 
 

@@ -78,14 +78,16 @@ KERNEL_NAMES = {
     "__nv_bfloat16>(__nv_bfloat16 const*)": "affine_sigmoid bf16 (ours)",
     "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
     "float>(float const*)": "affine_sigmoid (ours)",
-    "void (anonymous namespace)::wgrad_momentum_kernel<nnet_tile::Tile<64, 64, 32, 2, 2, 4>, "
+    "void (anonymous namespace)::wgrad_momentum_kernel<nnet_tile::Tile<64, 64, 32, 2, 2, 4, true>, "
     "__nv_bfloat16, float>(__nv_bfloat16 const*)": "wgrad_momentum_update bf16 (ours)",
     "void (anonymous namespace)::wgrad_momentum_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
     "float, float>(float const*)": "wgrad_momentum_update (ours)",
-    "void (anonymous namespace)::wgrad_reduce_kernel<__nv_bfloat16, float>(float const*)":
-        "wgrad_momentum_update bf16 (ours)",
-    "void (anonymous namespace)::wgrad_reduce_kernel<float, float>(float const*)":
-        "wgrad_momentum_update (ours)",
+    "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<64, 64, 32, 2, 4, 4, true>, "
+    "float>(float const*)": "affine_sigmoid (ours)",
+    "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<64, 64, 32, 2, 2, 4, true>, "
+    "__nv_bfloat16>(__nv_bfloat16 const*)": "affine_sigmoid bf16 (ours)",
+    "void (anonymous namespace)::wgrad_momentum_kernel<nnet_tile::Tile<64, 64, 32, 2, 2, 4, true>, "
+    "float, __nv_bfloat16>(float const*)": "wgrad_momentum_update (ours)",
     "void (anonymous namespace)::softmax_xent_rows<16, 4, false>((anonymous namespace)::Args)":
         "softmax_xent (ours)",
     "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT": "cuBLAS GEMM",

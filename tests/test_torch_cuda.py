@@ -8,8 +8,10 @@ JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
 
 The GEMM kernels run 3xTF32 on the tensor cores, f32-accurate (one TF32
 pass would not meet these tolerances; tests/test_torch_tf32x3.py shows it on
-the CPU). The shapes cover both tiles, the split-K weight gradient
-(960x1024->135), the 4-byte copy path (widths 598 and 135) and operands
+the CPU). The shapes cover both tiles, split-K in one launch for the
+forward and the weight gradient (the recipes' shapes, ragged last splits
+at K = 598 and 368, two launches equal bit for bit, the tile counters left
+at zero), the 8- and 4-byte copy paths (widths 598 and 135) and operands
 whose base is not 16-byte aligned (``offset``: a contiguous tensor that
 starts that many floats into its buffer).
 
@@ -283,7 +285,7 @@ def bf16_ulp(t):
 @pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (67, 61, 135), (960, 598, 1024),
                                    (960, 1024, 135), (1024, 1024, 4096), (300, 256, 520, 1),
-                                   (960, 1024, 135, 3)])
+                                   (960, 1024, 135, 3), (598, 598, 1024), (368, 368, 500)])
 def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
     B, In, Out, offset = (*shape, 0)[:4]
     rng = np.random.default_rng(8)
@@ -291,9 +293,9 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
     p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
     xs, es = (_on_card(a, cuda, offset) for a in (x, e))
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
-                        b_ptr=es.data_ptr(), split_k=True)
+                        b_ptr=es.data_ptr(), wgrad=True)
     if offset:
-        assert not (pl.a_vec or pl.b_vec)
+        assert pl.a_bytes < 16 and pl.b_bytes < 16
     pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
     vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
     before = SF.wgrad_momentum_update.launches
@@ -318,6 +320,98 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         assert pl.splits > 1
 
 
+def _kernels_of(fn):
+    """The names of the device kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA]
+
+
+# The forward at the recipes' small shapes (TIMIT's hidden layer, one tmpe
+# utterance, MLP3 and a 2x2 mesh rank's rows) and one with K = 368 cut 3
+# ways (N = 1004: 2,008-byte bf16 rows, on MMA_SYNC): one launch a call (a
+# split reduced in it); two launches equal bit for bit (the partials are
+# summed in split order); within the tolerances of the tests above, f32
+# and bf16. The split ones leave their last split ragged (150 rows of 598,
+# 112 of 368).
+SMALL_FORWARD_SPLITS = {(1024, 368, 500): 1, (284, 598, 1024): 3, (960, 598, 1024): 1,
+                        (480, 598, 1024): 1, (284, 368, 1004): 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(SMALL_FORWARD_SPLITS))
+def test_cuda_matmul_act_split_k_one_launch_bit_equal(cuda, shape, dtype):
+    M, K, N = shape
+    x, w, b, _ = _affine_inputs(7, M, K, N)
+    xs, ws, bs = (_on_card(a, cuda, dtype=dtype) for a in (x, w, b))
+    pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=xs.data_ptr(), b_ptr=ws.data_ptr(),
+                        elem=xs.element_size())
+    assert pl.route == tile_plan.MMA_SYNC and pl.splits == SMALL_FORWARD_SPLITS[shape]
+    if pl.splits > 1:
+        assert pl.k_chunk * (pl.splits - 1) < K < pl.k_chunk * pl.splits   # ragged last split
+    names = _kernels_of(lambda: MA.matmul_act(xs, ws, bs))
+    assert len(names) == 1 and "matmul_act_kernel" in names[0]
+    y1, y2 = MA.matmul_act(xs, ws, bs), MA.matmul_act(xs, ws, bs)
+    yp = MA.matmul_act_plain(xs, ws, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    if dtype == torch.float32:
+        assert (y1 - yp).abs().max().item() <= 1e-5
+    else:
+        assert bool(((y1.float() - yp.float()).abs() <= _bf16_tol(y1, yp)).all())
+
+
+# The weight gradient's split-K reduced in its one launch: no second kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(960, 598, 1024), (960, 1024, 135), (598, 598, 1024)])
+def test_cuda_wgrad_split_k_one_launch(cuda, shape, dtype):
+    B, In, Out = shape
+    rng = np.random.default_rng(9)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    xs, es = (_on_card(a, cuda, dtype=dtype) for a in (x, e))
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
+                        b_ptr=es.data_ptr(), wgrad=True, elem=xs.element_size())
+    assert pl.splits > 1
+    p = torch.zeros((In, Out), device=cuda)
+    v = torch.zeros((In, Out), device=cuda)
+    names = _kernels_of(lambda: SF.wgrad_momentum_update(xs, es, p, v, 1e-3, 0.9))
+    assert len(names) == 1 and "wgrad_momentum_kernel" in names[0]
+
+
+# A chain of launches of every split shape, both kernels, f32 and bf16, on
+# two streams, leaves every tile counter at zero: the last block of each
+# tile resets its counter, and each stream has its own
+@pytest.mark.cuda
+def test_cuda_split_k_counters_left_at_zero(cuda):
+    from nnet_asr_torch.ops.kernels import _build
+
+    streams = [torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)]
+    for st in streams:
+        with torch.cuda.stream(st):
+            for dtype in (torch.float32, torch.bfloat16):
+                for M, K, N in ((1024, 368, 500), (284, 598, 1024), (284, 368, 1004)):
+                    x, w, b, _ = _affine_inputs(M, M, K, N)
+                    MA.matmul_act(*(_on_card(a, cuda, dtype=dtype) for a in (x, w, b)))
+                for B, In, Out in ((960, 598, 1024), (960, 1024, 135), (368, 368, 500)):
+                    rng = np.random.default_rng(B + In)
+                    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+                    p = torch.zeros((In, Out), device=cuda)
+                    SF.wgrad_momentum_update(_on_card(x, cuda, dtype=dtype),
+                                             _on_card(e, cuda, dtype=dtype), p,
+                                             torch.zeros_like(p), 1e-3, 0.9)
+    torch.cuda.synchronize()
+    for st in streams:
+        assert not _build.counters(cuda, st).any().item()
+
+
 # (B, In, Out) of the bf16 wgrad on the WGMMA route: two 128x128 tiles
 # (a block each, the second consumer idle) in one 64-row step, a bunch not a multiple of 64, ragged
 # In and Out (pitches still 16-byte multiples; 297 tiles on 132 blocks, so
@@ -334,7 +428,7 @@ WGMMA_WGRAD = ((64, 128, 256), (1000, 128, 256), (1000, 1032, 4104), (1024, 1024
 @pytest.mark.parametrize("shape", [(1, 1, 1), (67, 61, 135), (960, 598, 1024),
                                    (960, 1024, 135), (1024, 1024, 4096), (300, 256, 520, 1),
                                    (960, 1024, 135, 2), (64, 128, 256), (1000, 128, 256),
-                                   (1000, 1032, 4104)])
+                                   (1000, 1032, 4104), (598, 598, 1024), (368, 368, 500)])
 def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
     B, In, Out, offset = (*shape, 0)[:4]
     rng = np.random.default_rng(18)
@@ -342,7 +436,7 @@ def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
     p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
     xs, es = (_on_card(a, cuda, offset, dtype=torch.bfloat16) for a in (x, e))
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
-                        b_ptr=es.data_ptr(), split_k=True, elem=2)
+                        b_ptr=es.data_ptr(), wgrad=True, elem=2)
     if Out == 135:
         assert pl.b_bytes == 2
     wgmma = shape in WGMMA_WGRAD
@@ -384,7 +478,7 @@ def test_cuda_wgrad_bf16_rounds_g_after_the_split_k_sum(cuda, shape):
     xs = torch.from_numpy(rng.integers(0, 3, (B, In)).astype(np.float32)).to(cuda, torch.bfloat16)
     es = torch.from_numpy(rng.integers(0, 8, (B, Out)).astype(np.float32)).to(cuda, torch.bfloat16)
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
-                        b_ptr=es.data_ptr(), split_k=True, elem=2)
+                        b_ptr=es.data_ptr(), wgrad=True, elem=2)
     assert pl.splits > 1
     p = torch.zeros((In, Out), device=cuda)
     v = torch.zeros((In, Out), device=cuda)
@@ -445,7 +539,7 @@ def test_cuda_wgrad_bf16_wgmma_persistent_exact_and_repeatable(cuda):
     xs = torch.from_numpy(rng.integers(-3, 4, (B, In)).astype(np.float32)).to(cuda, torch.bfloat16)
     es = torch.from_numpy(rng.integers(-5, 6, (B, Out)).astype(np.float32)).to(cuda, torch.bfloat16)
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
-                        b_ptr=es.data_ptr(), split_k=True, elem=2)
+                        b_ptr=es.data_ptr(), wgrad=True, elem=2)
     assert pl.route == tile_plan.WGMMA and pl.splits == 1
     assert pl.blocks == tile_plan.SM_COUNT < tile_plan.tile_count(In, Out, pl.tile)
     runs = []

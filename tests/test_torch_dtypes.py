@@ -139,7 +139,7 @@ def test_wgrad_momentum_bf16_plain_matches_jax_apply_updates(vdt):
 # the launch plan at two bytes an element
 # --------------------------------------------------------------------------
 
-# (M, N, K, a_pitch, b_pitch, split_k) -> (tile, splits, k_chunk, a_bytes,
+# (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes,
 # b_bytes, route): MLP3's rows of 598 and 135 bf16 are no multiple of 16
 # bytes, so its shapes keep mma.sync; every production shape takes WGMMA
 # (no split; 128x256 tiles for the forward, 128x128 for the ping-pong
@@ -156,7 +156,7 @@ BF16_PLANS = {
                                    (tile_plan.SMALL, 2, 480, 4, 16, MS)),
     # e's rows of 135 bf16 are 270 bytes: an odd pitch in 4-byte words
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
-                                   (tile_plan.SMALL, 6, 160, 16, 2, MS)),
+                                   (tile_plan.SMALL, 5, 192, 16, 2, MS)),
     "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
                               (tile_plan.BIG, 1, 1024, 16, 16, W)),
     "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
@@ -169,15 +169,19 @@ BF16_PLANS = {
 @pytest.mark.parametrize("name", sorted(BF16_PLANS))
 def test_bf16_plan_of_main_path_shapes(name):
     (M, N, K, ap, bp, split), want = BF16_PLANS[name]
-    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split,
+    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split,
                        elem=2)
     assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes, p.route) == want
-    f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split)
+    f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split)
     assert f.route == tile_plan.MMA_SYNC
     if p.route == tile_plan.MMA_SYNC:
-        # the mma.sync tile and split do not depend on the element size
-        assert (f.tile, f.splits, f.k_chunk) == (p.tile, p.splits, p.k_chunk)
-        assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
+        # the mma.sync tile does not depend on the element size; the split
+        # weighs a block's fixed cost against the steps of its own type
+        tiles = tile_plan.tile_count(M, N, p.tile)
+        assert f.tile == p.tile
+        assert p.splits == tile_plan.split_count(tiles, -(-K // tile_plan.BK), elem=2)
+        assert f.splits == tile_plan.split_count(tiles, -(-K // tile_plan.BK), elem=4)
+        assert p.blocks == tiles * p.splits
     else:
         # one block a 128x256 tile; the weight gradient's grid persistent
         tiles = tile_plan.tile_count(M, N, p.tile)
@@ -208,7 +212,7 @@ def test_wgmma_route_rule(args, wgmma):
     M, N, K, ap, bp, a_ptr, b_ptr, outs, elem = args
     for split in (False, True):
         p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=a_ptr, b_ptr=b_ptr,
-                           split_k=split, elem=elem, out_ptrs=outs)
+                           wgrad=split, elem=elem, out_ptrs=outs)
         assert (p.route == tile_plan.WGMMA) == wgmma
         assert tile_plan.wgmma_route(elem, (ap, bp), (a_ptr, b_ptr, *outs)) == wgmma
         if wgmma:
@@ -222,7 +226,7 @@ def test_wgmma_route_rule(args, wgmma):
 @pytest.mark.parametrize("pitch,ptr,elem,want", [
     (598, 0, 2, 4), (135, 0, 2, 2), (1024, 0, 2, 16), (4096, 0, 2, 16), (8192, 0, 2, 16),
     (1024, 2, 2, 2), (1024, 4, 2, 4), (1024, 16, 2, 16), (136, 0, 2, 16), (2, 0, 2, 4),
-    (598, 0, 4, 4), (135, 0, 4, 4), (1024, 4, 4, 4), (1024, 0, 4, 16)])
+    (598, 0, 4, 8), (135, 0, 4, 4), (1024, 4, 4, 4), (1024, 0, 4, 16)])
 def test_copy_width_follows_pitch_alignment_and_element_size(pitch, ptr, elem, want):
     assert tile_plan.copy_bytes(pitch, ptr, elem) == want
     assert tile_plan.plan(8, pitch, 8, a_pitch=8, b_pitch=pitch, b_ptr=ptr,

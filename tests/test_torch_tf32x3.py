@@ -12,7 +12,8 @@ from the card. At the production depths (K = 4096 for ``x @ W``, a bunch of
 single TF32 pass is not.
 
 The second half holds ``tile_plan.plan`` to the tile, split and copy path of
-every shape the main paths launch.
+every shape the main paths launch, every production shape to its plan, and
+the SMALL blocks planned per SM to the shared memory an SM has.
 """
 
 import math
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from nnet_asr_torch.ops.kernels import tile_plan
+from nnet_asr_torch.ops.kernels import _build, tile_plan
 
 torch.set_num_threads(2)
 
@@ -123,62 +124,139 @@ def test_wgrad_at_bunch_1024_within_phase3_tolerance_only_with_3xtf32(passes):
 
 BIG, SMALL = tile_plan.BIG, tile_plan.SMALL
 
-# (M, N, K, a_pitch, b_pitch, split_k) -> (tile, splits, k_chunk, a_vec, b_vec)
+# (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes, b_bytes)
 MAIN_PATH_PLANS = {
-    # affine_sigmoid x (M, K) @ W (K, N): pitches K and N
+    # affine_sigmoid x (M, K) @ W (K, N): pitches K and N. K is split where
+    # that evens the SMs' load (80 tiles for 132 SMs), not where no split
+    # can (128, 120 and 240 tiles); x's f32 rows of 598 (2,392 bytes) take
+    # 8-byte copies
     "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
-                                    (SMALL, 1, 598, False, True)),
+                                    (SMALL, 1, 598, 8, 16)),
+    "affine 480x598->1024 (MLP3, a 2x2 mesh rank's rows)": ((480, 1024, 598, 598, 1024, False),
+                                                            (SMALL, 1, 598, 8, 16)),
+    "affine 284x598->1024 (one tmpe utterance)": ((284, 1024, 598, 598, 1024, False),
+                                                  (SMALL, 3, 224, 8, 16)),
+    "affine 1024x368->500 (TIMIT hidden)": ((1024, 500, 368, 368, 500, False),
+                                            (SMALL, 1, 368, 16, 16)),
     "affine 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, False),
-                               (BIG, 1, 1024, True, True)),
+                               (BIG, 1, 1024, 16, 16)),
     "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
-                               (BIG, 1, 4096, True, True)),
+                               (BIG, 1, 4096, 16, 16)),
     # wgrad x^T e: M = In, N = Out, K = bunch; pitches In and Out
     "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
-                                   (SMALL, 2, 480, False, True)),
+                                   (SMALL, 4, 256, 8, 16)),
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
-                                   (SMALL, 6, 160, True, False)),
+                                   (SMALL, 5, 192, 16, 4)),
     "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
-                              (BIG, 1, 1024, True, True)),
+                              (BIG, 1, 1024, 16, 16)),
     "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
-                              (BIG, 1, 1024, True, True)),
+                              (BIG, 1, 1024, 16, 16)),
     "wgrad 1024x4096->8192": ((4096, 8192, 1024, 4096, 8192, True),
-                              (BIG, 1, 1024, True, True)),
+                              (BIG, 1, 1024, 16, 16)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(MAIN_PATH_PLANS))
 def test_plan_of_main_path_shapes(name):
-    (M, N, K, ap, bp, split), want = MAIN_PATH_PLANS[name]
-    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, split_k=split)
-    assert (p.tile, p.splits, p.k_chunk, p.a_vec, p.b_vec) == want
+    (M, N, K, ap, bp, wgrad), want = MAIN_PATH_PLANS[name]
+    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=wgrad)
+    assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes) == want
     assert (p.bm, p.bn) == tile_plan.TILES[p.tile]
-    blocks = tile_plan.tile_count(M, N, p.tile) * p.splits
-    assert blocks >= tile_plan.SM_COUNT
+    assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
+    assert p.blocks >= tile_plan.SM_COUNT or p.tile == SMALL
+    if p.tile == SMALL:
+        # the split leaves the busiest SM no more work than the whole tiles
+        busiest = -(-p.blocks // tile_plan.SM_COUNT) / p.splits
+        assert busiest <= -(-p.blocks // p.splits // tile_plan.SM_COUNT)
     # the splits cover the contraction exactly once, in whole BK steps
     assert p.k_chunk * (p.splits - 1) < K <= p.k_chunk * p.splits
     if p.splits > 1:
         assert p.k_chunk % tile_plan.BK == 0
         assert p.k_chunk >= tile_plan.MIN_K_STEPS * tile_plan.BK
+        # a counter per tile: the tiles fit the wrappers' counters buffer
+        assert tile_plan.tile_count(M, N, p.tile) <= _build.COUNTERS
+
+
+# every production shape keeps the plan it had before the SMALL route took
+# split-K and 8-byte copies: the BIG tile, no split, 16-byte copies, its grid
+PRODUCTION_PLANS = {
+    (1024, 4096, 1024, 1024, 4096, False): 256, (1024, 4096, 4096, 4096, 4096, False): 256,
+    (1024, 4096, 1024, 1024, 4096, True): 256, (4096, 4096, 1024, 4096, 4096, True): 1024,
+    (4096, 8192, 1024, 4096, 8192, True): 2048, (1024, 8192, 4096, 4096, 8192, False): 512}
+
+
+@pytest.mark.parametrize("shape", sorted(PRODUCTION_PLANS))
+def test_production_plans_unchanged(shape):
+    M, N, K, ap, bp, wgrad = shape
+    p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=1 << 20, b_ptr=1 << 21,
+                       wgrad=wgrad)
+    assert p == tile_plan.Plan(BIG, 128, 128, 1, K, 16, 16, tile_plan.MMA_SYNC,
+                               PRODUCTION_PLANS[shape])
 
 
 def test_plan_copy_path_follows_pitch_and_alignment():
-    for ptr, vec in ((0, True), (16, True), (4, False), (8, False), (1 << 40, True)):
+    for ptr, width in ((0, 16), (16, 16), (4, 4), (8, 8), (12, 4), (1 << 40, 16)):
         p = tile_plan.plan(512, 512, 512, a_pitch=512, b_pitch=512, a_ptr=ptr, b_ptr=0)
-        assert (p.a_vec, p.b_vec) == (vec, True)
+        assert (p.a_bytes, p.b_bytes) == (width, 16)
     for pitch in (598, 135, 1023, 2, 1):
-        assert not tile_plan.vec16(pitch, 0)
-    assert tile_plan.vec16(1024, 4096)
+        assert tile_plan.copy_bytes(pitch, 0) < 16
+    assert tile_plan.copy_bytes(1024, 4096) == 16
+
+
+@pytest.mark.parametrize("ptr,want", [(0, 8), (8, 8), (24, 8), (4, 4), (12, 4)])
+def test_plan_copy_width_of_598_wide_rows(ptr, want):
+    # f32 rows of 598 (2,392 bytes: a multiple of 8, not of 16) take 8-byte
+    # copies from an 8-aligned base, 4-byte ones from a 4-aligned one; the
+    # same rows at bf16 (1,196 bytes) take 4-byte copies
+    assert tile_plan.copy_bytes(598, ptr) == want
+    assert tile_plan.plan(960, 1024, 598, 598, 1024, a_ptr=ptr).a_bytes == want
+    assert tile_plan.plan(598, 1024, 960, 598, 1024, a_ptr=ptr, wgrad=True).a_bytes == want
+    assert tile_plan.copy_bytes(598, ptr, elem=2) == 4
+    # the BIG tile's kernels have no 8-byte path: 4-byte copies there
+    assert tile_plan.plan(4096, 4096, 598, 598, 4096, a_ptr=ptr).a_bytes == 4
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("a_kmajor", [True, False])
+def test_planned_blocks_fit_the_shared_memory_of_an_sm(elem, a_kmajor):
+    # the SMALL blocks the plan counts on per SM, each with its dynamic
+    # shared memory (the ring, at least the staged f32 output tile), the
+    # reduction flag and the runtime's reservation
+    need = tile_plan.smem_bytes(SMALL, elem, a_kmajor) + 16 + tile_plan.BLOCK_SMEM_RESERVED
+    assert tile_plan.SMALL_PER_SM * need <= tile_plan.SM_SMEM
+    assert tile_plan.smem_bytes(SMALL, elem, a_kmajor) >= 4 * 64 * 72
+    # the largest SMALL grid (under SM_COUNT BIG tiles) has a counter a tile
+    assert 4 * (tile_plan.SM_COUNT - 1) <= _build.COUNTERS
+    # one BIG block an SM at least
+    assert tile_plan.smem_bytes(BIG, elem, a_kmajor) + tile_plan.BLOCK_SMEM_RESERVED \
+        <= tile_plan.SM_SMEM
 
 
 def test_plan_splits_only_when_asked_and_idle():
-    # the same small product: matmul_act never splits, the wgrad does
-    assert tile_plan.plan(1024, 135, 960, 1024, 135).splits == 1
-    assert tile_plan.plan(1024, 135, 960, 1024, 135, split_k=True).splits > 1
+    # both kernels split a SMALL grid whose load a split evens: the forward
+    # as the weight gradient (48 tiles: 5 splits leave 2 blocks of 6 steps
+    # on the busiest SM, against one of 30)
+    assert tile_plan.plan(1024, 135, 960, 1024, 135).splits == 5
+    assert tile_plan.plan(1024, 135, 960, 1024, 135, wgrad=True).splits == 5
+    assert tile_plan.split_count(48, 30) == 5
+    # one tile an SM, or two, stays whole: no split evens 128 or 264 tiles
+    assert [tile_plan.split_count(t, 30) for t in (128, 132, 240, 264)] == [1, 1, 1, 1]
+    p = tile_plan.plan(1536, 704, 598, 598, 704)
+    assert (p.tile, p.splits, p.blocks) == (SMALL, 1, 264)
+    # 272 tiles leave 3 on the busiest SM whole, 9/4 in 4 splits
+    assert tile_plan.plan(1088, 1024, 598, 598, 1024).splits == 4
+    # 160 tiles over 30 steps: 4 splits of 3xTF32 (5 blocks of 7.5 steps in
+    # two waves on the busiest SM), 2 of bf16, whose steps are cheaper
+    # against a block's fixed cost (3 blocks of 15 steps in one wave)
+    assert tile_plan.split_count(160, 30) == 4
+    assert tile_plan.split_count(160, 30, elem=2) == 2
+    # never under MIN_K_STEPS steps a split
+    assert tile_plan.split_count(1, 7) == 1 and tile_plan.split_count(1, 8) == 2
     # a contraction too short for two splits of MIN_K_STEPS stays whole
-    p = tile_plan.plan(64, 64, 200, 64, 64, split_k=True)
+    p = tile_plan.plan(64, 64, 200, 64, 64, wgrad=True)
     assert (p.splits, p.k_chunk) == (1, 200)
     # tiny shapes still get one block
-    p = tile_plan.plan(1, 1, 1, 1, 1, split_k=True)
+    p = tile_plan.plan(1, 1, 1, 1, 1, wgrad=True)
     assert (p.tile, p.splits, p.k_chunk) == (SMALL, 1, 1)
     with pytest.raises(ValueError):
         tile_plan.plan(0, 4, 4, 4, 4)
