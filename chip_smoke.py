@@ -33,7 +33,11 @@ final line):
      shape as same-bytes yardsticks; each bf16 shape's route (WGMMA: TMA +
      wgmma, the production shapes; MMA_SYNC: MLP3's) held by the per-route
      launch counters, and the wrappers' host us per call on both routes at
-     the production shapes;
+     the production shapes; the f32 rows of both kernels at every shape on
+     the MMA_SYNC route (gemm_ceiling.mma_sync_f32), then rows of their own
+     for the f32 WGMMA route (3xTF32 wgmma: a pre-pass kernel and the GEMM
+     a call) at the five production shapes, f32 and bf16 velocity, each
+     with its plan, bound, plain, library and alone times;
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -54,9 +58,12 @@ final line):
      0.9, and under the bf16 compute dtype at momentum 0 and 0.9 (TFLOP/s
      also against the bf16 bound); then a torch.profiler window of steps
      with momentum 0 and 0.9, MSE and BlockSoftmax at momentum 0, and bf16
-     at momentum 0 and 0.9, device time summed by kernel name; the bf16
-     steps' profiler windows hold exact per-route launches (4 WGMMA
-     affine_sigmoid a step, 5 WGMMA wgrad a momentum step);
+     at momentum 0 and 0.9, device time summed by kernel name; every
+     window holds exact per-route launches (4 WGMMA affine_sigmoid a step,
+     5 WGMMA wgrad a momentum step, f32 on the f32 WGMMA route, bf16 on the
+     bf16 one, none on MMA_SYNC); two f32 steps at momentum 0 and 0.9 from
+     the same weights on the f32 WGMMA route and on MMA_SYNC agree within
+     1e-5;
   7. objectives and tags, on phase 4's corpus (run before phase 6): tnet
      -O mse (epoch + CV, CV Mse must fall), a BlockSoftmax(90, 45) head
      (epoch + CV, CV accuracy must rise), a --CONFUSIONMODE=max CV whose
@@ -143,10 +150,11 @@ final line):
      tmpe --MESH=2x1 (its update within MPE_UPDATE_TOL of phase 11's).
      Launches exact per rank: affine_sigmoid on every mesh step,
      fused_softmax_xent only at model 1, wgrad_momentum_update never.
-Phase 2 also fails on a ptxas spill in a WGMMA-route kernel. The line
-before the last is the kernels' JSON record (the two WGMMA-route kernels
-as entries of their own, launched by phase 6; the others' launches summed
-over phases 4, 5, 7, 8, 9, 11, 12 and 13, every rank); the last line is
+Phase 2 also fails on a ptxas spill in a WGMMA-route kernel (bf16 or
+f32). The line before the last is the kernels' JSON record (the four
+WGMMA-route kernels, bf16 and f32, as entries of their own, launched by
+phase 6; the others' launches summed over phases 4, 5, 7, 8, 9, 11, 12 and
+13, every rank, where no f32 WGMMA launch may happen); the last line is
 {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
@@ -184,6 +192,12 @@ WGRAD_SHAPES = ((BUNCH, 598, 1024, ("f32",)), (BUNCH, 1024, CLASSES, ("f32",)),
 # of MLP3 (phase 13)
 AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096),
                  (1024, 368, 500), (284, 598, 1024), (BUNCH // 2, 598, 1024))
+# the production shapes of the f32 WGMMA route (phase 3 rows of their own;
+# the rows above at these shapes are taken on the MMA_SYNC route):
+# affine_sigmoid (M, K, N), wgrad_momentum_update (B, In, Out, velocities)
+F32_WGMMA_AFFINE = ((1024, 1024, 4096), (1024, 4096, 4096))
+F32_WGMMA_WGRAD = ((1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf16")),
+                   (1024, 4096, 8192, ("f32", "bf16")))
 # calls of the kernel and of the library yardstick, in turns, in one
 # profiler window (fewer where a call takes over 100 us)
 PAIRED_REPS, PAIRED_REPS_LONG = 200, 30
@@ -373,19 +387,32 @@ def paired_device_us(torch, kernel, library, pattern: str, flops: float):
     return us[0] or None, us[1] or None
 
 
-def launches_a_call(torch, fn, counted, calls: int = 20) -> int:
+def launches_a_call(torch, fn, counted, calls: int = 20, tries: int = 5) -> int:
     """Device kernels a call of ``fn`` launches: those of a profiler window
-    of ``calls`` calls, over ``calls``, rounded (the profiler may drop a
-    few events of a short window); where it records none, the launches the
-    wrapper's counter (``counted()``) saw, logged as such."""
+    of ``calls`` calls, over ``calls``. The profiler may drop events of a
+    short window (it never adds any), so a window whose count is not a
+    positive multiple of ``calls`` is taken again, up to ``tries`` windows;
+    where none is whole, the launches the wrapper's counter (``counted()``)
+    saw, logged as such."""
     fn()
     torch.cuda.synchronize()
     before = counted()
-    rows = device_rows(torch, lambda: [fn() for _ in range(calls)])
-    if rows:
-        return round(sum(e.count for e in rows) / calls)
-    log("  launches a call by the wrapper's counter: the profiler recorded no device time")
-    return round((counted() - before) / calls)
+    made = [0]
+
+    def window():
+        for _ in range(calls):
+            fn()
+        made[0] += calls
+
+    seen = []
+    for _ in range(tries):
+        n = sum(e.count for e in device_rows(torch, window, tries=1))
+        if n and n % calls == 0:
+            return n // calls
+        seen.append(n)
+    log(f"  launches a call by the wrapper's counter: the profiler's {tries} windows of "
+        f"{calls} calls recorded {seen} kernels, none a whole window")
+    return round((counted() - before) / made[0])
 
 
 def plan_dict(tile_plan, plan) -> dict:
@@ -396,6 +423,12 @@ def plan_dict(tile_plan, plan) -> dict:
 
 def route_name(tile_plan, plan) -> str:
     return "WGMMA" if plan.route == tile_plan.WGMMA else "MMA_SYNC"
+
+
+def kernels_a_call(tile_plan, plan) -> int:
+    """Device kernels one f32 wrapper call launches: the f32 WGMMA route's
+    pre-pass and GEMM, else the one GEMM (split-K reduced in it)."""
+    return 2 if plan.route == tile_plan.WGMMA else 1
 
 
 def misaligned_copy(torch, t):
@@ -424,12 +457,18 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
     w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
     b = 0.1 * torch.randn((N,), generator=gen, device=dev)
     g = torch.randn((M, N), generator=gen, device=dev)
-    plan = plan_dict(tile_plan, tile_plan.plan(M, N, K, K, N, x.data_ptr(), w.data_ptr()))
+    pl = tile_plan.plan(M, N, K, K, N, x.data_ptr(), w.data_ptr())
+    plan = plan_dict(tile_plan, pl)
+    route = plan["route"]
     log(f"plan affine_sigmoid {M}x{K}->{N}: {json.dumps(plan)}")
 
     ts = [t.clone().requires_grad_(True) for t in (x, w, b)]
     ps = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma)
     y = MA.affine_sigmoid(*ts)
+    check((MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma)
+          == (before[0] + 1, before[1] + (route == "WGMMA")),
+          f"affine_sigmoid {M}x{K}->{N}: not one f32 launch on the {route} route")
     y.backward(g)
     yp = MA.matmul_act_plain(*ps)
     yp.backward(g)
@@ -452,22 +491,23 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
            lambda: MA.matmul_act_plain(x, w, b, "sigmoid"),
            lambda: torch.addmm(b, x, w).sigmoid_())      # library yardstick
     ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in fns)
+    want = kernels_a_call(tile_plan, pl)
     if profiled:
         k_us, lib_us = paired_device_us(torch, fns[0], fns[2], "matmul_act", 2.0 * M * N * K)
-        per_call = launches_a_call(torch, fns[0], lambda: MA.matmul_act.launches)
+        per_call = launches_a_call(torch, fns[0], lambda: want * MA.matmul_act.launches)
         dev = (k_us, device_us(torch, fns[1]), lib_us)
     else:
         before = MA.matmul_act.launches
         fns[0]()
-        per_call, dev = MA.matmul_act.launches - before, (None, None, None)
-    check(per_call == 1, f"affine_sigmoid {M}x{K}->{N}: {per_call} launches a call")
+        per_call, dev = want * (MA.matmul_act.launches - before), (None, None, None)
+    check(per_call == want, f"affine_sigmoid {M}x{K}->{N}: {per_call} kernels a call, want {want}")
     r = record(f"{M}x{K}->{N}", err_y, ms, plain_ms, lib_ms, dev, 2.0 * M * N * K,
                4.0 * (M * K + K * N + N + M * N), PEAK_3XTF32,
                device_us(torch, fns[0]) if profiled else None)
-    r["plan"] = plan
-    log(f"kernel affine_sigmoid {M}x{K}->{N}: max|y-plain| {err_y:.3e}, grad rel err "
-        f"dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}; one launch a call, two "
-        f"launches equal bit for bit")
+    r["plan"], r["route"] = plan, route
+    log(f"kernel affine_sigmoid {M}x{K}->{N} ({route}): max|y-plain| {err_y:.3e}, grad rel err "
+        f"dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}; {per_call} kernel(s) a call "
+        f"(the f32 WGMMA route: pre-pass + GEMM), two launches equal bit for bit")
     log_times(f"affine_sigmoid {M}x{K}->{N} (plain: cuBLAS f32 + bias + sigmoid; library: "
               f"addmm + sigmoid_)", r, 2.0 * M * N * K / (ms * 1e-3) / 1e12)
     return r
@@ -586,10 +626,17 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
         torch.bfloat16 if vdt == "bf16" else torch.float32)
     a, m = 1e-3, 0.9
     pk, vk, pp, vp = p.clone(), v.clone(), p.clone(), v.clone()
+    plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
+                          b_ptr=e.data_ptr(), wgrad=True, out_ptrs=(pk.data_ptr(), vk.data_ptr()))
+    route = route_name(tile_plan, plan)
+    what = f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}"
+    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_f32_wgmma)
     SF.wgrad_momentum_update(x, e, pk, vk, a, m)
+    check((SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_f32_wgmma)
+          == (before[0] + 1, before[1] + (route == "WGMMA")),
+          f"{what}: not one f32 launch on the {route} route")
     SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
     torch.cuda.synchronize()
-    what = f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}"
     check(vk.dtype == vp.dtype == v.dtype, f"{what}: velocity dtype changed")
     # f32: within 1e-5 of the largest plain value (the bunch sums run in
     # another order); bf16 velocity: within that plus one bf16 step at the
@@ -616,8 +663,6 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
     SF.wgrad_momentum_update(x, e, pk2, vk2, a, m)
     torch.cuda.synchronize()
     check(torch.equal(pk, pk2) and torch.equal(vk, vk2), f"{what}: a second run differs")
-    plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
-                          b_ptr=e.data_ptr(), wgrad=True)
     # timed on the updated copies: each call is one more in-place step.
     # Library yardstick (f32 velocity): cuBLAS with beta, then one axpy
     pl, vl = p.clone(), v.clone()
@@ -631,19 +676,20 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
         k_us, lib_us = paired_device_us(torch, fns[0], fns[2], "wgrad_momentum", flops)
     else:
         k_us, lib_us = device_us(torch, fns[0]), None
-    per_call = launches_a_call(torch, fns[0], lambda: SF.wgrad_momentum_update.launches)
-    check(per_call == 1, f"{what}: {per_call} launches a call")
+    want = kernels_a_call(tile_plan, plan)
+    per_call = launches_a_call(torch, fns[0], lambda: want * SF.wgrad_momentum_update.launches)
+    check(per_call == want, f"{what}: {per_call} kernels a call, want {want}")
     dev = (k_us, device_us(torch, fns[1]), lib_us)
     check(bool(torch.isfinite(pk).all() and torch.isfinite(vk.float()).all()),
           f"{what}: non-finite values after the timed steps")
     vbytes = 2 if vdt == "bf16" else 4
     r = record(f"{B}x{In}->{Out} v {vdt}", max(err_p, err_v), *times, dev,
                flops, 4.0 * (B * In + B * Out) + In * Out * (8 + 2 * vbytes),
-               PEAK_3XTF32, device_us(torch, fns[0]) if vdt == "f32" else None)
-    r["plan"] = plan_dict(tile_plan, plan)
+               PEAK_3XTF32, device_us(torch, fns[0]) if vdt == "f32" or route == "WGMMA" else None)
+    r["plan"], r["route"] = plan_dict(tile_plan, plan), route
     log(f"plan {what}: {json.dumps(r['plan'])}")
-    log(f"kernel {what}: max|p-plain| {err_p:.3e}, {v_note}; one launch a call, two runs "
-        f"equal bit for bit")
+    log(f"kernel {what} ({route}): max|p-plain| {err_p:.3e}, {v_note}; {per_call} kernel(s) a "
+        f"call (the f32 WGMMA route: pre-pass + GEMM), two runs equal bit for bit")
     log_times(f"{what} (plain: cuBLAS f32 x.T@e + elementwise; library: addmm_ with beta "
               f"+ add_)", r, 2.0 * B * In * Out / (r["ms"] * 1e-3) / 1e12)
     return r
@@ -1226,7 +1272,8 @@ def objectives_path(torch, card: str, d: str, n: dict):
 #    tfeacat --BF16/--INT8
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("matmul_act", "matmul_act_bf16", "matmul_act_bf16_wgmma", "wgrad_momentum_update",
+COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_bf16", "matmul_act_bf16_wgmma",
+            "wgrad_momentum_update", "wgrad_momentum_update_f32_wgmma",
             "wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
 
 
@@ -1237,9 +1284,11 @@ def _counters():
     from nnet_asr_torch.ops.kernels import softmax_ce as SC
 
     return {"matmul_act": (MA.matmul_act, "launches"),
+            "matmul_act_f32_wgmma": (MA.matmul_act, "launches_f32_wgmma"),
             "matmul_act_bf16": (MA.matmul_act, "launches_bf16"),
             "matmul_act_bf16_wgmma": (MA.matmul_act, "launches_bf16_wgmma"),
             "wgrad_momentum_update": (SF.wgrad_momentum_update, "launches"),
+            "wgrad_momentum_update_f32_wgmma": (SF.wgrad_momentum_update, "launches_f32_wgmma"),
             "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
             "wgrad_momentum_update_bf16_wgmma": (SF.wgrad_momentum_update,
                                                  "launches_bf16_wgmma"),
@@ -2699,35 +2748,78 @@ def production(torch, dev, card: str):
                         f"TFLOP/s" for t, f in zip(ms, fps)) + bound)
     check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
           "production weights not finite after the momentum steps")
-    # per step in the profiler window: the bf16 steps' GEMM kernels all on
-    # the WGMMA route (4 affine_sigmoid; at momentum 0.9 5 wgrad), the f32
-    # steps' on none
+    momentum_step_routes(torch, dev, feats, labels, card)
+    # per step in the profiler window: every GEMM kernel of a step on the
+    # WGMMA route of its operand type (4 affine_sigmoid; at momentum 0.9 5
+    # wgrad), none on MMA_SYNC
     hidden, weights = len(PROD_DIMS) - 2, len(PROD_DIMS) - 1
-    routes = {"bf16 momentum 0": {"matmul_act_bf16": hidden, "matmul_act_bf16_wgmma": hidden},
-              "bf16 momentum 0.9": {"matmul_act_bf16": hidden, "matmul_act_bf16_wgmma": hidden,
-                                    "wgrad_momentum_update_bf16": weights,
-                                    "wgrad_momentum_update_bf16_wgmma": weights}}
-    for name in ("momentum 0", "momentum 0.9 f32 velocity", "mse momentum 0",
-                 "blocksoftmax(4096,4096) momentum 0", "bf16 momentum 0", "bf16 momentum 0.9"):
+    forward = {t: {f"matmul_act{t}": hidden, f"matmul_act_{t[1:] or 'f32'}_wgmma": hidden}
+               for t in ("", "_bf16")}
+    update = {t: {f"wgrad_momentum_update{t}": weights,
+                  f"wgrad_momentum_update_{t[1:] or 'f32'}_wgmma": weights} for t in ("", "_bf16")}
+    routes = {"momentum 0": forward[""], "mse momentum 0": forward[""],
+              "blocksoftmax(4096,4096) momentum 0": forward[""],
+              "momentum 0.9 f32 velocity": {**forward[""], **update[""]},
+              "momentum 0.9 bf16 velocity": {**forward[""], **update[""]},
+              "bf16 momentum 0": forward["_bf16"],
+              "bf16 momentum 0.9": {**forward["_bf16"], **update["_bf16"]}}
+    gemm_keys = [k for k in COUNTERS if k != "softmax_xent"]
+    for name, route in routes.items():
         launched = trace_steps(torch, name, lambda: steps[name]._train_step(feats, labels), card)
-        bf16_keys = [k for k in COUNTERS if "bf16" in k]
-        got = {k: launched[k] for k in bf16_keys}
-        want = {k: routes.get(name, {}).get(k, 0) for k in bf16_keys}
-        check(got == want, f"production {name}: bf16 launches a step {got}, want {want}")
+        got = {k: launched[k] for k in gemm_keys}
+        want = {k: route.get(k, 0) for k in gemm_keys}
+        check(got == want, f"production {name}: GEMM launches a step {got}, want {want}")
     return read_counts()
 
 
+def momentum_step_routes(torch, dev, feats, labels, card):
+    """Two f32 steps of the production stack, at momentum 0 and 0.9 (f32
+    velocity), from the same weights on the f32 WGMMA route and on the
+    MMA_SYNC one: every parameter and velocity within 1e-5 of its largest
+    (the two routes sum in other orders). The launches count nowhere."""
+    from nnet_asr_torch.tools.gemm_ceiling import mma_sync_f32
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+    before = read_counts()
+    for m in (0.0, 0.9):
+        nets = []
+        for wgmma in (True, False):
+            tr = Trainer(production_network(), TrainerConfig(
+                bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, seed=1,
+                sgd=SgdConfig(learning_rate=0.01, momentum=m)), device=dev)
+            with contextlib.nullcontext() if wgmma else mma_sync_f32():
+                for _ in range(2):
+                    tr._train_step(feats, labels)
+            torch.cuda.synchronize()
+            nets.append([t.detach().float().cpu().numpy() for t in tr.net.parameters()]
+                        + [t.float().cpu().numpy() for layer in tr.velocity
+                           for t in layer.values()])
+            del tr
+        rel = rel_max_diff([{"t": a} for a in nets[0]], [{"t": b} for b in nets[1]])
+        log(f"production momentum {m:g}, {card}: two f32 steps on the f32 WGMMA route against "
+            f"the MMA_SYNC route: parameters and velocity max rel {rel:.3e}")
+        check(rel <= 1e-5, f"production momentum {m:g} steps: the routes differ by {rel} > 1e-5")
+    restore_counts(before)
+
+
 # (group, pattern searched in the kernel's name), first match wins; the
-# operand type is the template argument after the Tile; the WGMMA-route
-# kernels take bf16 operands only
-KERNEL_GROUPS = (("affine_sigmoid bf16 (ours)",
+# operand type is the template argument after the Tile; the f32 WGMMA
+# route's kernels (and their pre-passes) carry "_f32_" in their names, the
+# bf16 WGMMA route's not
+KERNEL_GROUPS = (("affine_sigmoid f32 WGMMA (ours)", "matmul_act_f32_"),
+                 ("affine_sigmoid bf16 (ours)",
                   r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16|matmul_act_wgmma_kernel"),
                  ("affine_sigmoid (ours)", "matmul_act_kernel"),
+                 ("wgrad_momentum_update f32 WGMMA (ours)", "wgrad_momentum_f32_"),
                  ("wgrad_momentum_update bf16 (ours)",
                   r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|wgrad_momentum_wgmma_kernel"),
                  ("wgrad_momentum_update (ours)", "wgrad_"),
                  ("softmax_xent (ours)", "softmax_xent_"),
                  ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"))
+
+
+WGMMA_KERNELS = 6   # the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32
 
 
 def wgmma_spills(build_log: str) -> dict:
@@ -2841,24 +2933,39 @@ def main() -> int:
             log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
     spills = wgmma_spills(_build.build_log)
     log(f"ptxas, WGMMA-route kernels: {json.dumps(spills)}")
-    check(not _build.build_log or (len(spills) == 3 and not any(spills.values())),
+    check(not _build.build_log or (len(spills) == WGMMA_KERNELS and not any(spills.values())),
           f"a WGMMA-route kernel spills, or is missing from the build log: {spills}")
 
     # 3. kernels against their plain versions; the first shape of each is
-    # the MLP3 shape the kernels line reports
-    shapes = {
-        "affine_sigmoid": [check_matmul_act(torch, dev, M, K, N, seed=M + K)
-                           for M, K, N in AFFINE_SHAPES],
-        "fused_softmax_xent": [check_softmax_xent(torch, dev, B, C, seed=B + C)
-                               for B, C in SOFTMAX_SHAPES],
-        "wgrad_momentum_update": [
+    # the MLP3 shape the kernels line reports. The f32 rows of the first
+    # three lists take the MMA_SYNC route at every shape (mma_sync_f32), the
+    # f32 WGMMA route's rows at the production shapes follow them
+    from nnet_asr_torch.tools.gemm_ceiling import mma_sync_f32
+
+    with mma_sync_f32():
+        shapes = {
+            "affine_sigmoid": [check_matmul_act(torch, dev, M, K, N, seed=M + K)
+                               for M, K, N in AFFINE_SHAPES],
+            "fused_softmax_xent": [check_softmax_xent(torch, dev, B, C, seed=B + C)
+                                   for B, C in SOFTMAX_SHAPES],
+            "wgrad_momentum_update": [
+                check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
+                for B, In, Out, vdts in WGRAD_SHAPES for vdt in vdts]}
+    shapes.update({
+        "affine_sigmoid_f32_wgmma": [check_matmul_act(torch, dev, M, K, N, seed=M + K)
+                                     for M, K, N in F32_WGMMA_AFFINE],
+        "wgrad_momentum_update_f32_wgmma": [
             check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
-            for B, In, Out, vdts in WGRAD_SHAPES for vdt in vdts],
+            for B, In, Out, vdts in F32_WGMMA_WGRAD for vdt in vdts],
         "affine_sigmoid_bf16": [check_matmul_act_bf16(torch, dev, M, K, N, seed=M + K + 1)
                                 for M, K, N in AFFINE_SHAPES],
         "wgrad_momentum_update_bf16": [
             check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed=B + In + Out + 1)
-            for B, In, Out, _ in WGRAD_SHAPES for vdt in ("f32", "bf16")]}
+            for B, In, Out, _ in WGRAD_SHAPES for vdt in ("f32", "bf16")]})
+    for name in ("affine_sigmoid", "wgrad_momentum_update"):
+        check(all(r["route"] == "MMA_SYNC" for r in shapes[name])
+              and all(r["route"] == "WGMMA" for r in shapes[f"{name}_f32_wgmma"]),
+              f"{name}: the f32 rows are not on the routes they name")
 
     # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
     # 8. compute dtypes, 9. RBM pretraining, 10. recurrent BPTT, on one
@@ -2899,16 +3006,21 @@ def main() -> int:
                                              launches_res, launches_ts, launches_mesh))
                 for k in COUNTERS}
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
+    # the recipes' widths keep the MMA_SYNC f32 kernels (SMALL tiles, or
+    # rows TMA cannot describe): no f32 WGMMA launch outside phase 6
+    check(launches["matmul_act_f32_wgmma"] == launches["wgrad_momentum_update_f32_wgmma"] == 0,
+          f"f32 WGMMA launches on the recipes' paths: {json.dumps(launches)}")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
     # of phase 3, launched by phase 6
     for name in ("affine_sigmoid_bf16", "wgrad_momentum_update_bf16"):
         shapes[f"{name}_wgmma"] = [r for r in shapes[name] if r["route"] == "WGMMA"]
+    f32_main = [f"{B}x{In}->{Out} v f32" for B, In, Out, _ in F32_WGMMA_WGRAD][-1]
 
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
         f"shapes (960x598->1024, 960x135, wgrad 960x598->1024) on {card}, the WGMMA-route "
-        f"kernels' at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape under "
-        f"'shapes'; launches summed over the frame-CE, momentum, objectives, "
+        f"kernels' (bf16 and f32) at 1024x4096->4096 and 1024x4096->8192 f32 v, every shape "
+        f"under 'shapes'; launches summed over the frame-CE, momentum, objectives, "
         f"compute-dtype, RBM fine-tune, MPE, resident and mesh paths (every rank), for "
         f"the WGMMA-route kernels over the production path")
     # name: (source, TPU kernel, counter, launches by path, main shape's index)
@@ -2925,7 +3037,13 @@ def main() -> int:
                                           "matmul_act_bf16_wgmma", launches_prod, -1),
             "wgrad_momentum_update_bf16_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",
                                                  "wgrad_momentum_update_bf16_wgmma",
-                                                 launches_prod, -2)}
+                                                 launches_prod, -2),
+            "affine_sigmoid_f32_wgmma": ("matmul_act.cu", "matmul_act.py:86",
+                                         "matmul_act_f32_wgmma", launches_prod, -1),
+            "wgrad_momentum_update_f32_wgmma": (
+                "sgd_fused.cu", "sgd_fused.py:105", "wgrad_momentum_update_f32_wgmma",
+                launches_prod, [r["shape"] for r in shapes["wgrad_momentum_update_f32_wgmma"]]
+                .index(f32_main))}
     kernels = []
     for name, (src, tpu, counter, counts, main) in meta.items():
         main_shape = shapes[name][main]

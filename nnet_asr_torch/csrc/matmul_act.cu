@@ -12,11 +12,12 @@
 // shape (1024 x 4096 -> 4096) the GEMM does 2*M*N*K = 34 GFLOP over
 // 101 MB of f32 operands and output; in 3xTF32 (three TF32 products per f32
 // product) the card's 495 TFLOP/s of TF32 give 165 TFLOP/s of f32-accurate
-// work, a bound of 208 us, against 30 us for the bytes. In practice the
-// mma.sync issue rate of TF32 (half of wgmma's, tile_gemm.cuh) caps the
-// main loop near half of that bound. In bf16 the same product is bounded
-// at 34.7 us by the 989 TFLOP/s of dense bf16 (15 us of bytes); one
-// mma.sync m16n8k16 pass replaces the three TF32 ones.
+// work, a bound of 208 us, against 30 us for the bytes. The mma.sync issue
+// rate of TF32 (half of wgmma's, tile_gemm.cuh) caps that loop near half of
+// the bound, so the production shapes take 3xTF32 wgmma (below). In bf16
+// the same product is bounded at 34.7 us by the 989 TFLOP/s of dense bf16
+// (15 us of bytes); one mma.sync m16n8k16 pass replaces the three TF32
+// ones.
 // At the recipes' widths (960x598->1024 on MLP3, 1024x368->500 on TIMIT,
 // an utterance's ~284 rows in tmpe) it is bound by latency instead: 80 to
 // 240 64x64 tiles for 132 SMs, one warp per scheduler, a few BK steps each.
@@ -51,12 +52,31 @@
 // TMA store as soon as it is staged, so the stores overlap the next box's
 // sigmoids; the stores clip the ragged edge.
 //
+// f32 operands on the same route (pitches of 16-byte multiples, 16-byte
+// aligned bases, and the 128x128 tiles filling the card: 1024 x 1024 and
+// 1024 x 4096 -> 4096 of the production stack) take tf32_wgmma.cuh's
+// 3xTF32 wgmma instead of mma.sync, whose TF32 issue rate held the BIG tile
+// at about a third of the 3xTF32 bound (588 us against 208 at 1024 x
+// 4096 -> 4096). TF32 wgmma reads shared-memory operands K-major only, and
+// W is N-major, so the kernel computes y^T = W^T x^T: W is the A operand,
+// its raw tile brought by TMA and each thread's fragment split in
+// registers; x, already K-major, is the B operand, split into hi and lo
+// copies by a pre-pass kernel (matmul_act_f32_split_kernel, 12 bytes an
+// element of x: ~15 us at 1024 x 4096) into scratch the wrapper allocates.
+// The schedule is the weight gradient's (matmul_act_f32_wgmma_kernel: a
+// persistent grid walking 128 x 128 tiles of y^T, the two consumer
+// warpgroups taking turns), and the epilogue writes y from the accumulator
+// fragments: the bias of each fragment row pair, the sigmoid
+// in f32 as the mma.sync kernel takes it (expf and an IEEE divide), y as
+// 16-byte quads of neighbouring columns, masked at M and N.
+//
 // Layout: x (M, K), W (K, N), b (N,), y (M, N), all row-major contiguous.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "tf32_wgmma.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -64,6 +84,7 @@ namespace {
 
 using namespace nnet_tile;
 namespace W = nnet_wgmma;
+namespace T = nnet_tf32;
 using Coop = W::Cooperative;
 
 // y = act(x @ w + b) for one BM x BN tile; with gridDim.z > 1, split
@@ -195,6 +216,66 @@ matmul_act_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
+// The pre-pass of the f32 WGMMA route: x's hi and lo halves (tile_gemm.cuh
+// split_tf32), n4 float4s of each
+__global__ void __launch_bounds__(256)
+matmul_act_f32_split_kernel(const float4* __restrict__ x, uint4* __restrict__ hi,
+                            uint4* __restrict__ lo, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    uint4 h, l;
+    split_tf32(v.x, h.x, l.x);
+    split_tf32(v.y, h.y, l.y);
+    split_tf32(v.z, h.z, l.z);
+    split_tf32(v.w, h.w, l.w);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// The f32 WGMMA route's epilogue for one tile of y^T: its A columns (y's)
+// from n0 on, B rows (y's) from m0 on. A thread's accumulators are y[m][n
+// .. n + 3] for n = n0 + 32w + 4g and m = m0 + 8i + 2t + e (tf32_wgmma.cuh
+// acc_quad): bias added in f32, then the sigmoid as matmul_act_kernel
+// takes it, stored as one float4. N is a multiple of 4 on this route, so
+// the four are wholly inside or outside.
+__device__ __forceinline__ void store_y_f32(const float* __restrict__ b, float* __restrict__ y,
+                                            int M, int N, int n0, int m0, int act,
+                                            const float (&acc0)[64], const float (&acc1)[64]) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int n = n0 + 32 * w + 4 * (lane >> 2), t = lane & 3;
+  if (n >= N) return;
+  const float4 bias = make_float4(b[n], b[n + 1], b[n + 2], b[n + 3]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= M) continue;
+      float4 z = T::acc_quad(acc0, acc1, i, e);
+      z = make_float4(z.x + bias.x, z.y + bias.y, z.z + bias.z, z.w + bias.w);
+      if (act == 1)
+        z = make_float4(1.0f / (1.0f + expf(-z.x)), 1.0f / (1.0f + expf(-z.y)),
+                        1.0f / (1.0f + expf(-z.z)), 1.0f / (1.0f + expf(-z.w)));
+      *reinterpret_cast<float4*>(y + (size_t)m * N + n) = z;
+    }
+}
+
+// y = act(x @ W + b), f32, as y^T = W^T x^T by 3xTF32 wgmma
+// (tf32_wgmma.cuh, PingPong: a persistent grid of 128 x 128 tiles of y^T);
+// tw: W's (K, N) map; txh, txl: the (M, K) maps of x's split copies
+__global__ void __launch_bounds__(W::THREADS, 1)
+matmul_act_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
+                            const __grid_constant__ CUtensorMap txh,
+                            const __grid_constant__ CUtensorMap txl, const float* __restrict__ b,
+                            float* __restrict__ y, int M, int N, int K, int act) {
+  T::pingpong_gemm(&tw, &txh, &txl, N, M, K,
+                   [&](int n0, int m0, const float (&acc0)[64], const float (&acc1)[64]) {
+                     store_y_f32(b, y, M, N, n0, m0, act, acc0, acc1);
+                   });
+}
+
 }  // namespace
 
 // act: 0 = none, 1 = sigmoid. tile: 0 = 128x128, 1 = 64x64. x_bytes,
@@ -239,5 +320,33 @@ extern "C" int matmul_act_bf16_wgmma(const void* x, const void* w, const void* b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   matmul_act_wgmma_kernel<<<grid, W::THREADS, Coop::SMEM_BYTES, s>>>(
       tx, tw, ty, static_cast<const bf16*>(b), N, K, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 WGMMA route of matmul_act_f32: x, w and y with row pitches of
+// 16-byte multiples and 16-byte aligned bases (tile_plan.plan's route).
+// xhi, xlo: scratch of M * K floats each, 16-byte aligned, for x's split
+// copies (the pre-pass writes them, the GEMM reads them); blocks: the
+// persistent grid, min(tiles, SMs). Returns the CUDA error code of the
+// tensor-map encodes and the two launches.
+extern "C" int matmul_act_f32_wgmma(const float* x, const float* w, const float* b, float* y,
+                                    float* xhi, float* xlo, int M, int N, int K, int act,
+                                    int blocks, void* stream) {
+  int err = allow_smem(matmul_act_f32_wgmma_kernel, T::S::SMEM_BYTES);
+  CUtensorMap tw, txh, txl;
+  if (err == 0) err = W::tensor_map(&tw, w, K, N, T::A_BOX, T::BK, 4);
+  if (err == 0) err = W::tensor_map(&txh, xhi, M, K, T::BK, T::ROWS, 4);
+  if (err == 0) err = W::tensor_map(&txl, xlo, M, K, T::BK, T::ROWS, 4);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n4 = static_cast<size_t>(M) * K / 4;
+  const int split_blocks = static_cast<int>(n4 < 132 * 64 * 256 ? (n4 + 255) / 256 : 132 * 64);
+  matmul_act_f32_split_kernel<<<split_blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(x),
+                                                           reinterpret_cast<uint4*>(xhi),
+                                                           reinterpret_cast<uint4*>(xlo), n4);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  matmul_act_f32_wgmma_kernel<<<blocks, W::THREADS, T::S::SMEM_BYTES, s>>>(tw, txh, txl, b, y, M,
+                                                                           N, K, act);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,10 @@
 // What bounds it on an H100: at the production shape (bunch 1024,
 // 4096 -> 8192) operations: 2*B*In*Out = 68.7 GFLOP, a bound of 416 us at
 // the 165 TFLOP/s of f32-accurate 3xTF32, against 587 MB of x, e and the
-// p/v reads and writes (f32 velocity), 175 us. In practice the mma.sync
-// issue rate of TF32 (half of wgmma's, tile_gemm.cuh) caps the main loop
-// near half of that bound. With bf16 operands the operations take 69.5 us
+// p/v reads and writes (f32 velocity), 175 us. The mma.sync issue rate of
+// TF32 (half of wgmma's, tile_gemm.cuh) caps that loop near half of the
+// bound, so the production shapes take 3xTF32 wgmma (below). With bf16
+// operands the operations take 69.5 us
 // at 989 TFLOP/s and the p/v bytes (537 MB with f32 velocity) 160 us: the
 // bf16 variant is bound by bytes. At example-01's 960 x 1024 -> 135 it is
 // bytes and latency: 0.27 GFLOP in only 48 64x64 output tiles for 132 SMs.
@@ -63,6 +64,27 @@
 // is the mma.sync epilogue's. It never splits the bunch (the production
 // shapes have >= 256 tiles).
 //
+// f32 x and e on the same route (pitches of 16-byte multiples, a bunch
+// that is a multiple of 4, x, e, p and v 16-byte aligned, and the 128x128
+// tiles filling the card: the production stack's weight gradients) take
+// tf32_wgmma.cuh's 3xTF32 wgmma instead of mma.sync, whose TF32 issue rate
+// held them at about a third of the 3xTF32 bound (1,297 us against 416 at
+// 1024 x 4096 -> 8192). TF32 wgmma reads shared-memory operands K-major
+// only, and both x and e are MN-major here (the contraction runs over the
+// bunch), so the kernel computes g^T = e^T x: e is the A operand, its raw
+// tile brought by TMA and each thread's fragment split in registers; x,
+// the smaller operand, is transposed and split into hi and lo copies (In,
+// B) by a pre-pass kernel (wgrad_momentum_f32_split_kernel, through a
+// shared 32 x 32 tile; 12 bytes an element of x, ~15 us at 1024 x 4096)
+// into scratch the wrapper allocates. The schedule is the bf16 route's
+// PingPong (a persistent grid of min(tiles, SMs) blocks, the two consumer
+// warpgroups taking turns on 128 x 128 tiles), since the p and v update,
+// 4 x 134 MB of f32 at 4096 x 8192 (~160 us, 38% of the product's bound),
+// would otherwise idle the tensor cores; the update reads and writes p and
+// v from the accumulator fragments as 16-byte quads of neighbouring columns
+// (a warp's access: 4 rows of 128 contiguous bytes), 4 rows in flight
+// before the first store, with the mma.sync epilogue's arithmetic.
+//
 // Layout: x (B, In), e (B, Out), p (In, Out), v (In, Out), all row-major
 // contiguous; with S > 1 splits an f32 scratch of S partial 64x64 tiles a
 // tile and an int counter a tile.
@@ -71,6 +93,7 @@
 
 #include <type_traits>
 
+#include "tf32_wgmma.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -78,6 +101,7 @@ namespace {
 
 using namespace nnet_tile;
 namespace W = nnet_wgmma;
+namespace T = nnet_tf32;
 
 // The weight gradient as the update takes it: the f32 sum, or for bf16
 // operands that sum rounded to bf16 (to nearest even).
@@ -298,6 +322,103 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& te, float* p, V* v, f
   return static_cast<int>(cudaGetLastError());
 }
 
+// The pre-pass of the f32 WGMMA route: x (B, In) transposed into its hi
+// and lo halves (In, B) (tile_gemm.cuh split_tf32), a 32 x 32 tile a block
+// through shared memory (pitch 33: the transposed reads hit 32 banks), so
+// that the reads of x and the writes of each half are whole rows.
+__global__ void __launch_bounds__(256)
+wgrad_momentum_f32_split_kernel(const float* __restrict__ x, float* __restrict__ hi,
+                                float* __restrict__ lo, int B, int In) {
+  __shared__ float tile[32][33];
+  const int i0 = blockIdx.x * 32, b0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int b = b0 + r, i = i0 + tx;
+    tile[r][tx] = b < B && i < In ? x[(size_t)b * In + i] : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int i = i0 + r, b = b0 + tx;
+    if (i >= In || b >= B) continue;
+    uint32_t h, l;
+    split_tf32(tile[tx][r], h, l);
+    hi[(size_t)i * B + b] = __uint_as_float(h);
+    lo[(size_t)i * B + b] = __uint_as_float(l);
+  }
+}
+
+// The f32 WGMMA route's update for one ping-pong tile of g^T: its A
+// columns (Out) from out0 on, B rows (In) from in0 on. A thread's
+// accumulators are g[in][out .. out + 3] for out = out0 + 32w + 4g and in =
+// in0 + 8i + 2t + e (tf32_wgmma.cuh acc_quad); p and v are read and written
+// there in 16-byte accesses (load4 / store4: 8 bytes of bf16 v), 4 rows of
+// each in flight before the first store (8 spill beside the 128
+// accumulators), with the mma.sync epilogue's
+// arithmetic. Out is a multiple of 4 on this route, so the four are wholly
+// inside or outside.
+template <class V>
+__device__ __forceinline__ void update_tile_f32(float* __restrict__ p, V* __restrict__ v,
+                                                float a, float m, int In, int Out, int out0,
+                                                int in0, const float (&acc0)[64],
+                                                const float (&acc1)[64]) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int out = out0 + 32 * w + 4 * (lane >> 2), t = lane & 3;
+  if (out >= Out) return;
+#pragma unroll
+  for (int i0 = 0; i0 < 16; i0 += 2) {
+    float4 pv[4], vv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int in = in0 + 8 * (i0 + j / 2) + 2 * t + j % 2;
+      const size_t o = (size_t)in * Out + out;
+      pv[j] = in < In ? load4(p + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vv[j] = in < In ? load4(v + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int in = in0 + 8 * (i0 + j / 2) + 2 * t + j % 2;
+      if (in >= In) continue;
+      const size_t o = (size_t)in * Out + out;
+      const float4 g = T::acc_quad(acc0, acc1, i0 + j / 2, j % 2);
+      momentum(g.x, pv[j].x, vv[j].x, a, m);
+      momentum(g.y, pv[j].y, vv[j].y, a, m);
+      momentum(g.z, pv[j].z, vv[j].z, a, m);
+      momentum(g.w, pv[j].w, vv[j].w, a, m);
+      store4(v + o, vv[j]);
+      store4(p + o, pv[j]);
+    }
+  }
+}
+
+// g = x^T e, f32, as g^T = e^T x by 3xTF32 wgmma (tf32_wgmma.cuh,
+// PingPong: a persistent grid of 128 x 128 tiles of g^T); v, p updated in
+// place. te: e's (B, Out) map; txh, txl: the (In, B) maps of x's
+// transposed split copies.
+template <class V>
+__global__ void __launch_bounds__(W::THREADS, 1)
+wgrad_momentum_f32_wgmma_kernel(const __grid_constant__ CUtensorMap te,
+                                const __grid_constant__ CUtensorMap txh,
+                                const __grid_constant__ CUtensorMap txl, float* __restrict__ p,
+                                V* __restrict__ v, float a, float m, int B, int In, int Out) {
+  T::pingpong_gemm(&te, &txh, &txl, Out, In, B,
+                   [&](int out0, int in0, const float (&acc0)[64], const float (&acc1)[64]) {
+                     update_tile_f32(p, v, a, m, In, Out, out0, in0, acc0, acc1);
+                   });
+}
+
+template <class V>
+int launch_f32_wgmma(const CUtensorMap& te, const CUtensorMap& txh, const CUtensorMap& txl,
+                     float* p, V* v, float a, float m, int B, int In, int Out, int blocks,
+                     cudaStream_t stream) {
+  const int smem_err = allow_smem(wgrad_momentum_f32_wgmma_kernel<V>, T::S::SMEM_BYTES);
+  if (smem_err != 0) return smem_err;
+  wgrad_momentum_f32_wgmma_kernel<V><<<blocks, W::THREADS, T::S::SMEM_BYTES, stream>>>(
+      te, txh, txl, p, v, a, m, B, In, Out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). tile:
@@ -341,4 +462,31 @@ extern "C" int wgrad_momentum_update_bf16_wgmma(const void* x, const void* e, fl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_is_bf16 ? launch_wgmma(tx, te, p, static_cast<bf16*>(v), a, m, B, In, Out, blocks, s)
                    : launch_wgmma(tx, te, p, static_cast<float*>(v), a, m, B, In, Out, blocks, s);
+}
+
+// The f32 WGMMA route of wgrad_momentum_update_f32: x, e with row pitches
+// of 16-byte multiples, B a multiple of 4, x, e, p and v 16-byte aligned
+// (tile_plan.plan's route); xhi, xlo: scratch of In * B floats each,
+// 16-byte aligned, for x's transposed split copies (the pre-pass writes
+// them, the GEMM reads them); blocks: the persistent grid, min(tiles,
+// SMs). Returns the CUDA error code of the tensor-map encodes and the two
+// launches.
+extern "C" int wgrad_momentum_update_f32_wgmma(const float* x, const float* e, float* p, void* v,
+                                               float* xhi, float* xlo, float a, float m, int B,
+                                               int In, int Out, int v_is_bf16, int blocks,
+                                               void* stream) {
+  CUtensorMap te, txh, txl;
+  int err = W::tensor_map(&te, e, B, Out, T::A_BOX, T::BK, 4);
+  if (err == 0) err = W::tensor_map(&txh, xhi, In, B, T::BK, T::ROWS, 4);
+  if (err == 0) err = W::tensor_map(&txl, xlo, In, B, T::BK, T::ROWS, 4);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  wgrad_momentum_f32_split_kernel<<<dim3((In + 31) / 32, (B + 31) / 32), 256, 0, s>>>(x, xhi, xlo,
+                                                                                      B, In);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return v_is_bf16
+             ? launch_f32_wgmma(te, txh, txl, p, static_cast<bf16*>(v), a, m, B, In, Out, blocks, s)
+             : launch_f32_wgmma(te, txh, txl, p, static_cast<float*>(v), a, m, B, In, Out, blocks,
+                                s);
 }

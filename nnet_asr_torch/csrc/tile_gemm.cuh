@@ -18,17 +18,21 @@
 // memory by ldmatrix, .trans for an operand stored MN-major (W and e, and
 // the x of x^T e), so the shared tiles keep the global row layout here too.
 //
-// Why mma.sync and not wgmma for f32: TF32 wgmma takes both operands
-// K-major from shared memory, but affine_sigmoid's W (K x N) is N-major and
-// both x and e of the wgrad product x^T e are M/N-major. mma.sync fragments
-// are loaded by each thread from a shared tile of either layout, and the
-// hi/lo split happens in those registers. The price: on an H100, mma.sync
-// issues TF32 at about half of wgmma's rate, so this loop stays under half
-// of the 3xTF32 bound (tools/gemm_ceiling.py times it with the split taken
-// out). That reason holds for TF32 only: 16-bit wgmma reads MN-major tiles
-// too (its transpose bits), so bf16 operands that TMA can describe (row
-// pitches of 16-byte multiples) run on wgmma_gemm.cuh instead. The bf16
-// loop here serves the rest: MLP3's rows of 598 and 135 elements.
+// Which shapes this loop serves: those the wgmma routes leave. On an H100
+// mma.sync issues TF32 at about half of wgmma's rate, so the 3xTF32 loop
+// here stays under half of its bound (tools/gemm_ceiling.py times it with
+// the split taken out). f32 operands that TMA can describe (pitches of
+// 16-byte multiples) in products whose 128x128 tiles fill the card (the
+// production stack's) run on tf32_wgmma.cuh instead, which puts the
+// MN-major operand that TF32 wgmma cannot read from shared memory in
+// registers and the other through a split pre-pass; bf16 ones that TMA can
+// describe run on wgmma_gemm.cuh, whose 16-bit wgmma reads MN-major tiles
+// (its transpose bits). This loop serves every other shape: the recipes'
+// f32 products on the SMALL tile (MLP3, TIMIT, tmpe, the RBM recipe, a
+// mesh rank's rows), and MLP3's rows of 598 and 135 elements in f32 and
+// bf16, which no TMA map describes. mma.sync fragments are loaded by each
+// thread from a shared tile of either layout, and the hi/lo split happens
+// in those registers.
 //
 // Tiles. A block computes a BM x BN output tile with WARPS_M x WARPS_N
 // warps, each a WM x WN sub-tile of (WM/16) x (WN/8) mma tiles. The

@@ -6,11 +6,13 @@
 // shape (MLP3's rows of 598 and 135 elements, which TMA cannot describe)
 // keeps tile_gemm.cuh's mma.sync loop.
 //
-// Why wgmma here and not for f32: TF32 wgmma reads both operands K-major
-// from shared memory, but for 16-bit types wgmma.mma_async has the
-// imm-trans-a / imm-trans-b bits and reads MN-major tiles as well. That
-// covers the three layouts these kernels need, each straight from
-// row-major device memory with no transposing pass:
+// The f32 operands take wgmma too, at the shapes where the 128 x 128 tile
+// fills the card (tf32_wgmma.cuh: 3xTF32, the A operand split in
+// registers, the B operand split by a pre-pass); this header's ring,
+// barriers, descriptors and tensor maps serve both. The bf16 loop below
+// reads every layout straight from row-major memory: for 16-bit types
+// wgmma.mma_async has the imm-trans-a / imm-trans-b bits and reads
+// MN-major tiles as well (TF32 wgmma has none and reads K-major only):
 //   x of x @ W     (M, K)  K-major   trans-a = 0
 //   W of x @ W     (K, N)  N-major   trans-b = 1
 //   x, e of x^T e  (B, In), (B, Out): M-major and N-major, trans = 1
@@ -464,7 +466,7 @@ struct MapKey {
   const void* base;
   uint64_t rows, cols, pitch;
   uint32_t box_cols, box_rows;
-  int swizzle;
+  int swizzle, elem;
 };
 
 struct MapCache {
@@ -481,20 +483,22 @@ inline MapCache& map_cache() {
   return cache;
 }
 
-// The 2-D bf16 map of a row-major (rows, cols) matrix at base (row pitch
-// cols elements), boxes of box_cols x box_rows, 128-byte swizzle, zero
-// fill out of bounds. Returns a CUDA error code.
+// The 2-D map of a row-major (rows, cols) matrix at base (row pitch cols
+// elements) of bf16 (elem 2) or f32 (elem 4) elements, boxes of box_cols x
+// box_rows, 128-byte swizzle, zero fill out of bounds. Returns a CUDA error
+// code.
 inline int tensor_map(CUtensorMap* out, const void* base, int rows, int cols, int box_cols,
-                      int box_rows) {
+                      int box_rows, int elem = 2) {
   MapKey key;
   memset(&key, 0, sizeof key);
   key.base = base;
   key.rows = static_cast<uint64_t>(rows);
   key.cols = static_cast<uint64_t>(cols);
-  key.pitch = static_cast<uint64_t>(cols) * sizeof(bf16);
+  key.pitch = static_cast<uint64_t>(cols) * elem;
   key.box_cols = static_cast<uint32_t>(box_cols);
   key.box_rows = static_cast<uint32_t>(box_rows);
   key.swizzle = static_cast<int>(CU_TENSOR_MAP_SWIZZLE_128B);
+  key.elem = elem;
   MapCache& c = map_cache();
   std::lock_guard<std::mutex> guard(c.lock);
   for (int i = 0; i < c.used; ++i) {
@@ -522,7 +526,10 @@ inline int tensor_map(CUtensorMap* out, const void* base, int rows, int cols, in
   const cuuint64_t strides[1] = {key.pitch};
   const cuuint32_t box[2] = {key.box_cols, key.box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = c.encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  const CUresult r = c.encode(out,
+                              elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              2, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -51,6 +51,9 @@ SIGNATURES = {
     "matmul_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # bf16 on the WGMMA route: x, w, b, y, M, N, K, act, stream
     "matmul_act_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # f32 on the WGMMA route: x, w, b, y, xhi, xlo, M, N, K, act, blocks,
+    # stream
+    "matmul_act_f32_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # logits, labels, err, part, ticket, xent, corr, B, C, variant, blocks,
     # threads, vpt, vec, stream
     "softmax_xent_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -64,6 +67,10 @@ SIGNATURES = {
     # bf16 x and e on the WGMMA route: x, e, p, v, a, m, B, In, Out,
     # v_is_bf16, blocks, stream
     "wgrad_momentum_update_bf16_wgmma": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
+    # f32 x and e on the WGMMA route: x, e, p, v, xhi, xlo, a, m, B, In,
+    # Out, v_is_bf16, blocks, stream
+    "wgrad_momentum_update_f32_wgmma": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,
+                                        _P],
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,11 @@ one bf16 ``mma.sync`` pass for bf16 ones, accumulated in f32) fed by a
 bf16 operands that TMA can read (``tile_plan``'s WGMMA route: every
 production shape) go to ``csrc/wgmma_gemm.cuh`` instead: ``wgmma`` on
 128x256 tiles fed by TMA through a warp-specialised ring, y written by TMA
-stores.
+stores. f32 operands on that route (TMA-readable, and the 128x128 tiles
+filling the card: the production stack's 1024x{1024,4096}->4096) go to
+``csrc/tf32_wgmma.cuh``: 3xTF32 on ``wgmma``, W split in registers, x
+split into hi and lo copies by a pre-pass kernel into scratch allocated
+here, two launches a call.
 As in the TPU kernel, ``y`` has x's dtype: bf16 y is the f32 result rounded
 once. It is bound by operations, not bytes, at the main path's shapes
 (960x598->1024 on example-01's MLP3, 1024x{1024,4096}->4096 on the
@@ -22,7 +26,8 @@ copy width from the shapes, pointers and element size.
 ``matmul_act`` dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (``matmul_act_plain``), a CUDA tensor launches the
 kernel or raises — there is no fallback, and x, w and b must share one
-dtype. ``matmul_act.launches`` counts f32 launches,
+dtype. ``matmul_act.launches`` counts f32 calls (both routes),
+``matmul_act.launches_f32_wgmma`` those of them on the WGMMA route,
 ``matmul_act.launches_bf16`` bf16 ones (both routes), and
 ``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route. ``affine_sigmoid`` is the
 ``autograd.Function``; its backward is the JAX ``_bwd``, roundings
@@ -110,13 +115,23 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        b_ptr=w.data_ptr(), elem=x.element_size(), out_ptrs=(y.data_ptr(),))
     stream = torch.cuda.current_stream(x.device)
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act])
-    if p.route == tile_plan.WGMMA:
+    bf16 = x.dtype == torch.bfloat16
+    if p.route == tile_plan.WGMMA and bf16:
         _build.check(lib.matmul_act_bf16_wgmma(*args, stream.cuda_stream),
                      "matmul_act_bf16_wgmma")
         matmul_act.launches_bf16 += 1
         matmul_act.launches_bf16_wgmma += 1
         return y
-    bf16 = x.dtype == torch.bfloat16
+    if p.route == tile_plan.WGMMA:
+        # x's hi and lo copies, written by the pre-pass (M * K is a
+        # multiple of 4 on this route: both halves 16-byte aligned)
+        split = torch.empty((2, M, K), dtype=torch.float32, device=x.device)
+        _build.check(lib.matmul_act_f32_wgmma(
+            *args[:4], split[0].data_ptr(), split[1].data_ptr(), *args[4:], p.blocks,
+            stream.cuda_stream), "matmul_act_f32_wgmma")
+        matmul_act.launches += 1
+        matmul_act.launches_f32_wgmma += 1
+        return y
     fn, name = ((lib.matmul_act_bf16, "matmul_act_bf16") if bf16
                 else (lib.matmul_act_f32, "matmul_act_f32"))
     _scratch, split = _build.split_args(p, x.device, stream)
@@ -129,6 +144,7 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 matmul_act.launches = 0
+matmul_act.launches_f32_wgmma = 0
 matmul_act.launches_bf16 = 0
 matmul_act.launches_bf16_wgmma = 0
 

@@ -24,7 +24,13 @@ epilogue, in the same launch, so runs repeat bit for bit. bf16 ``x`` and
 go to ``csrc/wgmma_gemm.cuh`` instead: ``wgmma`` on 128x128 tiles fed by
 TMA, a persistent grid of at most one block an SM walking the tiles in a
 fixed order, its two consumer warpgroups taking turns so that one's p and
-v update overlaps the other's ``wgmma``; no split. With f32 ``x`` and
+v update overlaps the other's ``wgmma``; no split. f32 ``x`` and ``e`` on
+that route (TMA-readable, a bunch that is a multiple of 4, and the 128x128
+tiles filling the card: the production stack's weights) go to
+``csrc/tf32_wgmma.cuh`` with the same schedule: 3xTF32 on ``wgmma``,
+``g^T = e^T x`` with e split in registers and x transposed and split into
+hi and lo copies by a pre-pass kernel into scratch allocated here, two
+launches a call. With f32 ``x`` and
 ``e`` it is bound by operations at the production stack's widths; with
 bf16 ones by the bytes of p and v; at example-01's widths by bytes and
 latency.
@@ -34,10 +40,12 @@ updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
 ``wgrad_momentum_update`` checks its operands, then dispatches on their
 device: CPU tensors take the plain PyTorch version
 (``wgrad_momentum_update_plain``), CUDA tensors launch the kernel or raise —
-there is no fallback. ``wgrad_momentum_update.launches`` counts launches
-with f32 ``x`` and ``e``, ``wgrad_momentum_update.launches_bf16`` those with
-bf16 ones (both routes), ``wgrad_momentum_update.launches_bf16_wgmma`` those
-of them on the WGMMA route.
+there is no fallback. ``wgrad_momentum_update.launches`` counts calls
+with f32 ``x`` and ``e`` (both routes),
+``wgrad_momentum_update.launches_f32_wgmma`` those of them on the WGMMA
+route, ``wgrad_momentum_update.launches_bf16`` those with bf16 ones (both
+routes), ``wgrad_momentum_update.launches_bf16_wgmma`` those of them on the
+WGMMA route.
 """
 
 from __future__ import annotations
@@ -104,15 +112,24 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
                         out_ptrs=(p.data_ptr(), v.data_ptr()))
     stream = torch.cuda.current_stream(p.device)
     v_is_bf16 = int(v.dtype == torch.bfloat16)
-    if pl.route == tile_plan.WGMMA:
+    bf16 = x.dtype == torch.bfloat16
+    if pl.route == tile_plan.WGMMA and not bf16:
+        # x's transposed hi and lo copies (In, B), written by the pre-pass
+        # (B is a multiple of 4 on this route: both halves 16-byte aligned)
+        split = torch.empty((2, In, B), dtype=torch.float32, device=p.device)
+        _build.check(lib.wgrad_momentum_update_f32_wgmma(
+            x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), split[0].data_ptr(),
+            split[1].data_ptr(), float(a), float(m), B, In, Out, v_is_bf16, pl.blocks,
+            stream.cuda_stream), "wgrad_momentum_update_f32_wgmma")
+        wgrad_momentum_update.launches_f32_wgmma += 1
+    elif pl.route == tile_plan.WGMMA:
         _build.check(lib.wgrad_momentum_update_bf16_wgmma(
             x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
             Out, v_is_bf16, pl.blocks, stream.cuda_stream), "wgrad_momentum_update_bf16_wgmma")
         wgrad_momentum_update.launches_bf16_wgmma += 1
     else:
         _scratch, (splits, k_chunk, part, counters) = _build.split_args(pl, p.device, stream)
-        fn, name = ((lib.wgrad_momentum_update_bf16, "wgrad_momentum_update_bf16")
-                    if x.dtype == torch.bfloat16
+        fn, name = ((lib.wgrad_momentum_update_bf16, "wgrad_momentum_update_bf16") if bf16
                     else (lib.wgrad_momentum_update_f32, "wgrad_momentum_update_f32"))
         _build.check(fn(x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), part, counters,
                         float(a), float(m), B, In, Out, v_is_bf16, pl.tile, splits, k_chunk,
@@ -121,12 +138,13 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     # would, so autograd refuses a saved copy of p or v from before
     for t in (p, v):
         torch.autograd.graph.increment_version(t)
-    if x.dtype == torch.bfloat16:
+    if bf16:
         wgrad_momentum_update.launches_bf16 += 1
     else:
         wgrad_momentum_update.launches += 1
 
 
 wgrad_momentum_update.launches = 0
+wgrad_momentum_update.launches_f32_wgmma = 0
 wgrad_momentum_update.launches_bf16 = 0
 wgrad_momentum_update.launches_bf16_wgmma = 0

@@ -39,20 +39,30 @@ The bf16 ``mma.sync`` loop shares the tiles and ``BK``; its split weighs
 the fixed cost of a block against its three times cheaper steps.
 
 ``route`` names the kernel. ``WGMMA`` (``csrc/wgmma_gemm.cuh``: TMA loads
-into a warp-specialised ring, ``wgmma``, ``BK`` 64, no split; 128x256
-tiles for ``matmul_act``, 128x128 ones for the weight gradient, whose two
-consumer warpgroups take turns) is taken exactly where the element size is 2 (bf16), every operand
-TMA reads has a row pitch that is a multiple of 16 bytes, and every such
-operand and every output written in wide accesses (``out_ptrs``: y of
-``matmul_act``, which TMA stores; p and v of the weight gradient) has a
-16-byte aligned base. Everything else is ``MMA_SYNC`` (``tile_gemm.cuh``),
-among it MLP3's bf16 shapes: rows of 598 and 135 elements (1,196 and 270
-bytes) that no TMA map describes. ``blocks`` is the kernel's grid: for the
-weight gradient on ``WGMMA`` a persistent grid of ``min(tiles, SM_COUNT)``
-blocks walking the tiles, two at a time. Pure Python, so the CPU tests hold every
-main-path shape to its plan; ``BIG``/``SMALL``, ``BK``, ``STAGES`` and
-``smem_bytes`` match ``BigTile``/``SmallTile`` and ``smem_bytes`` there,
-``WIDE`` and ``WGMMA_BK`` match ``wgmma_gemm.cuh``.
+into a warp-specialised ring, ``wgmma``, no split; 128x256 tiles for the
+bf16 ``matmul_act``, else 128x128 ones on a persistent grid, whose two
+consumer warpgroups take turns) is taken where the element size has such a route
+(``WGMMA_ELEMS``), every operand TMA reads has a row pitch that is a
+multiple of 16 bytes, and every such operand and every output written in
+wide accesses (``out_ptrs``: y of ``matmul_act``; p and v of the weight
+gradient) has a 16-byte aligned base. For 2-byte elements (bf16: one
+``wgmma`` pass, ``BK`` 64) that is the whole rule. For 4-byte ones (f32:
+3xTF32 on ``wgmma``, ``csrc/tf32_wgmma.cuh``, ``BK`` 32) the operand split
+by the pre-pass, whose pitch is ``K``, counts among the operands, and the
+product must be one whose 128x128 tiles fill the card (``tile_count(M, N,
+BIG) >= SM_COUNT``, where the ``MMA_SYNC`` plan takes its BIG tile): the
+production stack's 1024x{1024,4096}->4096 forward and its weight
+gradients. Every other shape is ``MMA_SYNC`` (``tile_gemm.cuh``), with the
+plan it had: MLP3's rows of 598 and 135 elements (f32 2,392 and 540 bytes,
+bf16 1,196 and 270) that no TMA map describes, and every f32 shape on the
+SMALL tile (TIMIT's 1024x368->500, the RBM recipe's 960x1024->1024, a
+mesh rank's rows). ``blocks`` is the kernel's grid: on ``WGMMA``, but for
+the bf16 forward, a persistent grid of ``min(tiles, SM_COUNT)`` blocks
+walking the tiles, two at a time. Pure Python, so the CPU tests
+hold every main-path shape to its plan; ``BIG``/``SMALL``, ``BK``,
+``STAGES`` and ``smem_bytes`` match ``BigTile``/``SmallTile`` and
+``smem_bytes`` there, ``WIDE``, ``WGMMA_BK`` and ``wgmma_smem_bytes`` match
+``wgmma_gemm.cuh`` and ``tf32_wgmma.cuh``.
 """
 
 from __future__ import annotations
@@ -67,7 +77,8 @@ BIG, SMALL, WIDE = 0, 1, 2
 TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256)}
 STAGES = {BIG: 3, SMALL: 4}   # depth of the cp.async ring
 MMA_SYNC, WGMMA = 0, 1
-WGMMA_BK = 64            # contraction step of the WGMMA ring
+WGMMA_ELEMS = (2, 4)     # element sizes with a WGMMA route (bf16, f32)
+WGMMA_BK = {2: 64, 4: 32}   # contraction step of the WGMMA ring: one 128-byte line
 SMALL_PER_SM = 3         # SMALL blocks an SM holds (f32: 72 KB, <= 168 registers a thread)
 MIN_K_STEPS = 4          # BK steps a split keeps at least
 MAX_SPLITS = 16
@@ -130,11 +141,24 @@ def copy_bytes(pitch: int, ptr: int, elem: int = 4, widths=(16, 8, 4)) -> int:
     return elem
 
 
+def wgmma_smem_bytes(elem: int, wgrad: bool) -> int:
+    """Dynamic shared memory of a WGMMA-route block (``SMEM_BYTES`` of its
+    schedule): the ring, 128 bytes of barriers, the epilogue's staging and
+    1024 bytes of slack to align the ring. bf16: 4 stages of x 128x64 and W
+    64x256 (Cooperative), or of x and e 64x128 beside two 128x136 bf16 g
+    tiles (PingPong); f32, both kernels: 4 stages of W or e 32x128 raw and
+    x's hi and lo 128x32 (PingPong)."""
+    if elem == 2:
+        stage = 2 * WGMMA_BK[2] * (128 + (128 if wgrad else 256))
+        return 4 * stage + 128 + (2 * 128 * 136 * 2 if wgrad else 0) + 1024
+    return 4 * 4 * WGMMA_BK[4] * (128 + 2 * 128) + 128 + 1024
+
+
 def wgmma_route(elem: int, pitches, ptrs) -> bool:
-    """Whether TMA and wgmma can take the product: 2-byte elements, row
-    pitches (elements) of 16-byte multiples, every pointer 16-byte
-    aligned."""
-    return (elem == 2 and all(p * elem % 16 == 0 for p in pitches)
+    """Whether TMA and wgmma can take the product: an element size with a
+    WGMMA route, row pitches (elements) of 16-byte multiples, every pointer
+    16-byte aligned."""
+    return (elem in WGMMA_ELEMS and all(p * elem % 16 == 0 for p in pitches)
             and all(p % 16 == 0 for p in ptrs))
 
 
@@ -149,11 +173,17 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
         raise ValueError(f"empty GEMM {M}x{K}->{N}")
     if elem not in (2, 4):
         raise ValueError(f"element size {elem}: want 4 (f32) or 2 (bf16)")
-    if wgmma_route(elem, (a_pitch, b_pitch), (a_ptr, b_ptr, *out_ptrs)):
-        tile = BIG if wgrad else WIDE
+    # f32: the pre-pass's split copy of one operand has pitch K, and only
+    # products whose 128x128 tiles fill the card take the route
+    pitches = (a_pitch, b_pitch) if elem == 2 else (a_pitch, b_pitch, K)
+    if (wgmma_route(elem, pitches, (a_ptr, b_ptr, *out_ptrs))
+            and (elem == 2 or tile_count(M, N, BIG) >= SM_COUNT)):
+        # persistent 128x128 (PingPong) but for the bf16 forward's 128x256
+        persistent = wgrad or elem == 4
+        tile = BIG if persistent else WIDE
         tiles = tile_count(M, N, tile)
         return Plan(tile, *TILES[tile], 1, K, 16, 16, WGMMA,
-                    min(tiles, SM_COUNT) if wgrad else tiles)
+                    min(tiles, SM_COUNT) if persistent else tiles)
     tile = BIG if tile_count(M, N, BIG) >= SM_COUNT else SMALL
     tiles = tile_count(M, N, tile)
     splits, k_chunk = 1, K

@@ -2,15 +2,18 @@
 
     python -m nnet_asr_torch.tools.gemm_ceiling [--reps N] [--small]
 
-Builds ``csrc/`` six times, each into its own directory under
-``build/gemm_ceiling/``, and times ``matmul_act`` (no activation) at
-1024x4096->4096 and ``wgrad_momentum_update`` at 1024x4096->8192 with f32
-operands, and with bf16 operands on the WGMMA route ``matmul_act`` with the
-sigmoid and without at 1024x4096->4096, with it at 1024x1024->4096, and
-the wgrad at 1024x4096->8192 and ->4096 (f32 velocity), with each build,
-in turns, by CUDA events (a sleep kernel first, so that the host queues
-every call before the device starts and short kernels are timed by the
-device alone):
+Builds ``csrc/`` twelve times, each into its own directory under
+``build/gemm_ceiling/``, and times, with f32 operands on both routes (the
+f32 WGMMA route, and the MMA_SYNC one that serves every other f32 shape),
+``matmul_act`` (no activation) at 1024x4096->4096 and with the sigmoid at
+1024x1024->4096, and ``wgrad_momentum_update`` at 1024x4096->8192 (f32
+velocity) and, on the WGMMA route, ->4096 and 1024x1024->4096; with bf16
+operands on the WGMMA route ``matmul_act`` with the sigmoid and without at
+1024x4096->4096, with it at 1024x1024->4096, and the wgrad at
+1024x4096->8192 and ->4096 (f32 velocity), with each build, in turns, by
+CUDA events (a sleep kernel first, so that the host queues every call
+before the device starts and short kernels are timed by the device
+alone):
 
   3xtf32              the kernels as they are;
   3pass_nosplit       the same three mma.sync per tile with the raw f32 bits
@@ -18,9 +21,31 @@ device alone):
                       wrong): the tensor-core issue of the 3xTF32 main loop;
   1pass               one mma.sync per tile, no split: plain one-pass TF32
                       (three decimal digits; not f32-accurate);
-  wgmma_mainloop      the bf16 WGMMA-route kernels without their epilogues
-                      (no y, p or v written; the results are wrong): TMA,
-                      the ring and wgmma alone;
+  f32_wgmma_mainloop  the f32 WGMMA kernels with their epilogues compiled
+                      but never run (no y, p or v written; the results are
+                      wrong): the pre-pass, TMA, the ring, the register
+                      split and wgmma;
+  f32_wgmma_1pass     one wgmma (hi * hi) a k8 step in place of three:
+                      one-pass TF32, the issue ceiling of the main loop
+                      (not f32-accurate);
+  f32_wgmma_nosplit   the A fragments' raw f32 bits as hi and lo (no
+                      register split; the results are wrong): the split's
+                      cost;
+  f32_wgmma_prepass   the pre-pass alone (the GEMM not launched; y, p and v
+                      not written);
+  f32_wgmma_a_fastest the persistent grid walking the tiles with A's
+                      columns fastest (every column of W or e in flight) in
+                      place of groups of 8 rows of tiles along B;
+  f32_wgmma_ss        the kernels as they are, plus a candidate design the
+                      port does not take (``gemm_ceiling_ss.cu``, the
+                      forward only): W, too, split and transposed by a
+                      pre-pass, both operands read by wgmma from shared
+                      memory (SS), 3 stages of 64 KB;
+  wgmma_mainloop      the bf16 WGMMA-route kernels with their epilogues
+                      compiled but never run (no y, p or v written; the
+                      results are wrong; with the epilogue deleted, ptxas
+                      may drop the wgmma whose results nothing reads):
+                      TMA, the ring and wgmma alone;
   wgmma_wgrad_r4      the bf16 wgrad's epilogue with 4 rows a warp in flight
                       in place of 8;
   wgmma_ieee_sigmoid  matmul_act bf16's sigmoid by expf and an IEEE divide in
@@ -46,8 +71,10 @@ plan of ``SMALL_VARIANTS``:
   small_nosplit           no split-K (the plan's MAX_SPLITS at 1);
   small_split_two_per_sm  split-K until the SMALL grid has two blocks an SM.
 
-For f32, the gap between the first two is the hi/lo split's cost, the
-second against the 3xTF32 bound what mma.sync's issue rate allows. For
+For f32 on MMA_SYNC, the gap between the first two is the hi/lo split's
+cost, the second against the 3xTF32 bound what mma.sync's issue rate
+allows; on WGMMA, the variants split the kernel's time into the pre-pass,
+the epilogue, the register split and the wgmma issue. For
 bf16, the kernel's time less the main loop's is what its epilogue adds
 (bias, sigmoid and y's TMA stores; the p and v update, which the wgrad's
 ping-pong schedule overlaps with the other consumer's main loop). Needs
@@ -57,6 +84,7 @@ the card and nvcc; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import math
 import os
@@ -83,13 +111,63 @@ ROWS8 = "  constexpr int R = 8;"
 ROWS4 = "  constexpr int R = 4;"
 FAST_SIGMOID = "__fdividef(1.0f, 1.0f + __expf(-z{}))"
 IEEE_SIGMOID = "1.0f / (1.0f + expf(-z{}))"
+# the f32 WGMMA route's epilogue calls, its lo terms, its register split,
+# and its GEMM launches
+F32_STORE_Y = "                     store_y_f32(b, y, M, N, n0, m0, act, acc0, acc1);\n"
+F32_UPDATE = "                     update_tile_f32(p, v, a, m, In, Out, out0, in0, acc0, acc1);\n"
+LO_TERMS = ("      wgmma_m64n128k8_rs(acc0, fh0 + 4, dh);    // lo * hi\n"
+            "      wgmma_m64n128k8_rs(acc1, fh0 + 12, dh);\n"
+            "      wgmma_m64n128k8_rs(acc0, fh0, dl);        // hi * lo\n"
+            "      wgmma_m64n128k8_rs(acc1, fh0 + 8, dl);\n")
+REG_SPLIT = "  nnet_tile::split_tf32("
+RAW_SPLIT = "  raw_tf32("
+LOAD_FRAGS = "__device__ __forceinline__ void load_frags("
+RAW_DEF = ("__device__ __forceinline__ void raw_tf32(float x, uint32_t& hi, uint32_t& lo) {\n"
+           "  hi = lo = __float_as_uint(x);\n}\n\n")
+F32_FWD_LAUNCH = ("  matmul_act_f32_wgmma_kernel<<<blocks, W::THREADS, T::S::SMEM_BYTES, s>>>"
+                  "(tw, txh, txl, b, y, M,\n"
+                  "                                                                           "
+                  "N, K, act);\n")
+F32_WGRAD_LAUNCH = ("  wgrad_momentum_f32_wgmma_kernel<V><<<blocks, W::THREADS, T::S::SMEM_BYTES, "
+                    "stream>>>(\n      te, txh, txl, p, v, a, m, B, In, Out);\n")
+GROUP_B = "constexpr int GROUP_B = 8;"
 # variant: [(file in csrc/, text, replacement)]
 VARIANTS = {"3xtf32": [], "3pass_nosplit": [("tile_gemm.cuh", SPLIT, RAW)],
             "1pass": [("tile_gemm.cuh", SPLIT, RAW), ("tile_gemm.cuh", MMA3, MMA1)],
-            "wgmma_mainloop": [("matmul_act.cu", STORE_Y, ""), ("sgd_fused.cu", UPDATE_PV, "")],
+            "wgmma_mainloop": [("matmul_act.cu", STORE_Y, f"    if (act < 0)\n  {STORE_Y}"),
+                               ("sgd_fused.cu", UPDATE_PV, f"      if (In < 0)\n  {UPDATE_PV}")],
             "wgmma_wgrad_r4": [("sgd_fused.cu", ROWS8, ROWS4)],
             "wgmma_ieee_sigmoid": [("matmul_act.cu", FAST_SIGMOID.format(i), IEEE_SIGMOID.format(i))
-                                   for i in (0, 1)]}
+                                   for i in (0, 1)],
+            "f32_wgmma_mainloop": [("matmul_act.cu", F32_STORE_Y, f"if (act < 0) {{\n{F32_STORE_Y}}}\n"),
+                                   ("sgd_fused.cu", F32_UPDATE, f"if (In < 0) {{\n{F32_UPDATE}}}\n")],
+            "f32_wgmma_1pass": [("tf32_wgmma.cuh", LO_TERMS, "")],
+            "f32_wgmma_nosplit": [("tf32_wgmma.cuh", LOAD_FRAGS, RAW_DEF + LOAD_FRAGS),
+                                  ("tf32_wgmma.cuh", REG_SPLIT, RAW_SPLIT)],
+            "f32_wgmma_prepass": [("matmul_act.cu", F32_FWD_LAUNCH, ""),
+                                  ("sgd_fused.cu", F32_WGRAD_LAUNCH, "")],
+            "f32_wgmma_a_fastest": [("tf32_wgmma.cuh", GROUP_B, GROUP_B.replace("8", "1"))],
+            "f32_wgmma_ss": []}
+# sources compiled beside csrc/ in a build: the SS candidate design
+EXTRA = {"f32_wgmma_ss": [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "gemm_ceiling_ss.cu")]}
+SS_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+@contextlib.contextmanager
+def mma_sync_f32():
+    """Every f32 GEMM on the MMA_SYNC route while inside (the WGMMA route's
+    element sizes without 4), the plan every f32 shape had before that
+    route: the mma.sync rows here and in chip_smoke.py at the production
+    shapes."""
+    from ..ops.kernels import tile_plan
+
+    saved = tile_plan.WGMMA_ELEMS
+    tile_plan.WGMMA_ELEMS = tuple(e for e in saved if e != 4)
+    try:
+        yield
+    finally:
+        tile_plan.WGMMA_ELEMS = saved
 
 
 F32_FORWARD_TILE = "std::is_same<E, float>::value, SmallTile8, SmallTile>"
@@ -161,11 +239,14 @@ def small_cases(dev):
     return cases
 
 
-def build_variant(name, subs, root):
-    """Compile csrc/ with the text substitutions ``subs``."""
+def build_variant(name, subs, root, extra=()):
+    """Compile csrc/ with the text substitutions ``subs``, and the sources
+    ``extra`` beside it."""
     d = os.path.join(root, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
+    for src in extra:
+        shutil.copy(src, d)
     for fname, old, new in subs:
         path = os.path.join(d, fname)
         with open(path) as f:
@@ -187,6 +268,9 @@ def load(so):
         getattr(lib, fn).restype = ctypes.c_int
     lib.nnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nnet_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "matmul_act_f32_wgmma_ss"):
+        lib.matmul_act_f32_wgmma_ss.argtypes = SS_ARGS
+        lib.matmul_act_f32_wgmma_ss.restype = ctypes.c_int
     return lib
 
 
@@ -223,7 +307,8 @@ def main(argv=None) -> int:
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "gemm_ceiling")
     if args.small:
         return small(root, args.reps)
-    builds = {name: build_variant(name, subs, root) for name, subs in VARIANTS.items()}
+    builds = {name: build_variant(name, subs, root, EXTRA.get(name, ()))
+              for name, subs in VARIANTS.items()}
     libs = {}
     for name, (so, proc) in builds.items():
         out, _ = proc.communicate()
@@ -243,13 +328,59 @@ def main(argv=None) -> int:
     p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
     bf = torch.bfloat16
     xb, wb, bb, xsb, esb = (t.to(bf) for t in (x, w, b, xs, es))
+    x1, w1 = x[:, :1024].contiguous(), w[:1024].contiguous()
     xb1, wb1 = xb[:, :1024].contiguous(), wb[:1024].contiguous()
-    esb4 = esb[:, :4096].contiguous()
+    es4, esb4 = es[:, :4096].contiguous(), esb[:, :4096].contiguous()
+    xs1 = xs[:, :1024].contiguous()
     p4, v4 = torch.zeros((In, 4096), device=dev), torch.zeros((In, 4096), device=dev)
-    cases = [(f"matmul_act {M}x{K}->{N}", 2.0 * M * N * K,
+    p1, v1 = torch.zeros((1024, 4096), device=dev), torch.zeros((1024, 4096), device=dev)
+
+    def on_mma_sync(fn):
+        def call():
+            with mma_sync_f32():
+                fn()
+        return call
+
+    def ss(x, w, b, act):
+        """The SS candidate's forward (gemm_ceiling_ss.cu), its scratch
+        made once; None where the build has no such entry point."""
+        Mx, Kx = x.shape
+        Nx = w.shape[1]
+        y = torch.empty((Mx, Nx), device=dev)
+        xs_, ws_ = torch.empty((2, Mx, Kx), device=dev), torch.empty((2, Nx, Kx), device=dev)
+        blocks = min(-(-Mx // 128) * -(-Nx // 128), 132)
+
+        def call():
+            lib = _build._lib
+            if not hasattr(lib, "matmul_act_f32_wgmma_ss"):
+                return None
+            _build.check(lib.matmul_act_f32_wgmma_ss(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), xs_[0].data_ptr(),
+                xs_[1].data_ptr(), ws_[0].data_ptr(), ws_[1].data_ptr(), Mx, Nx, Kx,
+                MA.ACTS[act], blocks, torch.cuda.current_stream().cuda_stream),
+                "matmul_act_f32_wgmma_ss")
+            return y
+        return call
+
+    cases = [(f"matmul_act f32 mma.sync {M}x{K}->{N}", 2.0 * M * N * K,
+              on_mma_sync(lambda: MA.matmul_act(x, w, b, "none"))),
+             (f"matmul_act f32 wgmma {M}x{K}->{N}", 2.0 * M * N * K,
               lambda: MA.matmul_act(x, w, b, "none")),
-             (f"wgrad_momentum_update {B}x{In}->{Out}", 2.0 * B * In * Out,
+             (f"matmul_act f32 mma.sync sigmoid {M}x1024->{N}", 2.0 * M * N * 1024,
+              on_mma_sync(lambda: MA.matmul_act(x1, w1, b, "sigmoid"))),
+             (f"matmul_act f32 wgmma sigmoid {M}x1024->{N}", 2.0 * M * N * 1024,
+              lambda: MA.matmul_act(x1, w1, b, "sigmoid")),
+             (f"matmul_act f32 wgmma-ss {M}x{K}->{N}", 2.0 * M * N * K, ss(x, w, b, "none")),
+             (f"matmul_act f32 wgmma-ss sigmoid {M}x1024->{N}", 2.0 * M * N * 1024,
+              ss(x1, w1, b, "sigmoid")),
+             (f"wgrad_momentum_update f32 mma.sync {B}x{In}->{Out}", 2.0 * B * In * Out,
+              on_mma_sync(lambda: SF.wgrad_momentum_update(xs, es, p, v, 0.0, 0.0))),
+             (f"wgrad_momentum_update f32 wgmma {B}x{In}->{Out}", 2.0 * B * In * Out,
               lambda: SF.wgrad_momentum_update(xs, es, p, v, 0.0, 0.0)),
+             (f"wgrad_momentum_update f32 wgmma {B}x{In}->4096", 2.0 * B * In * 4096,
+              lambda: SF.wgrad_momentum_update(xs, es4, p4, v4, 0.0, 0.0)),
+             (f"wgrad_momentum_update f32 wgmma {B}x1024->4096", 2.0 * B * 1024 * 4096,
+              lambda: SF.wgrad_momentum_update(xs1, es4, p1, v1, 0.0, 0.0)),
              (f"matmul_act bf16 sigmoid {M}x{K}->{N}", 2.0 * M * N * K,
               lambda: MA.matmul_act(xb, wb, bb, "sigmoid")),
              (f"matmul_act bf16 none {M}x{K}->{N}", 2.0 * M * N * K,
@@ -260,7 +391,10 @@ def main(argv=None) -> int:
               lambda: SF.wgrad_momentum_update(xsb, esb, p, v, 0.0, 0.0)),
              (f"wgrad_momentum_update bf16 {B}x{In}->4096", 2.0 * B * In * 4096,
               lambda: SF.wgrad_momentum_update(xsb, esb4, p4, v4, 0.0, 0.0))]
-    before = MA.matmul_act.launches_bf16_wgmma, SF.wgrad_momentum_update.launches_bf16_wgmma
+    counters = ((MA.matmul_act, "launches_bf16_wgmma"), (MA.matmul_act, "launches_f32_wgmma"),
+                (SF.wgrad_momentum_update, "launches_bf16_wgmma"),
+                (SF.wgrad_momentum_update, "launches_f32_wgmma"))
+    before = [getattr(f, k) for f, k in counters]
     saved = _build._lib
     try:
         for turn in range(2):
@@ -268,13 +402,22 @@ def main(argv=None) -> int:
                 _build._lib = lib
                 row = []
                 for what, flops, fn in cases:
+                    if "wgmma-ss" in what and not hasattr(lib, "matmul_act_f32_wgmma_ss"):
+                        continue
                     us = event_us(fn, args.reps)
                     row.append(f"{what} {us:.1f} us ({flops / us / 1e6:.1f} TFLOP/s)")
-                print(f"gemm_ceiling turn {turn} {name}: " + "; ".join(row))
+                print(f"gemm_ceiling turn {turn} {name}: " + "; ".join(row), flush=True)
+        # the SS candidate against the kernel: the same y
+        _build._lib = libs["f32_wgmma_ss"]
+        for (what, _, fn), (_, _, ref) in ((cases[4], cases[1]), (cases[5], cases[3])):
+            y_ss, y_ref = fn(), ref()
+            torch.cuda.synchronize()
+            print(f"gemm_ceiling {what}: max |y - the kernel's| "
+                  f"{(y_ss - y_ref).abs().max().item():.3e}")
     finally:
         _build._lib = saved
-    if (MA.matmul_act.launches_bf16_wgmma, SF.wgrad_momentum_update.launches_bf16_wgmma) == before:
-        raise RuntimeError("the bf16 cases did not take the WGMMA route")
+    if any(getattr(f, k) == n for (f, k), n in zip(counters, before)):
+        raise RuntimeError("a WGMMA route was not taken by its cases")
     return 0
 
 

@@ -74,6 +74,18 @@ KERNEL_NAMES = {
     "void (anonymous namespace)::wgrad_momentum_wgmma_kernel<__nv_bfloat16>(CUtensorMap_st, "
     "CUtensorMap_st, float*, __nv_bfloat16*, float, float, int, int, int)":
         "wgrad_momentum_update bf16 (ours)",
+    "(anonymous namespace)::matmul_act_f32_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, "
+    "CUtensorMap_st, float const*, float*, int, int, int, int)": "affine_sigmoid f32 WGMMA (ours)",
+    "(anonymous namespace)::matmul_act_f32_split_kernel(float4 const*, uint4*, uint4*, "
+    "unsigned long)": "affine_sigmoid f32 WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_f32_wgmma_kernel<float>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st, float*, float*, float, float, int, int, int)":
+        "wgrad_momentum_update f32 WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_f32_wgmma_kernel<__nv_bfloat16>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st, float*, __nv_bfloat16*, float, float, int, int, int)":
+        "wgrad_momentum_update f32 WGMMA (ours)",
+    "(anonymous namespace)::wgrad_momentum_f32_split_kernel(float const*, float*, float*, int, "
+    "int)": "wgrad_momentum_update f32 WGMMA (ours)",
     "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
     "__nv_bfloat16>(__nv_bfloat16 const*)": "affine_sigmoid bf16 (ours)",
     "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
@@ -102,8 +114,8 @@ def test_profiler_groups_attribute_each_kernel(key):
     assert group == KERNEL_NAMES[key]
 
 
-# ptxas's report of two WGMMA-route kernels: the spill bytes chip_smoke
-# reads per kernel
+# ptxas's report of WGMMA-route kernels (bf16 and f32; the f32 route's
+# pre-pass is no wgmma kernel): the spill bytes chip_smoke reads per kernel
 def test_wgmma_spills_from_ptxas_report():
     log = ("ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_wgmma_kernel"
            "E14CUtensorMap_st' for 'sm_90a'\n"
@@ -113,7 +125,19 @@ def test_wgmma_spills_from_ptxas_report():
            "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
            "ptxas info    : Compiling entry function '_ZN45_wgrad_momentum_wgmma_kernelIfEEv' for "
            "'sm_90a'\n"
-           "    0 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n")
+           "    0 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_f32_split_kernel"
+           "EPK6float4' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_f32_wgmma_kernel"
+           "E14CUtensorMap_st' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN49_wgrad_momentum_f32_wgmma_kernelI13__nv_"
+           "bfloat16EEv' for 'sm_90a'\n"
+           "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
     assert chip_smoke.wgmma_spills(log) == {
         "_ZN46_GLOBAL__N__x_matmul_act_wgmma_kernelE14CUtensorMap_st": 0,
-        "_ZN45_wgrad_momentum_wgmma_kernelIfEEv": 16}
+        "_ZN45_wgrad_momentum_wgmma_kernelIfEEv": 16,
+        "_ZN46_GLOBAL__N__x_matmul_act_f32_wgmma_kernelE14CUtensorMap_st": 0,
+        "_ZN49_wgrad_momentum_f32_wgmma_kernelI13__nv_bfloat16EEv": 16}
+    assert chip_smoke.WGMMA_KERNELS == 6     # 3 bf16 instances, 3 f32 ones

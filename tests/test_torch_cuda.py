@@ -21,6 +21,14 @@ value, its bf16 velocity within that plus one bf16 step at the element (the
 f32 sum, taken in another order, may round to the neighbouring bf16 value;
 near zero the sum's own error exceeds a bf16 step).
 
+The f32 WGMMA route (``csrc/tf32_wgmma.cuh``: 3xTF32 on ``wgmma``, the
+production shapes and others whose 128x128 tiles fill the card and whose
+pitches are multiples of 4 floats) is held to the same tolerances at the
+production shapes and at ragged M, N and K tails, with f32 and bf16
+velocity at momentum 0 and 0.9, its launches asserted by
+``launches_f32_wgmma``; small integers make every sum exact, so a wrong
+fragment, descriptor or swizzle shows as a wrong element.
+
 The bf16 variants (one bf16 ``mma.sync`` pass, f32 accumulation) are held to
 their plain versions within one bf16 step: both round an f32 value that
 differs only by summation order. Their shapes add the 2-byte copy path (an
@@ -320,14 +328,15 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         assert pl.splits > 1
 
 
-def _kernels_of(fn):
-    """The names of the device kernels one call of ``fn`` launches."""
+def _kernels_of(fn, calls=1):
+    """The names of the device kernels ``calls`` calls of ``fn`` launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if getattr(e, "device_type", None)
             == torch.autograd.DeviceType.CUDA]
@@ -553,6 +562,131 @@ def test_cuda_wgrad_bf16_wgmma_persistent_exact_and_repeatable(cuda):
     assert torch.equal(runs[0][1], exact) and torch.equal(runs[0][0], -exact)
     for p, v in runs[1:]:
         assert torch.equal(p, runs[0][0]) and torch.equal(v, runs[0][1])
+
+
+# (M, K, N) of the f32 forward on the f32 WGMMA route: the production
+# stack's two widths, then ragged M, N and K (multiples of 4 floats, not of
+# the 128x128 tile or the 32-deep stage), K one stage and a tail
+F32_WGMMA_AFFINE = ((1024, 1024, 4096), (1024, 4096, 4096), (1000, 1000, 4104),
+                    (1020, 4092, 4100), (516, 36, 4228))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_WGMMA_AFFINE)
+def test_cuda_matmul_act_f32_wgmma_matches_plain(cuda, shape):
+    M, K, N = shape
+    x, w, b, _ = _affine_inputs(26, M, K, N)
+    xs, ws, bs = (_on_card(a, cuda) for a in (x, w, b))
+    pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=xs.data_ptr(), b_ptr=ws.data_ptr())
+    assert pl.route == tile_plan.WGMMA and pl.blocks == tile_plan.SM_COUNT
+    before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma)
+    y = MA.matmul_act(xs, ws, bs)
+    assert (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma) == (before[0] + 1,
+                                                                          before[1] + 1)
+    y2 = MA.matmul_act(xs, ws, bs)
+    z = MA.matmul_act(xs, ws, bs, "none")
+    yp, zp = MA.matmul_act_plain(xs, ws, bs), MA.matmul_act_plain(xs, ws, bs, "none")
+    torch.cuda.synchronize()
+    # y: the 1e-5 of the test above up to its depth of 1024; chip_smoke.py
+    # phase 3's 1e-4 at depth 4096, where both f32 sums round 4x the products
+    assert (y - yp).abs().max().item() <= (1e-5 if K <= 1024 else 1e-4)
+    assert (z - zp).abs().max().item() <= 1e-4 * (zp.abs().max().item() or 1.0)
+    assert torch.equal(y, y2)
+
+
+# (B, In, Out) of the f32 weight gradient on the f32 WGMMA route: the
+# production stack's three, ragged In, Out and bunch (multiples of 4), a
+# bunch of one stage and a tail
+F32_WGMMA_WGRAD = ((1024, 1024, 4096), (1024, 4096, 4096), (1024, 4096, 8192),
+                   (1000, 1032, 4104), (36, 1028, 4228))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [0.0, 0.9])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", F32_WGMMA_WGRAD)
+def test_cuda_wgrad_f32_wgmma_matches_plain(cuda, shape, vdt, m):
+    B, In, Out = shape
+    rng = np.random.default_rng(27)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
+    xs, es = (_on_card(a, cuda) for a in (x, e))
+    pk, pp, p2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
+    vk, vp, v2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
+    pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
+                        b_ptr=es.data_ptr(), wgrad=True, out_ptrs=(pk.data_ptr(), vk.data_ptr()))
+    assert pl.route == tile_plan.WGMMA
+    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_f32_wgmma)
+    SF.wgrad_momentum_update(xs, es, pk, vk, 0.003, m)
+    assert (SF.wgrad_momentum_update.launches,
+            SF.wgrad_momentum_update.launches_f32_wgmma) == (before[0] + 1, before[1] + 1)
+    SF.wgrad_momentum_update(xs, es, p2, v2, 0.003, m)
+    SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, m)
+    torch.cuda.synchronize()
+    assert (pk - pp).abs().max().item() <= 1e-5 * pp.abs().max().item()
+    if vdt == torch.float32:
+        assert (vk - vp).abs().max().item() <= 1e-5 * vp.abs().max().item()
+    else:
+        big = torch.maximum(vk.float().abs(), vp.float().abs())
+        tol = bf16_ulp(big) + 1e-5 * vp.float().abs().max()
+        assert bool(((vk.float() - vp.float()).abs() <= tol).all())
+    assert torch.equal(pk, p2) and torch.equal(vk, v2)
+
+
+# Both f32 WGMMA kernels with small integers: every product and sum is exact
+# in f32 (and each integer's lo half is 0), so y and g equal the exact
+# result bit for bit; a wrong A fragment, B descriptor, swizzle or the
+# permuted columns of the epilogue would move whole blocks of it
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["forward", "wgrad"])
+def test_cuda_f32_wgmma_layouts_exact(cuda, which):
+    rng = np.random.default_rng(28)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float32)).to(cuda)
+
+    if which == "forward":
+        M, K, N = 512, 520, 4224                   # 132 tiles, a stage's tail
+        x, w, b = ints(M, K), ints(K, N), ints(N)
+        before = MA.matmul_act.launches_f32_wgmma
+        y = MA.matmul_act(x, w, b, "none")
+        assert MA.matmul_act.launches_f32_wgmma == before + 1
+        assert torch.equal(y.double(), x.double() @ w.double() + b.double())
+    else:
+        B, In, Out = 264, 1028, 4224
+        x, e = ints(B, In), ints(B, Out)
+        p = torch.zeros((In, Out), device=cuda)
+        v = torch.zeros((In, Out), device=cuda)
+        before = SF.wgrad_momentum_update.launches_f32_wgmma
+        SF.wgrad_momentum_update(x, e, p, v, 1.0, 0.0)
+        assert SF.wgrad_momentum_update.launches_f32_wgmma == before + 1
+        assert torch.equal(v.double(), x.double().T @ e.double()) and torch.equal(p, -v)
+
+
+# One call on the f32 WGMMA route launches the pre-pass and the GEMM, named
+# for the profiler groups of chip_smoke.py; an operand one float off a
+# 16-byte boundary keeps the shape on MMA_SYNC, one kernel a call. Counted
+# over 10 calls (a window of one call may lose its first kernel's event)
+@pytest.mark.cuda
+def test_cuda_f32_wgmma_kernels_a_call(cuda):
+    def per_call(fn, prefix):
+        names = _kernels_of(fn, calls=10)
+        assert all(prefix in n for n in names)
+        return round(len(names) / 10), len(set(names))
+
+    x, w, b, _ = _affine_inputs(29, 1024, 1024, 4096)
+    xs, ws, bs = (_on_card(a, cuda) for a in (x, w, b))
+    assert per_call(lambda: MA.matmul_act(xs, ws, bs), "matmul_act_f32_") == (2, 2)
+    xm = _on_card(x, cuda, offset=1)
+    assert tile_plan.plan(1024, 4096, 1024, 1024, 4096, xm.data_ptr(),
+                          ws.data_ptr()).route == tile_plan.MMA_SYNC
+    assert per_call(lambda: MA.matmul_act(xm, ws, bs), "matmul_act_kernel") == (1, 1)
+    rng = np.random.default_rng(29)
+    xw, ew = (_on_card(rng.standard_normal((1024, n)).astype(np.float32), cuda)
+              for n in (1024, 4096))
+    p, v = torch.zeros((1024, 4096), device=cuda), torch.zeros((1024, 4096), device=cuda)
+    assert per_call(lambda: SF.wgrad_momentum_update(xw, ew, p, v, 1e-3, 0.9),
+                    "wgrad_momentum_f32_") == (2, 2)
 
 
 @pytest.mark.cuda

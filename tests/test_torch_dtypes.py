@@ -172,8 +172,13 @@ def test_bf16_plan_of_main_path_shapes(name):
     p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split,
                        elem=2)
     assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes, p.route) == want
+    # f32 operands take the same route at these shapes: the f32 WGMMA one
+    # at the production shapes (128x128 tiles on a persistent grid, the
+    # forward's too), MMA_SYNC at MLP3's
     f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split)
-    assert f.route == tile_plan.MMA_SYNC
+    assert f.route == p.route
+    if f.route == tile_plan.WGMMA:
+        assert (f.tile, f.splits, f.blocks) == (tile_plan.BIG, 1, tile_plan.SM_COUNT)
     if p.route == tile_plan.MMA_SYNC:
         # the mma.sync tile does not depend on the element size; the split
         # weighs a block's fixed cost against the steps of its own type
@@ -188,11 +193,12 @@ def test_bf16_plan_of_main_path_shapes(name):
         assert p.blocks == (min(tiles, tile_plan.SM_COUNT) if split else tiles)
 
 
-# The route rule: WGMMA exactly where the elements are 2 bytes, both row
-# pitches are 16-byte multiples and every pointer (operands and outputs)
-# is 16-byte aligned; ragged M, N and K with such pitches stay on WGMMA;
-# f32 never takes it. (M, N, K, a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs,
-# elem) -> WGMMA?
+# The route rule: WGMMA exactly where both row pitches are 16-byte
+# multiples and every pointer (operands and outputs) is 16-byte aligned;
+# ragged M, N and K with such pitches stay on WGMMA; f32 takes it only
+# where, besides, K is a multiple of 4 floats and the 128x128 tiles fill
+# the card (the production shape, not a 128x256 product). (M, N, K,
+# a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs, elem) -> WGMMA?
 @pytest.mark.parametrize("args,wgmma", [
     ((128, 256, 64, 64, 256, 0, 0, (), 2), True),             # one tile
     ((1000, 4104, 1000, 1000, 4104, 0, 0, (), 2), True),      # ragged M, N, K
@@ -205,8 +211,8 @@ def test_bf16_plan_of_main_path_shapes(name):
     ((64, 128, 128, 128, 128, 0, 2, (), 2), False),           # B base 2 bytes off
     ((64, 128, 128, 128, 128, 0, 0, (4,), 2), False),         # an output 4 bytes off
     ((64, 128, 128, 128, 128, 0, 0, (0, 8), 2), False),       # the second output off
-    ((1024, 4096, 4096, 4096, 4096, 0, 0, (), 4), False),     # f32: never
-    ((128, 256, 64, 64, 256, 0, 0, (0,), 4), False),
+    ((1024, 4096, 4096, 4096, 4096, 0, 0, (), 4), True),      # f32: the production shape
+    ((128, 256, 64, 64, 256, 0, 0, (0,), 4), False),          # f32: 2 tiles for 132 SMs
 ])
 def test_wgmma_route_rule(args, wgmma):
     M, N, K, ap, bp, a_ptr, b_ptr, outs, elem = args
@@ -214,9 +220,13 @@ def test_wgmma_route_rule(args, wgmma):
         p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=a_ptr, b_ptr=b_ptr,
                            wgrad=split, elem=elem, out_ptrs=outs)
         assert (p.route == tile_plan.WGMMA) == wgmma
-        assert tile_plan.wgmma_route(elem, (ap, bp), (a_ptr, b_ptr, *outs)) == wgmma
+        # the TMA part of the rule; an f32 product off the route for its
+        # tile count alone passes it
+        few_tiles = elem == 4 and tile_plan.tile_count(M, N, tile_plan.BIG) < tile_plan.SM_COUNT
+        assert tile_plan.wgmma_route(elem, (ap, bp), (a_ptr, b_ptr, *outs)) == (wgmma or few_tiles)
         if wgmma:
-            want = (tile_plan.BIG, 128, 128) if split else (tile_plan.WIDE, 128, 256)
+            persistent = split or elem == 4
+            want = (tile_plan.BIG, 128, 128) if persistent else (tile_plan.WIDE, 128, 256)
             assert (p.tile, p.bm, p.bn, p.splits, p.k_chunk) == (*want, 1, K)
             assert (p.a_bytes, p.b_bytes) == (16, 16)
         else:

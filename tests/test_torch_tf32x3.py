@@ -11,9 +11,17 @@ from the card. At the production depths (K = 4096 for ``x @ W``, a bunch of
 ``chip_smoke.py`` phase 3 holds the kernels to, against an f64 product, and a
 single TF32 pass is not.
 
-The second half holds ``tile_plan.plan`` to the tile, split and copy path of
-every shape the main paths launch, every production shape to its plan, and
-the SMALL blocks planned per SM to the shared memory an SM has.
+The f32 WGMMA route (``csrc/tf32_wgmma.cuh``) keeps that arithmetic with the
+operands' roles turned: it computes y^T = W^T x^T and g^T = e^T x, so the
+split operand taken first (lo * hi) is W or e, and the emulation at the same
+depths holds it to the same tolerances.
+
+The second half holds ``tile_plan.plan`` to the tile, split, copy path and
+route of every shape the main paths launch, every production shape to the
+f32 WGMMA route's plan (and to the MMA_SYNC BIG plan where TMA cannot
+describe an operand), every SMALL-route shape to the plan it had before that
+route, and the blocks planned per SM, and the WGMMA tiles, to the shared
+memory an SM has.
 """
 
 import math
@@ -118,41 +126,66 @@ def test_wgrad_at_bunch_1024_within_phase3_tolerance_only_with_3xtf32(passes):
         assert err > tol
 
 
+# The f32 WGMMA route: out^T = A^T B^T with A = W (forward) or e (weight
+# gradient) split in registers and taken first in each k8 step
+@pytest.mark.parametrize("which", ["forward", "wgrad"])
+def test_f32_wgmma_route_terms_within_phase3_tolerance(which):
+    if which == "forward":
+        x, w, ref = _affine_case()
+        z = gemm_tf32(w.T.contiguous(), x.T.contiguous(), 3).T.double()
+        err_z = (z - ref).abs().max().item()
+        err_y = (torch.sigmoid(z) - torch.sigmoid(ref)).abs().max().item()
+        assert err_z <= 1e-4 * max(ref.abs().max().item(), 1.0) / 10 and err_y <= 1e-4 / 10
+        # the roles matter: the order differs from the mma.sync route's
+        assert not torch.equal(z, gemm_tf32(x, w, 3).double())
+    else:
+        x, e, v, ref = _wgrad_case()
+        corr = gemm_tf32(e.T.contiguous(), x, 3).T.double() + 0.9 * v.double()
+        assert (corr - ref).abs().max().item() <= 1e-5 * ref.abs().max().item() / 5
+
+
 # --------------------------------------------------------------------------
 # the launch plan
 # --------------------------------------------------------------------------
 
-BIG, SMALL = tile_plan.BIG, tile_plan.SMALL
+BIG, SMALL, WIDE = tile_plan.BIG, tile_plan.SMALL, tile_plan.WIDE
+MMA_SYNC, WGMMA = tile_plan.MMA_SYNC, tile_plan.WGMMA
 
-# (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes, b_bytes)
+# (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes,
+# b_bytes, route)
 MAIN_PATH_PLANS = {
     # affine_sigmoid x (M, K) @ W (K, N): pitches K and N. K is split where
     # that evens the SMs' load (80 tiles for 132 SMs), not where no split
     # can (128, 120 and 240 tiles); x's f32 rows of 598 (2,392 bytes) take
     # 8-byte copies
     "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
-                                    (SMALL, 1, 598, 8, 16)),
+                                    (SMALL, 1, 598, 8, 16, MMA_SYNC)),
     "affine 480x598->1024 (MLP3, a 2x2 mesh rank's rows)": ((480, 1024, 598, 598, 1024, False),
-                                                            (SMALL, 1, 598, 8, 16)),
+                                                            (SMALL, 1, 598, 8, 16, MMA_SYNC)),
     "affine 284x598->1024 (one tmpe utterance)": ((284, 1024, 598, 598, 1024, False),
-                                                  (SMALL, 3, 224, 8, 16)),
+                                                  (SMALL, 3, 224, 8, 16, MMA_SYNC)),
     "affine 1024x368->500 (TIMIT hidden)": ((1024, 500, 368, 368, 500, False),
-                                            (SMALL, 1, 368, 16, 16)),
+                                            (SMALL, 1, 368, 16, 16, MMA_SYNC)),
+    # the production stack's f32 forward: 3xTF32 wgmma on the ping-pong
+    # 128x128 tiles of a persistent grid, no split (the f32 WGMMA route;
+    # the BIG mma.sync tile before)
     "affine 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, False),
-                               (BIG, 1, 1024, 16, 16)),
+                               (BIG, 1, 1024, 16, 16, WGMMA)),
     "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
-                               (BIG, 1, 4096, 16, 16)),
+                               (BIG, 1, 4096, 16, 16, WGMMA)),
     # wgrad x^T e: M = In, N = Out, K = bunch; pitches In and Out
     "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
-                                   (SMALL, 4, 256, 8, 16)),
+                                   (SMALL, 4, 256, 8, 16, MMA_SYNC)),
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
-                                   (SMALL, 5, 192, 16, 4)),
+                                   (SMALL, 5, 192, 16, 4, MMA_SYNC)),
+    # the production weight gradients: the ping-pong 128x128 tiles of the
+    # f32 WGMMA route on a persistent grid (the BIG mma.sync tile before)
     "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
-                              (BIG, 1, 1024, 16, 16)),
+                              (BIG, 1, 1024, 16, 16, WGMMA)),
     "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
-                              (BIG, 1, 1024, 16, 16)),
+                              (BIG, 1, 1024, 16, 16, WGMMA)),
     "wgrad 1024x4096->8192": ((4096, 8192, 1024, 4096, 8192, True),
-                              (BIG, 1, 1024, 16, 16)),
+                              (BIG, 1, 1024, 16, 16, WGMMA)),
 }
 
 
@@ -160,10 +193,16 @@ MAIN_PATH_PLANS = {
 def test_plan_of_main_path_shapes(name):
     (M, N, K, ap, bp, wgrad), want = MAIN_PATH_PLANS[name]
     p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=wgrad)
-    assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes) == want
+    assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes, p.route) == want
     assert (p.bm, p.bn) == tile_plan.TILES[p.tile]
-    assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
-    assert p.blocks >= tile_plan.SM_COUNT or p.tile == SMALL
+    tiles = tile_plan.tile_count(M, N, p.tile)
+    if p.route == WGMMA:
+        # a persistent grid: a block an SM, walking the tiles
+        assert p.blocks == min(tiles, tile_plan.SM_COUNT)
+    else:
+        assert p.blocks == tiles * p.splits
+    # BIG and WGMMA plans only where the 128x128 tiles fill the card
+    assert tile_plan.tile_count(M, N, BIG) >= tile_plan.SM_COUNT or p.tile == SMALL
     if p.tile == SMALL:
         # the split leaves the busiest SM no more work than the whole tiles
         busiest = -(-p.blocks // tile_plan.SM_COUNT) / p.splits
@@ -177,9 +216,15 @@ def test_plan_of_main_path_shapes(name):
         assert tile_plan.tile_count(M, N, p.tile) <= _build.COUNTERS
 
 
-# every production shape keeps the plan it had before the SMALL route took
-# split-K and 8-byte copies: the BIG tile, no split, 16-byte copies, its grid
+# every production shape (and the f32 forward at 1024x4096->8192) takes the
+# f32 WGMMA route: no split, 128x128 tiles on a persistent grid of a block
+# an SM; the same shapes with an operand one float off a 16-byte boundary
+# keep the MMA_SYNC plan they had: the BIG tile, no split, the tile grid
 PRODUCTION_PLANS = {
+    (1024, 4096, 1024, 1024, 4096, False): 132, (1024, 4096, 4096, 4096, 4096, False): 132,
+    (1024, 4096, 1024, 1024, 4096, True): 132, (4096, 4096, 1024, 4096, 4096, True): 132,
+    (4096, 8192, 1024, 4096, 8192, True): 132, (1024, 8192, 4096, 4096, 8192, False): 132}
+MMA_SYNC_GRIDS = {
     (1024, 4096, 1024, 1024, 4096, False): 256, (1024, 4096, 4096, 4096, 4096, False): 256,
     (1024, 4096, 1024, 1024, 4096, True): 256, (4096, 4096, 1024, 4096, 4096, True): 1024,
     (4096, 8192, 1024, 4096, 8192, True): 2048, (1024, 8192, 4096, 4096, 8192, False): 512}
@@ -189,9 +234,82 @@ PRODUCTION_PLANS = {
 def test_production_plans_unchanged(shape):
     M, N, K, ap, bp, wgrad = shape
     p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=1 << 20, b_ptr=1 << 21,
-                       wgrad=wgrad)
-    assert p == tile_plan.Plan(BIG, 128, 128, 1, K, 16, 16, tile_plan.MMA_SYNC,
-                               PRODUCTION_PLANS[shape])
+                       wgrad=wgrad, out_ptrs=(1 << 22,))
+    assert p == tile_plan.Plan(BIG, 128, 128, 1, K, 16, 16, WGMMA, PRODUCTION_PLANS[shape])
+    # the bf16 route's plan: the same for the weight gradient, 128x256
+    # tiles on the tile grid for the forward
+    pb = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, elem=2,
+                        out_ptrs=(1 << 22,))
+    assert pb == (p if wgrad else tile_plan.Plan(WIDE, 128, 256, 1, K, 16, 16, WGMMA,
+                                                 tile_plan.tile_count(M, N, WIDE)))
+    for ptrs in ((1 << 20 | 4, 1 << 21, ()), (1 << 20, 1 << 21 | 4, ()),
+                 (1 << 20, 1 << 21, (1 << 22 | 8,))):
+        q = tile_plan.plan(M, N, K, ap, bp, ptrs[0], ptrs[1], wgrad=wgrad, out_ptrs=ptrs[2])
+        assert q[:2] == (BIG, 128) and q.route == MMA_SYNC and q.splits == 1
+        assert q.blocks == MMA_SYNC_GRIDS[shape]
+
+
+# f32 shapes of the BIG tile's size whose operands TMA cannot describe stay
+# on MMA_SYNC: a pitch that is not a multiple of 4 floats (K = 4098, N =
+# 4098), or, for the weight gradient, a bunch that is not (the pitch of the
+# pre-pass's transposed copy of x)
+@pytest.mark.parametrize("shape", [(1024, 4096, 4098, 4098, 4096, False),
+                                   (1024, 4098, 4096, 4096, 4098, False),
+                                   (4096, 4098, 1024, 4096, 4098, True),
+                                   (4096, 4096, 1022, 4096, 4096, True),
+                                   (1022, 4096, 4096, 4096, 4096, False)])
+def test_f32_wgmma_route_needs_tma_pitches(shape):
+    M, N, K, ap, bp, wgrad = shape
+    p = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
+    want = MMA_SYNC if K % 4 or ap % 4 or bp % 4 else WGMMA
+    assert p.route == want and (p.route == WGMMA) == (M == 1022)
+    if p.route == MMA_SYNC:
+        assert (p.tile, p.splits, p.blocks) == (BIG, 1, tile_plan.tile_count(M, N, BIG))
+
+
+# Every SMALL-route shape of the main paths keeps its plan exactly, with
+# aligned operands and pitches TMA could describe (so only the tile count
+# keeps it off the f32 WGMMA route): TIMIT's forward and output weight,
+# the RBM recipe's 960x1024->1024, a 2x1 mesh rank's production rows
+# (128 BIG tiles, under the 132 SMs), MLP3's and tmpe's rows, TIMIT's
+# output layer. Plan fields: tile, bm, bn, splits, k_chunk, a_bytes,
+# b_bytes, route, blocks.
+SMALL_PLANS = {
+    (1024, 500, 368, 368, 500, False): (SMALL, 64, 64, 1, 368, 16, 16, MMA_SYNC, 128),
+    (1024, 500, 368, 368, 500, True): (SMALL, 64, 64, 1, 368, 16, 16, MMA_SYNC, 128),
+    (960, 1024, 1024, 1024, 1024, False): (SMALL, 64, 64, 1, 1024, 16, 16, MMA_SYNC, 240),
+    (1024, 1024, 960, 1024, 1024, True): (SMALL, 64, 64, 1, 960, 16, 16, MMA_SYNC, 256),
+    (512, 4096, 1024, 1024, 4096, False): (SMALL, 64, 64, 1, 1024, 16, 16, MMA_SYNC, 512),
+    (512, 4096, 4096, 4096, 4096, False): (SMALL, 64, 64, 1, 4096, 16, 16, MMA_SYNC, 512),
+    (960, 1024, 598, 598, 1024, False): (SMALL, 64, 64, 1, 598, 8, 16, MMA_SYNC, 240),
+    (598, 1024, 960, 598, 1024, True): (SMALL, 64, 64, 4, 256, 8, 16, MMA_SYNC, 640),
+    (1024, 135, 960, 1024, 135, True): (SMALL, 64, 64, 5, 192, 16, 4, MMA_SYNC, 240),
+    (284, 1024, 598, 598, 1024, False): (SMALL, 64, 64, 3, 224, 8, 16, MMA_SYNC, 240),
+    (480, 1024, 598, 598, 1024, False): (SMALL, 64, 64, 1, 598, 8, 16, MMA_SYNC, 128),
+    (1024, 39, 500, 500, 39, False): (SMALL, 64, 64, 4, 128, 16, 4, MMA_SYNC, 64),
+    (500, 39, 1024, 500, 39, True): (SMALL, 64, 64, 8, 128, 16, 4, MMA_SYNC, 64),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SMALL_PLANS))
+def test_small_route_shapes_keep_their_plan(shape):
+    M, N, K, ap, bp, wgrad = shape
+    p = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
+    assert tuple(p) == SMALL_PLANS[shape]
+
+
+# the WGMMA tiles' shared memory (each schedule's SMEM_BYTES) fits a block's
+# 227 KB beside the runtime's reservation; the f32 ring of both kernels: 4
+# stages of W or e 32x128 raw and x's hi and lo 128x32 (PingPong)
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("wgrad", [False, True])
+def test_wgmma_tiles_fit_the_shared_memory_of_a_block(elem, wgrad):
+    smem = tile_plan.wgmma_smem_bytes(elem, wgrad)
+    assert smem <= 227 * 1024
+    assert smem + tile_plan.BLOCK_SMEM_RESERVED <= tile_plan.SM_SMEM
+    if elem == 4:
+        assert smem == 4 * 48 * 1024 + 128 + 1024
+        assert 4 * tile_plan.WGMMA_BK[4] * (128 + 2 * 128) == 48 * 1024   # a stage
 
 
 def test_plan_copy_path_follows_pitch_and_alignment():
