@@ -31,9 +31,12 @@ final line):
      softmax-CE also with L2 flushed between launches, its bound share
      taken against that time, and torch.softmax and a copy at the same
      shape as same-bytes yardsticks; each bf16 shape's route (WGMMA: TMA +
-     wgmma, the production shapes; MMA_SYNC: MLP3's) held by the per-route
-     launch counters, and the wrappers' host us per call on both routes at
-     the production shapes; the f32 rows of both kernels at every shape on
+     wgmma, the production shapes; CP_WGMMA: wgmma fed by cp.async, the
+     forward at the recipes' rows of 598 and 500) held by the per-route
+     launch counters, the CP_WGMMA rows also with act "none" and beside the
+     mma.sync kernel they replaced (forced, gemm_ceiling.mma_sync_bf16: in
+     turns with the library, and alone), and the wrappers' host us per call
+     on WGMMA and MMA_SYNC at the production shapes; the f32 rows of both kernels at every shape on
      the MMA_SYNC route (gemm_ceiling.mma_sync_f32), then rows of their own
      for the f32 WGMMA route (3xTF32 wgmma: a pre-pass kernel and the GEMM
      a call) at the five production shapes, f32 and bf16 velocity, each
@@ -76,8 +79,9 @@ final line):
   8. compute dtypes, on phase 4's corpus (run before phase 6): tnet
      --COMPUTEDTYPE=bf16|int8|int8pf|int8pfsr|int8full on cuda:0, an epoch
      and a CV of its model each (bf16 also with --MOMENTUM), each with exact
-     launch counts per dtype (bf16: the bf16 affine_sigmoid once a bunch and
-     the bf16 wgrad twice a momentum bunch; int8: no GEMM kernel); the bf16
+     launch counts per dtype (bf16: the bf16 affine_sigmoid once a bunch, on
+     the CP_WGMMA route, and the bf16 wgrad twice a momentum bunch; int8: no
+     GEMM kernel); the bf16
      and int8 epochs again on the CPU must agree; the scheduler with
      --compute-dtype=bf16 for 2 newbob iterations; tfeacat --BF16 and --INT8
      on cuda:0 against the CPU;
@@ -150,12 +154,15 @@ final line):
      tmpe --MESH=2x1 (its update within MPE_UPDATE_TOL of phase 11's).
      Launches exact per rank: affine_sigmoid on every mesh step,
      fused_softmax_xent only at model 1, wgrad_momentum_update never.
-Phase 2 also fails on a ptxas spill in a WGMMA-route kernel (bf16 or
-f32). The line before the last is the kernels' JSON record (the four
-WGMMA-route kernels, bf16 and f32, as entries of their own, launched by
-phase 6; the others' launches summed over phases 4, 5, 7, 8, 9, 11, 12 and
-13, every rank, where no f32 WGMMA launch may happen); the last line is
-{"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
+Phase 2 also fails on a ptxas spill in a wgmma kernel (the WGMMA routes,
+bf16 or f32, and the CP_WGMMA forward). The line before the last is
+the kernels' JSON record (the four WGMMA-route kernels, bf16 and f32, as
+entries of their own, launched by phase 6; the CP_WGMMA forward as an
+entry of its own, launched by phases 8 and 12, every bunch of the bf16
+MLP3 runs; the others' launches summed over phases 4, 5, 7, 8, 9, 11, 12
+and 13, every rank, where no f32 WGMMA launch may happen; affine_sigmoid
+and affine_sigmoid_bf16 count every route of their dtype); the last line
+is {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -422,7 +429,7 @@ def plan_dict(tile_plan, plan) -> dict:
 
 
 def route_name(tile_plan, plan) -> str:
-    return "WGMMA" if plan.route == tile_plan.WGMMA else "MMA_SYNC"
+    return {tile_plan.WGMMA: "WGMMA", tile_plan.CP_WGMMA: "CP_WGMMA"}.get(plan.route, "MMA_SYNC")
 
 
 def kernels_a_call(tile_plan, plan) -> int:
@@ -722,17 +729,20 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     plan = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=ts[0].data_ptr(),
                           b_ptr=ts[1].data_ptr(), elem=2)
     route = route_name(tile_plan, plan)
-    # WGMMA needs rows of 16-byte multiples (598 and 500 bf16 values are not)
-    check(route == ("MMA_SYNC" if (2 * K) % 16 or (2 * N) % 16 else "WGMMA"),
+    # WGMMA needs rows of 16-byte multiples (598 and 500 bf16 values are
+    # not); the other shapes here have rows of whole 4-byte units: CP_WGMMA
+    check(route == ("CP_WGMMA" if (2 * K) % 16 or (2 * N) % 16 else "WGMMA"),
           f"{what}: route {route}")
-    before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma)
+    before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma,
+              MA.matmul_act.launches_bf16_cp_wgmma)
     y = MA.affine_sigmoid(*ts)
     y.backward(g)
     yp = MA.matmul_act_plain(x, w, b)
     torch.cuda.synchronize()
-    check((MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma)
-          == (before[0] + 1, before[1] + (route == "WGMMA")) and y.dtype == bf,
-          f"{what}: not one bf16 launch on the {route} route, or y not bf16")
+    check((MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma,
+           MA.matmul_act.launches_bf16_cp_wgmma)
+          == (before[0] + 1, before[1] + (route == "WGMMA"), before[2] + (route == "CP_WGMMA"))
+          and y.dtype == bf, f"{what}: not one bf16 launch on the {route} route, or y not bf16")
     dy = (y.float() - yp.float()).abs()
     err_y = dy.max().item()
     check(bool((dy <= bf16_tol(torch, y, yp)).all()), f"{what}: y beyond one bf16 step")
@@ -745,6 +755,10 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
         rel[name] = ((t.grad.float() - ref).abs().max().item()
                      / max(ref.abs().max().item(), 1e-30))
         check(rel[name] <= 2 ** -7, f"{what}: {name} rel err {rel[name]} > 2^-7")
+    z = MA.matmul_act(x, w, b, "none")
+    check(bool(((z.float() - MA.matmul_act_plain(x, w, b, "none").float()).abs()
+                <= bf16_tol(torch, z, MA.matmul_act_plain(x, w, b, "none"))).all()),
+          f"{what}: act none beyond one bf16 step")
     check(torch.equal(MA.matmul_act(x, w, b), MA.matmul_act(x, w, b)),
           f"{what}: a second launch differs")
     fns = (lambda: MA.matmul_act(x, w, b, "sigmoid"),
@@ -752,7 +766,9 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
            lambda: torch.addmm(b, x, w).sigmoid_())      # library yardstick
     ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in fns)
     k_us, lib_us = paired_device_us(torch, fns[0], fns[2], "matmul_act", 2.0 * M * N * K)
-    per_call = launches_a_call(torch, fns[0], lambda: MA.matmul_act.launches_bf16)
+    counter = ("launches_bf16_cp_wgmma" if route == "CP_WGMMA" else
+               "launches_bf16_wgmma" if route == "WGMMA" else "launches_bf16")
+    per_call = launches_a_call(torch, fns[0], lambda: getattr(MA.matmul_act, counter))
     check(per_call == 1, f"{what}: {per_call} launches a call")
     devt = (k_us, device_us(torch, fns[1]), lib_us)
     r = record(f"{M}x{K}->{N} bf16", err_y, ms, plain_ms, lib_ms, devt, 2.0 * M * N * K,
@@ -760,6 +776,25 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     r["route"] = route
     r["plan"] = plan_dict(tile_plan, plan)
     log(f"plan {what}: {json.dumps(r['plan'])}")
+    if route == "CP_WGMMA":
+        # the mma.sync kernel this route replaced, forced at the same shape:
+        # in turns with the library, and alone
+        from nnet_asr_torch.tools.gemm_ceiling import mma_sync_bf16
+
+        def mma_sync():
+            with mma_sync_bf16():
+                return MA.matmul_act(x, w, b, "sigmoid")
+
+        ym = mma_sync()
+        check(bool(((ym.float() - yp.float()).abs() <= bf16_tol(torch, ym, yp)).all()),
+              f"{what}: the mma.sync kernel beyond one bf16 step")
+        r["mma_sync_device_us"], r["mma_sync_library_us"] = paired_device_us(
+            torch, mma_sync, fns[2], "matmul_act", 2.0 * M * N * K)
+        r["mma_sync_alone_us"] = device_us(torch, mma_sync)
+        log(f"time {what} on mma.sync (forced): device {_us(r['mma_sync_device_us'])} in turns "
+            f"with the library ({_us(r['mma_sync_library_us'])}), alone "
+            f"{_us(r['mma_sync_alone_us'])}; CP_WGMMA {_us(k_us)} in turns, alone "
+            f"{_us(r['device_alone_us'])}; bound {r['bound_us']:.2f} us ({r['bound_by']})")
     if route == "WGMMA" and K == 1024:
         # host us a call, this route beside MMA_SYNC at the same shape (x
         # one element off a 16-byte boundary)
@@ -1273,7 +1308,7 @@ def objectives_path(torch, card: str, d: str, n: dict):
 # ---------------------------------------------------------------------------
 
 COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_bf16", "matmul_act_bf16_wgmma",
-            "wgrad_momentum_update", "wgrad_momentum_update_f32_wgmma",
+            "matmul_act_bf16_cp_wgmma", "wgrad_momentum_update", "wgrad_momentum_update_f32_wgmma",
             "wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
 
 
@@ -1287,6 +1322,7 @@ def _counters():
             "matmul_act_f32_wgmma": (MA.matmul_act, "launches_f32_wgmma"),
             "matmul_act_bf16": (MA.matmul_act, "launches_bf16"),
             "matmul_act_bf16_wgmma": (MA.matmul_act, "launches_bf16_wgmma"),
+            "matmul_act_bf16_cp_wgmma": (MA.matmul_act, "launches_bf16_cp_wgmma"),
             "wgrad_momentum_update": (SF.wgrad_momentum_update, "launches"),
             "wgrad_momentum_update_f32_wgmma": (SF.wgrad_momentum_update, "launches_f32_wgmma"),
             "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
@@ -1363,14 +1399,18 @@ def dtypes_path(torch, card: str, d: str, n: dict):
     for dt in DTYPES:
         flag = f"--COMPUTEDTYPE={dt}"
         bf = dt == "bf16"
-        e = counted(f"{flag} epoch 1", n_train, {"matmul_act_bf16": n_train} if bf else {},
+        # bf16: every bunch's 960x598->1024 forward on the CP_WGMMA route
+        e = counted(f"{flag} epoch 1", n_train, {"matmul_act_bf16": n_train,
+                                                 "matmul_act_bf16_cp_wgmma": n_train} if bf else {},
                     j("init.mmf"), *train, flag, f"--TARGETMMF={j(dt + '.mmf')}")
-        c = counted(f"{flag} cv", n_cv, {"matmul_act_bf16": n_cv} if bf else {},
+        c = counted(f"{flag} cv", n_cv, {"matmul_act_bf16": n_cv,
+                                         "matmul_act_bf16_cp_wgmma": n_cv} if bf else {},
                     j(dt + ".mmf"), *cv, flag)
         check(c["acc"] > cv0["acc"], f"{flag}: cv accuracy {cv0['acc']}% -> {c['acc']}%")
         runs[dt] = e
     counted("--COMPUTEDTYPE=bf16 --MOMENTUM=0.5 epoch 1", n_train,
-            {"matmul_act_bf16": n_train, "wgrad_momentum_update_bf16": 2 * n_train},
+            {"matmul_act_bf16": n_train, "matmul_act_bf16_cp_wgmma": n_train,
+             "wgrad_momentum_update_bf16": 2 * n_train},
             j("init.mmf"), *train, "--COMPUTEDTYPE=bf16", "--MOMENTUM=0.5",
             f"--TARGETMMF={j('bf16_mom.mmf')}")
 
@@ -1406,6 +1446,7 @@ def dtypes_path(torch, card: str, d: str, n: dict):
         f"{best_m.group(2)}%; decisions {decisions}; launches {json.dumps(got)}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update(matmul_act_bf16=iters * n_train + (iters + 1) * n_cv,
+                matmul_act_bf16_cp_wgmma=iters * n_train + (iters + 1) * n_cv,
                 wgrad_momentum_update_bf16=2 * iters * n_train,
                 softmax_xent=iters * n_train + (iters + 1) * n_cv)
     check(got == want, f"scheduler bf16: launches {got}, want {want}")
@@ -2809,7 +2850,8 @@ def momentum_step_routes(torch, dev, feats, labels, card):
 # bf16 WGMMA route's not
 KERNEL_GROUPS = (("affine_sigmoid f32 WGMMA (ours)", "matmul_act_f32_"),
                  ("affine_sigmoid bf16 (ours)",
-                  r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16|matmul_act_wgmma_kernel"),
+                  r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16|matmul_act_wgmma_kernel"
+                  r"|matmul_act_cp_wgmma_kernel"),
                  ("affine_sigmoid (ours)", "matmul_act_kernel"),
                  ("wgrad_momentum_update f32 WGMMA (ours)", "wgrad_momentum_f32_"),
                  ("wgrad_momentum_update bf16 (ours)",
@@ -2819,7 +2861,9 @@ KERNEL_GROUPS = (("affine_sigmoid f32 WGMMA (ours)", "matmul_act_f32_"),
                  ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"))
 
 
-WGMMA_KERNELS = 6   # the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32
+# the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32; the
+# CP_WGMMA forward
+WGMMA_KERNELS = 7
 
 
 def wgmma_spills(build_log: str) -> dict:
@@ -3015,6 +3059,13 @@ def main() -> int:
     # of phase 3, launched by phase 6
     for name in ("affine_sigmoid_bf16", "wgrad_momentum_update_bf16"):
         shapes[f"{name}_wgmma"] = [r for r in shapes[name] if r["route"] == "WGMMA"]
+    # the CP_WGMMA route at the recipes' shapes, launched by phases 8 and 12
+    shapes["affine_sigmoid_bf16_cp_wgmma"] = [r for r in shapes["affine_sigmoid_bf16"]
+                                              if r["route"] == "CP_WGMMA"]
+    bf16 = {k: launches[f"matmul_act_bf16{k}"] for k in ("", "_cp_wgmma", "_wgmma")}
+    log(f"bf16 affine_sigmoid launches on the recipes' paths: {bf16['']}, of them CP_WGMMA "
+        f"{bf16['_cp_wgmma']}, WGMMA {bf16['_wgmma']}, mma.sync "
+        f"{bf16[''] - bf16['_cp_wgmma'] - bf16['_wgmma']}")
     f32_main = [f"{B}x{In}->{Out} v f32" for B, In, Out, _ in F32_WGMMA_WGRAD][-1]
 
     log(f"total {time.perf_counter() - t_start:.1f}s; kernel times below at the MLP3 "
@@ -3023,7 +3074,10 @@ def main() -> int:
         f"under 'shapes'; launches summed over the frame-CE, momentum, objectives, "
         f"compute-dtype, RBM fine-tune, MPE, resident and mesh paths (every rank), for "
         f"the WGMMA-route kernels over the production path")
-    # name: (source, TPU kernel, counter, launches by path, main shape's index)
+    # name: (source, TPU kernel, counter, launches by path, main shape's
+    # index); affine_sigmoid and affine_sigmoid_bf16 are the forward as the
+    # wrapper routes it (its counter counts every route of its dtype), the
+    # route entries beside them
     meta = {"affine_sigmoid": ("matmul_act.cu", "matmul_act.py:86", "matmul_act", launches, 0),
             "fused_softmax_xent": ("softmax_ce.cu", "softmax_ce.py:113", "softmax_xent",
                                    launches, 0),
@@ -3033,6 +3087,8 @@ def main() -> int:
                                     launches, 0),
             "wgrad_momentum_update_bf16": ("sgd_fused.cu", "sgd_fused.py:105",
                                            "wgrad_momentum_update_bf16", launches, 0),
+            "affine_sigmoid_bf16_cp_wgmma": ("matmul_act.cu", "matmul_act.py:86",
+                                             "matmul_act_bf16_cp_wgmma", launches, 0),
             "affine_sigmoid_bf16_wgmma": ("matmul_act.cu", "matmul_act.py:86",
                                           "matmul_act_bf16_wgmma", launches_prod, -1),
             "wgrad_momentum_update_bf16_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",

@@ -70,12 +70,24 @@
 // in f32 as the mma.sync kernel takes it (expf and an IEEE divide), y as
 // 16-byte quads of neighbouring columns, masked at M and N.
 //
+// bf16 operands whose rows no TMA map describes but whose pitches and bases
+// are whole 4-byte units (MLP3's x at 598 columns, TIMIT's W and y at 500;
+// tile_plan.py's CP_WGMMA route) take cp_wgmma.cuh's loop: wgmma fed by
+// cp.async copies of 4, 8 or 16 bytes that write the swizzled layout the
+// descriptors read, on 64x64 tiles with split-K where the tiles leave SMs
+// idle (matmul_act_cp_wgmma_kernel). Its epilogue
+// takes the fragments in the order of operations above (the bias upcast
+// and added in f32, the sigmoid in f32 by __expf and __fdividef as on the
+// TMA route, y rounded once), stages the bf16 tile in shared memory and
+// writes whole rows. Rows of 2-byte pitch (K = 135) stay on mma.sync.
+//
 // Layout: x (M, K), W (K, N), b (N,), y (M, N), all row-major contiguous.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "cp_wgmma.cuh"
 #include "tf32_wgmma.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -216,6 +228,35 @@ matmul_act_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
+// y = act(x @ W + b), bf16, on the CP_WGMMA route (cp_wgmma.cuh): one
+// T::BM x T::BN tile a block; with gridDim.z > 1, split blockIdx.z of it
+// over k_chunk rows of K, the last split to arrive summing the partials
+// (part, counters: reduce_acc) before the epilogue
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+matmul_act_cp_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                           const bf16* __restrict__ b, bf16* __restrict__ y,
+                           float* __restrict__ part, int* __restrict__ counters, int M, int N,
+                           int K, int act, int k_chunk, int x_bytes, int w_bytes) {
+  extern __shared__ uint8_t cp_smem[];
+  uint8_t* ring =
+      reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(cp_smem) + 1023) & ~uintptr_t(1023));
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  float acc[T::NACC];
+  nnet_cpw::mainloop<T>(ring, x, w, M, N, K, m0, n0, k_begin, min(K, k_begin + k_chunk), x_bytes,
+                        w_bytes, acc);
+  if (!nnet_cpw::reduce_acc<T>(acc, part, counters)) return;
+  nnet_cpw::store_y<T>(ring, acc, b, y, M, N, m0, n0, act);
+}
+
+// The CP_WGMMA route's tile (tile_plan.CP_STAGES): 64x64 on one warpgroup,
+// a 3-stage ring of 48 KB, so that four blocks fit an SM. At the recipes'
+// four shapes it beat 128x64 and 128x128 tiles on two warpgroups and
+// 64x128 on one, and 4- and 6-stage rings (tools/gemm_ceiling.py --small:
+// its cp_* builds swap this line)
+using CpPlanned = nnet_cpw::CpTile<1, 64, 3>;
+
 // The pre-pass of the f32 WGMMA route: x's hi and lo halves (tile_gemm.cuh
 // split_tf32), n4 float4s of each
 __global__ void __launch_bounds__(256)
@@ -302,6 +343,28 @@ extern "C" int matmul_act_bf16(const void* x, const void* w, const void* b, void
   return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                   static_cast<const bf16*>(b), static_cast<bf16*>(y), M, N, K, act, tile,
                   x_bytes, w_bytes, splits, k_chunk, part, counters, stream);
+}
+
+// The CP_WGMMA route of matmul_act_bf16: x, w and y with row pitches and
+// bases in whole 4-byte units (tile_plan.plan's route), 64x64 tiles.
+// x_bytes, w_bytes: the copy width of that operand, 16, 8 or 4; splits >
+// 1: K cut into chunks of k_chunk rows (a multiple of 64), part an f32
+// scratch of tiles * splits * 64 * 64 elements and counters an int a
+// tile, zero, which the launch leaves at zero. Returns the CUDA error code
+// of the launch.
+extern "C" int matmul_act_bf16_cp_wgmma(const void* x, const void* w, const void* b, void* y,
+                                        int M, int N, int K, int act, int x_bytes, int w_bytes,
+                                        int splits, int k_chunk, float* part, int* counters,
+                                        void* stream) {
+  using T = CpPlanned;
+  const int err = allow_smem(matmul_act_cp_wgmma_kernel<T>, T::SMEM_BYTES);
+  if (err != 0) return err;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+  matmul_act_cp_wgmma_kernel<T><<<grid, T::THREADS, T::SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), part, counters, M, N, K, act, k_chunk, x_bytes, w_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The WGMMA route of matmul_act_bf16: x, w and y with row pitches of

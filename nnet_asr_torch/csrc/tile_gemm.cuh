@@ -27,10 +27,13 @@
 // MN-major operand that TF32 wgmma cannot read from shared memory in
 // registers and the other through a split pre-pass; bf16 ones that TMA can
 // describe run on wgmma_gemm.cuh, whose 16-bit wgmma reads MN-major tiles
-// (its transpose bits). This loop serves every other shape: the recipes'
-// f32 products on the SMALL tile (MLP3, TIMIT, tmpe, the RBM recipe, a
-// mesh rank's rows), and MLP3's rows of 598 and 135 elements in f32 and
-// bf16, which no TMA map describes. mma.sync fragments are loaded by each
+// (its transpose bits), and the bf16 forward at rows of whole 4-byte units
+// that TMA cannot describe (MLP3's x at 598 columns, TIMIT's W at 500) on
+// cp_wgmma.cuh. This loop serves every other shape: the recipes' f32
+// products on the SMALL tile (MLP3, TIMIT, tmpe, the RBM recipe, a mesh
+// rank's rows), MLP3's rows of 598 and 135 elements in f32, the bf16
+// weight gradients off TMA and bf16 rows of odd pitch (135 elements).
+// mma.sync fragments are loaded by each
 // thread from a shared tile of either layout, and the hi/lo split happens
 // in those registers.
 //

@@ -49,6 +49,9 @@ SIGNATURES = {
     "matmul_act_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # the same, bf16
     "matmul_act_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # bf16 on the CP_WGMMA route: x, w, b, y, M, N, K, act, x_bytes, w_bytes,
+    # splits, k_chunk, part, counters, stream
+    "matmul_act_bf16_cp_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # bf16 on the WGMMA route: x, w, b, y, M, N, K, act, stream
     "matmul_act_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # f32 on the WGMMA route: x, w, b, y, xhi, xlo, M, N, K, act, blocks,
@@ -178,9 +181,9 @@ def counters(dev, stream):
 
 
 def split_args(p: tile_plan.Plan, dev, stream):
-    """(scratch, (splits, k_chunk, part, counters)) of a ``MMA_SYNC``
-    launch: with split-K an f32 scratch of ``blocks`` partial tiles,
-    allocated here (the caller holds it until the launch is queued), and
+    """(scratch, (splits, k_chunk, part, counters)) of a ``MMA_SYNC`` or
+    ``CP_WGMMA`` launch: with split-K an f32 scratch of ``blocks`` partial
+    tiles, allocated here (the caller holds it until the launch is queued), and
     the stream's zeroed counters (``counters``); else no scratch
     and null pointers."""
     import torch

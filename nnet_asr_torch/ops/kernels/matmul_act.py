@@ -13,7 +13,12 @@ stores. f32 operands on that route (TMA-readable, and the 128x128 tiles
 filling the card: the production stack's 1024x{1024,4096}->4096) go to
 ``csrc/tf32_wgmma.cuh``: 3xTF32 on ``wgmma``, W split in registers, x
 split into hi and lo copies by a pre-pass kernel into scratch allocated
-here, two launches a call.
+here, two launches a call. bf16 operands whose rows TMA cannot read but
+whose pitches and bases are whole 4-byte units (``tile_plan``'s CP_WGMMA
+route: MLP3's 598-wide x, TIMIT's 500-wide W and y) go to
+``csrc/cp_wgmma.cuh``: ``wgmma`` fed by ``cp.async`` copies into the
+swizzled layout its descriptors read, split-K in the same launch where
+the tiles leave SMs idle; a bf16 row of odd pitch stays on ``mma.sync``.
 As in the TPU kernel, ``y`` has x's dtype: bf16 y is the f32 result rounded
 once. It is bound by operations, not bytes, at the main path's shapes
 (960x598->1024 on example-01's MLP3, 1024x{1024,4096}->4096 on the
@@ -28,8 +33,9 @@ plain PyTorch version (``matmul_act_plain``), a CUDA tensor launches the
 kernel or raises — there is no fallback, and x, w and b must share one
 dtype. ``matmul_act.launches`` counts f32 calls (both routes),
 ``matmul_act.launches_f32_wgmma`` those of them on the WGMMA route,
-``matmul_act.launches_bf16`` bf16 ones (both routes), and
-``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route. ``affine_sigmoid`` is the
+``matmul_act.launches_bf16`` bf16 ones (every route),
+``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route and
+``matmul_act.launches_bf16_cp_wgmma`` those on the CP_WGMMA route. ``affine_sigmoid`` is the
 ``autograd.Function``; its backward is the JAX ``_bwd``, roundings
 included: the elementwise ``dz`` in f32, rounded to x's dtype, then ``dx``
 and ``dW`` by ``torch.matmul`` (which JAX also left outside Pallas; at bf16
@@ -116,6 +122,9 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     stream = torch.cuda.current_stream(x.device)
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act])
     bf16 = x.dtype == torch.bfloat16
+    if p.route == tile_plan.CP_WGMMA:
+        _launch_cp_wgmma(lib, x, w, b, y, act, p, stream)
+        return y
     if p.route == tile_plan.WGMMA and bf16:
         _build.check(lib.matmul_act_bf16_wgmma(*args, stream.cuda_stream),
                      "matmul_act_bf16_wgmma")
@@ -147,6 +156,22 @@ matmul_act.launches = 0
 matmul_act.launches_f32_wgmma = 0
 matmul_act.launches_bf16 = 0
 matmul_act.launches_bf16_wgmma = 0
+matmul_act.launches_bf16_cp_wgmma = 0
+
+
+def _launch_cp_wgmma(lib, x, w, b, y, act, p, stream):
+    """Launch the CP_WGMMA kernel into ``y`` by plan ``p`` (a CP_WGMMA
+    plan of ``tile_plan.plan``, or one a measurement forces: its bm and bn
+    those of the tile the library was built with)."""
+    M, K = x.shape
+    N = w.shape[1]
+    _scratch, split = _build.split_args(p, x.device, stream)
+    _build.check(lib.matmul_act_bf16_cp_wgmma(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act],
+        p.a_bytes, p.b_bytes, *split, stream.cuda_stream),
+        "matmul_act_bf16_cp_wgmma")
+    matmul_act.launches_bf16 += 1
+    matmul_act.launches_bf16_cp_wgmma += 1
 
 
 def _affine_backward(ctx, x, w, dz):

@@ -53,8 +53,9 @@ product must be one whose 128x128 tiles fill the card (``tile_count(M, N,
 BIG) >= SM_COUNT``, where the ``MMA_SYNC`` plan takes its BIG tile): the
 production stack's 1024x{1024,4096}->4096 forward and its weight
 gradients. Every other shape is ``MMA_SYNC`` (``tile_gemm.cuh``), with the
-plan it had: MLP3's rows of 598 and 135 elements (f32 2,392 and 540 bytes,
-bf16 1,196 and 270) that no TMA map describes, and every f32 shape on the
+plan it had (but the bf16 forward's, below): MLP3's rows of 598 and 135
+elements (f32 2,392 and 540 bytes, bf16 1,196 and 270) that no TMA map
+describes, and every f32 shape on the
 SMALL tile (TIMIT's 1024x368->500, the RBM recipe's 960x1024->1024, a
 mesh rank's rows). ``blocks`` is the kernel's grid: on ``WGMMA``, but for
 the bf16 forward, a persistent grid of ``min(tiles, SM_COUNT)`` blocks
@@ -62,7 +63,21 @@ walking the tiles, two at a time. Pure Python, so the CPU tests
 hold every main-path shape to its plan; ``BIG``/``SMALL``, ``BK``,
 ``STAGES`` and ``smem_bytes`` match ``BigTile``/``SmallTile`` and
 ``smem_bytes`` there, ``WIDE``, ``WGMMA_BK`` and ``wgmma_smem_bytes`` match
-``wgmma_gemm.cuh`` and ``tf32_wgmma.cuh``.
+``wgmma_gemm.cuh`` and ``tf32_wgmma.cuh``, ``CP_STAGES``, ``CP_BK`` and
+``cp_smem_bytes`` match ``CpPlanned`` of ``matmul_act.cu`` and ``cp_wgmma.cuh``.
+
+``CP_WGMMA`` (``csrc/cp_wgmma.cuh``: ``wgmma`` fed by ``cp.async`` copies
+that write the swizzled layout the descriptors read) takes the bf16
+forward (``CP_WGMMA_ELEMS``; not the weight gradient) wherever TMA cannot
+read the rows but every row pitch and base pointer, the output's too, is a
+whole number of 4-byte units: MLP3's x at 598 columns (1,196-byte rows,
+4-byte copies), TIMIT's W and y at 500 (1,000-byte rows, 8-byte copies),
+one tmpe utterance's and a mesh rank's rows. Its tile is 64x64 on one
+warpgroup, a ring of ``CP_STAGES`` stages of ``CP_BK`` = 64, split-K as
+``cp_splits`` says (``HALF`` 64x128, ``TALL`` 128x64 and ``BIG`` 128x128
+are the tiles it was measured against, ``tools/gemm_ceiling.py
+--small``). A bf16 row of odd pitch (135 columns), or a base off a 4-byte
+boundary, has no such copy and stays on ``MMA_SYNC``.
 """
 
 from __future__ import annotations
@@ -73,12 +88,17 @@ SM_COUNT = 132           # H100 SXM
 SM_SMEM = 233_472        # bytes of shared memory an SM gives its blocks (228 KB)
 BLOCK_SMEM_RESERVED = 1024   # bytes of it the runtime keeps for each block
 BK = 32                  # contraction step of both tiles
-BIG, SMALL, WIDE = 0, 1, 2
-TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256)}
+BIG, SMALL, WIDE, TALL, HALF = 0, 1, 2, 3, 4
+TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256), TALL: (128, 64), HALF: (64, 128)}
 STAGES = {BIG: 3, SMALL: 4}   # depth of the cp.async ring
-MMA_SYNC, WGMMA = 0, 1
+MMA_SYNC, WGMMA, CP_WGMMA = 0, 1, 2
 WGMMA_ELEMS = (2, 4)     # element sizes with a WGMMA route (bf16, f32)
 WGMMA_BK = {2: 64, 4: 32}   # contraction step of the WGMMA ring: one 128-byte line
+CP_WGMMA_ELEMS = (2,)    # element sizes with a CP_WGMMA route (the bf16 forward)
+CP_STAGES = 3            # the CP_WGMMA ring (64x64 tiles: 48 KB, four blocks an SM)
+CP_BK = 64               # contraction step of the CP_WGMMA ring
+CP_PER_SM = 2            # CP_WGMMA blocks an SM the split aims at
+CP_MIN_K_STEPS = 4       # CP_BK steps a CP_WGMMA split keeps at least
 SMALL_PER_SM = 3         # SMALL blocks an SM holds (f32: 72 KB, <= 168 registers a thread)
 MIN_K_STEPS = 4          # BK steps a split keeps at least
 MAX_SPLITS = 16
@@ -154,6 +174,52 @@ def wgmma_smem_bytes(elem: int, wgrad: bool) -> int:
     return 4 * 4 * WGMMA_BK[4] * (128 + 2 * 128) + 128 + 1024
 
 
+def cp_smem_bytes(tile: int = SMALL, stages: int = CP_STAGES) -> int:
+    """Dynamic shared memory of a CP_WGMMA block (``SMEM_BYTES`` of its
+    ``CpTile``): ``stages`` stages of x's bm rows and W's bn columns at
+    ``CP_BK`` = 64 bf16 (128 bytes a row or k-line), and 1024 bytes of
+    slack to align the ring."""
+    bm, bn = TILES[tile]
+    return stages * 2 * CP_BK * (bm + bn) + 1024
+
+
+def cp_wgmma_route(elem: int, pitches, ptrs) -> bool:
+    """Whether cp.async and wgmma can take the product: an element size
+    with a CP_WGMMA route, row pitches (elements) and pointers in whole
+    4-byte units."""
+    return (elem in CP_WGMMA_ELEMS and all(p * elem % 4 == 0 for p in pitches)
+            and all(p % 4 == 0 for p in ptrs))
+
+
+def cp_splits(M: int, N: int, K: int) -> int:
+    """Splits of a CP_WGMMA product on 64x64 tiles: K cut into the most
+    splits whose blocks still fit ``CP_PER_SM`` an SM in one wave and keep
+    ``CP_MIN_K_STEPS`` steps each. ``tools/gemm_ceiling.py --small``
+    measured it: one tmpe utterance's 80 tiles over 10 steps run
+    fastest in 3 splits, a mesh rank's 128 tiles over 10 steps in 2;
+    TIMIT's 128 tiles over 6 steps and MLP3's 240 tiles whole (a split of
+    6 steps costs more in the partials' round trip than it saves); the
+    64x128, 128x64 and 128x128 tiles lost at all four shapes."""
+    tiles = tile_count(M, N, SMALL)
+    steps = _cdiv(K, CP_BK)
+    splits = 1
+    while (tiles * (splits + 1) <= CP_PER_SM * SM_COUNT
+           and _cdiv(steps, splits + 1) >= CP_MIN_K_STEPS):
+        splits += 1
+    return splits
+
+
+def cp_fixed(M: int, N: int, K: int, tile: int, splits: int, a_bytes: int,
+             b_bytes: int) -> Plan:
+    """The CP_WGMMA plan of an (M, K) x (K, N) product on ``tile`` with K
+    cut into ``splits`` chunks of whole ``CP_BK`` steps (fewer where K has
+    fewer steps) and the given copy widths."""
+    k_chunk = _cdiv(_cdiv(K, CP_BK), splits) * CP_BK if splits > 1 else K
+    n = _cdiv(K, k_chunk)
+    return Plan(tile, *TILES[tile], n, k_chunk if n > 1 else K, a_bytes, b_bytes, CP_WGMMA,
+                tile_count(M, N, tile) * n)
+
+
 def wgmma_route(elem: int, pitches, ptrs) -> bool:
     """Whether TMA and wgmma can take the product: an element size with a
     WGMMA route, row pitches (elements) of 16-byte multiples, every pointer
@@ -184,6 +250,11 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
         tiles = tile_count(M, N, tile)
         return Plan(tile, *TILES[tile], 1, K, 16, 16, WGMMA,
                     min(tiles, SM_COUNT) if persistent else tiles)
+    if not wgrad and cp_wgmma_route(elem, (a_pitch, b_pitch), (a_ptr, b_ptr, *out_ptrs)):
+        widths = (16, 8, 4)
+        return cp_fixed(M, N, K, SMALL, cp_splits(M, N, K),
+                        copy_bytes(a_pitch, a_ptr, elem, widths),
+                        copy_bytes(b_pitch, b_ptr, elem, widths))
     tile = BIG if tile_count(M, N, BIG) >= SM_COUNT else SMALL
     tiles = tile_count(M, N, tile)
     splits, k_chunk = 1, K

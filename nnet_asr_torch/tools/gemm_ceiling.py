@@ -71,6 +71,34 @@ plan of ``SMALL_VARIANTS``:
   small_nosplit           no split-K (the plan's MAX_SPLITS at 1);
   small_split_two_per_sm  split-K until the SMALL grid has two blocks an SM.
 
+Then, with the bf16 forward at the four recipe shapes of ``BF16_SHAPES``
+(MLP3's 960x598->1024, TIMIT's 1024x368->500, one tmpe utterance's
+284x598->1024, a 2x2 mesh rank's 480x598->1024), it times the candidate
+designs of the CP_WGMMA route against each other and against the library
+call (bf16 addmm + sigmoid_), in two turns, with each build of
+``CP_VARIANTS`` (the kernel compiled with one tile, ``CpPlanned`` of
+matmul_act.cu):
+
+  library                 bf16 addmm + sigmoid_;
+  mma.sync                the MMA_SYNC kernel (the route it replaces,
+                          forced: ``mma_sync_bf16``);
+  plan                    the CP_WGMMA kernel as ``tile_plan.plan`` picks;
+  cp BMxBN/S              the build's tile with S splits, forced;
+  prepass+cp16            x (at 598) or W (at 500) copied by a pre-pass into
+                          16-byte-pitched scratch (``F.pad``; y back into
+                          place by a second copy at 500), then the CP_WGMMA
+                          kernel with 16-byte copies of every operand, on
+                          the plan's split;
+  prepass+tma             the same pre-pass, then the WGMMA route's TMA
+                          kernel (128x256 tiles);
+
+and the builds: ``cp`` the kernels as they are (64x64, a 3-stage ring;
+every candidate above), ``cp_ring4`` and ``cp_ring6`` that tile with 4- and
+6-stage rings, ``cp_mainloop`` its epilogue compiled but never run (y not
+written; the results are wrong), ``cp_64x128`` (one warpgroup),
+``cp_128x64`` and ``cp_128x128`` (two) with 4-stage rings (these with the
+plan and the ``cp`` candidates of their own tile).
+
 For f32 on MMA_SYNC, the gap between the first two is the hi/lo split's
 cost, the second against the 3xTF32 bound what mma.sync's issue rate
 allows; on WGMMA, the variants split the kernel's time into the pre-pass,
@@ -170,6 +198,21 @@ def mma_sync_f32():
         tile_plan.WGMMA_ELEMS = saved
 
 
+@contextlib.contextmanager
+def mma_sync_bf16():
+    """Every bf16 forward off the CP_WGMMA route while inside (the route's
+    element sizes emptied), as before that route: the mma.sync rows of the
+    recipes' bf16 shapes here and in chip_smoke.py."""
+    from ..ops.kernels import tile_plan
+
+    saved = tile_plan.CP_WGMMA_ELEMS
+    tile_plan.CP_WGMMA_ELEMS = ()
+    try:
+        yield
+    finally:
+        tile_plan.CP_WGMMA_ELEMS = saved
+
+
 F32_FORWARD_TILE = "std::is_same<E, float>::value, SmallTile8, SmallTile>"
 
 
@@ -197,6 +240,97 @@ SMALL_VARIANTS = {
                                F32_FORWARD_TILE.replace("SmallTile8", "SmallTile"))], {}),
     "small_nosplit": ([], {"MAX_SPLITS": 1}),
     "small_split_two_per_sm": ([], {"split_count": split_two_per_sm})}
+
+
+BF16_SHAPES = ((960, 598, 1024), (1024, 368, 500), (284, 598, 1024), (480, 598, 1024))
+CP_TILE = "using CpPlanned = nnet_cpw::CpTile<1, 64, 3>;"
+CP_STORE = "  nnet_cpw::store_y<T>(ring, acc, b, y, M, N, m0, n0, act);"
+
+
+def _cp_tile(wg, bn, stages):
+    return [("matmul_act.cu", CP_TILE, CP_TILE.replace("<1, 64, 3>", f"<{wg}, {bn}, {stages}>"))]
+
+
+# name: (text substitutions, the tile compiled in)
+CP_VARIANTS = {"cp": ([], "SMALL"), "cp_ring4": (_cp_tile(1, 64, 4), "SMALL"),
+               "cp_ring6": (_cp_tile(1, 64, 6), "SMALL"),
+               "cp_mainloop": ([("matmul_act.cu", CP_STORE, f"  if (act < 0)\n{CP_STORE}")],
+                               "SMALL"),
+               "cp_64x128": (_cp_tile(1, 128, 4), "HALF"),
+               "cp_128x64": (_cp_tile(2, 64, 4), "TALL"),
+               "cp_128x128": (_cp_tile(2, 128, 4), "BIG")}
+
+
+def bf16_candidates(dev, tile_name):
+    """(shape, library, [(candidate, fn)]) at each of BF16_SHAPES for a
+    build whose kernel has the tile ``tile_name`` of tile_plan: with the
+    planned tile every candidate, else the plan's split and each forced
+    split on that tile."""
+    import torch.nn.functional as F
+
+    from ..ops.kernels import tile_plan as tp
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream(dev)
+    out = []
+    for M, K, N in BF16_SHAPES:
+        x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+        w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(bf)
+        b = torch.randn((N,), generator=gen, device=dev).to(bf)
+        y = torch.empty((M, N), dtype=bf, device=dev)
+        plan = tp.plan(M, N, K, K, N, x.data_ptr(), w.data_ptr(), elem=2,
+                       out_ptrs=(y.data_ptr(),))
+
+        def cp(p, x=x, w=w, b=b, y=y):
+            return lambda: MA._launch_cp_wgmma(_build.load_library(), x, w, b, y, "sigmoid", p,
+                                               stream)
+
+        def on_mma_sync(x=x, w=w, b=b):
+            with mma_sync_bf16():
+                MA.matmul_act(x, w, b, "sigmoid")
+
+        tile = getattr(tp, tile_name)
+        bm, bn = tp.TILES[tile]
+        cands = [("plan", cp(tp.cp_fixed(M, N, K, tile, plan.splits, plan.a_bytes,
+                                         plan.b_bytes)))]
+        for splits in (1, 2, 3, 4):
+            cands.append((f"cp {bm}x{bn}/{splits}",
+                          cp(tp.cp_fixed(M, N, K, tile, splits, plan.a_bytes, plan.b_bytes))))
+        if tile != plan.tile:
+            out.append((f"{M}x{K}->{N}", lambda x=x, w=w, b=b: torch.addmm(b, x, w).sigmoid_(),
+                        cands))
+            continue
+        cands.insert(0, ("mma.sync", on_mma_sync))
+        if K % 8:   # x's rows to 16-byte pitch; W's rows past K are zero
+            Kp = -(-K // 8) * 8
+            wp = F.pad(w, (0, 0, 0, Kp - K))
+            p16 = tp.cp_fixed(M, N, Kp, plan.tile, plan.splits, 16, 16)
+
+            def pre_cp(x=x, wp=wp, b=b, y=y, p16=p16, Kp=Kp):
+                xp = F.pad(x, (0, Kp - x.shape[1]))
+                MA._launch_cp_wgmma(_build.load_library(), xp, wp, b, y, "sigmoid", p16, stream)
+
+            def pre_tma(x=x, wp=wp, b=b, Kp=Kp):
+                MA.matmul_act(F.pad(x, (0, Kp - x.shape[1])), wp, b, "sigmoid")
+        else:       # W's and y's rows to 16-byte pitch
+            Np = -(-N // 8) * 8
+            bp_ = F.pad(b, (0, Np - N))
+            yp = torch.empty((M, Np), dtype=bf, device=dev)
+            p16 = tp.cp_fixed(M, Np, K, plan.tile, plan.splits, 16, 16)
+
+            def pre_cp(x=x, w=w, bp_=bp_, yp=yp, y=y, p16=p16, Np=Np):
+                wp = F.pad(w, (0, Np - w.shape[1]))
+                MA._launch_cp_wgmma(_build.load_library(), x, wp, bp_, yp, "sigmoid", p16, stream)
+                y.copy_(yp[:, :y.shape[1]])
+
+            def pre_tma(x=x, w=w, bp_=bp_, y=y, Np=Np):
+                y.copy_(MA.matmul_act(x, F.pad(w, (0, Np - w.shape[1])), bp_,
+                                      "sigmoid")[:, :y.shape[1]])
+        cands += [("prepass+cp16", pre_cp), ("prepass+tma", pre_tma)]
+        out.append((f"{M}x{K}->{N}", lambda x=x, w=w, b=b: torch.addmm(b, x, w).sigmoid_(),
+                    cands))
+    return out
 
 
 def small_cases(dev):
@@ -232,7 +366,8 @@ def small_cases(dev):
 
     for M, K, N in ((1024, 368, 500), (284, 598, 1024), (960, 598, 1024), (480, 598, 1024)):
         affine(M, K, N, torch.float32)
-    affine(960, 598, 1024, bf)
+    for M, K, N in BF16_SHAPES:
+        affine(M, K, N, bf)
     for dt in (torch.float32, bf):
         wgrad(960, 598, 1024, dt)
         wgrad(960, 1024, 135, dt)
@@ -426,7 +561,8 @@ def small(root, reps) -> int:
     from ..ops.kernels import tile_plan
 
     builds, libs = {}, {}
-    for name, (subs, _) in SMALL_VARIANTS.items():
+    for name, subs in [*((n, v[0]) for n, v in [*SMALL_VARIANTS.items(),
+                                                 *CP_VARIANTS.items()])]:
         key = repr(subs)
         if key not in builds:
             builds[key] = build_variant(name, subs, root)
@@ -454,11 +590,41 @@ def small(root, reps) -> int:
                     us, lib_us = event_us(kernel, reps), event_us(library, reps)
                     row.append(f"{what} {us:.2f} us (library {lib_us:.2f} us)")
                 print(f"gemm_ceiling small turn {turn} {name}: " + "; ".join(row), flush=True)
+        for k, v in saved[1].items():
+            setattr(tile_plan, k, v)
+        bf16_designs(libs, reps)
     finally:
         _build._lib = saved[0]
         for k, v in saved[1].items():
             setattr(tile_plan, k, v)
     return 0
+
+
+def bf16_designs(libs, reps) -> None:
+    """Time bf16_candidates with each build of CP_VARIANTS, in two turns,
+    and print each candidate's range over the turns beside the library's."""
+    dev = torch.device("cuda", 0)
+    shapes = {tile: bf16_candidates(dev, tile) for _, tile in CP_VARIANTS.values()}
+    before = MA.matmul_act.launches_bf16_cp_wgmma
+    seen = {}
+    for turn in range(2):
+        order = list(CP_VARIANTS.items())
+        for name, (subs, tile) in (order if turn == 0 else reversed(order)):
+            _build._lib = libs[repr(subs)]
+            for shape, library, cands in shapes[tile]:
+                lib_us = event_us(library, reps)
+                seen.setdefault((name, shape, "library"), []).append(lib_us)
+                row = [f"library {lib_us:.2f}"]
+                for what, fn in (cands if turn == 0 else reversed(cands)):
+                    us = event_us(fn, reps)
+                    seen.setdefault((name, shape, what), []).append(us)
+                    row.append(f"{what} {us:.2f}")
+                print(f"gemm_ceiling bf16 turn {turn} {name} {shape}: " + "; ".join(row),
+                      flush=True)
+    for (name, shape, what), us in seen.items():
+        print(f"gemm_ceiling bf16 {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
+    if MA.matmul_act.launches_bf16_cp_wgmma == before:
+        raise RuntimeError("the CP_WGMMA route was not taken by its candidates")
 
 
 if __name__ == "__main__":

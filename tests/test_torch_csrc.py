@@ -88,6 +88,9 @@ KERNEL_NAMES = {
     "int)": "wgrad_momentum_update f32 WGMMA (ours)",
     "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
     "__nv_bfloat16>(__nv_bfloat16 const*)": "affine_sigmoid bf16 (ours)",
+    "void (anonymous namespace)::matmul_act_cp_wgmma_kernel<nnet_cpw::CpTile<1, 64, 3> >("
+    "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, "
+    "int*, int, int, int, int, int, int, int)": "affine_sigmoid bf16 (ours)",
     "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
     "float>(float const*)": "affine_sigmoid (ours)",
     "void (anonymous namespace)::wgrad_momentum_kernel<nnet_tile::Tile<64, 64, 32, 2, 2, 4, true>, "
@@ -134,10 +137,16 @@ def test_wgmma_spills_from_ptxas_report():
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Compiling entry function '_ZN49_wgrad_momentum_f32_wgmma_kernelI13__nv_"
            "bfloat16EEv' for 'sm_90a'\n"
-           "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
+           "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_cp_wgmma_kernel"
+           "IN8nnet_cpw6CpTileILi1ELi64ELi3EEEEEvPK13__nv_bfloat16' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
     assert chip_smoke.wgmma_spills(log) == {
         "_ZN46_GLOBAL__N__x_matmul_act_wgmma_kernelE14CUtensorMap_st": 0,
         "_ZN45_wgrad_momentum_wgmma_kernelIfEEv": 16,
         "_ZN46_GLOBAL__N__x_matmul_act_f32_wgmma_kernelE14CUtensorMap_st": 0,
-        "_ZN49_wgrad_momentum_f32_wgmma_kernelI13__nv_bfloat16EEv": 16}
-    assert chip_smoke.WGMMA_KERNELS == 6     # 3 bf16 instances, 3 f32 ones
+        "_ZN49_wgrad_momentum_f32_wgmma_kernelI13__nv_bfloat16EEv": 16,
+        "_ZN46_GLOBAL__N__x_matmul_act_cp_wgmma_kernelIN8nnet_cpw6CpTileILi1ELi64ELi3EEEEEvPK13__"
+        "nv_bfloat16": 0}
+    # 3 bf16 TMA instances, 3 f32 ones, the CP_WGMMA forward
+    assert chip_smoke.WGMMA_KERNELS == 7

@@ -129,8 +129,9 @@ WGMMA_AFFINE = ((128, 64, 256), (256, 1000, 512), (1000, 1000, 4104), (1024, 102
 # the f32 result once; _bf16_tol); the JAX _bwd gradients (dz rounded to bf16, f32
 # GEMMs, each rounded once) within two bf16 steps of the largest, against
 # the same formula on the plain y. Shapes: both mma.sync tiles, 16-, 4- and
-# 2-byte copies (K = 135 and a 1-element offset have no 4-byte rows), and
-# the WGMMA route (WGMMA_AFFINE)
+# 2-byte copies (K = 135 and a 1-element offset have no 4-byte rows), the
+# WGMMA route (WGMMA_AFFINE) and the CP_WGMMA route (pitches and bases in
+# whole 4-byte units that TMA cannot read: 598 columns, a 2-element offset)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1, 1), (67, 598, 135), (130, 33, 70), (960, 598, 1024),
                                    (1024, 1024, 4096), (67, 135, 70), (200, 256, 132, 1),
@@ -144,15 +145,18 @@ def test_cuda_matmul_act_bf16_matches_plain(cuda, shape):
                         b_ptr=ts[1].data_ptr(), elem=2)
     if K == 135 or offset == 1:
         assert pl.a_bytes == 2
-    wgmma = shape in WGMMA_AFFINE
-    assert (pl.route == tile_plan.WGMMA) == wgmma
+    route = (tile_plan.WGMMA if shape in WGMMA_AFFINE else
+             tile_plan.CP_WGMMA if K % 2 == N % 2 == offset % 2 == 0 else tile_plan.MMA_SYNC)
+    assert pl.route == route
+    wgmma, cp = route == tile_plan.WGMMA, route == tile_plan.CP_WGMMA
     before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16,
-              MA.matmul_act.launches_bf16_wgmma)
+              MA.matmul_act.launches_bf16_wgmma, MA.matmul_act.launches_bf16_cp_wgmma)
     y = MA.affine_sigmoid(*ts)
     gt = _on_card(g, cuda, dtype=torch.bfloat16)
     y.backward(gt)
     assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16,
-            MA.matmul_act.launches_bf16_wgmma) == (before[0], before[1] + 1, before[2] + wgmma)
+            MA.matmul_act.launches_bf16_wgmma, MA.matmul_act.launches_bf16_cp_wgmma) == (
+        before[0], before[1] + 1, before[2] + wgmma, before[3] + cp)
     assert y.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in ts)
     xs, ws, bs = (t.detach() for t in ts)
     yp = MA.matmul_act_plain(xs, ws, bs)
@@ -344,11 +348,12 @@ def _kernels_of(fn, calls=1):
 
 # The forward at the recipes' small shapes (TIMIT's hidden layer, one tmpe
 # utterance, MLP3 and a 2x2 mesh rank's rows) and one with K = 368 cut 3
-# ways (N = 1004: 2,008-byte bf16 rows, on MMA_SYNC): one launch a call (a
-# split reduced in it); two launches equal bit for bit (the partials are
-# summed in split order); within the tolerances of the tests above, f32
-# and bf16. The split ones leave their last split ragged (150 rows of 598,
-# 112 of 368).
+# ways (N = 1004: 2,008-byte rows): one launch a call (a split reduced in
+# it); two launches equal bit for bit (the partials are summed in split
+# order); within the tolerances of the tests above. f32 runs the MMA_SYNC
+# kernel with the splits below (the split ones leave their last split
+# ragged: 150 rows of 598, 112 of 368), bf16 the CP_WGMMA kernel with the
+# splits of its own plan.
 SMALL_FORWARD_SPLITS = {(1024, 368, 500): 1, (284, 598, 1024): 3, (960, 598, 1024): 1,
                         (480, 598, 1024): 1, (284, 368, 1004): 3}
 
@@ -362,11 +367,17 @@ def test_cuda_matmul_act_split_k_one_launch_bit_equal(cuda, shape, dtype):
     xs, ws, bs = (_on_card(a, cuda, dtype=dtype) for a in (x, w, b))
     pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=xs.data_ptr(), b_ptr=ws.data_ptr(),
                         elem=xs.element_size())
-    assert pl.route == tile_plan.MMA_SYNC and pl.splits == SMALL_FORWARD_SPLITS[shape]
+    if dtype == torch.float32:
+        assert pl.route == tile_plan.MMA_SYNC and pl.splits == SMALL_FORWARD_SPLITS[shape]
+        kernel = "matmul_act_kernel"
+    else:
+        assert pl.route == tile_plan.CP_WGMMA
+        assert (pl.tile, pl.splits) == (tile_plan.SMALL, tile_plan.cp_splits(M, N, K))
+        kernel = "matmul_act_cp_wgmma_kernel"
     if pl.splits > 1:
         assert pl.k_chunk * (pl.splits - 1) < K < pl.k_chunk * pl.splits   # ragged last split
     names = _kernels_of(lambda: MA.matmul_act(xs, ws, bs))
-    assert len(names) == 1 and "matmul_act_kernel" in names[0]
+    assert len(names) == 1 and kernel in names[0]
     y1, y2 = MA.matmul_act(xs, ws, bs), MA.matmul_act(xs, ws, bs)
     yp = MA.matmul_act_plain(xs, ws, bs)
     torch.cuda.synchronize()
@@ -375,6 +386,85 @@ def test_cuda_matmul_act_split_k_one_launch_bit_equal(cuda, shape, dtype):
         assert (y1 - yp).abs().max().item() <= 1e-5
     else:
         assert bool(((y1.float() - yp.float()).abs() <= _bf16_tol(y1, yp)).all())
+
+
+# The CP_WGMMA route (bf16 forward, cp.async into wgmma's swizzled layout)
+# against the plain version at the recipes' four shapes and ragged ones (M,
+# N and K no tile multiples, K no multiple of 16, a 2-element offset),
+# under the plan's split and 1 to 4 splits forced: y within one bf16 step
+# (_bf16_tol), act "none" too; two launches equal bit for bit; the route's
+# counter moves once a call; the split counters left at zero.
+CP_SHAPES = [(960, 598, 1024), (1024, 368, 500), (284, 598, 1024), (480, 598, 1024),
+             (67, 598, 70), (130, 34, 262), (1, 2, 2), (200, 1000, 130, 2)]
+
+
+def _cp_plan(M, N, K, splits, xs, ws):
+    """The plan of ``tile_plan.plan``, with the split forced unless None."""
+    pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=xs.data_ptr(),
+                        b_ptr=ws.data_ptr(), elem=2)
+    assert pl.route == tile_plan.CP_WGMMA and pl.tile == tile_plan.SMALL
+    if splits is None:
+        return pl
+    return tile_plan.cp_fixed(M, N, K, pl.tile, splits, pl.a_bytes, pl.b_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, 1, 2, 3, 4])
+@pytest.mark.parametrize("shape", CP_SHAPES)
+def test_cuda_matmul_act_bf16_cp_wgmma_matches_plain(cuda, shape, forced):
+    from nnet_asr_torch.ops.kernels import _build
+
+    M, K, N, offset = (*shape, 0)[:4]
+    x, w, b, _ = _affine_inputs(31, M, K, N)
+    xs, ws, bs = (_on_card(a, cuda, offset, dtype=torch.bfloat16) for a in (x, w, b))
+    pl = _cp_plan(M, N, K, forced, xs, ws)
+    stream = torch.cuda.current_stream(cuda)
+
+    def run(act):
+        y = torch.empty((M, N), dtype=torch.bfloat16, device=cuda)
+        if forced is None:
+            return MA.matmul_act(xs, ws, bs, act)
+        MA._launch_cp_wgmma(_build.load_library(), xs, ws, bs, y, act, pl, stream)
+        return y
+
+    for act in ("sigmoid", "none"):
+        before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_cp_wgmma,
+                  MA.matmul_act.launches_bf16_wgmma)
+        y1, y2 = run(act), run(act)
+        assert (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_cp_wgmma,
+                MA.matmul_act.launches_bf16_wgmma) == (before[0] + 2, before[1] + 2, before[2])
+        yp = MA.matmul_act_plain(xs, ws, bs, act)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2)
+        assert bool(((y1.float() - yp.float()).abs() <= _bf16_tol(y1, yp)).all())
+    assert not _build.counters(cuda, stream).any().item()
+
+
+# Small integers make every f32 sum exact, so y equals the plain version's
+# bits (both round the same f32 value once): a wrong swizzle, descriptor,
+# zero fill or split sum moves whole elements. K = 598 leaves the last k16
+# slice 6 columns deep; whole and split, each copy width (x 4 or 16 bytes,
+# W 16 or 8).
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(200, 598, 1024), (300, 368, 500)])
+def test_cuda_cp_wgmma_layouts_exact(cuda, shape, splits):
+    from nnet_asr_torch.ops.kernels import _build
+
+    M, K, N = shape
+    rng = np.random.default_rng(22)
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.integers(-1, 2, (M, K)).astype(np.float32)).to(cuda, bf)
+    w = torch.from_numpy(rng.integers(-1, 2, (K, N)).astype(np.float32)).to(cuda, bf)
+    b = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32)).to(cuda, bf)
+    pl = _cp_plan(M, N, K, splits, x, w)
+    assert (pl.a_bytes, pl.b_bytes) == ((4, 16) if K == 598 else (16, 8))
+    y = torch.empty((M, N), dtype=bf, device=cuda)
+    MA._launch_cp_wgmma(_build.load_library(), x, w, b, y, "none", pl,
+                        torch.cuda.current_stream(cuda))
+    exact = (x.double() @ w.double() + b.double()).float().to(bf)
+    torch.cuda.synchronize()
+    assert torch.equal(y, exact)
 
 
 # The weight gradient's split-K reduced in its one launch: no second kernel

@@ -29,6 +29,7 @@ from nnet_asr_tpu.train.trainer import Trainer as JTrainer
 from nnet_asr_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from nnet_asr_torch.models.network import Network as TNetwork
 from nnet_asr_torch.ops import int8_train
+from nnet_asr_torch.ops.kernels import _build
 from nnet_asr_torch.ops.kernels import matmul_act as MA
 from nnet_asr_torch.ops.kernels import sgd_fused as SF
 from nnet_asr_torch.ops.kernels import tile_plan
@@ -141,13 +142,15 @@ def test_wgrad_momentum_bf16_plain_matches_jax_apply_updates(vdt):
 
 # (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes,
 # b_bytes, route): MLP3's rows of 598 and 135 bf16 are no multiple of 16
-# bytes, so its shapes keep mma.sync; every production shape takes WGMMA
+# bytes, so TMA reads neither; its forward (x at 1,196-byte rows, whole
+# 4-byte units) takes CP_WGMMA (64x64 tiles, 4-byte copies of x, no split),
+# its weight gradients keep mma.sync; every production shape takes WGMMA
 # (no split; 128x256 tiles for the forward, 128x128 for the ping-pong
 # weight gradient)
-W, MS = tile_plan.WGMMA, tile_plan.MMA_SYNC
+W, MS, CP = tile_plan.WGMMA, tile_plan.MMA_SYNC, tile_plan.CP_WGMMA
 BF16_PLANS = {
     "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
-                                    (tile_plan.SMALL, 1, 598, 4, 16, MS)),
+                                    (tile_plan.SMALL, 1, 598, 4, 16, CP)),
     "affine 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, False),
                                (tile_plan.WIDE, 1, 1024, 16, 16, W)),
     "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
@@ -174,12 +177,16 @@ def test_bf16_plan_of_main_path_shapes(name):
     assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes, p.route) == want
     # f32 operands take the same route at these shapes: the f32 WGMMA one
     # at the production shapes (128x128 tiles on a persistent grid, the
-    # forward's too), MMA_SYNC at MLP3's
+    # forward's too), MMA_SYNC at MLP3's (where bf16's forward takes
+    # CP_WGMMA, which has no f32 kernel)
     f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split)
-    assert f.route == p.route
+    assert f.route == (MS if p.route == CP else p.route)
     if f.route == tile_plan.WGMMA:
         assert (f.tile, f.splits, f.blocks) == (tile_plan.BIG, 1, tile_plan.SM_COUNT)
-    if p.route == tile_plan.MMA_SYNC:
+    if p.route == CP:
+        assert (p.tile, p.splits) == (tile_plan.SMALL, tile_plan.cp_splits(M, N, K))
+        assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
+    elif p.route == tile_plan.MMA_SYNC:
         # the mma.sync tile does not depend on the element size; the split
         # weighs a block's fixed cost against the steps of its own type
         tiles = tile_plan.tile_count(M, N, p.tile)
@@ -229,8 +236,120 @@ def test_wgmma_route_rule(args, wgmma):
             want = (tile_plan.BIG, 128, 128) if persistent else (tile_plan.WIDE, 128, 256)
             assert (p.tile, p.bm, p.bn, p.splits, p.k_chunk) == (*want, 1, K)
             assert (p.a_bytes, p.b_bytes) == (16, 16)
+        elif p.route == tile_plan.CP_WGMMA:
+            # off TMA but in whole 4-byte units: the bf16 forward's cp.async
+            # route, never the weight gradient's
+            assert elem == 2 and not split and p.tile == tile_plan.SMALL
         else:
             assert p.tile in (tile_plan.BIG, tile_plan.SMALL)
+
+
+# The CP_WGMMA route (bf16 forward, wgmma fed by cp.async) at the recipes'
+# shapes: (M, K, N) -> (splits, k_chunk, x copy bytes, W copy bytes),
+# 64x64 tiles. MLP3's 240 tiles and TIMIT's 128 over 6 steps of 64 stay
+# whole; one tmpe utterance's 80 tiles split 3 ways (4 steps, the last
+# ragged), a 2x2 mesh rank's 128 tiles over 10 steps 2 ways; x's rows of
+# 1,196 bytes take 4-byte copies, TIMIT's x of 736 bytes 16-byte ones and
+# its W of 1,000 bytes 8-byte ones.
+CP_PLANS = {(960, 598, 1024): (1, 598, 4, 16), (1024, 368, 500): (1, 368, 16, 8),
+            (284, 598, 1024): (3, 256, 4, 16), (480, 598, 1024): (2, 320, 4, 16),
+            (307, 598, 1024): (3, 256, 4, 16)}
+
+
+@pytest.mark.parametrize("shape", sorted(CP_PLANS))
+def test_cp_wgmma_plan_of_recipe_shapes(shape):
+    M, K, N = shape
+    p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=1 << 20, b_ptr=1 << 21, elem=2,
+                       out_ptrs=(1 << 22,))
+    splits, k_chunk, a_bytes, b_bytes = CP_PLANS[shape]
+    tiles = tile_plan.tile_count(M, N, tile_plan.SMALL)
+    assert p == tile_plan.Plan(tile_plan.SMALL, 64, 64, splits, k_chunk, a_bytes, b_bytes,
+                               tile_plan.CP_WGMMA, tiles * splits)
+    # a split covers whole CP_BK steps, the splits cover K, and a split
+    # grid fits CP_PER_SM blocks an SM with a counter a tile
+    assert k_chunk * (splits - 1) < K <= k_chunk * splits
+    if splits > 1:
+        assert k_chunk % tile_plan.CP_BK == 0
+        assert k_chunk >= tile_plan.CP_MIN_K_STEPS * tile_plan.CP_BK
+        assert p.blocks <= tile_plan.CP_PER_SM * tile_plan.SM_COUNT
+        assert tiles <= _build.COUNTERS
+
+
+# Rows the route cannot copy stay on MMA_SYNC with the plan they had: a
+# 2-byte pitch (K = 135, N = 135, K = 33), a base or output 2 bytes off a
+# 4-byte boundary; the weight gradient never takes the route. (M, N, K,
+# a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs, wgrad)
+@pytest.mark.parametrize("args", [
+    (960, 1024, 135, 135, 1024, 0, 0, (), False),
+    (67, 135, 598, 598, 135, 0, 0, (), False),
+    (130, 70, 33, 33, 70, 0, 0, (), False),
+    (200, 132, 256, 256, 132, 2, 0, (), False),
+    (200, 132, 256, 256, 132, 0, 6, (), False),
+    (960, 1024, 598, 598, 1024, 0, 0, (2,), False),
+    (598, 1024, 960, 598, 1024, 0, 0, (), True),
+    (1024, 135, 960, 1024, 135, 0, 0, (), True),
+])
+def test_two_byte_pitches_stay_on_mma_sync(args):
+    M, N, K, ap, bp, a_ptr, b_ptr, outs, wgrad = args
+    p = tile_plan.plan(M, N, K, ap, bp, a_ptr, b_ptr, wgrad=wgrad, elem=2, out_ptrs=outs)
+    assert p.route == tile_plan.MMA_SYNC
+    assert not tile_plan.cp_wgmma_route(2, (ap, bp), (a_ptr, b_ptr, *outs)) or wgrad
+    saved = tile_plan.CP_WGMMA_ELEMS
+    try:
+        tile_plan.CP_WGMMA_ELEMS = ()
+        assert tile_plan.plan(M, N, K, ap, bp, a_ptr, b_ptr, wgrad=wgrad, elem=2,
+                              out_ptrs=outs) == p
+    finally:
+        tile_plan.CP_WGMMA_ELEMS = saved
+
+
+# f32 operands never take the route: at every shape of the main paths the
+# f32 plan is the one it was with the route switched off
+@pytest.mark.parametrize("shape", [*sorted(CP_PLANS), (1024, 1024, 4096), (1024, 4096, 4096),
+                                   (67, 598, 135), (1024, 500, 39)])
+@pytest.mark.parametrize("wgrad", [False, True])
+def test_f32_plans_unchanged_by_the_cp_wgmma_route(shape, wgrad):
+    M, K, N = shape
+    p = tile_plan.plan(M, N, K, K, N, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
+    assert p.route != tile_plan.CP_WGMMA
+    saved = tile_plan.CP_WGMMA_ELEMS
+    try:
+        tile_plan.CP_WGMMA_ELEMS = ()
+        assert tile_plan.plan(M, N, K, K, N, 1 << 20, 1 << 21, wgrad=wgrad,
+                              out_ptrs=(1 << 22,)) == p
+    finally:
+        tile_plan.CP_WGMMA_ELEMS = saved
+
+
+# The CP_WGMMA block's shared memory (SMEM_BYTES of its CpTile: a ring of
+# CP_STAGES stages, 128 bytes a row of x and a k-line of W at CP_BK, and
+# 1024 bytes of slack) fits a block and four blocks an SM, twice the
+# CP_PER_SM the split aims at; the staged y tile (rows of 2 bn + 16 bytes)
+# fits the ring; the tiles it was measured against fit a block at 4 stages
+def test_cp_wgmma_tile_fits_the_shared_memory():
+    smem = tile_plan.cp_smem_bytes()
+    assert smem == tile_plan.CP_STAGES * (64 * 128 + 64 * 128) + 1024 == 50176
+    assert tile_plan.SM_SMEM // (smem + 16 + tile_plan.BLOCK_SMEM_RESERVED) == 4
+    assert 64 * (2 * 64 + 16) <= smem - 1024
+    for tile in (tile_plan.HALF, tile_plan.TALL, tile_plan.BIG):
+        bm, bn = tile_plan.TILES[tile]
+        ring = tile_plan.cp_smem_bytes(tile, stages=4) - 1024
+        assert ring == 4 * (bm * 128 + (bn // 64) * 64 * 128)
+        assert ring + 1024 + tile_plan.BLOCK_SMEM_RESERVED <= tile_plan.SM_SMEM
+        assert bm * (2 * bn + 16) <= ring
+
+
+# cp_fixed, the plan the measurements force: splits of whole CP_BK steps
+# that cover K, fewer where K has fewer steps, k_chunk = K when whole
+@pytest.mark.parametrize("K,splits,want", [(598, 1, (1, 598)), (598, 2, (2, 320)),
+                                           (598, 3, (3, 256)), (598, 4, (4, 192)),
+                                           (368, 4, (3, 128)), (64, 3, (1, 64)),
+                                           (2, 2, (1, 2))])
+def test_cp_fixed_splits(K, splits, want):
+    p = tile_plan.cp_fixed(960, 1024, K, tile_plan.SMALL, splits, 4, 16)
+    assert (p.splits, p.k_chunk) == want
+    assert p.blocks == tile_plan.tile_count(960, 1024, tile_plan.SMALL) * p.splits
+    assert p.route == tile_plan.CP_WGMMA
 
 
 @pytest.mark.parametrize("pitch,ptr,elem,want", [
