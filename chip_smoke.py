@@ -40,7 +40,12 @@ final line):
      the MMA_SYNC route (gemm_ceiling.mma_sync_f32), then rows of their own
      for the f32 WGMMA route (3xTF32 wgmma: a pre-pass kernel and the GEMM
      a call) at the five production shapes, f32 and bf16 velocity, each
-     with its plan, bound, plain, library and alone times;
+     with its plan, bound, plain, library and alone times, and for the f32
+     CP_WGMMA route (3xTF32 wgmma fed by cp.async, x split in the block,
+     one launch a call) at the recipes' shapes (F32_CP_AFFINE,
+     F32_CP_WGRAD at f32 and bf16 velocity), each also beside the mma.sync
+     kernel it replaced (forced, gemm_ceiling.mma_sync_f32: in turns with
+     the library, and alone);
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -154,15 +159,19 @@ final line):
      tmpe --MESH=2x1 (its update within MPE_UPDATE_TOL of phase 11's).
      Launches exact per rank: affine_sigmoid on every mesh step,
      fused_softmax_xent only at model 1, wgrad_momentum_update never.
-Phase 2 also fails on a ptxas spill in a wgmma kernel (the WGMMA routes,
-bf16 or f32, and the CP_WGMMA forward). The line before the last is
-the kernels' JSON record (the four WGMMA-route kernels, bf16 and f32, as
-entries of their own, launched by phase 6; the CP_WGMMA forward as an
-entry of its own, launched by phases 8 and 12, every bunch of the bf16
-MLP3 runs; the others' launches summed over phases 4, 5, 7, 8, 9, 11, 12
-and 13, every rank, where no f32 WGMMA launch may happen; affine_sigmoid
-and affine_sigmoid_bf16 count every route of their dtype); the last line
-is {"ok": true, "device": {...}}. Exits non-zero when CUDA is unavailable.
+Phase 2 also fails on a ptxas spill in a wgmma kernel (the WGMMA and
+CP_WGMMA routes, bf16 or f32). The line before the last is the kernels'
+JSON record (the four WGMMA-route kernels, bf16 and f32, as entries of
+their own, launched by phase 6; the bf16 CP_WGMMA forward as an entry of
+its own, launched by phases 8 and 12, every bunch of the bf16 MLP3 runs;
+the f32 CP_WGMMA forward and wgrad as entries of their own, and the
+others, their launches summed over phases 4, 5, 7, 8, 9, 11, 12 and 13,
+every rank, where every f32 launch must be on the CP_WGMMA route, checked
+phase by phase (none on mma.sync but the shapes the plan keeps there, no
+f32 WGMMA one); affine_sigmoid and
+affine_sigmoid_bf16 count every route of their dtype, their f32 rows the
+mma.sync kernel forced); the last line is {"ok": true, "device": {...}}.
+Exits non-zero when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -205,6 +214,17 @@ AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096),
 F32_WGMMA_AFFINE = ((1024, 1024, 4096), (1024, 4096, 4096))
 F32_WGMMA_WGRAD = ((1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf16")),
                    (1024, 4096, 8192, ("f32", "bf16")))
+# the recipes' shapes of the f32 CP_WGMMA route (3xTF32 wgmma fed by
+# cp.async; phase 3 rows of their own, each beside the mma.sync kernel
+# forced): affine_sigmoid (M, K, N) at MLP3's, TIMIT's, a 2x2 mesh rank's,
+# one tmpe utterance's rows and the RBM recipe's second hidden layer;
+# wgrad_momentum_update (B, In, Out, velocities) at MLP3's two weights
+F32_CP_AFFINE = ((BUNCH, 598, 1024), (1024, 368, 500), (BUNCH // 2, 598, 1024),
+                 (284, 598, 1024), (BUNCH, 1024, 1024))
+F32_CP_WGRAD = ((BUNCH, 598, 1024, ("f32", "bf16")), (BUNCH, 1024, CLASSES, ("f32", "bf16")))
+# the shapes of F32_CP_WGRAD the plan keeps on mma.sync (an odd Out:
+# tile_plan.cp_f32_keeps_mma_sync), their rows forced onto the route
+F32_CP_KEPT = {(BUNCH, 1024, CLASSES)}
 # calls of the kernel and of the library yardstick, in turns, in one
 # profiler window (fewer where a call takes over 100 us)
 PAIRED_REPS, PAIRED_REPS_LONG = 200, 30
@@ -471,10 +491,12 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
 
     ts = [t.clone().requires_grad_(True) for t in (x, w, b)]
     ps = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma)
+    before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma,
+              MA.matmul_act.launches_f32_cp_wgmma)
     y = MA.affine_sigmoid(*ts)
-    check((MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma)
-          == (before[0] + 1, before[1] + (route == "WGMMA")),
+    check((MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma,
+           MA.matmul_act.launches_f32_cp_wgmma)
+          == (before[0] + 1, before[1] + (route == "WGMMA"), before[2] + (route == "CP_WGMMA")),
           f"affine_sigmoid {M}x{K}->{N}: not one f32 launch on the {route} route")
     y.backward(g)
     yp = MA.matmul_act_plain(*ps)
@@ -512,12 +534,35 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
                4.0 * (M * K + K * N + N + M * N), PEAK_3XTF32,
                device_us(torch, fns[0]) if profiled else None)
     r["plan"], r["route"] = plan, route
+    if route == "CP_WGMMA" and profiled:
+        mma_sync_rows(torch, r, f"affine_sigmoid {M}x{K}->{N}", fns[2],
+                      lambda: MA.matmul_act(x, w, b, "sigmoid"), "matmul_act",
+                      2.0 * M * N * K)
     log(f"kernel affine_sigmoid {M}x{K}->{N} ({route}): max|y-plain| {err_y:.3e}, grad rel err "
         f"dx {rel['dx']:.2e} dw {rel['dw']:.2e} db {rel['db']:.2e}; {per_call} kernel(s) a call "
         f"(the f32 WGMMA route: pre-pass + GEMM), two launches equal bit for bit")
     log_times(f"affine_sigmoid {M}x{K}->{N} (plain: cuBLAS f32 + bias + sigmoid; library: "
               f"addmm + sigmoid_)", r, 2.0 * M * N * K / (ms * 1e-3) / 1e12)
     return r
+
+
+def mma_sync_rows(torch, r, what, library, kernel, pattern, flops):
+    """The f32 mma.sync kernel the CP_WGMMA route replaced, forced at the
+    same shape (gemm_ceiling.mma_sync_f32): device us in turns with the
+    library and alone, into ``r``."""
+    from nnet_asr_torch.tools.gemm_ceiling import mma_sync_f32
+
+    def mma_sync():
+        with mma_sync_f32():
+            kernel()
+
+    r["mma_sync_device_us"], r["mma_sync_library_us"] = paired_device_us(
+        torch, mma_sync, library, pattern, flops)
+    r["mma_sync_alone_us"] = device_us(torch, mma_sync)
+    log(f"time {what} on mma.sync (forced): device {_us(r['mma_sync_device_us'])} in turns "
+        f"with the library ({_us(r['mma_sync_library_us'])}), alone "
+        f"{_us(r['mma_sync_alone_us'])}; CP_WGMMA {_us(r['device_us'])} in turns, alone "
+        f"{_us(r['device_alone_us'])}; bound {r['bound_us']:.2f} us ({r['bound_by']})")
 
 
 def _bits(torch, t):
@@ -621,7 +666,11 @@ def bf16_ulp(torch, t):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
+def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed, force_cp=False):
+    """The fused update against its plain version; ``force_cp``: on the f32
+    CP_WGMMA kernel by that route's split rule, at a shape the plan keeps
+    on mma.sync (beside the plan's kernel, for the comparison)."""
+    from nnet_asr_torch.ops.kernels import _build
     from nnet_asr_torch.ops.kernels import sgd_fused as SF
     from nnet_asr_torch.ops.kernels import tile_plan
 
@@ -635,12 +684,26 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
     pk, vk, pp, vp = p.clone(), v.clone(), p.clone(), v.clone()
     plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
                           b_ptr=e.data_ptr(), wgrad=True, out_ptrs=(pk.data_ptr(), vk.data_ptr()))
+    update = SF.wgrad_momentum_update
+    if force_cp:
+        check(plan.route == tile_plan.MMA_SYNC, f"{B}x{In}->{Out}: the plan takes the route")
+        plan = tile_plan.cp_fixed(In, Out, B, tile_plan.CP_F32_TILE,
+                                  tile_plan.cp_f32_splits(In, Out, B), plan.a_bytes,
+                                  plan.b_bytes, elem=4)
+        stream = torch.cuda.current_stream(dev)
+
+        def update(x, e, p, v, a, m):
+            SF._launch_f32_cp_wgmma(_build.load_library(), x, e, p, v, a, m, plan, stream)
+            SF.wgrad_momentum_update.launches += 1
     route = route_name(tile_plan, plan)
-    what = f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}"
-    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_f32_wgmma)
-    SF.wgrad_momentum_update(x, e, pk, vk, a, m)
-    check((SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_f32_wgmma)
-          == (before[0] + 1, before[1] + (route == "WGMMA")),
+    what = f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}{' (forced)' if force_cp else ''}"
+    counters = (lambda: (SF.wgrad_momentum_update.launches,
+                         SF.wgrad_momentum_update.launches_f32_wgmma,
+                         SF.wgrad_momentum_update.launches_f32_cp_wgmma))
+    before = counters()
+    update(x, e, pk, vk, a, m)
+    check(counters() == (before[0] + 1, before[1] + (route == "WGMMA"),
+                         before[2] + (route == "CP_WGMMA")),
           f"{what}: not one f32 launch on the {route} route")
     SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
     torch.cuda.synchronize()
@@ -667,13 +730,13 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
     # the same step again from the same state gives the same bits (the
     # split-K partials are summed in a fixed order, no float atomics)
     pk2, vk2 = p.clone(), v.clone()
-    SF.wgrad_momentum_update(x, e, pk2, vk2, a, m)
+    update(x, e, pk2, vk2, a, m)
     torch.cuda.synchronize()
     check(torch.equal(pk, pk2) and torch.equal(vk, vk2), f"{what}: a second run differs")
     # timed on the updated copies: each call is one more in-place step.
     # Library yardstick (f32 velocity): cuBLAS with beta, then one axpy
     pl, vl = p.clone(), v.clone()
-    fns = [lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m),
+    fns = [lambda: update(x, e, pk, vk, a, m),
            lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)]
     if vdt == "f32":
         fns.append(lambda: pl.add_(vl.addmm_(x.T, e, beta=m), alpha=-a))
@@ -695,6 +758,11 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed):
                PEAK_3XTF32, device_us(torch, fns[0]) if vdt == "f32" or route == "WGMMA" else None)
     r["plan"], r["route"] = plan_dict(tile_plan, plan), route
     log(f"plan {what}: {json.dumps(r['plan'])}")
+    if route == "CP_WGMMA" and vdt == "f32":
+        mma_sync_rows(torch, r, what, fns[2],
+                      lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m), "wgrad_momentum",
+                      flops)
+    r["forced"] = force_cp
     log(f"kernel {what} ({route}): max|p-plain| {err_p:.3e}, {v_note}; {per_call} kernel(s) a "
         f"call (the f32 WGMMA route: pre-pass + GEMM), two runs equal bit for bit")
     log_times(f"{what} (plain: cuBLAS f32 x.T@e + elementwise; library: addmm_ with beta "
@@ -941,8 +1009,6 @@ def main_path(torch, card: str, d: str, n: dict):
     import numpy as np
 
     from nnet_asr_torch.models.network import Network
-    from nnet_asr_torch.ops.kernels import matmul_act as MA
-    from nnet_asr_torch.ops.kernels import softmax_ce as SC
 
     def j(name: str) -> str:
         return os.path.join(d, name)
@@ -950,14 +1016,12 @@ def main_path(torch, card: str, d: str, n: dict):
     train = ("-S", j("train.scp"))
     cv = ("-S", j("cv.scp"), "-c")
 
-    MA.matmul_act.launches = 0
-    SC.softmax_xent.launches = 0
+    zero_counts()
     e1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('e1.mmf')}")
     e2 = run_tnet(d, j("e1.mmf"), *train, f"--TARGETMMF={j('e2.mmf')}")
     cv0 = run_tnet(d, j("init.mmf"), *cv)
     cv2 = run_tnet(d, j("e2.mmf"), *cv)
-    launches = {"matmul_act": MA.matmul_act.launches,
-                "softmax_xent": SC.softmax_xent.launches}
+    launches = read_counts()
 
     for name, r in (("epoch 1", e1), ("epoch 2", e2), ("cv init", cv0),
                     ("cv epoch 2", cv2)):
@@ -975,6 +1039,12 @@ def main_path(torch, card: str, d: str, n: dict):
                                    f"{cv0['acc']}% -> {cv2['acc']}%")
     check(launches["matmul_act"] > 0 and launches["softmax_xent"] > 0,
           f"a kernel was not launched on the main path: {launches}")
+    # every bunch's 960x598->1024 forward on the f32 CP_WGMMA route: 36 an
+    # epoch, 7 a CV
+    per_run = (want_train // BUNCH, want_train // BUNCH, want_cv // BUNCH, want_cv // BUNCH)
+    check(launches["matmul_act_f32_cp_wgmma"] == launches["matmul_act"] == sum(per_run),
+          f"main path: {launches['matmul_act_f32_cp_wgmma']} f32 CP_WGMMA forwards of "
+          f"{launches['matmul_act']}, want {sum(per_run)} ({per_run} a run)")
     net2 = Network.read(j("e2.mmf"))
     check([l.tag for l in net2.layers] == ["<biasedlinearity>", "<sigmoid>",
                                            "<biasedlinearity>", "<softmax>"]
@@ -1074,9 +1144,6 @@ def momentum_path(torch, card: str, d: str, n: dict):
 
     import numpy as np
 
-    from nnet_asr_torch.ops.kernels import matmul_act as MA
-    from nnet_asr_torch.ops.kernels import sgd_fused as SF
-    from nnet_asr_torch.ops.kernels import softmax_ce as SC
     from nnet_asr_torch.tools import scheduler, tnet
 
     def j(name: str) -> str:
@@ -1084,15 +1151,11 @@ def momentum_path(torch, card: str, d: str, n: dict):
 
     weights = j("weights")
     sched = sched_argv(d, MOM_ITERS, weights)
-    MA.matmul_act.launches = 0
-    SC.softmax_xent.launches = 0
-    SF.wgrad_momentum_update.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = stdout_of(scheduler.main, sched)
     wall = time.perf_counter() - t0
-    launches = {"matmul_act": MA.matmul_act.launches,
-                "softmax_xent": SC.softmax_xent.launches,
-                "wgrad_momentum_update": SF.wgrad_momentum_update.launches}
+    launches = read_counts()
 
     best_m = re.search(r"Best model: (\S+) \(CV ([\d.]+)%, (\d+) iterations\)", out)
     init_m = re.search(r"Initial CV accuracy: (\S+)", out)
@@ -1117,6 +1180,12 @@ def momentum_path(torch, card: str, d: str, n: dict):
     check(launches["wgrad_momentum_update"] == 2 * iters * bunches,
           f"wgrad_momentum_update launched {launches['wgrad_momentum_update']} times, "
           f"not 2 x {iters} epochs x {bunches} bunches")
+    # the hidden weight's update (960x598->1024) on the f32 CP_WGMMA route,
+    # the output weight's (960x1024->135) on mma.sync, where the plan keeps
+    # it; every forward on the route
+    check(launches["wgrad_momentum_update_f32_cp_wgmma"] == iters * bunches
+          and launches["matmul_act_f32_cp_wgmma"] == launches["matmul_act"],
+          f"momentum path: not every f32 launch on its route: {launches}")
     check(launches["matmul_act"] > 0 and launches["softmax_xent"] > 0,
           f"a kernel was not launched on the momentum path: {launches}")
     check(best_cv > init_cv, f"cv accuracy did not improve: {init_cv}% -> {best_cv}%")
@@ -1199,8 +1268,6 @@ def objectives_path(torch, card: str, d: str, n: dict):
     import numpy as np
 
     from nnet_asr_torch.models.network import Network
-    from nnet_asr_torch.ops.kernels import matmul_act as MA
-    from nnet_asr_torch.ops.kernels import softmax_ce as SC
 
     def j(name: str) -> str:
         return os.path.join(d, name)
@@ -1216,17 +1283,17 @@ def objectives_path(torch, card: str, d: str, n: dict):
         f.write(init.replace("<biasedlinearity>", "<sparselinearity>", 1))
     n_train = drained_frames(n["train"], CACHE, BUNCH)
     n_cv = drained_frames(n["cv"], CACHE, BUNCH)
-    totals = {"matmul_act": 0, "softmax_xent": 0}
+    totals = {"matmul_act": 0, "matmul_act_f32_cp_wgmma": 0, "softmax_xent": 0}
 
     def counted(what, frames, fused, *args):
         """A cuda:0 tnet run; affine_sigmoid launches once a drained bunch
-        (none for a SparseLinearity pair), fused_softmax_xent once a bunch
-        only where ``fused``."""
-        MA.matmul_act.launches = 0
-        SC.softmax_xent.launches = 0
+        on the f32 CP_WGMMA route (none for a SparseLinearity pair),
+        fused_softmax_xent once a bunch only where ``fused``."""
+        zero_counts()
         r = run_tnet(d, *args)
-        got = {"matmul_act": MA.matmul_act.launches, "softmax_xent": SC.softmax_xent.launches}
+        got = {k: v for k, v in read_counts().items() if k in totals}
         want = {"matmul_act": 0 if fused else frames // BUNCH,
+                "matmul_act_f32_cp_wgmma": 0 if fused else frames // BUNCH,
                 "softmax_xent": frames // BUNCH if fused else 0}
         log(f"tnet cuda:0 {what}: {'Xent' if r['acc'] is not None else 'Mse'} "
             f"{r['xent']:.10g} frames {r['frames']} correct {r['acc']} FPS {r['fps']}; "
@@ -1307,8 +1374,9 @@ def objectives_path(torch, card: str, d: str, n: dict):
 #    tfeacat --BF16/--INT8
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_bf16", "matmul_act_bf16_wgmma",
-            "matmul_act_bf16_cp_wgmma", "wgrad_momentum_update", "wgrad_momentum_update_f32_wgmma",
+COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma", "matmul_act_bf16",
+            "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma", "wgrad_momentum_update",
+            "wgrad_momentum_update_f32_wgmma", "wgrad_momentum_update_f32_cp_wgmma",
             "wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
 
 
@@ -1320,11 +1388,14 @@ def _counters():
 
     return {"matmul_act": (MA.matmul_act, "launches"),
             "matmul_act_f32_wgmma": (MA.matmul_act, "launches_f32_wgmma"),
+            "matmul_act_f32_cp_wgmma": (MA.matmul_act, "launches_f32_cp_wgmma"),
             "matmul_act_bf16": (MA.matmul_act, "launches_bf16"),
             "matmul_act_bf16_wgmma": (MA.matmul_act, "launches_bf16_wgmma"),
             "matmul_act_bf16_cp_wgmma": (MA.matmul_act, "launches_bf16_cp_wgmma"),
             "wgrad_momentum_update": (SF.wgrad_momentum_update, "launches"),
             "wgrad_momentum_update_f32_wgmma": (SF.wgrad_momentum_update, "launches_f32_wgmma"),
+            "wgrad_momentum_update_f32_cp_wgmma": (SF.wgrad_momentum_update,
+                                                   "launches_f32_cp_wgmma"),
             "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
             "wgrad_momentum_update_bf16_wgmma": (SF.wgrad_momentum_update,
                                                  "launches_bf16_wgmma"),
@@ -1582,7 +1653,8 @@ def rbm_path(torch, card: str, d: str, n: dict):
         r = run_tnet(d, *args)
         got = read_counts()
         want = dict.fromkeys(COUNTERS, 0)
-        want.update(matmul_act=2 * bunches, softmax_xent=bunches)
+        want.update(matmul_act=2 * bunches, matmul_act_f32_cp_wgmma=2 * bunches,
+                    softmax_xent=bunches)
         log(f"tnet cuda:0 {what}: Xent {r['xent']:.10g} frames {r['frames']} correct "
             f"{r['acc']}% FPS {r['fps']}; launches {json.dumps(got)}")
         check(r["frames"] == bunches * BUNCH and math.isfinite(r["xent"]), f"{what}: frames/Xent")
@@ -1932,7 +2004,7 @@ def mpe_path(torch, dev, card: str, d: str):
     got = read_counts()
     # one forward an utterance under -c, two (forward, then the update's) in training
     want = dict.fromkeys(COUNTERS, 0)
-    want["matmul_act"] = n_utts * (1 + 2 + 1 + 2 + 2)
+    want["matmul_act"] = want["matmul_act_f32_cp_wgmma"] = n_utts * (1 + 2 + 1 + 2 + 2)
     log(f"MPE path launches (5 tmpe runs on cuda:0, {n_utts} utterances each): {json.dumps(got)}")
     check(got == want, f"MPE path launches {got}, want {want}")
     log(f"MPE on {card}: Avg MPE accuracy (training set) {runs['-c, CE model']['acc']:.6g} "
@@ -2156,6 +2228,7 @@ def timit_path(torch, card: str, d: str):
     for name, r in runs.items():
         want = dict.fromkeys(COUNTERS, 0)
         want["matmul_act"] = want["softmax_xent"] = r["iters"] * n_train + (r["iters"] + 1) * n_cv
+        want["matmul_act_f32_cp_wgmma"] = want["matmul_act"]
         intake = ("" if r["intake"] is None else
                   f"; intake {r['intake']['seconds']:.2f}s, {r['intake']['resident_bytes']} "
                   f"bytes resident, {r['intake']['parked_bytes']} bytes host-parked")
@@ -2558,6 +2631,9 @@ def mesh_path(torch, card: str, d: str, n: dict, resident_mom: dict) -> dict:
     train = ("-S", j("train.scp"))
 
     def launched(results, case, want, what):
+        if "matmul_act" in want:   # every f32 forward at a rank's rows on the CP_WGMMA route
+            want = {**want, "matmul_act_f32_cp_wgmma": want["matmul_act"],
+                    "matmul_act_f32_wgmma": 0}
         for r, res in enumerate(results):
             got = res[case]["launches"]
             for k in total:
@@ -2848,11 +2924,13 @@ def momentum_step_routes(torch, dev, feats, labels, card):
 # operand type is the template argument after the Tile; the f32 WGMMA
 # route's kernels (and their pre-passes) carry "_f32_" in their names, the
 # bf16 WGMMA route's not
-KERNEL_GROUPS = (("affine_sigmoid f32 WGMMA (ours)", "matmul_act_f32_"),
+KERNEL_GROUPS = (("affine_sigmoid f32 CP_WGMMA (ours)", "matmul_act_f32_cp_"),
+                 ("affine_sigmoid f32 WGMMA (ours)", "matmul_act_f32_"),
                  ("affine_sigmoid bf16 (ours)",
                   r"matmul_act_kernel.*Tile<[^>]*>, __nv_bfloat16|matmul_act_wgmma_kernel"
                   r"|matmul_act_cp_wgmma_kernel"),
                  ("affine_sigmoid (ours)", "matmul_act_kernel"),
+                 ("wgrad_momentum_update f32 CP_WGMMA (ours)", "wgrad_momentum_f32_cp_"),
                  ("wgrad_momentum_update f32 WGMMA (ours)", "wgrad_momentum_f32_"),
                  ("wgrad_momentum_update bf16 (ours)",
                   r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|wgrad_momentum_wgmma_kernel"),
@@ -2862,8 +2940,9 @@ KERNEL_GROUPS = (("affine_sigmoid f32 WGMMA (ours)", "matmul_act_f32_"),
 
 
 # the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32; the
-# CP_WGMMA forward
-WGMMA_KERNELS = 7
+# bf16 CP_WGMMA forward; the f32 CP_WGMMA forward, its wgrad at f32 and
+# bf16 v
+WGMMA_KERNELS = 10
 
 
 def wgmma_spills(build_log: str) -> dict:
@@ -3001,6 +3080,12 @@ def main() -> int:
         "wgrad_momentum_update_f32_wgmma": [
             check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out)
             for B, In, Out, vdts in F32_WGMMA_WGRAD for vdt in vdts],
+        "affine_sigmoid_f32_cp_wgmma": [check_matmul_act(torch, dev, M, K, N, seed=M + K)
+                                        for M, K, N in F32_CP_AFFINE],
+        "wgrad_momentum_update_f32_cp_wgmma": [
+            check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out,
+                                 force_cp=(B, In, Out) in F32_CP_KEPT)
+            for B, In, Out, vdts in F32_CP_WGRAD for vdt in vdts],
         "affine_sigmoid_bf16": [check_matmul_act_bf16(torch, dev, M, K, N, seed=M + K + 1)
                                 for M, K, N in AFFINE_SHAPES],
         "wgrad_momentum_update_bf16": [
@@ -3008,7 +3093,8 @@ def main() -> int:
             for B, In, Out, _ in WGRAD_SHAPES for vdt in ("f32", "bf16")]})
     for name in ("affine_sigmoid", "wgrad_momentum_update"):
         check(all(r["route"] == "MMA_SYNC" for r in shapes[name])
-              and all(r["route"] == "WGMMA" for r in shapes[f"{name}_f32_wgmma"]),
+              and all(r["route"] == "WGMMA" for r in shapes[f"{name}_f32_wgmma"])
+              and all(r["route"] == "CP_WGMMA" for r in shapes[f"{name}_f32_cp_wgmma"]),
               f"{name}: the f32 rows are not on the routes they name")
 
     # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
@@ -3035,7 +3121,7 @@ def main() -> int:
         t0 = time.perf_counter()
         os.makedirs(os.path.join(d, "mpe"))
         launches_mpe, ragged = mpe_path(torch, dev, card, os.path.join(d, "mpe"))
-        shapes["affine_sigmoid"].append(ragged)
+        shapes["affine_sigmoid_f32_cp_wgmma"].append(ragged)
         log(f"phase 11: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         launches_res, resident_mom = resident_reruns(torch, card, d, launches_mom,
@@ -3050,10 +3136,26 @@ def main() -> int:
                                              launches_res, launches_ts, launches_mesh))
                 for k in COUNTERS}
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
-    # the recipes' widths keep the MMA_SYNC f32 kernels (SMALL tiles, or
-    # rows TMA cannot describe): no f32 WGMMA launch outside phase 6
-    check(launches["matmul_act_f32_wgmma"] == launches["wgrad_momentum_update_f32_wgmma"] == 0,
-          f"f32 WGMMA launches on the recipes' paths: {json.dumps(launches)}")
+    # every f32 launch at the recipes' widths on the f32 CP_WGMMA route,
+    # phase by phase, but the momentum runs' output-layer updates
+    # (960x1024->135, half their wgrad launches), which the plan keeps on
+    # mma.sync: no other f32 mma.sync launch, and no f32 WGMMA launch
+    # outside phase 6
+    per_phase = {"4": launches_ce, "5": launches_mom, "7": launches_obj, "8": launches_dt,
+                 "9": launches_rbm, "11": launches_mpe,
+                 "12": {k: launches_res[k] + launches_ts[k] for k in COUNTERS},
+                 "13": launches_mesh}
+    kept = {"5": launches_mom["wgrad_momentum_update"] // 2,
+            "12": launches_res["wgrad_momentum_update"] // 2}
+    for phase, got in per_phase.items():
+        f32 = {fn: [got.get(fn, 0), got.get(f"{fn}_f32_cp_wgmma", 0),
+                    got.get(f"{fn}_f32_wgmma", 0)]
+               for fn in ("matmul_act", "wgrad_momentum_update")}
+        want_kept = {"matmul_act": 0, "wgrad_momentum_update": kept.get(phase, 0)}
+        log(f"phase {phase}: f32 launches [all, CP_WGMMA, WGMMA] {json.dumps(f32)}, mma.sync "
+            f"where the plan keeps it {json.dumps(want_kept)}")
+        check(all(every - cp == want_kept[fn] and wg == 0 for fn, (every, cp, wg) in f32.items()),
+              f"phase {phase}: f32 launches off their routes: {json.dumps(f32)}")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
     # of phase 3, launched by phase 6
@@ -3096,6 +3198,11 @@ def main() -> int:
                                                  launches_prod, -2),
             "affine_sigmoid_f32_wgmma": ("matmul_act.cu", "matmul_act.py:86",
                                          "matmul_act_f32_wgmma", launches_prod, -1),
+            "affine_sigmoid_f32_cp_wgmma": ("matmul_act.cu", "matmul_act.py:86",
+                                            "matmul_act_f32_cp_wgmma", launches, 0),
+            "wgrad_momentum_update_f32_cp_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",
+                                                   "wgrad_momentum_update_f32_cp_wgmma",
+                                                   launches, 0),
             "wgrad_momentum_update_f32_wgmma": (
                 "sgd_fused.cu", "sgd_fused.py:105", "wgrad_momentum_update_f32_wgmma",
                 launches_prod, [r["shape"] for r in shapes["wgrad_momentum_update_f32_wgmma"]]

@@ -81,12 +81,29 @@
 // TMA route, y rounded once), stages the bf16 tile in shared memory and
 // writes whole rows. Rows of 2-byte pitch (K = 135) stay on mma.sync.
 //
+// f32 operands at every shape the f32 WGMMA route leaves but the BIG
+// mma.sync tile would fill the card (the recipes' widths: MLP3's
+// 960x598->1024, TIMIT's 1024x368->500, the RBM recipe's 960x1024->1024,
+// one tmpe utterance's and a mesh rank's rows; tile_plan.py's CP_WGMMA
+// route at 4 bytes an element) take cp_tf32_wgmma.cuh's loop
+// (matmul_act_f32_cp_wgmma_kernel): y^T = W^T x^T by 3xTF32 wgmma, W
+// brought raw by cp.async and split in registers, x brought raw by cp.async
+// and split in place in shared memory by the block itself (no pre-pass, one
+// launch), on tiles of 64 rows of x by 128 columns of W (two warpgroups
+// sharing x's split), split-K reduced in the launch where the tiles leave
+// SMs idle. What bounds it there is latency and the L2 feed (0.3 MB a 64x64
+// tile at K = 598), not operations or device memory; the ring is kept small
+// enough for two blocks an SM. Its epilogue writes y from the
+// fragments: the bias added in f32, the sigmoid as matmul_act_kernel takes
+// it (expf and an IEEE divide), two neighbouring columns a store.
+//
 // Layout: x (M, K), W (K, N), b (N,), y (M, N), all row-major contiguous.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "cp_tf32_wgmma.cuh"
 #include "cp_wgmma.cuh"
 #include "tf32_wgmma.cuh"
 #include "tile_gemm.cuh"
@@ -257,6 +274,29 @@ matmul_act_cp_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
 // its cp_* builds swap this line)
 using CpPlanned = nnet_cpw::CpTile<1, 64, 3>;
 
+// y = act(x @ W + b), f32, on the CP_WGMMA route (cp_tf32_wgmma.cuh): y^T
+// = W^T x^T a T::BN x T::BM tile a block (W the register operand, x split
+// in the block); with gridDim.z > 1, split blockIdx.z of it over k_chunk
+// rows of K, the last split to arrive summing the partials (part, counters:
+// cp_wgmma.cuh reduce_acc) before the epilogue
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+matmul_act_f32_cp_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                               const float* __restrict__ b, float* __restrict__ y,
+                               float* __restrict__ part, int* __restrict__ counters, int M, int N,
+                               int K, int act, int k_chunk, int x_bytes, int w_bytes) {
+  extern __shared__ uint8_t cpf_smem[];
+  uint8_t* ring = nnet_cpf::ring_of(cpf_smem);
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const nnet_cpf::Operands o{w, N, N, x, nullptr, K, M, w_bytes, x_bytes};
+  const float2 bias = nnet_cpf::bias_of(b, N, n0);
+  float acc[T::NACC];
+  nnet_cpf::mainloop<T>(ring, o, n0, m0, k_begin, min(K, k_begin + k_chunk), acc);
+  if (!nnet_cpw::reduce_acc<T>(acc, part, counters)) return;
+  nnet_cpf::store_y<T>(acc, bias, y, M, N, m0, n0, act);
+}
+
 // The pre-pass of the f32 WGMMA route: x's hi and lo halves (tile_gemm.cuh
 // split_tf32), n4 float4s of each
 __global__ void __launch_bounds__(256)
@@ -364,6 +404,27 @@ extern "C" int matmul_act_bf16_cp_wgmma(const void* x, const void* w, const void
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
       static_cast<bf16*>(y), part, counters, M, N, K, act, k_chunk, x_bytes, w_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The CP_WGMMA route of matmul_act_f32: any row pitches, tiles of 64 rows
+// by 128 columns of y. x_bytes, w_bytes: the copy width of that operand,
+// 16, 8 or 4; splits > 1: K cut into chunks of k_chunk rows (a multiple of
+// 32), part an f32 scratch of tiles * splits * 64 * 128 elements and
+// counters an int a
+// tile, zero, which the launch leaves at zero. Returns the CUDA error code
+// of the launch.
+extern "C" int matmul_act_f32_cp_wgmma(const float* x, const float* w, const float* b, float* y,
+                                       int M, int N, int K, int act, int x_bytes, int w_bytes,
+                                       int splits, int k_chunk, float* part, int* counters,
+                                       void* stream) {
+  using T = nnet_cpf::CpF32Planned<nnet_cpf::FWD>;
+  const int err = allow_smem(matmul_act_f32_cp_wgmma_kernel<T>, T::SMEM_BYTES);
+  if (err != 0) return err;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+  matmul_act_f32_cp_wgmma_kernel<T><<<grid, T::THREADS, T::SMEM_BYTES,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      x, w, b, y, part, counters, M, N, K, act, k_chunk, x_bytes, w_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -85,6 +85,26 @@
 // (a warp's access: 4 rows of 128 contiguous bytes), 4 rows in flight
 // before the first store, with the mma.sync epilogue's arithmetic.
 //
+// f32 x and e at every shape the f32 WGMMA route leaves whose 128x128
+// tiles would not fill the card (the recipes' weight gradients: MLP3's
+// 960x598->1024, TIMIT's 1024x368->500; tile_plan.py's CP_WGMMA route at 4
+// bytes an element) take cp_tf32_wgmma.cuh's loop
+// (wgrad_momentum_f32_cp_wgmma_kernel): g^T = e^T x by 3xTF32 wgmma, e
+// brought raw by cp.async and split in registers, x brought raw by cp.async
+// and transposed and split into K-major hi and lo by the block itself (no
+// pre-pass, one launch), on tiles of 64 rows (In) by 128 columns (Out) of p
+// and v (two warpgroups sharing x's split), the bunch split where the tiles
+// leave SMs idle (3 ways at 960x598->1024: tile_plan.cp_f32_splits), the
+// partials reduced in the launch. It is bound there by latency (the
+// cp_tf32_wgmma.cuh note), not operations or device memory. The update
+// reads and writes p and v from the fragments, two neighbouring columns at
+// a time, 8 rows in flight before the first store, with the mma.sync
+// epilogue's arithmetic and both velocity types. A weight gradient of an
+// odd Out (MLP3's 960x1024->135: 4-byte copies of e, one element of p and
+// v at a time, the last 64-column tiles 7 columns full) keeps the mma.sync
+// kernel above, which tools/gemm_ceiling.py --small --f32 measured faster
+// there (tile_plan.cp_f32_keeps_mma_sync).
+//
 // Layout: x (B, In), e (B, Out), p (In, Out), v (In, Out), all row-major
 // contiguous; with S > 1 splits an f32 scratch of S partial 64x64 tiles a
 // tile and an int counter a tile.
@@ -93,6 +113,7 @@
 
 #include <type_traits>
 
+#include "cp_tf32_wgmma.cuh"
 #include "tf32_wgmma.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -419,6 +440,42 @@ int launch_f32_wgmma(const CUtensorMap& te, const CUtensorMap& txh, const CUtens
   return static_cast<int>(cudaGetLastError());
 }
 
+// g = x^T e, f32, on the CP_WGMMA route (cp_tf32_wgmma.cuh): g^T = e^T x a
+// T::BN x T::BM tile a block (e the register operand, x transposed and
+// split in the block); with gridDim.z > 1, split blockIdx.z of the bunch
+// (k_chunk rows), the last split to arrive summing the partials (part,
+// counters: cp_wgmma.cuh reduce_acc); then v, p updated in place
+template <class T, class V>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+wgrad_momentum_f32_cp_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ e,
+                                   float* __restrict__ p, V* __restrict__ v,
+                                   float* __restrict__ part, int* __restrict__ counters, float a,
+                                   float m, int B, int In, int Out, int k_chunk, int x_bytes,
+                                   int e_bytes) {
+  extern __shared__ uint8_t cpf_smem[];
+  uint8_t* ring = nnet_cpf::ring_of(cpf_smem);
+  const int in0 = blockIdx.y * T::BM, out0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const nnet_cpf::Operands o{e, Out, Out, x, nullptr, In, In, e_bytes, x_bytes};
+  float acc[T::NACC];
+  nnet_cpf::mainloop<T>(ring, o, out0, in0, k_begin, min(B, k_begin + k_chunk), acc);
+  if (!nnet_cpw::reduce_acc<T>(acc, part, counters)) return;
+  nnet_cpf::update_pv<T, V>(acc, p, v, a, m, In, Out, in0, out0);
+}
+
+template <class V>
+int launch_f32_cp_wgmma(const float* x, const float* e, float* p, V* v, float* part,
+                        int* counters, float a, float m, int B, int In, int Out, int splits,
+                        int k_chunk, int x_bytes, int e_bytes, cudaStream_t stream) {
+  using T = nnet_cpf::CpF32Planned<nnet_cpf::WGRAD>;
+  const int err = allow_smem(wgrad_momentum_f32_cp_wgmma_kernel<T, V>, T::SMEM_BYTES);
+  if (err != 0) return err;
+  const dim3 grid((Out + T::BN - 1) / T::BN, (In + T::BM - 1) / T::BM, splits);
+  wgrad_momentum_f32_cp_wgmma_kernel<T, V><<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(
+      x, e, p, v, part, counters, a, m, B, In, Out, k_chunk, x_bytes, e_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). tile:
@@ -446,6 +503,25 @@ extern "C" int wgrad_momentum_update_bf16(const void* x, const void* e, float* p
   return dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(e), p, v, part,
                   counters, a, m, B, In, Out, v_is_bf16, tile, splits, k_chunk, x_bytes,
                   e_bytes, stream);
+}
+
+// The CP_WGMMA route of wgrad_momentum_update_f32: any row pitches, tiles
+// of 64 rows by 128 columns of p and v. splits > 1: the bunch cut into
+// chunks of k_chunk rows (a multiple of 32), part an f32 scratch of tiles *
+// splits * 64 * 128 elements and counters an int a tile, zero, which the
+// launch leaves at
+// zero; else both unused. x_bytes, e_bytes: the copy width of that operand,
+// 16, 8 or 4. Returns the CUDA error code of the launch.
+extern "C" int wgrad_momentum_update_f32_cp_wgmma(const float* x, const float* e, float* p,
+                                                  void* v, float* part, int* counters, float a,
+                                                  float m, int B, int In, int Out, int v_is_bf16,
+                                                  int splits, int k_chunk, int x_bytes,
+                                                  int e_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return v_is_bf16 ? launch_f32_cp_wgmma(x, e, p, static_cast<bf16*>(v), part, counters, a, m, B,
+                                         In, Out, splits, k_chunk, x_bytes, e_bytes, s)
+                   : launch_f32_cp_wgmma(x, e, p, static_cast<float*>(v), part, counters, a, m,
+                                         B, In, Out, splits, k_chunk, x_bytes, e_bytes, s);
 }
 
 // The WGMMA route of wgrad_momentum_update_bf16: x, e with row pitches of

@@ -29,10 +29,13 @@
 // describe run on wgmma_gemm.cuh, whose 16-bit wgmma reads MN-major tiles
 // (its transpose bits), and the bf16 forward at rows of whole 4-byte units
 // that TMA cannot describe (MLP3's x at 598 columns, TIMIT's W at 500) on
-// cp_wgmma.cuh. This loop serves every other shape: the recipes' f32
-// products on the SMALL tile (MLP3, TIMIT, tmpe, the RBM recipe, a mesh
-// rank's rows), MLP3's rows of 598 and 135 elements in f32, the bf16
-// weight gradients off TMA and bf16 rows of odd pitch (135 elements).
+// cp_wgmma.cuh; f32 ones whose 128x128 tiles would not fill the card (the
+// recipes' f32 products) on cp_tf32_wgmma.cuh (3xTF32 wgmma fed by
+// cp.async, x split in the block). This loop serves every other shape:
+// MLP3's f32 weight gradient of 135 outputs (an odd Out, which the card
+// ran faster here), f32 products of the BIG tile's size that TMA cannot
+// read, the bf16 weight gradients off TMA and bf16 rows of odd pitch (135
+// elements).
 // mma.sync fragments are loaded by each
 // thread from a shared tile of either layout, and the hi/lo split happens
 // in those registers.

@@ -52,6 +52,8 @@ SIGNATURES = {
     # bf16 on the CP_WGMMA route: x, w, b, y, M, N, K, act, x_bytes, w_bytes,
     # splits, k_chunk, part, counters, stream
     "matmul_act_bf16_cp_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # f32 on the CP_WGMMA route: the same arguments
+    "matmul_act_f32_cp_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # bf16 on the WGMMA route: x, w, b, y, M, N, K, act, stream
     "matmul_act_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # f32 on the WGMMA route: x, w, b, y, xhi, xlo, M, N, K, act, blocks,
@@ -70,6 +72,10 @@ SIGNATURES = {
     # bf16 x and e on the WGMMA route: x, e, p, v, a, m, B, In, Out,
     # v_is_bf16, blocks, stream
     "wgrad_momentum_update_bf16_wgmma": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
+    # f32 x and e on the CP_WGMMA route: x, e, p, v, part, counters, a, m,
+    # B, In, Out, v_is_bf16, splits, k_chunk, x_bytes, e_bytes, stream
+    "wgrad_momentum_update_f32_cp_wgmma": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _P],
     # f32 x and e on the WGMMA route: x, e, p, v, xhi, xlo, a, m, B, In,
     # Out, v_is_bf16, blocks, stream
     "wgrad_momentum_update_f32_wgmma": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,

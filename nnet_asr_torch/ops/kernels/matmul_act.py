@@ -19,6 +19,12 @@ route: MLP3's 598-wide x, TIMIT's 500-wide W and y) go to
 ``csrc/cp_wgmma.cuh``: ``wgmma`` fed by ``cp.async`` copies into the
 swizzled layout its descriptors read, split-K in the same launch where
 the tiles leave SMs idle; a bf16 row of odd pitch stays on ``mma.sync``.
+f32 operands at every shape the f32 WGMMA route leaves whose 128x128
+tiles would not fill the card (``tile_plan``'s CP_WGMMA route at 4 bytes:
+every f32 forward of the recipes) go to ``csrc/cp_tf32_wgmma.cuh``:
+3xTF32 on ``wgmma`` fed by ``cp.async``, W split in registers, x split
+into hi and lo in shared memory by the block itself, tiles of 64 rows by
+128 columns, one launch a call, split-K reduced in it.
 As in the TPU kernel, ``y`` has x's dtype: bf16 y is the f32 result rounded
 once. It is bound by operations, not bytes, at the main path's shapes
 (960x598->1024 on example-01's MLP3, 1024x{1024,4096}->4096 on the
@@ -35,7 +41,9 @@ dtype. ``matmul_act.launches`` counts f32 calls (both routes),
 ``matmul_act.launches_f32_wgmma`` those of them on the WGMMA route,
 ``matmul_act.launches_bf16`` bf16 ones (every route),
 ``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route and
-``matmul_act.launches_bf16_cp_wgmma`` those on the CP_WGMMA route. ``affine_sigmoid`` is the
+``matmul_act.launches_bf16_cp_wgmma`` those on the CP_WGMMA route,
+``matmul_act.launches_f32_cp_wgmma`` the f32 calls on that route (also
+counted in ``launches``). ``affine_sigmoid`` is the
 ``autograd.Function``; its backward is the JAX ``_bwd``, roundings
 included: the elementwise ``dz`` in f32, rounded to x's dtype, then ``dx``
 and ``dW`` by ``torch.matmul`` (which JAX also left outside Pallas; at bf16
@@ -157,21 +165,27 @@ matmul_act.launches_f32_wgmma = 0
 matmul_act.launches_bf16 = 0
 matmul_act.launches_bf16_wgmma = 0
 matmul_act.launches_bf16_cp_wgmma = 0
+matmul_act.launches_f32_cp_wgmma = 0
 
 
 def _launch_cp_wgmma(lib, x, w, b, y, act, p, stream):
-    """Launch the CP_WGMMA kernel into ``y`` by plan ``p`` (a CP_WGMMA
-    plan of ``tile_plan.plan``, or one a measurement forces: its bm and bn
-    those of the tile the library was built with)."""
+    """Launch the CP_WGMMA kernel of x's dtype into ``y`` by plan ``p`` (a
+    CP_WGMMA plan of ``tile_plan.plan``, or one a measurement forces: its
+    bm and bn those of the tile the library was built with)."""
     M, K = x.shape
     N = w.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    name = "matmul_act_bf16_cp_wgmma" if bf16 else "matmul_act_f32_cp_wgmma"
     _scratch, split = _build.split_args(p, x.device, stream)
-    _build.check(lib.matmul_act_bf16_cp_wgmma(
+    _build.check(getattr(lib, name)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act],
-        p.a_bytes, p.b_bytes, *split, stream.cuda_stream),
-        "matmul_act_bf16_cp_wgmma")
-    matmul_act.launches_bf16 += 1
-    matmul_act.launches_bf16_cp_wgmma += 1
+        p.a_bytes, p.b_bytes, *split, stream.cuda_stream), name)
+    if bf16:
+        matmul_act.launches_bf16 += 1
+        matmul_act.launches_bf16_cp_wgmma += 1
+    else:
+        matmul_act.launches += 1
+        matmul_act.launches_f32_cp_wgmma += 1
 
 
 def _affine_backward(ctx, x, w, dz):

@@ -30,7 +30,14 @@ tiles filling the card: the production stack's weights) go to
 ``csrc/tf32_wgmma.cuh`` with the same schedule: 3xTF32 on ``wgmma``,
 ``g^T = e^T x`` with e split in registers and x transposed and split into
 hi and lo copies by a pre-pass kernel into scratch allocated here, two
-launches a call. With f32 ``x`` and
+launches a call. f32 ``x`` and ``e`` at every shape the f32 WGMMA route
+leaves whose 128x128 tiles would not fill the card (the plan's CP_WGMMA
+route at 4 bytes: the recipes' f32 weight gradients but those of an odd
+Out, MLP3's 960x1024->135, which keep ``mma.sync``) go to
+``csrc/cp_tf32_wgmma.cuh``: 3xTF32 on ``wgmma`` fed by ``cp.async``,
+``g^T = e^T x`` with e split in registers and x transposed and split into
+hi and lo in shared memory by the block itself, one launch a call, the
+bunch split where the tiles leave SMs idle. With f32 ``x`` and
 ``e`` it is bound by operations at the production stack's widths; with
 bf16 ones by the bytes of p and v; at example-01's widths by bytes and
 latency.
@@ -43,9 +50,10 @@ device: CPU tensors take the plain PyTorch version
 there is no fallback. ``wgrad_momentum_update.launches`` counts calls
 with f32 ``x`` and ``e`` (both routes),
 ``wgrad_momentum_update.launches_f32_wgmma`` those of them on the WGMMA
-route, ``wgrad_momentum_update.launches_bf16`` those with bf16 ones (both
-routes), ``wgrad_momentum_update.launches_bf16_wgmma`` those of them on the
-WGMMA route.
+route, ``wgrad_momentum_update.launches_f32_cp_wgmma`` those on the
+CP_WGMMA route, ``wgrad_momentum_update.launches_bf16`` those with bf16
+ones (both routes), ``wgrad_momentum_update.launches_bf16_wgmma`` those of
+them on the WGMMA route.
 """
 
 from __future__ import annotations
@@ -122,6 +130,8 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
             split[1].data_ptr(), float(a), float(m), B, In, Out, v_is_bf16, pl.blocks,
             stream.cuda_stream), "wgrad_momentum_update_f32_wgmma")
         wgrad_momentum_update.launches_f32_wgmma += 1
+    elif pl.route == tile_plan.CP_WGMMA:
+        _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream)
     elif pl.route == tile_plan.WGMMA:
         _build.check(lib.wgrad_momentum_update_bf16_wgmma(
             x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
@@ -146,5 +156,20 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
 
 wgrad_momentum_update.launches = 0
 wgrad_momentum_update.launches_f32_wgmma = 0
+wgrad_momentum_update.launches_f32_cp_wgmma = 0
 wgrad_momentum_update.launches_bf16 = 0
 wgrad_momentum_update.launches_bf16_wgmma = 0
+
+
+def _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream):
+    """Launch the f32 CP_WGMMA kernel by plan ``pl`` (a CP_WGMMA plan of
+    ``tile_plan.plan``, or one a measurement forces: its bm and bn those of
+    the tile the library was built with); counted in
+    ``launches_f32_cp_wgmma``, and by the caller in ``launches``."""
+    B, In = x.shape
+    _scratch, (splits, k_chunk, part, counters) = _build.split_args(pl, p.device, stream)
+    _build.check(lib.wgrad_momentum_update_f32_cp_wgmma(
+        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), part, counters, float(a),
+        float(m), B, In, e.shape[1], int(v.dtype == torch.bfloat16), splits, k_chunk,
+        pl.a_bytes, pl.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_cp_wgmma")
+    wgrad_momentum_update.launches_f32_cp_wgmma += 1

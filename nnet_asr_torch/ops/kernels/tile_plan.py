@@ -53,11 +53,11 @@ product must be one whose 128x128 tiles fill the card (``tile_count(M, N,
 BIG) >= SM_COUNT``, where the ``MMA_SYNC`` plan takes its BIG tile): the
 production stack's 1024x{1024,4096}->4096 forward and its weight
 gradients. Every other shape is ``MMA_SYNC`` (``tile_gemm.cuh``), with the
-plan it had (but the bf16 forward's, below): MLP3's rows of 598 and 135
-elements (f32 2,392 and 540 bytes, bf16 1,196 and 270) that no TMA map
-describes, and every f32 shape on the
-SMALL tile (TIMIT's 1024x368->500, the RBM recipe's 960x1024->1024, a
-mesh rank's rows). ``blocks`` is the kernel's grid: on ``WGMMA``, but for
+plan it had, but those of ``CP_WGMMA`` (below: the bf16 forward off TMA,
+every f32 shape on the SMALL tile): the bf16 weight gradients at MLP3's
+rows of 598 and 135 elements (1,196 and 270 bytes) that no TMA map
+describes, bf16 rows of odd pitch, and the f32 products of the BIG tile's
+size whose rows TMA cannot read. ``blocks`` is the kernel's grid: on ``WGMMA``, but for
 the bf16 forward, a persistent grid of ``min(tiles, SM_COUNT)`` blocks
 walking the tiles, two at a time. Pure Python, so the CPU tests
 hold every main-path shape to its plan; ``BIG``/``SMALL``, ``BK``,
@@ -66,18 +66,39 @@ hold every main-path shape to its plan; ``BIG``/``SMALL``, ``BK``,
 ``wgmma_gemm.cuh`` and ``tf32_wgmma.cuh``, ``CP_STAGES``, ``CP_BK`` and
 ``cp_smem_bytes`` match ``CpPlanned`` of ``matmul_act.cu`` and ``cp_wgmma.cuh``.
 
-``CP_WGMMA`` (``csrc/cp_wgmma.cuh``: ``wgmma`` fed by ``cp.async`` copies
-that write the swizzled layout the descriptors read) takes the bf16
-forward (``CP_WGMMA_ELEMS``; not the weight gradient) wherever TMA cannot
-read the rows but every row pitch and base pointer, the output's too, is a
-whole number of 4-byte units: MLP3's x at 598 columns (1,196-byte rows,
-4-byte copies), TIMIT's W and y at 500 (1,000-byte rows, 8-byte copies),
-one tmpe utterance's and a mesh rank's rows. Its tile is 64x64 on one
-warpgroup, a ring of ``CP_STAGES`` stages of ``CP_BK`` = 64, split-K as
-``cp_splits`` says (``HALF`` 64x128, ``TALL`` 128x64 and ``BIG`` 128x128
-are the tiles it was measured against, ``tools/gemm_ceiling.py
---small``). A bf16 row of odd pitch (135 columns), or a base off a 4-byte
-boundary, has no such copy and stays on ``MMA_SYNC``.
+``CP_WGMMA`` (``wgmma`` fed by ``cp.async`` copies that write the swizzled
+layout the descriptors read) has a kernel for each element size of
+``CP_WGMMA_ELEMS``, taken wherever every row pitch and base pointer, the
+output's too, is a whole number of 4-byte units:
+
+- bf16 (``csrc/cp_wgmma.cuh``), the forward only, wherever TMA cannot read
+  the rows: MLP3's x at 598 columns (1,196-byte rows, 4-byte copies),
+  TIMIT's W and y at 500 (1,000-byte rows, 8-byte copies), one tmpe
+  utterance's and a mesh rank's rows. Its tile is 64x64 on one warpgroup, a
+  ring of ``CP_STAGES`` stages of ``CP_BK`` = 64, split-K as ``cp_splits``
+  says (``HALF`` 64x128, ``TALL`` 128x64 and ``BIG`` 128x128 are the tiles
+  it was measured against, ``tools/gemm_ceiling.py --small``). A bf16 row
+  of odd pitch (135 columns), or a base off a 4-byte boundary, has no such
+  copy and stays on ``MMA_SYNC``.
+- f32 (``csrc/cp_tf32_wgmma.cuh``: 3xTF32, x split into hi and lo in the
+  block), the forward and the weight gradient, at every shape the f32
+  WGMMA route leaves whose BIG ``mma.sync`` tiles would not fill the card
+  (``tile_count(M, N, BIG) < SM_COUNT``; an f32 pitch is always whole
+  4-byte units): every f32 product of the recipes (MLP3's 960x598->1024
+  and its weight gradients 960x598->1024 and 960x1024->135, TIMIT's
+  1024x368->500 and its output weight, the RBM recipe's 960x1024->1024,
+  one tmpe utterance's and a mesh rank's rows). Its tile is ``CP_F32_TILE``
+  (64 rows of x by 128 columns of W or e, two warpgroups of 64 columns
+  each sharing x's split), a ring of ``CP_F32_STAGES`` stages of ``BK`` =
+  32 floats (88 KB for the forward, 96 for the weight gradient: two blocks
+  an SM), split as ``cp_f32_splits`` says, copies of 16, 8 or 4 bytes
+  (64x64 on one warpgroup and 128x64 are the tiles it was measured
+  against). Products of the
+  BIG tile's size that TMA cannot read keep their ``MMA_SYNC`` BIG plan,
+  and so does one recipe shape of the SMALL tile (``cp_f32_keeps_mma_sync``):
+  the weight gradient of an odd number of outputs, MLP3's 960x1024->135.
+  ``mma_sync_f32`` of ``tools/gemm_ceiling.py`` takes 4 out of this tuple
+  and of ``WGMMA_ELEMS`` to force the f32 plans this route replaced.
 """
 
 from __future__ import annotations
@@ -94,11 +115,14 @@ STAGES = {BIG: 3, SMALL: 4}   # depth of the cp.async ring
 MMA_SYNC, WGMMA, CP_WGMMA = 0, 1, 2
 WGMMA_ELEMS = (2, 4)     # element sizes with a WGMMA route (bf16, f32)
 WGMMA_BK = {2: 64, 4: 32}   # contraction step of the WGMMA ring: one 128-byte line
-CP_WGMMA_ELEMS = (2,)    # element sizes with a CP_WGMMA route (the bf16 forward)
+CP_WGMMA_ELEMS = (2, 4)  # element sizes with a CP_WGMMA route (the bf16 forward, f32 both)
 CP_STAGES = 3            # the CP_WGMMA ring (64x64 tiles: 48 KB, four blocks an SM)
 CP_BK = 64               # contraction step of the CP_WGMMA ring
 CP_PER_SM = 2            # CP_WGMMA blocks an SM the split aims at
 CP_MIN_K_STEPS = 4       # CP_BK steps a CP_WGMMA split keeps at least
+CP_F32_TILE = HALF       # the f32 CP_WGMMA tile: 64 rows of x by 128 of W's (or e's) columns
+CP_F32_STAGES = 4        # the f32 CP_WGMMA ring (88 KB forward, 96 wgrad: two blocks an SM)
+CP_F32_PER_SM = 2        # f32 CP_WGMMA blocks an SM holds
 SMALL_PER_SM = 3         # SMALL blocks an SM holds (f32: 72 KB, <= 168 registers a thread)
 MIN_K_STEPS = 4          # BK steps a split keeps at least
 MAX_SPLITS = 16
@@ -113,7 +137,7 @@ class Plan(NamedTuple):
     k_chunk: int         # rows of the contraction per split
     a_bytes: int         # copy width of A: 16, 8, 4 or (2-byte elements) 2
     b_bytes: int         # copy width of B
-    route: int           # MMA_SYNC or WGMMA
+    route: int           # MMA_SYNC, WGMMA or CP_WGMMA
     blocks: int          # blocks of the GEMM kernel's grid
 
 
@@ -183,6 +207,30 @@ def cp_smem_bytes(tile: int = SMALL, stages: int = CP_STAGES) -> int:
     return stages * 2 * CP_BK * (bm + bn) + 1024
 
 
+def cp_f32_smem_bytes(wgrad: bool, tile: int = HALF, stages: int = CP_F32_STAGES) -> int:
+    """Dynamic shared memory of an f32 CP_WGMMA block (``SMEM_BYTES`` of
+    its ``CpF32Tile``): ``stages - 2`` slots of W's or e's raw ``BK`` x bn
+    k-lines, ``stages`` of the forward's x rows split in place (bm x ``BK``
+    floats), 3 of x's lo rows (and of the weight gradient's hi, beside
+    ``stages - 2`` of its raw x k-lines), and 1024 bytes of slack to align
+    the ring."""
+    bm, bn = TILES[tile]
+    a, b = 4 * BK * bn, 4 * BK * bm
+    return (stages - 2) * a + ((3 + 3 + stages - 2) if wgrad else (stages + 3)) * b + 1024
+
+
+def cp_f32_keeps_mma_sync(wgrad: bool, b_pitch: int) -> bool:
+    """Whether an f32 product the CP_WGMMA route could take stays on
+    MMA_SYNC: the weight gradient whose e rows are no whole 8-byte units
+    (an odd Out: MLP3's 135 senones, TIMIT's 39). There e arrives in 4-byte
+    copies, p and v are updated one element at a time, and 57 of the 192
+    columns of the last 64-wide tiles are empty; ``tools/gemm_ceiling.py
+    --small --f32`` measured the CP_WGMMA kernel at 960x1024->135 slower
+    than mma.sync under every split (its plan's 5: 20.86-21.16 us against
+    17.70-17.79, NVIDIA H100 80GB HBM3, 700 W)."""
+    return wgrad and b_pitch % 2 == 1
+
+
 def cp_wgmma_route(elem: int, pitches, ptrs) -> bool:
     """Whether cp.async and wgmma can take the product: an element size
     with a CP_WGMMA route, row pitches (elements) and pointers in whole
@@ -209,12 +257,39 @@ def cp_splits(M: int, N: int, K: int) -> int:
     return splits
 
 
+def cp_f32_splits(M: int, N: int, K: int) -> int:
+    """Splits of an f32 CP_WGMMA product: the fewest of the least ``W *
+    (steps / S + BLOCK_COST[4])`` BK steps for ``W`` waves of
+    ``CP_F32_PER_SM`` one-warpgroup 64x64 blocks an SM (``W =
+    ceil(ceil(tiles * S / SM_COUNT) / CP_F32_PER_SM)``, tiles of 64x64): a
+    64x64 block takes as long beside another on its SM as alone (its
+    stage's chain, not the SM's tensor cores, sets its pace), so a second
+    block an SM is free and a second wave is not. At most ``MAX_SPLITS``,
+    and ``MIN_K_STEPS`` steps a split. The kernels run 64x128 tiles
+    (``CP_F32_TILE``: two such warpgroups sharing x's split), whose grid is
+    half as many blocks of the same splits. ``tools/gemm_ceiling.py
+    --small --f32`` measured every split of both tiles at the recipes'
+    shapes, and this rule picks the fastest of each at each: MLP3's forward
+    and the RBM recipe's 960x1024->1024 whole, TIMIT's and a mesh rank's 2
+    ways, one tmpe utterance's 3, MLP3's 598->1024 weight gradient 3 (and
+    960x1024->135, which stays on MMA_SYNC, 5)."""
+    tiles, steps = tile_count(M, N, SMALL), _cdiv(K, BK)
+
+    def cost(s):
+        waves = _cdiv(_cdiv(tiles * s, SM_COUNT), CP_F32_PER_SM)
+        return waves * (steps / s + BLOCK_COST[4])
+
+    return min(range(1, max(1, min(MAX_SPLITS, steps // MIN_K_STEPS)) + 1),
+               key=lambda s: (cost(s), s))
+
+
 def cp_fixed(M: int, N: int, K: int, tile: int, splits: int, a_bytes: int,
-             b_bytes: int) -> Plan:
+             b_bytes: int, elem: int = 2) -> Plan:
     """The CP_WGMMA plan of an (M, K) x (K, N) product on ``tile`` with K
-    cut into ``splits`` chunks of whole ``CP_BK`` steps (fewer where K has
-    fewer steps) and the given copy widths."""
-    k_chunk = _cdiv(_cdiv(K, CP_BK), splits) * CP_BK if splits > 1 else K
+    cut into ``splits`` chunks of whole steps (``CP_BK`` for bf16, ``BK``
+    for f32; fewer where K has fewer steps) and the given copy widths."""
+    step = CP_BK if elem == 2 else BK
+    k_chunk = _cdiv(_cdiv(K, step), splits) * step if splits > 1 else K
     n = _cdiv(K, k_chunk)
     return Plan(tile, *TILES[tile], n, k_chunk if n > 1 else K, a_bytes, b_bytes, CP_WGMMA,
                 tile_count(M, N, tile) * n)
@@ -250,11 +325,14 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
         tiles = tile_count(M, N, tile)
         return Plan(tile, *TILES[tile], 1, K, 16, 16, WGMMA,
                     min(tiles, SM_COUNT) if persistent else tiles)
-    if not wgrad and cp_wgmma_route(elem, (a_pitch, b_pitch), (a_ptr, b_ptr, *out_ptrs)):
+    if (cp_wgmma_route(elem, (a_pitch, b_pitch), (a_ptr, b_ptr, *out_ptrs))
+            and (not wgrad if elem == 2 else tile_count(M, N, BIG) < SM_COUNT
+                 and not cp_f32_keeps_mma_sync(wgrad, b_pitch))):
         widths = (16, 8, 4)
-        return cp_fixed(M, N, K, SMALL, cp_splits(M, N, K),
+        return cp_fixed(M, N, K, SMALL if elem == 2 else CP_F32_TILE,
+                        cp_splits(M, N, K) if elem == 2 else cp_f32_splits(M, N, K),
                         copy_bytes(a_pitch, a_ptr, elem, widths),
-                        copy_bytes(b_pitch, b_ptr, elem, widths))
+                        copy_bytes(b_pitch, b_ptr, elem, widths), elem)
     tile = BIG if tile_count(M, N, BIG) >= SM_COUNT else SMALL
     tiles = tile_count(M, N, tile)
     splits, k_chunk = 1, K

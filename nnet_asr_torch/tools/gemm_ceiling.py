@@ -99,6 +99,42 @@ written; the results are wrong), ``cp_64x128`` (one warpgroup),
 ``cp_128x64`` and ``cp_128x128`` (two) with 4-stage rings (these with the
 plan and the ``cp`` candidates of their own tile).
 
+Last, with f32 operands at the shapes of ``F32_SHAPES`` (the forward at
+MLP3's 960x598->1024, TIMIT's 1024x368->500, a 2x2 mesh rank's
+480x598->1024, one tmpe utterance's 284x598->1024 and the RBM recipe's
+960x1024->1024; the wgrad at MLP3's 960x598->1024 and 960x1024->135, f32
+velocity), the candidate designs of the f32 CP_WGMMA route
+(``csrc/cp_tf32_wgmma.cuh``), in two turns (``gemm_ceiling f32 ...``
+lines), with each build of ``CP_F32_VARIANTS`` (``CpF32Planned`` of
+cp_tf32_wgmma.cuh swapped):
+
+  library                 addmm + sigmoid_; addmm_ with beta + add_;
+  mma.sync                the MMA_SYNC kernel (the route it replaces,
+                          forced: ``mma_sync_f32``);
+  plan                    the f32 CP_WGMMA kernel as ``tile_plan.plan``
+                          picks;
+  cp BMxBN/S              the build's tile with S splits, forced;
+  prepass+cp              (the ``cp_f32_prepass`` build only) the f32
+                          WGMMA route's pre-pass, x split (and for the
+                          wgrad transposed)
+                          into hi and lo in device memory by a first
+                          kernel, then the loop copying both by cp.async
+                          (``gemm_ceiling_cp_pre.cu``; the plan's split);
+
+and the builds: ``cp_f32`` the kernels as they are (64 rows of x by 128
+columns of W or e on two warpgroups, a 4-stage ring), ``cp_f32_ring5``
+and ``cp_f32_ring6`` that tile with 5- and 6-stage rings,
+``cp_f32_mainloop`` its epilogues compiled but never run (y, p and v not
+written; the results are wrong), ``cp_f32_64x64`` (one warpgroup) and
+``cp_f32_128x64`` (one warpgroup of 128 x rows), with 4-stage rings (these
+with the plan and the ``cp`` candidates of their own tile),
+``cp_f32_prepass``, and three that take the loop apart (the results of
+the first two are wrong): ``cp_f32_1pass`` (one TF32 pass, hi * hi, in
+place of three), ``cp_f32_nosplit`` (x used raw, no split in the block),
+``cp_f32_acc2`` (odd k8 steps into a second accumulator chain, added after
+the loop), and ``cp_f32_3blk`` (64x64 with registers capped for three
+blocks an SM). ``--small --f32`` times these alone.
+
 For f32 on MMA_SYNC, the gap between the first two is the hi/lo split's
 cost, the second against the 3xTF32 bound what mma.sync's issue rate
 allows; on WGMMA, the variants split the kernel's time into the pre-pass,
@@ -183,30 +219,37 @@ SS_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 @contextlib.contextmanager
-def mma_sync_f32():
-    """Every f32 GEMM on the MMA_SYNC route while inside (the WGMMA route's
-    element sizes without 4), the plan every f32 shape had before that
-    route: the mma.sync rows here and in chip_smoke.py at the production
-    shapes."""
+def _without(elem):
+    """The WGMMA and CP_WGMMA routes' element sizes without ``elem`` while
+    inside."""
     from ..ops.kernels import tile_plan
 
-    saved = tile_plan.WGMMA_ELEMS
-    tile_plan.WGMMA_ELEMS = tuple(e for e in saved if e != 4)
+    saved = tile_plan.WGMMA_ELEMS, tile_plan.CP_WGMMA_ELEMS
+    tile_plan.WGMMA_ELEMS = tuple(e for e in saved[0] if e != elem)
+    tile_plan.CP_WGMMA_ELEMS = tuple(e for e in saved[1] if e != elem)
     try:
         yield
     finally:
-        tile_plan.WGMMA_ELEMS = saved
+        tile_plan.WGMMA_ELEMS, tile_plan.CP_WGMMA_ELEMS = saved
+
+
+def mma_sync_f32():
+    """Every f32 GEMM on the MMA_SYNC route while inside (both wgmma
+    routes' element sizes without 4), the plan every f32 shape had before
+    those routes: the mma.sync rows here and in chip_smoke.py, at the
+    production shapes and at the recipes'."""
+    return _without(4)
 
 
 @contextlib.contextmanager
 def mma_sync_bf16():
     """Every bf16 forward off the CP_WGMMA route while inside (the route's
-    element sizes emptied), as before that route: the mma.sync rows of the
-    recipes' bf16 shapes here and in chip_smoke.py."""
+    element sizes without 2), as before that route: the mma.sync rows of
+    the recipes' bf16 shapes here and in chip_smoke.py."""
     from ..ops.kernels import tile_plan
 
     saved = tile_plan.CP_WGMMA_ELEMS
-    tile_plan.CP_WGMMA_ELEMS = ()
+    tile_plan.CP_WGMMA_ELEMS = tuple(e for e in saved if e != 2)
     try:
         yield
     finally:
@@ -250,6 +293,46 @@ CP_STORE = "  nnet_cpw::store_y<T>(ring, acc, b, y, M, N, m0, n0, act);"
 def _cp_tile(wg, bn, stages):
     return [("matmul_act.cu", CP_TILE, CP_TILE.replace("<1, 64, 3>", f"<{wg}, {bn}, {stages}>"))]
 
+
+F32_SHAPES = ((960, 598, 1024), (1024, 368, 500), (480, 598, 1024), (284, 598, 1024),
+              (960, 1024, 1024))
+F32_WGRAD_SHAPES = ((960, 598, 1024), (960, 1024, 135))
+CP_F32_TILE = "using CpF32Planned = CpF32Tile<2, 64, 4, MODE>;"
+F32_CP_STORE = "  nnet_cpf::store_y<T>(acc, bias, y, M, N, m0, n0, act);"
+F32_CP_UPDATE = "  nnet_cpf::update_pv<T, V>(acc, p, v, a, m, In, Out, in0, out0);"
+# the f32 CP_WGMMA loop's two lo terms, and its split of x in the block
+LO_HI = "        wgmma_k8<T::NB>(d, cur + 8 * kk + 4, dh);   // lo * hi\n"
+HI_LO = "        wgmma_k8<T::NB>(d, cur + 8 * kk, dl);       // hi * lo\n"
+B_SPLIT = "split_stage<T>(hi_slot(s), lo_slot(s), raw_slot(s));"
+PRE_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gemm_ceiling_cp_pre.cu")
+PRE_ARGS = {"matmul_act_f32_cp_pre": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p] * 3,
+            "wgrad_momentum_update_f32_cp_pre": [ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
+
+
+def _cp_f32_tile(wg, nb, stages):
+    return [("cp_tf32_wgmma.cuh", CP_F32_TILE,
+             CP_F32_TILE.replace("<2, 64, 4, MODE>", f"<{wg}, {nb}, {stages}, MODE>"))]
+
+
+# name: (text substitutions, the tile compiled in, sources beside csrc/)
+CP_F32_VARIANTS = {
+    "cp_f32": ([], "HALF", ()), "cp_f32_ring5": (_cp_f32_tile(2, 64, 5), "HALF", ()),
+    "cp_f32_ring6": (_cp_f32_tile(2, 64, 6), "HALF", ()),
+    "cp_f32_mainloop": ([("matmul_act.cu", F32_CP_STORE, f"  if (act < 0)\n{F32_CP_STORE}"),
+                         ("sgd_fused.cu", F32_CP_UPDATE, f"  if (In < 0)\n{F32_CP_UPDATE}")],
+                        "HALF", ()),
+    "cp_f32_64x64": (_cp_f32_tile(1, 64, 4), "SMALL", ()),
+    "cp_f32_128x64": (_cp_f32_tile(1, 128, 4), "TALL", ()),
+    "cp_f32_prepass": ([], "HALF", (PRE_SOURCE,)),
+    "cp_f32_1pass": ([("cp_tf32_wgmma.cuh", LO_HI, ""), ("cp_tf32_wgmma.cuh", HI_LO, "")],
+                     "HALF", ()),
+    "cp_f32_nosplit": ([("cp_tf32_wgmma.cuh", B_SPLIT, "")], "HALF", ()),
+    "cp_f32_acc2": ([("cp_tf32_wgmma.cuh", "constexpr int CHAINS = 1;",
+                      "constexpr int CHAINS = 2;")], "HALF", ()),
+    "cp_f32_3blk": (_cp_f32_tile(1, 64, 4) + [("cp_tf32_wgmma.cuh", "MIN_BLOCKS = 1;",
+                                               "MIN_BLOCKS = 3;")], "SMALL", ())}
 
 # name: (text substitutions, the tile compiled in)
 CP_VARIANTS = {"cp": ([], "SMALL"), "cp_ring4": (_cp_tile(1, 64, 4), "SMALL"),
@@ -406,6 +489,10 @@ def load(so):
     if hasattr(lib, "matmul_act_f32_wgmma_ss"):
         lib.matmul_act_f32_wgmma_ss.argtypes = SS_ARGS
         lib.matmul_act_f32_wgmma_ss.restype = ctypes.c_int
+    for fn, argtypes in PRE_ARGS.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -431,6 +518,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--small", action="store_true",
                     help="time the SMALL route's variants at the recipes' shapes")
+    ap.add_argument("--f32", action="store_true",
+                    help="with --small, time only the f32 CP_WGMMA candidates")
+    ap.add_argument("--builds", default="",
+                    help="with --small --f32, the CP_F32_VARIANTS to build (comma-separated; "
+                         "default all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_ceiling: needs a CUDA device", file=sys.stderr)
@@ -441,7 +533,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "gemm_ceiling")
     if args.small:
-        return small(root, args.reps)
+        return small(root, args.reps, args.f32, [b for b in args.builds.split(",") if b])
     builds = {name: build_variant(name, subs, root, EXTRA.get(name, ()))
               for name, subs in VARIANTS.items()}
     libs = {}
@@ -556,16 +648,22 @@ def main(argv=None) -> int:
     return 0
 
 
-def small(root, reps) -> int:
-    """Time SMALL_VARIANTS at small_cases' shapes, in two turns."""
+def small(root, reps, f32_only=False, f32_builds=()) -> int:
+    """Time SMALL_VARIANTS at small_cases' shapes, in two turns, then the
+    bf16 and the f32 CP_WGMMA designs; with ``f32_only`` the f32 designs
+    alone, with the builds of CP_F32_VARIANTS named in ``f32_builds`` (all
+    if empty)."""
     from ..ops.kernels import tile_plan
 
     builds, libs = {}, {}
-    for name, subs in [*((n, v[0]) for n, v in [*SMALL_VARIANTS.items(),
-                                                 *CP_VARIANTS.items()])]:
-        key = repr(subs)
+    f32_variants = {n: v for n, v in CP_F32_VARIANTS.items() if not f32_builds or n in f32_builds}
+    variants = [] if f32_only else [(n, v[0], ()) for n, v in [*SMALL_VARIANTS.items(),
+                                                              *CP_VARIANTS.items()]]
+    variants += [(n, v[0], v[2]) for n, v in f32_variants.items()]
+    for name, subs, extra in variants:
+        key = repr((subs, extra))
         if key not in builds:
-            builds[key] = build_variant(name, subs, root)
+            builds[key] = build_variant(name, subs, root, extra)
     for key, (so, proc) in builds.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -575,6 +673,13 @@ def small(root, reps) -> int:
                 print(f"  ptxas [{os.path.basename(os.path.dirname(so))}] "
                       f"{line.split(':', 1)[-1].strip()}")
         libs[key] = load(so)
+    if f32_only:
+        saved = _build._lib
+        try:
+            f32_designs(libs, reps, f32_variants)
+        finally:
+            _build._lib = saved
+        return 0
     cases = small_cases(torch.device("cuda", 0))
     saved = _build._lib, {k: getattr(tile_plan, k) for _, attrs in SMALL_VARIANTS.values()
                           for k in attrs}
@@ -582,7 +687,7 @@ def small(root, reps) -> int:
         for turn in range(2):
             order = list(SMALL_VARIANTS.items())
             for name, (subs, attrs) in (order if turn == 0 else reversed(order)):
-                _build._lib = libs[repr(subs)]
+                _build._lib = libs[repr((subs, ()))]
                 for k, v in {**saved[1], **attrs}.items():
                     setattr(tile_plan, k, v)
                 row = []
@@ -593,6 +698,7 @@ def small(root, reps) -> int:
         for k, v in saved[1].items():
             setattr(tile_plan, k, v)
         bf16_designs(libs, reps)
+        f32_designs(libs, reps, f32_variants)
     finally:
         _build._lib = saved[0]
         for k, v in saved[1].items():
@@ -610,7 +716,7 @@ def bf16_designs(libs, reps) -> None:
     for turn in range(2):
         order = list(CP_VARIANTS.items())
         for name, (subs, tile) in (order if turn == 0 else reversed(order)):
-            _build._lib = libs[repr(subs)]
+            _build._lib = libs[repr((subs, ()))]
             for shape, library, cands in shapes[tile]:
                 lib_us = event_us(library, reps)
                 seen.setdefault((name, shape, "library"), []).append(lib_us)
@@ -625,6 +731,133 @@ def bf16_designs(libs, reps) -> None:
         print(f"gemm_ceiling bf16 {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
     if MA.matmul_act.launches_bf16_cp_wgmma == before:
         raise RuntimeError("the CP_WGMMA route was not taken by its candidates")
+
+
+def f32_candidates(dev, tile_name, prepass):
+    """(shape, library, [(candidate, fn)]) at each of F32_SHAPES (the
+    forward) and F32_WGRAD_SHAPES (the wgrad, f32 v) for a build whose f32
+    CP_WGMMA kernels have the tile ``tile_name`` of tile_plan: the plan's
+    split and each forced split on that tile; with the planned tile
+    (``CP_F32_TILE``) also mma.sync forced and, in the pre-pass build,
+    ``prepass+cp``. At a shape the plan keeps on MMA_SYNC (960x1024->135)
+    "plan" is the plan the route would take there."""
+    from ..ops.kernels import tile_plan as tp
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stream = torch.cuda.current_stream(dev)
+    tile = getattr(tp, tile_name)
+    bm, bn = tp.TILES[tile]
+    out = []
+    for M, K, N in F32_SHAPES:
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+        b = torch.randn((N,), generator=gen, device=dev)
+        y = torch.empty((M, N), device=dev)
+        plan = tp.plan(M, N, K, K, N, x.data_ptr(), w.data_ptr(), out_ptrs=(y.data_ptr(),))
+        assert plan.route == tp.CP_WGMMA
+
+        def cp(p, x=x, w=w, b=b, y=y):
+            return lambda: MA._launch_cp_wgmma(_build._lib, x, w, b, y, "sigmoid", p, stream)
+
+        cands = [("plan", cp(tp.cp_fixed(M, N, K, tile, plan.splits, plan.a_bytes,
+                                         plan.b_bytes, elem=4)))]
+        cands += [(f"cp {bm}x{bn}/{s}", cp(tp.cp_fixed(M, N, K, tile, s, plan.a_bytes,
+                                                       plan.b_bytes, elem=4)))
+                  for s in (1, 2, 3, 4)]
+        if tile == tp.CP_F32_TILE:
+            def on_mma_sync(x=x, w=w, b=b):
+                with mma_sync_f32():
+                    MA.matmul_act(x, w, b, "sigmoid")
+
+            cands.insert(0, ("mma.sync", on_mma_sync))
+        if prepass:
+            xs = torch.empty((2, M, K), device=dev)
+
+            def pre(x=x, w=w, b=b, y=y, xs=xs, plan=plan):
+                _scratch, split = _build.split_args(plan, dev, stream)
+                _build.check(_build._lib.matmul_act_f32_cp_pre(
+                    x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), xs[0].data_ptr(),
+                    xs[1].data_ptr(), x.shape[0], w.shape[1], x.shape[1], 1,
+                    tp.copy_bytes(x.shape[1], xs[0].data_ptr()), plan.b_bytes, *split,
+                    stream.cuda_stream), "matmul_act_f32_cp_pre")
+
+            cands.append(("prepass+cp", pre))
+        out.append((f"affine {M}x{K}->{N}", lambda x=x, w=w, b=b: torch.addmm(b, x, w).sigmoid_(),
+                    cands))
+    for B, In, Out in F32_WGRAD_SHAPES:
+        x = torch.randn((B, In), generator=gen, device=dev)
+        e = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)
+        p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
+        pl_, vl = p.clone(), v.clone()
+        plan = tp.plan(In, Out, B, In, Out, x.data_ptr(), e.data_ptr(), wgrad=True,
+                       out_ptrs=(p.data_ptr(), v.data_ptr()))
+        if plan.route != tp.CP_WGMMA:   # kept on mma.sync: the plan the route would take
+            assert tp.cp_f32_keeps_mma_sync(True, Out)
+            plan = tp.cp_fixed(In, Out, B, tp.CP_F32_TILE, tp.cp_f32_splits(In, Out, B),
+                               tp.copy_bytes(In, x.data_ptr()), tp.copy_bytes(Out, e.data_ptr()),
+                               elem=4)
+
+        def cpw(q, x=x, e=e, p=p, v=v):
+            return lambda: SF._launch_f32_cp_wgmma(_build._lib, x, e, p, v, 1e-3, 0.9, q, stream)
+
+        cands = [("plan", cpw(tp.cp_fixed(In, Out, B, tile, plan.splits, plan.a_bytes,
+                                          plan.b_bytes, elem=4)))]
+        cands += [(f"cp {bm}x{bn}/{s}", cpw(tp.cp_fixed(In, Out, B, tile, s, plan.a_bytes,
+                                                        plan.b_bytes, elem=4)))
+                  for s in (1, 2, 3, 4, 5, 6)]
+        if tile == tp.CP_F32_TILE:
+            def wg_mma_sync(x=x, e=e, p=p, v=v):
+                with mma_sync_f32():
+                    SF.wgrad_momentum_update(x, e, p, v, 1e-3, 0.9)
+
+            cands.insert(0, ("mma.sync", wg_mma_sync))
+        if prepass:
+            xs = torch.empty((2, In, B), device=dev)
+
+            def wpre(x=x, e=e, p=p, v=v, xs=xs, plan=plan):
+                _scratch, split = _build.split_args(plan, dev, stream)
+                _build.check(_build._lib.wgrad_momentum_update_f32_cp_pre(
+                    x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), xs[0].data_ptr(),
+                    xs[1].data_ptr(), split[2], split[3], 1e-3, 0.9, x.shape[0], x.shape[1],
+                    e.shape[1], split[0], split[1], tp.copy_bytes(x.shape[0], xs[0].data_ptr()),
+                    plan.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_cp_pre")
+
+            cands.append(("prepass+cp", wpre))
+        out.append((f"wgrad {B}x{In}->{Out}",
+                    lambda x=x, e=e, pl_=pl_, vl=vl: pl_.add_(vl.addmm_(x.T, e, beta=0.9),
+                                                              alpha=-1e-3), cands))
+    return out
+
+
+def f32_designs(libs, reps, variants) -> None:
+    """Time f32_candidates with each build of ``variants`` (of
+    CP_F32_VARIANTS), in two turns, and print each candidate's range over
+    the turns beside the library's."""
+    dev = torch.device("cuda", 0)
+    builds = {name: (libs[repr((subs, extra))], tile, bool(extra))
+              for name, (subs, tile, extra) in variants.items()}
+    shapes = {name: f32_candidates(dev, tile, pre) for name, (_, tile, pre) in builds.items()}
+    before = (MA.matmul_act.launches_f32_cp_wgmma, SF.wgrad_momentum_update.launches_f32_cp_wgmma)
+    seen = {}
+    for turn in range(2):
+        order = list(builds.items())
+        for name, (lib, _, _) in (order if turn == 0 else reversed(order)):
+            _build._lib = lib
+            for shape, library, cands in shapes[name]:
+                lib_us = event_us(library, reps)
+                seen.setdefault((name, shape, "library"), []).append(lib_us)
+                row = [f"library {lib_us:.2f}"]
+                for what, fn in (cands if turn == 0 else reversed(cands)):
+                    us = event_us(fn, reps)
+                    seen.setdefault((name, shape, what), []).append(us)
+                    row.append(f"{what} {us:.2f}")
+                print(f"gemm_ceiling f32 turn {turn} {name} {shape}: " + "; ".join(row),
+                      flush=True)
+    for (name, shape, what), us in seen.items():
+        print(f"gemm_ceiling f32 {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
+    if (MA.matmul_act.launches_f32_cp_wgmma, SF.wgrad_momentum_update.launches_f32_cp_wgmma) \
+            == before:
+        raise RuntimeError("the f32 CP_WGMMA route was not taken by its candidates")
 
 
 if __name__ == "__main__":

@@ -88,6 +88,15 @@ KERNEL_NAMES = {
     "int)": "wgrad_momentum_update f32 WGMMA (ours)",
     "void (anonymous namespace)::matmul_act_kernel<nnet_tile::Tile<128, 128, 32, 2, 4, 3>, "
     "__nv_bfloat16>(__nv_bfloat16 const*)": "affine_sigmoid bf16 (ours)",
+    "void (anonymous namespace)::matmul_act_f32_cp_wgmma_kernel<nnet_cpf::CpF32Tile<2, 64, 4, 0> "
+    ">(float const*, float const*, float const*, float*, float*, int*, int, int, int, int, int, "
+    "int, int)": "affine_sigmoid f32 CP_WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_f32_cp_wgmma_kernel<nnet_cpf::CpF32Tile<2, 64, 4, "
+    "1>, float>(float const*, float const*, float*, float*, float*, int*, float, float, int, int, "
+    "int, int, int, int)": "wgrad_momentum_update f32 CP_WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_f32_cp_wgmma_kernel<nnet_cpf::CpF32Tile<2, 64, 4, "
+    "1>, __nv_bfloat16>(float const*, float const*, float*, __nv_bfloat16*, float*, int*, float, "
+    "float, int, int, int, int, int, int)": "wgrad_momentum_update f32 CP_WGMMA (ours)",
     "void (anonymous namespace)::matmul_act_cp_wgmma_kernel<nnet_cpw::CpTile<1, 64, 3> >("
     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, "
     "int*, int, int, int, int, int, int, int)": "affine_sigmoid bf16 (ours)",
@@ -140,13 +149,19 @@ def test_wgmma_spills_from_ptxas_report():
            "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
            "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_cp_wgmma_kernel"
            "IN8nnet_cpw6CpTileILi1ELi64ELi3EEEEEvPK13__nv_bfloat16' for 'sm_90a'\n"
-           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_f32_cp_wgmma_"
+           "kernelIN8nnet_cpf9CpF32TileILi2ELi64ELi4ELi0EEEEEvPKf' for 'sm_90a'\n"
+           "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n")
     assert chip_smoke.wgmma_spills(log) == {
         "_ZN46_GLOBAL__N__x_matmul_act_wgmma_kernelE14CUtensorMap_st": 0,
         "_ZN45_wgrad_momentum_wgmma_kernelIfEEv": 16,
         "_ZN46_GLOBAL__N__x_matmul_act_f32_wgmma_kernelE14CUtensorMap_st": 0,
         "_ZN49_wgrad_momentum_f32_wgmma_kernelI13__nv_bfloat16EEv": 16,
         "_ZN46_GLOBAL__N__x_matmul_act_cp_wgmma_kernelIN8nnet_cpw6CpTileILi1ELi64ELi3EEEEEvPK13__"
-        "nv_bfloat16": 0}
-    # 3 bf16 TMA instances, 3 f32 ones, the CP_WGMMA forward
-    assert chip_smoke.WGMMA_KERNELS == 7
+        "nv_bfloat16": 0,
+        "_ZN46_GLOBAL__N__x_matmul_act_f32_cp_wgmma_kernelIN8nnet_cpf9CpF32TileILi2ELi64ELi4ELi0EE"
+        "EEEvPKf": 8}
+    # 3 bf16 TMA instances, 3 f32 ones, the bf16 CP_WGMMA forward, the f32
+    # CP_WGMMA forward and its wgrad at f32 and bf16 velocity
+    assert chip_smoke.WGMMA_KERNELS == 10

@@ -350,12 +350,13 @@ def _kernels_of(fn, calls=1):
 # utterance, MLP3 and a 2x2 mesh rank's rows) and one with K = 368 cut 3
 # ways (N = 1004: 2,008-byte rows): one launch a call (a split reduced in
 # it); two launches equal bit for bit (the partials are summed in split
-# order); within the tolerances of the tests above. f32 runs the MMA_SYNC
-# kernel with the splits below (the split ones leave their last split
-# ragged: 150 rows of 598, 112 of 368), bf16 the CP_WGMMA kernel with the
-# splits of its own plan.
-SMALL_FORWARD_SPLITS = {(1024, 368, 500): 1, (284, 598, 1024): 3, (960, 598, 1024): 1,
-                        (480, 598, 1024): 1, (284, 368, 1004): 3}
+# order); within the tolerances of the tests above. f32 runs the f32
+# CP_WGMMA kernel with the splits below (the split ones leave their last
+# split ragged: 150 rows of 598, 112 of 368, 176 of 368 and 278 of 598),
+# bf16 the bf16 CP_WGMMA
+# kernel with the splits of its own plan.
+SMALL_FORWARD_SPLITS = {(1024, 368, 500): 2, (284, 598, 1024): 3, (960, 598, 1024): 1,
+                        (480, 598, 1024): 2, (284, 368, 1004): 3}
 
 
 @pytest.mark.cuda
@@ -368,8 +369,8 @@ def test_cuda_matmul_act_split_k_one_launch_bit_equal(cuda, shape, dtype):
     pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=xs.data_ptr(), b_ptr=ws.data_ptr(),
                         elem=xs.element_size())
     if dtype == torch.float32:
-        assert pl.route == tile_plan.MMA_SYNC and pl.splits == SMALL_FORWARD_SPLITS[shape]
-        kernel = "matmul_act_kernel"
+        assert pl.route == tile_plan.CP_WGMMA and pl.splits == SMALL_FORWARD_SPLITS[shape]
+        kernel = "matmul_act_f32_cp_wgmma_kernel"
     else:
         assert pl.route == tile_plan.CP_WGMMA
         assert (pl.tile, pl.splits) == (tile_plan.SMALL, tile_plan.cp_splits(M, N, K))
@@ -468,6 +469,8 @@ def test_cuda_cp_wgmma_layouts_exact(cuda, shape, splits):
 
 
 # The weight gradient's split-K reduced in its one launch: no second kernel
+# (f32 on the f32 CP_WGMMA route but at Out = 135, which the plan keeps on
+# mma.sync; bf16 on mma.sync)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(960, 598, 1024), (960, 1024, 135), (598, 598, 1024)])
@@ -482,7 +485,10 @@ def test_cuda_wgrad_split_k_one_launch(cuda, shape, dtype):
     p = torch.zeros((In, Out), device=cuda)
     v = torch.zeros((In, Out), device=cuda)
     names = _kernels_of(lambda: SF.wgrad_momentum_update(xs, es, p, v, 1e-3, 0.9))
-    assert len(names) == 1 and "wgrad_momentum_kernel" in names[0]
+    kernel = ("wgrad_momentum_f32_cp_wgmma_kernel" if pl.route == tile_plan.CP_WGMMA
+              else "wgrad_momentum_kernel")
+    assert (pl.route == tile_plan.CP_WGMMA) == (dtype == torch.float32 and Out % 2 == 0)
+    assert len(names) == 1 and kernel in names[0]
 
 
 # A chain of launches of every split shape, both kernels, f32 and bf16, on
@@ -990,3 +996,155 @@ def test_cuda_recurrent_matches_cpu(cuda, serial):
     for a, b in zip(nets["cuda"].to_numpy_params(), nets["cpu"].to_numpy_params()):
         for k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+# The f32 CP_WGMMA route (csrc/cp_tf32_wgmma.cuh: 3xTF32 wgmma fed by
+# cp.async, x split in the block) against the plain version at the
+# recipes' shapes (MLP3, TIMIT, one tmpe utterance, a 2x2 mesh rank, the
+# RBM recipe's second layer) and ragged ones (N odd: one column a store; K
+# odd: 4-byte copies; a 1-element offset), under the plan's split and 1 to
+# 4 splits forced: y within 1e-5, act "none" within 1e-4 of the largest;
+# two launches equal bit for bit; one launch a call on the route's counter;
+# the split counters left at zero.
+F32_CP_SHAPES = [(960, 598, 1024), (1024, 368, 500), (284, 598, 1024), (480, 598, 1024),
+                 (960, 1024, 1024), (67, 598, 135), (130, 33, 70), (1, 1, 1), (200, 256, 132, 1)]
+
+
+def _f32_cp_plan(M, N, K, splits, xs, ws, wgrad=False):
+    """The f32 CP_WGMMA plan of ``tile_plan.plan`` or, at a shape the plan
+    keeps on mma.sync (a weight gradient of an odd Out), the one the route
+    would take there; with the split forced unless None."""
+    a_pitch = K if not wgrad else M
+    pl = tile_plan.plan(M, N, K, a_pitch=a_pitch, b_pitch=N, a_ptr=xs.data_ptr(),
+                        b_ptr=ws.data_ptr(), wgrad=wgrad)
+    if pl.route != tile_plan.CP_WGMMA:
+        assert tile_plan.cp_f32_keeps_mma_sync(wgrad, N) and pl.route == tile_plan.MMA_SYNC
+        pl = tile_plan.cp_fixed(M, N, K, tile_plan.CP_F32_TILE, tile_plan.cp_f32_splits(M, N, K),
+                                tile_plan.copy_bytes(a_pitch, xs.data_ptr()),
+                                tile_plan.copy_bytes(N, ws.data_ptr()), elem=4)
+    assert pl.route == tile_plan.CP_WGMMA and pl.tile == tile_plan.CP_F32_TILE
+    if splits is None:
+        return pl
+    return tile_plan.cp_fixed(M, N, K, pl.tile, splits, pl.a_bytes, pl.b_bytes, elem=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, 1, 2, 3, 4])
+@pytest.mark.parametrize("shape", F32_CP_SHAPES)
+def test_cuda_matmul_act_f32_cp_wgmma_matches_plain(cuda, shape, forced):
+    from nnet_asr_torch.ops.kernels import _build
+
+    M, K, N, offset = (*shape, 0)[:4]
+    x, w, b, _ = _affine_inputs(41, M, K, N)
+    xs, ws, bs = (_on_card(a, cuda, offset) for a in (x, w, b))
+    pl = _f32_cp_plan(M, N, K, forced, xs, ws)
+    stream = torch.cuda.current_stream(cuda)
+
+    def run(act):
+        if forced is None:
+            return MA.matmul_act(xs, ws, bs, act)
+        y = torch.empty((M, N), device=cuda)
+        MA._launch_cp_wgmma(_build.load_library(), xs, ws, bs, y, act, pl, stream)
+        return y
+
+    for act in ("sigmoid", "none"):
+        before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_cp_wgmma,
+                  MA.matmul_act.launches_f32_wgmma)
+        y1, y2 = run(act), run(act)
+        assert (MA.matmul_act.launches, MA.matmul_act.launches_f32_cp_wgmma,
+                MA.matmul_act.launches_f32_wgmma) == (before[0] + 2, before[1] + 2, before[2])
+        yp = MA.matmul_act_plain(xs, ws, bs, act)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2)
+        tol = 1e-5 if act == "sigmoid" else 1e-4 * (yp.abs().max().item() or 1.0)
+        assert (y1 - yp).abs().max().item() <= tol
+    assert not _build.counters(cuda, stream).any().item()
+
+
+# The f32 CP_WGMMA weight gradient against the plain version: MLP3's two
+# weights, TIMIT's hidden and output ones, ragged shapes (Out odd: one
+# column a store; a 1-element offset: 4-byte copies), f32 and bf16
+# velocity, under the plan's split and 1, 2, 3 and 5 splits forced (an odd
+# Out, which the plan keeps on mma.sync, launched on the route by its
+# split rule): p and v within 1e-5 of the largest (bf16 v: plus one bf16
+# step); two runs equal bit for bit; the route's counter once a call.
+F32_CP_WGRAD = [(960, 598, 1024), (960, 1024, 135), (1024, 368, 500), (1024, 500, 39),
+                (67, 61, 135), (300, 256, 520, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, 1, 2, 3, 5])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", F32_CP_WGRAD)
+def test_cuda_wgrad_f32_cp_wgmma_matches_plain(cuda, shape, vdt, forced):
+    from nnet_asr_torch.ops.kernels import _build
+
+    B, In, Out, offset = (*shape, 0)[:4]
+    rng = np.random.default_rng(12)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
+    xs, es = (_on_card(a, cuda, offset) for a in (x, e))
+    pl = _f32_cp_plan(In, Out, B, forced, xs, es, wgrad=True)
+    stream = torch.cuda.current_stream(cuda)
+
+    def run(pk, vk):
+        if forced is None and Out % 2 == 0:
+            SF.wgrad_momentum_update(xs, es, pk, vk, 0.003, 0.9)
+        else:
+            SF._launch_f32_cp_wgmma(_build.load_library(), xs, es, pk, vk, 0.003, 0.9, pl, stream)
+
+    pk, pp, pk2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
+    vk, vp, vk2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
+    before = SF.wgrad_momentum_update.launches_f32_cp_wgmma
+    run(pk, vk)
+    run(pk2, vk2)
+    assert SF.wgrad_momentum_update.launches_f32_cp_wgmma == before + 2
+    SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pk2) and torch.equal(vk, vk2)
+    assert (pk - pp).abs().max().item() <= 1e-5 * pp.abs().max().item()
+    tol = 1e-5 * vp.float().abs().max()
+    if vdt == torch.bfloat16:
+        tol = tol + bf16_ulp(torch.maximum(vk.float().abs(), vp.float().abs()))
+    assert bool(((vk.float() - vp.float()).abs() <= tol).all())
+    assert not _build.counters(cuda, stream).any().item()
+
+
+# Small integers make every 3xTF32 sum exact (hi holds the value, lo is
+# 0), so y and g equal the exact product's bits: a wrong swizzle, fragment,
+# descriptor, transpose, zero fill or split sum moves whole elements. K =
+# 598 leaves the last k8 slice 6 deep; whole and split; each copy width (x
+# 8 or 16 bytes and W 16 or 4 in the forward; x 8 or 16 and e 16 or 4 in
+# the weight gradient).
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("which,shape", [("forward", (200, 598, 1024)),
+                                         ("forward", (300, 368, 135)),
+                                         ("wgrad", (300, 598, 1024)),
+                                         ("wgrad", (960, 1024, 135))])
+def test_cuda_f32_cp_wgmma_layouts_exact(cuda, which, shape, splits):
+    from nnet_asr_torch.ops.kernels import _build
+
+    rng = np.random.default_rng(23)
+    stream = torch.cuda.current_stream(cuda)
+    lib = _build.load_library()
+    if which == "forward":
+        M, K, N = shape
+        x = torch.from_numpy(rng.integers(-2, 3, (M, K)).astype(np.float32)).to(cuda)
+        w = torch.from_numpy(rng.integers(-2, 3, (K, N)).astype(np.float32)).to(cuda)
+        b = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32)).to(cuda)
+        pl = _f32_cp_plan(M, N, K, splits, x, w)
+        y = torch.empty((M, N), device=cuda)
+        MA._launch_cp_wgmma(lib, x, w, b, y, "none", pl, stream)
+        torch.cuda.synchronize()
+        assert torch.equal(y, (x.double() @ w.double() + b.double()).float())
+    else:
+        B, In, Out = shape
+        x = torch.from_numpy(rng.integers(-2, 3, (B, In)).astype(np.float32)).to(cuda)
+        e = torch.from_numpy(rng.integers(-2, 3, (B, Out)).astype(np.float32)).to(cuda)
+        p, v = torch.zeros((In, Out), device=cuda), torch.zeros((In, Out), device=cuda)
+        pl = _f32_cp_plan(In, Out, B, splits, x, e, wgrad=True)
+        SF._launch_f32_cp_wgmma(lib, x, e, p, v, 1.0, 0.0, pl, stream)
+        torch.cuda.synchronize()
+        g = (x.double().T @ e.double()).float()
+        assert torch.equal(v, g) and torch.equal(p, -g)

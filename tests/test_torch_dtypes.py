@@ -175,24 +175,25 @@ def test_bf16_plan_of_main_path_shapes(name):
     p = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split,
                        elem=2)
     assert (p.tile, p.splits, p.k_chunk, p.a_bytes, p.b_bytes, p.route) == want
-    # f32 operands take the same route at these shapes: the f32 WGMMA one
-    # at the production shapes (128x128 tiles on a persistent grid, the
-    # forward's too), MMA_SYNC at MLP3's (where bf16's forward takes
-    # CP_WGMMA, which has no f32 kernel)
+    # f32 operands: the f32 WGMMA route at the production shapes (128x128
+    # tiles on a persistent grid, the forward's too), the f32 CP_WGMMA one
+    # at MLP3's forward and 598->1024 weight gradient (where bf16's weight
+    # gradients keep mma.sync); mma.sync at 960x1024->135, an odd Out
     f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split)
-    assert f.route == (MS if p.route == CP else p.route)
+    assert f.route == (W if p.route == W else MS if split and bp % 2 else CP)
     if f.route == tile_plan.WGMMA:
         assert (f.tile, f.splits, f.blocks) == (tile_plan.BIG, 1, tile_plan.SM_COUNT)
     if p.route == CP:
         assert (p.tile, p.splits) == (tile_plan.SMALL, tile_plan.cp_splits(M, N, K))
         assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
     elif p.route == tile_plan.MMA_SYNC:
-        # the mma.sync tile does not depend on the element size; the split
-        # weighs a block's fixed cost against the steps of its own type
+        # the mma.sync split weighs a block's fixed cost against the steps
+        # of its own type; the f32 CP_WGMMA one takes two blocks an SM
         tiles = tile_plan.tile_count(M, N, p.tile)
-        assert f.tile == p.tile
+        assert f.tile == (p.tile if f.route == MS else tile_plan.CP_F32_TILE)
         assert p.splits == tile_plan.split_count(tiles, -(-K // tile_plan.BK), elem=2)
-        assert f.splits == tile_plan.split_count(tiles, -(-K // tile_plan.BK), elem=4)
+        assert f.splits == (tile_plan.split_count(tiles, -(-K // tile_plan.BK))
+                            if f.route == MS else tile_plan.cp_f32_splits(M, N, K))
         assert p.blocks == tiles * p.splits
     else:
         # one block a 128x256 tile; the weight gradient's grid persistent
@@ -238,8 +239,10 @@ def test_wgmma_route_rule(args, wgmma):
             assert (p.a_bytes, p.b_bytes) == (16, 16)
         elif p.route == tile_plan.CP_WGMMA:
             # off TMA but in whole 4-byte units: the bf16 forward's cp.async
-            # route, never the weight gradient's
-            assert elem == 2 and not split and p.tile == tile_plan.SMALL
+            # route, never the bf16 weight gradient's; f32 products of too
+            # few BIG tiles, the forward and the weight gradient
+            assert (elem == 2 and not split or elem == 4 and few_tiles)
+            assert p.tile == (tile_plan.SMALL if elem == 2 else tile_plan.CP_F32_TILE)
         else:
             assert p.tile in (tile_plan.BIG, tile_plan.SMALL)
 
@@ -303,22 +306,37 @@ def test_two_byte_pitches_stay_on_mma_sync(args):
         tile_plan.CP_WGMMA_ELEMS = saved
 
 
-# f32 operands never take the route: at every shape of the main paths the
-# f32 plan is the one it was with the route switched off
+# f32 operands take the route (csrc/cp_tf32_wgmma.cuh), forward and weight
+# gradient, at every shape of the main paths whose 128x128 tiles leave the
+# card idle, but the weight gradient of an odd Out (cp_f32_keeps_mma_sync),
+# whose plan does not change; with the route switched off for 4-byte
+# elements the plan is the MMA_SYNC one it was, on the 64x64 tile and the
+# same copy widths (its split rule takes three blocks an SM at a time, the
+# route's waves of two); the production shapes keep the f32 WGMMA plan,
+# route on or off
 @pytest.mark.parametrize("shape", [*sorted(CP_PLANS), (1024, 1024, 4096), (1024, 4096, 4096),
                                    (67, 598, 135), (1024, 500, 39)])
 @pytest.mark.parametrize("wgrad", [False, True])
 def test_f32_plans_unchanged_by_the_cp_wgmma_route(shape, wgrad):
     M, K, N = shape
     p = tile_plan.plan(M, N, K, K, N, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
-    assert p.route != tile_plan.CP_WGMMA
     saved = tile_plan.CP_WGMMA_ELEMS
     try:
-        tile_plan.CP_WGMMA_ELEMS = ()
-        assert tile_plan.plan(M, N, K, K, N, 1 << 20, 1 << 21, wgrad=wgrad,
-                              out_ptrs=(1 << 22,)) == p
+        tile_plan.CP_WGMMA_ELEMS = (2,)
+        q = tile_plan.plan(M, N, K, K, N, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
     finally:
         tile_plan.CP_WGMMA_ELEMS = saved
+    if tile_plan.tile_count(M, N, tile_plan.BIG) >= tile_plan.SM_COUNT:
+        assert p == q and p.route == tile_plan.WGMMA
+    elif tile_plan.cp_f32_keeps_mma_sync(wgrad, N):
+        assert p == q and p.route == tile_plan.MMA_SYNC and N % 2 == 1
+    else:
+        assert q.route == tile_plan.MMA_SYNC and p.route == tile_plan.CP_WGMMA
+        assert (q.tile, p.tile) == (tile_plan.SMALL, tile_plan.CP_F32_TILE)
+        assert (p.a_bytes, p.b_bytes) == (q.a_bytes, q.b_bytes)
+        assert p.splits == tile_plan.cp_f32_splits(M, N, K)
+        assert q.splits == tile_plan.split_count(tile_plan.tile_count(M, N, q.tile),
+                                                 -(-K // tile_plan.BK))
 
 
 # The CP_WGMMA block's shared memory (SMEM_BYTES of its CpTile: a ring of

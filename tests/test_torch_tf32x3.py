@@ -19,9 +19,10 @@ depths holds it to the same tolerances.
 The second half holds ``tile_plan.plan`` to the tile, split, copy path and
 route of every shape the main paths launch, every production shape to the
 f32 WGMMA route's plan (and to the MMA_SYNC BIG plan where TMA cannot
-describe an operand), every SMALL-route shape to the plan it had before that
-route, and the blocks planned per SM, and the WGMMA tiles, to the shared
-memory an SM has.
+describe an operand), every SMALL-tile shape to the f32 CP_WGMMA route's
+plan (``csrc/cp_tf32_wgmma.cuh``; tests/test_torch_cp_tf32.py holds its
+layouts and arithmetic), and the blocks planned per SM, and the WGMMA
+tiles, to the shared memory an SM has.
 """
 
 import math
@@ -148,24 +149,25 @@ def test_f32_wgmma_route_terms_within_phase3_tolerance(which):
 # the launch plan
 # --------------------------------------------------------------------------
 
-BIG, SMALL, WIDE = tile_plan.BIG, tile_plan.SMALL, tile_plan.WIDE
-MMA_SYNC, WGMMA = tile_plan.MMA_SYNC, tile_plan.WGMMA
+BIG, SMALL, WIDE, HALF = tile_plan.BIG, tile_plan.SMALL, tile_plan.WIDE, tile_plan.HALF
+MMA_SYNC, WGMMA, CP_WGMMA = tile_plan.MMA_SYNC, tile_plan.WGMMA, tile_plan.CP_WGMMA
 
 # (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes,
 # b_bytes, route)
 MAIN_PATH_PLANS = {
-    # affine_sigmoid x (M, K) @ W (K, N): pitches K and N. K is split where
-    # that evens the SMs' load (80 tiles for 132 SMs), not where no split
-    # can (128, 120 and 240 tiles); x's f32 rows of 598 (2,392 bytes) take
-    # 8-byte copies
+    # affine_sigmoid x (M, K) @ W (K, N): pitches K and N, on the f32
+    # CP_WGMMA route (3xTF32 wgmma fed by cp.async; mma.sync before). K is
+    # split where the blocks still fit two an SM in one wave (80 and 128
+    # tiles), not where that takes two waves (240 tiles); x's f32 rows of
+    # 598 (2,392 bytes) take 8-byte copies
     "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
-                                    (SMALL, 1, 598, 8, 16, MMA_SYNC)),
+                                    (HALF, 1, 598, 8, 16, CP_WGMMA)),
     "affine 480x598->1024 (MLP3, a 2x2 mesh rank's rows)": ((480, 1024, 598, 598, 1024, False),
-                                                            (SMALL, 1, 598, 8, 16, MMA_SYNC)),
+                                                            (HALF, 2, 320, 8, 16, CP_WGMMA)),
     "affine 284x598->1024 (one tmpe utterance)": ((284, 1024, 598, 598, 1024, False),
-                                                  (SMALL, 3, 224, 8, 16, MMA_SYNC)),
+                                                  (HALF, 3, 224, 8, 16, CP_WGMMA)),
     "affine 1024x368->500 (TIMIT hidden)": ((1024, 500, 368, 368, 500, False),
-                                            (SMALL, 1, 368, 16, 16, MMA_SYNC)),
+                                            (HALF, 2, 192, 16, 16, CP_WGMMA)),
     # the production stack's f32 forward: 3xTF32 wgmma on the ping-pong
     # 128x128 tiles of a persistent grid, no split (the f32 WGMMA route;
     # the BIG mma.sync tile before)
@@ -173,9 +175,12 @@ MAIN_PATH_PLANS = {
                                (BIG, 1, 1024, 16, 16, WGMMA)),
     "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
                                (BIG, 1, 4096, 16, 16, WGMMA)),
-    # wgrad x^T e: M = In, N = Out, K = bunch; pitches In and Out
+    # wgrad x^T e: M = In, N = Out, K = bunch; pitches In and Out; the f32
+    # CP_WGMMA route splits the bunch 3 ways at 160 tiles (4 on mma.sync,
+    # whose blocks fit 3 an SM); 960x1024->135 (an odd Out) keeps its
+    # mma.sync plan, which the card measured faster
     "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
-                                   (SMALL, 4, 256, 8, 16, MMA_SYNC)),
+                                   (HALF, 3, 320, 8, 16, CP_WGMMA)),
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
                                    (SMALL, 5, 192, 16, 4, MMA_SYNC)),
     # the production weight gradients: the ping-pong 128x128 tiles of the
@@ -202,8 +207,8 @@ def test_plan_of_main_path_shapes(name):
     else:
         assert p.blocks == tiles * p.splits
     # BIG and WGMMA plans only where the 128x128 tiles fill the card
-    assert tile_plan.tile_count(M, N, BIG) >= tile_plan.SM_COUNT or p.tile == SMALL
-    if p.tile == SMALL:
+    assert tile_plan.tile_count(M, N, BIG) >= tile_plan.SM_COUNT or p.tile in (SMALL, HALF)
+    if p.tile != BIG:
         # the split leaves the busiest SM no more work than the whole tiles
         busiest = -(-p.blocks // tile_plan.SM_COUNT) / p.splits
         assert busiest <= -(-p.blocks // p.splits // tile_plan.SM_COUNT)
@@ -267,14 +272,39 @@ def test_f32_wgmma_route_needs_tma_pitches(shape):
         assert (p.tile, p.splits, p.blocks) == (BIG, 1, tile_plan.tile_count(M, N, BIG))
 
 
-# Every SMALL-route shape of the main paths keeps its plan exactly, with
-# aligned operands and pitches TMA could describe (so only the tile count
-# keeps it off the f32 WGMMA route): TIMIT's forward and output weight,
-# the RBM recipe's 960x1024->1024, a 2x1 mesh rank's production rows
-# (128 BIG tiles, under the 132 SMs), MLP3's and tmpe's rows, TIMIT's
-# output layer. Plan fields: tile, bm, bn, splits, k_chunk, a_bytes,
-# b_bytes, route, blocks.
+# Every SMALL-tile shape of the main paths, with aligned operands and
+# pitches TMA could describe (so only the tile count keeps it off the f32
+# WGMMA route), takes the f32 CP_WGMMA route on its tile (CP_F32_TILE: 64
+# rows by 128 columns): TIMIT's
+# forward and output weight, the RBM recipe's 960x1024->1024, a 2x1 mesh
+# rank's production rows (128 BIG tiles, under the 132 SMs), MLP3's and
+# tmpe's rows, TIMIT's output layer, but for the weight gradients of an
+# odd Out (MLP3's 135, TIMIT's 39), which keep their MMA_SYNC plan
+# (tile_plan.cp_f32_keeps_mma_sync). Its split (cp_f32_splits: waves of two
+# blocks an SM) is the mma.sync plan's but at MLP3's 598->1024 weight
+# gradient (3 splits, 4 before) and the 128-tile forwards (TIMIT's and a
+# mesh rank's: 2, whole before); copy widths and grids follow. With the
+# route switched off (mma_sync_f32) each keeps the MMA_SYNC plan it had.
+# Plan fields: tile, bm, bn, splits, k_chunk, a_bytes, b_bytes, route,
+# blocks.
 SMALL_PLANS = {
+    (1024, 500, 368, 368, 500, False): (HALF, 64, 128, 2, 192, 16, 16, CP_WGMMA, 128),
+    (1024, 500, 368, 368, 500, True): (HALF, 64, 128, 2, 192, 16, 16, CP_WGMMA, 128),
+    (960, 1024, 1024, 1024, 1024, False): (HALF, 64, 128, 1, 1024, 16, 16, CP_WGMMA, 120),
+    (1024, 1024, 960, 1024, 1024, True): (HALF, 64, 128, 1, 960, 16, 16, CP_WGMMA, 128),
+    (512, 4096, 1024, 1024, 4096, False): (HALF, 64, 128, 1, 1024, 16, 16, CP_WGMMA, 256),
+    (512, 4096, 4096, 4096, 4096, False): (HALF, 64, 128, 1, 4096, 16, 16, CP_WGMMA, 256),
+    (960, 1024, 598, 598, 1024, False): (HALF, 64, 128, 1, 598, 8, 16, CP_WGMMA, 120),
+    (598, 1024, 960, 598, 1024, True): (HALF, 64, 128, 3, 320, 8, 16, CP_WGMMA, 240),
+    (1024, 135, 960, 1024, 135, True): (SMALL, 64, 64, 5, 192, 16, 4, MMA_SYNC, 240),
+    (284, 1024, 598, 598, 1024, False): (HALF, 64, 128, 3, 224, 8, 16, CP_WGMMA, 120),
+    (480, 1024, 598, 598, 1024, False): (HALF, 64, 128, 2, 320, 8, 16, CP_WGMMA, 128),
+    (1024, 39, 500, 500, 39, False): (HALF, 64, 128, 4, 128, 16, 4, CP_WGMMA, 64),
+    (500, 39, 1024, 500, 39, True): (SMALL, 64, 64, 8, 128, 16, 4, MMA_SYNC, 64),
+}
+# the MMA_SYNC plans these shapes had before the route, and have under
+# mma_sync_f32 (the f32 route's element size switched off)
+MMA_SYNC_SMALL_PLANS = {
     (1024, 500, 368, 368, 500, False): (SMALL, 64, 64, 1, 368, 16, 16, MMA_SYNC, 128),
     (1024, 500, 368, 368, 500, True): (SMALL, 64, 64, 1, 368, 16, 16, MMA_SYNC, 128),
     (960, 1024, 1024, 1024, 1024, False): (SMALL, 64, 64, 1, 1024, 16, 16, MMA_SYNC, 240),
@@ -296,6 +326,15 @@ def test_small_route_shapes_keep_their_plan(shape):
     M, N, K, ap, bp, wgrad = shape
     p = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
     assert tuple(p) == SMALL_PLANS[shape]
+    saved = tile_plan.CP_WGMMA_ELEMS
+    try:
+        tile_plan.CP_WGMMA_ELEMS = (2,)
+        q = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
+    finally:
+        tile_plan.CP_WGMMA_ELEMS = saved
+    assert tuple(q) == MMA_SYNC_SMALL_PLANS[shape]
+    # the same copy widths either way
+    assert (q.a_bytes, q.b_bytes) == (p.a_bytes, p.b_bytes)
 
 
 # the WGMMA tiles' shared memory (each schedule's SMEM_BYTES) fits a block's
@@ -360,9 +399,13 @@ def test_plan_splits_only_when_asked_and_idle():
     # one tile an SM, or two, stays whole: no split evens 128 or 264 tiles
     assert [tile_plan.split_count(t, 30) for t in (128, 132, 240, 264)] == [1, 1, 1, 1]
     p = tile_plan.plan(1536, 704, 598, 598, 704)
-    assert (p.tile, p.splits, p.blocks) == (SMALL, 1, 264)
-    # 272 tiles leave 3 on the busiest SM whole, 9/4 in 4 splits
-    assert tile_plan.plan(1088, 1024, 598, 598, 1024).splits == 4
+    assert (p.tile, p.splits, p.blocks) == (HALF, 1, 144)
+    # 272 tiles leave 3 on the busiest SM whole, 9/4 in 4 splits with three
+    # blocks an SM at a time (mma.sync); in waves of two blocks an SM (the
+    # f32 CP_WGMMA route, whose plan this is) 3 splits cost least
+    assert tile_plan.split_count(272, 19) == 4
+    assert tile_plan.plan(1088, 1024, 598, 598, 1024).splits == 3
+    assert tile_plan.cp_f32_splits(1088, 1024, 598) == 3
     # 160 tiles over 30 steps: 4 splits of 3xTF32 (5 blocks of 7.5 steps in
     # two waves on the busiest SM), 2 of bf16, whose steps are cheaper
     # against a block's fixed cost (3 blocks of 15 steps in one wave)
