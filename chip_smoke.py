@@ -45,7 +45,10 @@ final line):
      one launch a call) at the recipes' shapes (F32_CP_AFFINE,
      F32_CP_WGRAD at f32 and bf16 velocity), each also beside the mma.sync
      kernel it replaced (forced, gemm_ceiling.mma_sync_f32: in turns with
-     the library, and alone);
+     the library, and alone), and for the f32 WS_WGMMA route (the
+     warp-specialised 3xTF32 ring, split-K as a cluster: the weight
+     gradient of an odd Out) at F32_CP_WGRAD's 960x1024->135, beside the
+     mma.sync kernel it replaced (forced) and the library;
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -222,9 +225,15 @@ F32_WGMMA_WGRAD = ((1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf1
 F32_CP_AFFINE = ((BUNCH, 598, 1024), (1024, 368, 500), (BUNCH // 2, 598, 1024),
                  (284, 598, 1024), (BUNCH, 1024, 1024))
 F32_CP_WGRAD = ((BUNCH, 598, 1024, ("f32", "bf16")), (BUNCH, 1024, CLASSES, ("f32", "bf16")))
-# the shapes of F32_CP_WGRAD the plan keeps on mma.sync (an odd Out:
-# tile_plan.cp_f32_keeps_mma_sync), their rows forced onto the route
-F32_CP_KEPT = {(BUNCH, 1024, CLASSES)}
+# the shapes of F32_CP_WGRAD the plan sends off the route (an odd Out: to
+# the WS_WGMMA route, the warp-specialised 3xTF32 wgmma ring), their rows
+# forced onto it; the WS_WGMMA rows are theirs, on the plan's route, beside
+# the route it replaced
+F32_CP_ELSEWHERE = {(BUNCH, 1024, CLASSES)}
+# the f32 launches of MLP3's output-layer weight gradient (960x1024->135),
+# all on the WS_WGMMA route, in phases 5 and 12: 36 bunches an epoch, three
+# momentum epochs a run, once streaming and once resident
+WS_OUT_LAUNCHES = {"5": 108, "12": 108}
 # calls of the kernel and of the library yardstick, in turns, in one
 # profiler window (fewer where a call takes over 100 us)
 PAIRED_REPS, PAIRED_REPS_LONG = 200, 30
@@ -449,7 +458,8 @@ def plan_dict(tile_plan, plan) -> dict:
 
 
 def route_name(tile_plan, plan) -> str:
-    return {tile_plan.WGMMA: "WGMMA", tile_plan.CP_WGMMA: "CP_WGMMA"}.get(plan.route, "MMA_SYNC")
+    return {tile_plan.WGMMA: "WGMMA", tile_plan.CP_WGMMA: "CP_WGMMA",
+            tile_plan.WS_WGMMA: "WS_WGMMA"}.get(plan.route, "MMA_SYNC")
 
 
 def kernels_a_call(tile_plan, plan) -> int:
@@ -547,9 +557,9 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
 
 
 def mma_sync_rows(torch, r, what, library, kernel, pattern, flops):
-    """The f32 mma.sync kernel the CP_WGMMA route replaced, forced at the
-    same shape (gemm_ceiling.mma_sync_f32): device us in turns with the
-    library and alone, into ``r``."""
+    """The f32 mma.sync kernel the CP_WGMMA or WS_WGMMA route (``r``'s)
+    replaced, forced at the same shape (gemm_ceiling.mma_sync_f32): device
+    us in turns with the library and alone, into ``r``."""
     from nnet_asr_torch.tools.gemm_ceiling import mma_sync_f32
 
     def mma_sync():
@@ -561,7 +571,7 @@ def mma_sync_rows(torch, r, what, library, kernel, pattern, flops):
     r["mma_sync_alone_us"] = device_us(torch, mma_sync)
     log(f"time {what} on mma.sync (forced): device {_us(r['mma_sync_device_us'])} in turns "
         f"with the library ({_us(r['mma_sync_library_us'])}), alone "
-        f"{_us(r['mma_sync_alone_us'])}; CP_WGMMA {_us(r['device_us'])} in turns, alone "
+        f"{_us(r['mma_sync_alone_us'])}; {r['route']} {_us(r['device_us'])} in turns, alone "
         f"{_us(r['device_alone_us'])}; bound {r['bound_us']:.2f} us ({r['bound_by']})")
 
 
@@ -668,8 +678,8 @@ def bf16_ulp(torch, t):
 
 def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed, force_cp=False):
     """The fused update against its plain version; ``force_cp``: on the f32
-    CP_WGMMA kernel by that route's split rule, at a shape the plan keeps
-    on mma.sync (beside the plan's kernel, for the comparison)."""
+    CP_WGMMA kernel by that route's split rule, at a shape the plan sends
+    elsewhere (beside the plan's kernel, for the comparison)."""
     from nnet_asr_torch.ops.kernels import _build
     from nnet_asr_torch.ops.kernels import sgd_fused as SF
     from nnet_asr_torch.ops.kernels import tile_plan
@@ -685,25 +695,28 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed, force_cp=False):
     plan = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
                           b_ptr=e.data_ptr(), wgrad=True, out_ptrs=(pk.data_ptr(), vk.data_ptr()))
     update = SF.wgrad_momentum_update
+    stream = torch.cuda.current_stream(dev)
     if force_cp:
-        check(plan.route == tile_plan.MMA_SYNC, f"{B}x{In}->{Out}: the plan takes the route")
+        check(plan.route != tile_plan.CP_WGMMA, f"{B}x{In}->{Out}: the plan takes the route")
         plan = tile_plan.cp_fixed(In, Out, B, tile_plan.CP_F32_TILE,
-                                  tile_plan.cp_f32_splits(In, Out, B), plan.a_bytes,
-                                  plan.b_bytes, elem=4)
-        stream = torch.cuda.current_stream(dev)
+                                  tile_plan.cp_f32_splits(In, Out, B),
+                                  tile_plan.copy_bytes(In, x.data_ptr()),
+                                  tile_plan.copy_bytes(Out, e.data_ptr()), elem=4)
 
         def update(x, e, p, v, a, m):
             SF._launch_f32_cp_wgmma(_build.load_library(), x, e, p, v, a, m, plan, stream)
             SF.wgrad_momentum_update.launches += 1
     route = route_name(tile_plan, plan)
-    what = f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}{' (forced)' if force_cp else ''}"
+    what = (f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}"
+            f"{f' ({route} forced)' if force_cp else ''}")
     counters = (lambda: (SF.wgrad_momentum_update.launches,
                          SF.wgrad_momentum_update.launches_f32_wgmma,
-                         SF.wgrad_momentum_update.launches_f32_cp_wgmma))
+                         SF.wgrad_momentum_update.launches_f32_cp_wgmma,
+                         SF.wgrad_momentum_update.launches_f32_ws_wgmma))
     before = counters()
     update(x, e, pk, vk, a, m)
     check(counters() == (before[0] + 1, before[1] + (route == "WGMMA"),
-                         before[2] + (route == "CP_WGMMA")),
+                         before[2] + (route == "CP_WGMMA"), before[3] + (route == "WS_WGMMA")),
           f"{what}: not one f32 launch on the {route} route")
     SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
     torch.cuda.synchronize()
@@ -758,7 +771,7 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed, force_cp=False):
                PEAK_3XTF32, device_us(torch, fns[0]) if vdt == "f32" or route == "WGMMA" else None)
     r["plan"], r["route"] = plan_dict(tile_plan, plan), route
     log(f"plan {what}: {json.dumps(r['plan'])}")
-    if route == "CP_WGMMA" and vdt == "f32":
+    if route in ("CP_WGMMA", "WS_WGMMA") and vdt == "f32":
         mma_sync_rows(torch, r, what, fns[2],
                       lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m), "wgrad_momentum",
                       flops)
@@ -1181,9 +1194,10 @@ def momentum_path(torch, card: str, d: str, n: dict):
           f"wgrad_momentum_update launched {launches['wgrad_momentum_update']} times, "
           f"not 2 x {iters} epochs x {bunches} bunches")
     # the hidden weight's update (960x598->1024) on the f32 CP_WGMMA route,
-    # the output weight's (960x1024->135) on mma.sync, where the plan keeps
-    # it; every forward on the route
+    # the output weight's (960x1024->135) on the WS_WGMMA route; every
+    # forward on the f32 CP_WGMMA route
     check(launches["wgrad_momentum_update_f32_cp_wgmma"] == iters * bunches
+          and launches["wgrad_momentum_update_f32_ws_wgmma"] == iters * bunches
           and launches["matmul_act_f32_cp_wgmma"] == launches["matmul_act"],
           f"momentum path: not every f32 launch on its route: {launches}")
     check(launches["matmul_act"] > 0 and launches["softmax_xent"] > 0,
@@ -1377,7 +1391,8 @@ def objectives_path(torch, card: str, d: str, n: dict):
 COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma", "matmul_act_bf16",
             "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma", "wgrad_momentum_update",
             "wgrad_momentum_update_f32_wgmma", "wgrad_momentum_update_f32_cp_wgmma",
-            "wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
+            "wgrad_momentum_update_f32_ws_wgmma", "wgrad_momentum_update_bf16",
+            "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
 
 
 def _counters():
@@ -1396,6 +1411,8 @@ def _counters():
             "wgrad_momentum_update_f32_wgmma": (SF.wgrad_momentum_update, "launches_f32_wgmma"),
             "wgrad_momentum_update_f32_cp_wgmma": (SF.wgrad_momentum_update,
                                                    "launches_f32_cp_wgmma"),
+            "wgrad_momentum_update_f32_ws_wgmma": (SF.wgrad_momentum_update,
+                                                   "launches_f32_ws_wgmma"),
             "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
             "wgrad_momentum_update_bf16_wgmma": (SF.wgrad_momentum_update,
                                                  "launches_bf16_wgmma"),
@@ -2931,6 +2948,7 @@ KERNEL_GROUPS = (("affine_sigmoid f32 CP_WGMMA (ours)", "matmul_act_f32_cp_"),
                   r"|matmul_act_cp_wgmma_kernel"),
                  ("affine_sigmoid (ours)", "matmul_act_kernel"),
                  ("wgrad_momentum_update f32 CP_WGMMA (ours)", "wgrad_momentum_f32_cp_"),
+                 ("wgrad_momentum_update f32 WS_WGMMA (ours)", "wgrad_momentum_f32_ws_"),
                  ("wgrad_momentum_update f32 WGMMA (ours)", "wgrad_momentum_f32_"),
                  ("wgrad_momentum_update bf16 (ours)",
                   r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|wgrad_momentum_wgmma_kernel"),
@@ -2941,8 +2959,8 @@ KERNEL_GROUPS = (("affine_sigmoid f32 CP_WGMMA (ours)", "matmul_act_f32_cp_"),
 
 # the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32; the
 # bf16 CP_WGMMA forward; the f32 CP_WGMMA forward, its wgrad at f32 and
-# bf16 v
-WGMMA_KERNELS = 10
+# bf16 v; the f32 WS_WGMMA wgrad at f32 and bf16 v
+WGMMA_KERNELS = 12
 
 
 def wgmma_spills(build_log: str) -> dict:
@@ -3084,8 +3102,12 @@ def main() -> int:
                                         for M, K, N in F32_CP_AFFINE],
         "wgrad_momentum_update_f32_cp_wgmma": [
             check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out,
-                                 force_cp=(B, In, Out) in F32_CP_KEPT)
+                                 force_cp=(B, In, Out) in F32_CP_ELSEWHERE)
             for B, In, Out, vdts in F32_CP_WGRAD for vdt in vdts],
+        "wgrad_momentum_update_f32_ws_wgmma": [
+            check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out + 2)
+            for B, In, Out, vdts in F32_CP_WGRAD if (B, In, Out) in F32_CP_ELSEWHERE
+            for vdt in vdts],
         "affine_sigmoid_bf16": [check_matmul_act_bf16(torch, dev, M, K, N, seed=M + K + 1)
                                 for M, K, N in AFFINE_SHAPES],
         "wgrad_momentum_update_bf16": [
@@ -3096,6 +3118,8 @@ def main() -> int:
               and all(r["route"] == "WGMMA" for r in shapes[f"{name}_f32_wgmma"])
               and all(r["route"] == "CP_WGMMA" for r in shapes[f"{name}_f32_cp_wgmma"]),
               f"{name}: the f32 rows are not on the routes they name")
+    check(all(r["route"] == "WS_WGMMA" for r in shapes["wgrad_momentum_update_f32_ws_wgmma"]),
+          "wgrad_momentum_update: the plan does not take 960x1024->135 to WS_WGMMA")
 
     # 4. the frame-CE path, 5. the momentum newbob path, 7. objectives,
     # 8. compute dtypes, 9. RBM pretraining, 10. recurrent BPTT, on one
@@ -3138,23 +3162,22 @@ def main() -> int:
     log(f"production-path launches (phase 6): {json.dumps(launches_prod)}")
     # every f32 launch at the recipes' widths on the f32 CP_WGMMA route,
     # phase by phase, but the momentum runs' output-layer updates
-    # (960x1024->135, half their wgrad launches), which the plan keeps on
-    # mma.sync: no other f32 mma.sync launch, and no f32 WGMMA launch
+    # (960x1024->135, half their wgrad launches), all on the WS_WGMMA route
+    # (WS_OUT_LAUNCHES): no f32 mma.sync launch, and no f32 WGMMA launch
     # outside phase 6
     per_phase = {"4": launches_ce, "5": launches_mom, "7": launches_obj, "8": launches_dt,
                  "9": launches_rbm, "11": launches_mpe,
                  "12": {k: launches_res[k] + launches_ts[k] for k in COUNTERS},
                  "13": launches_mesh}
-    kept = {"5": launches_mom["wgrad_momentum_update"] // 2,
-            "12": launches_res["wgrad_momentum_update"] // 2}
     for phase, got in per_phase.items():
         f32 = {fn: [got.get(fn, 0), got.get(f"{fn}_f32_cp_wgmma", 0),
-                    got.get(f"{fn}_f32_wgmma", 0)]
+                    got.get(f"{fn}_f32_ws_wgmma", 0), got.get(f"{fn}_f32_wgmma", 0)]
                for fn in ("matmul_act", "wgrad_momentum_update")}
-        want_kept = {"matmul_act": 0, "wgrad_momentum_update": kept.get(phase, 0)}
-        log(f"phase {phase}: f32 launches [all, CP_WGMMA, WGMMA] {json.dumps(f32)}, mma.sync "
-            f"where the plan keeps it {json.dumps(want_kept)}")
-        check(all(every - cp == want_kept[fn] and wg == 0 for fn, (every, cp, wg) in f32.items()),
+        want = {"matmul_act": [0, 0], "wgrad_momentum_update": [WS_OUT_LAUNCHES.get(phase, 0), 0]}
+        log(f"phase {phase}: f32 launches [all, CP_WGMMA, WS_WGMMA, WGMMA] {json.dumps(f32)}, "
+            f"[WS_WGMMA, mma.sync] off the CP_WGMMA route {json.dumps(want)}")
+        check(all([ws, every - cp - ws] == want[fn] and wg == 0
+                  for fn, (every, cp, ws, wg) in f32.items()),
               f"phase {phase}: f32 launches off their routes: {json.dumps(f32)}")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
@@ -3203,6 +3226,10 @@ def main() -> int:
             "wgrad_momentum_update_f32_cp_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",
                                                    "wgrad_momentum_update_f32_cp_wgmma",
                                                    launches, 0),
+            "wgrad_momentum_update_f32_ws_wgmma": (
+                "sgd_fused.cu", "sgd_fused.py:105", "wgrad_momentum_update_f32_ws_wgmma", launches,
+                [r["shape"] for r in shapes["wgrad_momentum_update_f32_ws_wgmma"]]
+                .index(f"{BUNCH}x1024->{CLASSES} v f32")),
             "wgrad_momentum_update_f32_wgmma": (
                 "sgd_fused.cu", "sgd_fused.py:105", "wgrad_momentum_update_f32_wgmma",
                 launches_prod, [r["shape"] for r in shapes["wgrad_momentum_update_f32_wgmma"]]

@@ -101,9 +101,17 @@
 // a time, 8 rows in flight before the first store, with the mma.sync
 // epilogue's arithmetic and both velocity types. A weight gradient of an
 // odd Out (MLP3's 960x1024->135: 4-byte copies of e, one element of p and
-// v at a time, the last 64-column tiles 7 columns full) keeps the mma.sync
-// kernel above, which tools/gemm_ceiling.py --small --f32 measured faster
-// there (tile_plan.cp_f32_keeps_mma_sync).
+// v at a time, the last 64-column tiles 7 columns full) turns g around on
+// cp_tf32_wgmma.cuh's warp-specialised ring instead
+// (wgrad_momentum_f32_ws_wgmma_kernel, tile_plan.py's WS_WGMMA route), for
+// an Out of at most 136: g = x^T e with In on wgmma's M and Out on its N
+// (136 columns for 135), x the register operand, e's stage BK whole rows
+// copied as one run by the producer warpgroup and transposed and split by
+// it; the bunch split into up to 6 splits a tile, one cluster, which sums
+// the partials through distributed shared memory and updates p and v
+// between its blocks, whole rows of neighbouring columns a warp. Any other
+// odd Out keeps the mma.sync kernel above (tile_plan.cp_f32_keeps_mma_sync);
+// what the card measured of both at 135 is in tile_plan.ws_f32_takes.
 //
 // Layout: x (B, In), e (B, Out), p (In, Out), v (In, Out), all row-major
 // contiguous; with S > 1 splits an f32 scratch of S partial 64x64 tiles a
@@ -463,6 +471,54 @@ wgrad_momentum_f32_cp_wgmma_kernel(const float* __restrict__ x, const float* __r
   nnet_cpf::update_pv<T, V>(acc, p, v, a, m, In, Out, in0, out0);
 }
 
+// g = x^T e, f32, on the WS_WGMMA route (cp_tf32_wgmma.cuh's
+// warp-specialised ring): g = x^T e with In on wgmma's M and Out (at most
+// T::NB) on its N, a tile of T::BN rows of p and v by T::NB columns a
+// block, x the register operand (split by the consumers), e brought raw
+// (its whole rows as one run a stage) and transposed and split by the
+// producer; with gridDim.z > 1, split blockIdx.z of the bunch, the
+// splits of a tile one cluster that sums their partials and updates v, p
+// in place between its blocks
+template <class T, class V>
+__global__ void __launch_bounds__(T::THREADS, 1)
+wgrad_momentum_f32_ws_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ e,
+                                   float* __restrict__ p, V* __restrict__ v, float a, float m,
+                                   int B, int In, int Out, int k_chunk, int x_bytes,
+                                   int e_bytes) {
+  extern __shared__ uint8_t cpf_smem[];
+  uint8_t* ring = nnet_cpf::ring_of(cpf_smem);
+  const int in0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk, k_end = min(B, k_begin + k_chunk);
+  nnet_cpf::ws_init<T>(ring);
+  if (threadIdx.x >= T::CONSUMERS) {
+    const nnet_cpf::Operands o{x, In, In, e, nullptr, Out, Out, x_bytes, e_bytes};
+    nnet_cpf::ws_produce<T>(ring, o, in0, k_begin, k_end);
+    nnet_cpf::ws_sync(gridDim.z);   // the partials stashed
+    nnet_cpf::ws_sync(gridDim.z);   // and read
+  } else {
+    float acc[T::NACC];
+    nnet_cpf::ws_consume<T>(ring, (k_end - k_begin + nnet_cpf::BK - 1) / nnet_cpf::BK, acc);
+    nnet_cpf::ws_stash<T>(ring, acc);
+    nnet_cpf::ws_sync(gridDim.z);
+    nnet_cpf::ws_update_pv<T, V>(ring, p, v, a, m, In, Out, in0);
+    nnet_cpf::ws_sync(gridDim.z);
+  }
+}
+
+template <class V>
+int launch_f32_ws_wgmma(const float* x, const float* e, float* p, V* v, float a, float m, int B,
+                        int In, int Out, int splits, int k_chunk, int x_bytes, int e_bytes,
+                        cudaStream_t stream) {
+  using T = nnet_cpf::WsF32Rows;
+  if (Out > T::NB) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = allow_smem(wgrad_momentum_f32_ws_wgmma_kernel<T, V>, T::SMEM_BYTES);
+  if (err != 0) return err;
+  const dim3 grid((In + T::BN - 1) / T::BN, 1, splits);
+  return nnet_cpf::launch_ws(wgrad_momentum_f32_ws_wgmma_kernel<T, V>, grid, T::THREADS,
+                             T::SMEM_BYTES, stream, x, e, p, v, a, m, B, In, Out, k_chunk,
+                             x_bytes, e_bytes);
+}
+
 template <class V>
 int launch_f32_cp_wgmma(const float* x, const float* e, float* p, V* v, float* part,
                         int* counters, float a, float m, int B, int In, int Out, int splits,
@@ -522,6 +578,25 @@ extern "C" int wgrad_momentum_update_f32_cp_wgmma(const float* x, const float* e
                                          In, Out, splits, k_chunk, x_bytes, e_bytes, s)
                    : launch_f32_cp_wgmma(x, e, p, static_cast<float*>(v), part, counters, a, m,
                                          B, In, Out, splits, k_chunk, x_bytes, e_bytes, s);
+}
+
+// The WS_WGMMA route of wgrad_momentum_update_f32: Out at most 136 (else
+// cudaErrorInvalidValue), any row pitches, tiles of 64 rows of p and v by
+// 136 columns (nnet_cpf::WsF32Rows). splits (1 to 8, a cluster of them a
+// tile): the bunch cut into chunks of k_chunk rows (a multiple of 32).
+// x_bytes: the copy width of x, 16, 8 or 4; e_bytes: that of e's stage of
+// whole rows, one run, by its base alone. Returns the CUDA error code of
+// the launch.
+extern "C" int wgrad_momentum_update_f32_ws_wgmma(const float* x, const float* e, float* p,
+                                                  void* v, float a, float m, int B, int In,
+                                                  int Out, int v_is_bf16, int splits,
+                                                  int k_chunk, int x_bytes, int e_bytes,
+                                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return v_is_bf16 ? launch_f32_ws_wgmma(x, e, p, static_cast<bf16*>(v), a, m, B, In, Out, splits,
+                                         k_chunk, x_bytes, e_bytes, s)
+                   : launch_f32_ws_wgmma(x, e, p, static_cast<float*>(v), a, m, B, In, Out,
+                                         splits, k_chunk, x_bytes, e_bytes, s);
 }
 
 // The WGMMA route of wgrad_momentum_update_bf16: x, e with row pitches of

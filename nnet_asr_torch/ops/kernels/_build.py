@@ -76,6 +76,10 @@ SIGNATURES = {
     # B, In, Out, v_is_bf16, splits, k_chunk, x_bytes, e_bytes, stream
     "wgrad_momentum_update_f32_cp_wgmma": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,
                                            _I, _I, _I, _P],
+    # f32 x and e on the WS_WGMMA route: x, e, p, v, a, m, B, In, Out,
+    # v_is_bf16, splits, k_chunk, x_bytes, e_bytes, stream
+    "wgrad_momentum_update_f32_ws_wgmma": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                           _I, _P],
     # f32 x and e on the WGMMA route: x, e, p, v, xhi, xlo, a, m, B, In,
     # Out, v_is_bf16, blocks, stream
     "wgrad_momentum_update_f32_wgmma": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,

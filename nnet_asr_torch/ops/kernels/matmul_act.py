@@ -34,10 +34,14 @@ splits K and the last split to reach a tile sums the partials in the same
 launch. ``tile_plan.plan`` picks the tile, the split and each operand's
 copy width from the shapes, pointers and element size.
 
-``matmul_act`` dispatches on the tensor's device: a CPU tensor runs the
-plain PyTorch version (``matmul_act_plain``), a CUDA tensor launches the
-kernel or raises — there is no fallback, and x, w and b must share one
-dtype. ``matmul_act.launches`` counts f32 calls (both routes),
+``matmul_act`` checks its operands, then dispatches on the tensor's
+device: a CPU tensor runs the plain PyTorch version
+(``matmul_act_plain``), a CUDA tensor launches the kernel or raises —
+there is no fallback. Both devices refuse the same inputs: an unknown
+``act`` (``ValueError``, as JAX's kernel raises), x, w and b of mixed or
+other dtypes than float32 and bfloat16 (``TypeError``), shapes that do
+not match or a non-contiguous operand (``ValueError``).
+``matmul_act.launches`` counts f32 calls (every route),
 ``matmul_act.launches_f32_wgmma`` those of them on the WGMMA route,
 ``matmul_act.launches_bf16`` bf16 ones (every route),
 ``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route and
@@ -116,11 +120,11 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                act: str = "sigmoid") -> torch.Tensor:
     """act(x @ w + b): x (M,K), w (K,N), b (N,), all float32 or all
     bfloat16; y at their dtype."""
+    _check(x, w, b, act)
     if x.device.type == "cpu":
         return matmul_act_plain(x, w, b, act)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_act: unsupported device {x.device}")
-    _check(x, w, b, act)
     lib = _build.load_library()
     M, K = x.shape
     N = w.shape[1]

@@ -10,37 +10,40 @@ matrix ``p`` with velocity ``v``::
 from the layer's input ``x`` (B, In) and its pre-activation error ``e``
 (B, Out), so the gradient never reaches device memory. It is the momentum
 branch of ``train.sgd.apply_updates`` for a matrix (``a = lr/N``); the L2
-decay stays outside, after it. The GEMM is the tensor-core main loop of
-``csrc/tile_gemm.cuh`` (``cp.async`` ring; 3xTF32 ``mma.sync`` for f32
-``x`` and ``e``, f32-accurate; one bf16 ``mma.sync`` pass for bf16 ones,
-the bf16 compute mode's, where ``g`` is accumulated in f32 and rounded to
-bf16 once after the whole sum, as JAX's bf16 ``dW``, before the f32
-update). ``tile_plan.plan`` picks the tile, the copy widths and, where the
-output tiles alone leave SMs idle (example-01's 960x1024->135), a split of
-the bunch: the splits' f32 partials go to a scratch buffer allocated here,
-and the last block to reach a tile sums them in a fixed order before the
-epilogue, in the same launch, so runs repeat bit for bit. bf16 ``x`` and
-``e`` that TMA can read (the plan's WGMMA route: every production shape)
-go to ``csrc/wgmma_gemm.cuh`` instead: ``wgmma`` on 128x128 tiles fed by
-TMA, a persistent grid of at most one block an SM walking the tiles in a
-fixed order, its two consumer warpgroups taking turns so that one's p and
-v update overlaps the other's ``wgmma``; no split. f32 ``x`` and ``e`` on
-that route (TMA-readable, a bunch that is a multiple of 4, and the 128x128
-tiles filling the card: the production stack's weights) go to
-``csrc/tf32_wgmma.cuh`` with the same schedule: 3xTF32 on ``wgmma``,
-``g^T = e^T x`` with e split in registers and x transposed and split into
-hi and lo copies by a pre-pass kernel into scratch allocated here, two
-launches a call. f32 ``x`` and ``e`` at every shape the f32 WGMMA route
-leaves whose 128x128 tiles would not fill the card (the plan's CP_WGMMA
-route at 4 bytes: the recipes' f32 weight gradients but those of an odd
-Out, MLP3's 960x1024->135, which keep ``mma.sync``) go to
-``csrc/cp_tf32_wgmma.cuh``: 3xTF32 on ``wgmma`` fed by ``cp.async``,
-``g^T = e^T x`` with e split in registers and x transposed and split into
-hi and lo in shared memory by the block itself, one launch a call, the
-bunch split where the tiles leave SMs idle. With f32 ``x`` and
-``e`` it is bound by operations at the production stack's widths; with
-bf16 ones by the bytes of p and v; at example-01's widths by bytes and
-latency.
+decay stays outside, after it. ``tile_plan.plan`` picks the kernel (its
+route) from the shapes, pointers and element size:
+
+- f32 ``x`` and ``e`` at the recipes' widths (MLP3's 960x598->1024, and any
+  whose 128x128 tiles would not fill the card; the plan's CP_WGMMA route):
+  ``csrc/cp_tf32_wgmma.cuh``'s loop, 3xTF32 ``wgmma`` fed by ``cp.async``,
+  ``g^T = e^T x`` with e split in registers and x transposed and split in
+  shared memory by the block, the bunch split where the tiles leave SMs
+  idle, the partials reduced in the same launch;
+- the f32 weight gradient of an odd Out the WS_WGMMA kernel of the same
+  file is built for (``tile_plan.ws_f32_takes``: MLP3's 960x1024->135):
+  ``g = x^T e`` with Out on ``wgmma``'s N, 136 wide, a producer warpgroup
+  copying e's rows and transposing and splitting them, the splits of a
+  tile one cluster; any other odd Out (TIMIT's 39) keeps
+  ``csrc/tile_gemm.cuh``'s ``mma.sync`` loop;
+- f32 ``x`` and ``e`` that TMA can read and whose 128x128 tiles fill the
+  card (the production stack's weights; the plan's WGMMA route):
+  ``csrc/tf32_wgmma.cuh``, 3xTF32 ``wgmma`` + TMA, ``g^T = e^T x`` with e
+  split in registers and x transposed and split by a pre-pass kernel into
+  scratch allocated here, a persistent grid whose two consumer warpgroups
+  take turns, so that one's p and v update overlaps the other's ``wgmma``;
+  two launches a call;
+- bf16 ``x`` and ``e`` that TMA can read: ``csrc/wgmma_gemm.cuh``, the same
+  schedule with one bf16 pass;
+- the rest (bf16 at MLP3's rows, f32 off TMA at the BIG tile's size):
+  ``csrc/tile_gemm.cuh``'s ``mma.sync`` loop (3xTF32 for f32, one bf16 pass
+  for bf16), split-K on its 64x64 tile with the partials in scratch
+  allocated here, the last block of a tile summing them in a fixed order.
+
+bf16 ``x`` and ``e`` (the bf16 compute mode's) accumulate g in f32 and
+round it to bf16 once after the whole sum, as JAX's bf16 ``dW``, before the
+f32 update. With f32 ``x`` and ``e`` the update is bound by operations at
+the production stack's widths; with bf16 ones by the bytes of p and v; at
+example-01's widths by latency.
 
 Unlike the JAX function, which returns ``(p_new, v_new)``, this one
 updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
@@ -48,12 +51,13 @@ updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
 device: CPU tensors take the plain PyTorch version
 (``wgrad_momentum_update_plain``), CUDA tensors launch the kernel or raise —
 there is no fallback. ``wgrad_momentum_update.launches`` counts calls
-with f32 ``x`` and ``e`` (both routes),
+with f32 ``x`` and ``e`` (every route),
 ``wgrad_momentum_update.launches_f32_wgmma`` those of them on the WGMMA
 route, ``wgrad_momentum_update.launches_f32_cp_wgmma`` those on the
-CP_WGMMA route, ``wgrad_momentum_update.launches_bf16`` those with bf16
-ones (both routes), ``wgrad_momentum_update.launches_bf16_wgmma`` those of
-them on the WGMMA route.
+CP_WGMMA route, ``wgrad_momentum_update.launches_f32_ws_wgmma`` those on
+the WS_WGMMA route, ``wgrad_momentum_update.launches_bf16`` those with
+bf16 ones (every route), ``wgrad_momentum_update.launches_bf16_wgmma``
+those of them on the WGMMA route.
 """
 
 from __future__ import annotations
@@ -132,6 +136,8 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
         wgrad_momentum_update.launches_f32_wgmma += 1
     elif pl.route == tile_plan.CP_WGMMA:
         _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream)
+    elif pl.route == tile_plan.WS_WGMMA:
+        _launch_f32_ws_wgmma(lib, x, e, p, v, a, m, pl, stream)
     elif pl.route == tile_plan.WGMMA:
         _build.check(lib.wgrad_momentum_update_bf16_wgmma(
             x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
@@ -157,6 +163,7 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
 wgrad_momentum_update.launches = 0
 wgrad_momentum_update.launches_f32_wgmma = 0
 wgrad_momentum_update.launches_f32_cp_wgmma = 0
+wgrad_momentum_update.launches_f32_ws_wgmma = 0
 wgrad_momentum_update.launches_bf16 = 0
 wgrad_momentum_update.launches_bf16_wgmma = 0
 
@@ -173,3 +180,15 @@ def _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream):
         float(m), B, In, e.shape[1], int(v.dtype == torch.bfloat16), splits, k_chunk,
         pl.a_bytes, pl.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_cp_wgmma")
     wgrad_momentum_update.launches_f32_cp_wgmma += 1
+
+
+def _launch_f32_ws_wgmma(lib, x, e, p, v, a, m, pl, stream):
+    """Launch the f32 WS_WGMMA kernel (g = x^T e with Out on wgmma's N) by
+    plan ``pl``, as ``_launch_f32_cp_wgmma``; counted in
+    ``launches_f32_ws_wgmma``, and by the caller in ``launches``."""
+    B, In = x.shape
+    _build.check(lib.wgrad_momentum_update_f32_ws_wgmma(
+        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
+        e.shape[1], int(v.dtype == torch.bfloat16), pl.splits, pl.k_chunk, pl.a_bytes,
+        pl.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_ws_wgmma")
+    wgrad_momentum_update.launches_f32_ws_wgmma += 1

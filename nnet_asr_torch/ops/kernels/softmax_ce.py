@@ -11,12 +11,15 @@ bound by memory bytes: one read of the logits and one write of ``err``.
 a block's registers, or two walks of a wide row). The row max propagates
 NaN, as ``jnp.max`` does: a row with a NaN counts no hit.
 
-``softmax_xent`` dispatches on the tensor's device: a CPU tensor runs the
-plain PyTorch version (``softmax_xent_plain``), a CUDA tensor launches the
-kernel or raises — there is no fallback. ``softmax_xent.launches`` counts
-kernel launches. ``fused_softmax_xent`` is the ``autograd.Function``: the
-loss is the summed Xent, its backward ``err * g_loss``, and ``correct`` is
-not differentiable.
+``softmax_xent`` checks its operands, then dispatches on the tensor's
+device: a CPU tensor runs the plain PyTorch version
+(``softmax_xent_plain``), a CUDA tensor launches the kernel or raises —
+there is no fallback. Both devices refuse the same inputs: logits other
+than float32 or labels other than int32 (``TypeError``), labels that are
+not one a row, or an operand that is not contiguous (``ValueError``).
+``softmax_xent.launches`` counts kernel launches. ``fused_softmax_xent`` is
+the ``autograd.Function``: the loss is the summed Xent, its backward ``err
+* g_loss``, and ``correct`` is not differentiable.
 """
 
 from __future__ import annotations
@@ -70,11 +73,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(err (B,C) f32, xent () f32, correct () int32) for int32 labels;
     rows with label < 0 add nothing to the stats."""
+    _check(logits, labels)
     if logits.device.type == "cpu":
         return softmax_xent_plain(logits, labels)
     if logits.device.type != "cuda":
         raise ValueError(f"softmax_xent: unsupported device {logits.device}")
-    _check(logits, labels)
     lib = _build.load_library()
     B, C = logits.shape
     dev = logits.device

@@ -1,104 +1,62 @@
-"""Launch plan of the tensor-core GEMM kernels (``csrc/tile_gemm.cuh``).
+"""Launch plan of the GEMM kernels of ``matmul_act`` and
+``wgrad_momentum_update``.
 
-``matmul_act`` and ``wgrad_momentum_update`` share one main loop with two
-tile shapes. ``plan`` picks, from the shapes and pointers alone:
+``plan`` picks, from the shapes, pointers and element size alone, the
+kernel's route, its tile, its split of the contraction and the width of
+each operand's copies. Pure Python, so the CPU tests hold every main-path
+shape to its plan; the constants match the CUDA sources named below.
+The routes, in the order ``plan`` tries them:
 
-- the tile: 128x128 (8 warps) where that grid has at least one block per
-  SM, else 64x64 (the SMALL tile: 72 KB of shared memory for f32 operands
-  in a 4-stage ring, 4 warps of 32x32, or 8 of 32x16 for the f32 forward;
-  ``SMALL_PER_SM`` = 3 blocks' shared memory fits an SM);
-- for both kernels, split-K on the SMALL tile, where it shortens the
-  busiest SM's time (``split_count``). The grid's blocks spread evenly
-  over the SMs, so a grid of ``tiles`` tiles cut ``S`` ways puts ``B =
-  ceil(tiles * S / SM_COUNT)`` blocks of ``steps / S`` BK steps on the
-  busiest SM, ``SMALL_PER_SM`` at a time; each such wave also pays a
-  block's fixed cost (its ring's prologue, the epilogue, the partials'
-  round trip), ``BLOCK_COST`` BK steps: 3 of 3xTF32, 9 of the bf16 pass,
-  whose steps are three times cheaper. The fewest splits of the least
-  ``B * steps / S + ceil(B / SMALL_PER_SM) * BLOCK_COST``, with at least
-  ``MIN_K_STEPS`` steps a split, are taken. One tmpe utterance's
-  284x598->1024 (80 tiles: 52 SMs idle) runs 3 splits, the f32 weight
-  gradients 960x598->1024 (160 tiles) 4 and 960x1024->135 (48 tiles) 5,
-  the bf16 ones 2 and 5; TIMIT's 1024x368->500 (128 tiles) and MLP3's
-  960x598->1024 forward (240 tiles) stay whole, since no split evens
-  their load (``tools/gemm_ceiling.py --small`` measured each choice
-  against its neighbours). Each split writes its f32 partial tile to a
-  scratch buffer of ``blocks * bm * bn`` floats; the block that arrives
-  last at a tile (an int counter per tile, kept zeroed) sums the partials
-  in split order and runs the epilogue, in the same launch;
-- per operand, the copy width: 16-byte asynchronous copies need a row
-  pitch that is a multiple of 16 bytes and a 16-byte aligned base pointer
-  (the main path's widths 598 and 135 are neither), else 8-byte ones a
-  pitch and base in whole 8-byte units (f32 rows of 598: 2,392 bytes; f32
-  operands on the SMALL tile only, whose kernels compile that path), else
-  4-byte ones; a bf16 matrix with an odd pitch (135 columns: rows of 270
-  bytes, the weight gradient of MLP3's output layer) gets 2-byte plain
-  loads, since ``cp.async`` has no 2-byte size.
+- ``WGMMA``: TMA and ``wgmma`` on a warp-specialised ring
+  (``csrc/wgmma_gemm.cuh``, one bf16 pass; ``csrc/tf32_wgmma.cuh``, 3xTF32
+  for f32), wherever every operand TMA reads has a row pitch of a 16-byte
+  multiple and every such operand and output (``out_ptrs``) a 16-byte
+  aligned base; for f32 the pre-pass's split copy (pitch K) counts among
+  them, and only products whose 128x128 tiles fill the card take it
+  (``tile_count(M, N, BIG) >= SM_COUNT``: the production stack's). Tiles of
+  128x256 for the bf16 forward, else 128x128 on a persistent grid of
+  ``min(tiles, SM_COUNT)`` blocks whose two consumer warpgroups take turns;
+  no split.
+- ``WS_WGMMA``: 3xTF32 ``wgmma`` on the warp-specialised ring of
+  ``csrc/cp_tf32_wgmma.cuh`` (a producer warpgroup copying by ``cp.async``
+  and transposing and splitting e, a consumer warpgroup issuing
+  ``wgmma``), f32, the weight gradient of an odd Out whose N width the
+  kernel is built for (``ws_f32_takes``, ``WS_ROWS_WIDTHS``: MLP3's
+  960x1024->135), with Out on ``wgmma``'s N (the ``ROWS`` tile, 64 rows of
+  p by 136 columns, one tile across Out). A tile's splits (``ws_splits``)
+  are one cluster that sums its partials through distributed shared
+  memory.
+- ``CP_WGMMA``: ``wgmma`` fed by ``cp.async`` copies of 16, 8 or 4 bytes
+  into the swizzled layout its descriptors read, wherever every row pitch
+  and base, the output's too, is a whole number of 4-byte units. bf16
+  (``csrc/cp_wgmma.cuh``): the forward only, where TMA cannot read the rows
+  (MLP3's x at 598 columns, TIMIT's W and y at 500), 64x64 tiles, a ring of
+  ``CP_STAGES`` stages of ``CP_BK``, split as ``cp_splits``. f32
+  (``csrc/cp_tf32_wgmma.cuh``, 3xTF32, x split into hi and lo by the block):
+  the forward and the weight gradient at every shape the routes above
+  leave whose BIG tiles would not fill the card (every f32 product of the
+  recipes but MLP3's 960x1024->135 weight gradient), 64 rows of x by 128
+  columns of W or e (``CP_F32_TILE``), ``CP_F32_STAGES`` stages, split as
+  ``cp_f32_splits``.
+- ``MMA_SYNC``: ``csrc/tile_gemm.cuh``'s loop (3xTF32 or one bf16
+  ``mma.sync`` pass fed by a ``cp.async`` ring), everything else: the bf16
+  weight gradients off TMA (MLP3's rows of 598 and 135 elements), bf16 rows
+  of odd pitch (2-byte loads: ``cp.async`` has no 2-byte size), f32
+  products of the BIG tile's size off TMA, and the f32 weight gradient of
+  an odd Out no WS_WGMMA width covers (``cp_f32_keeps_mma_sync``: TIMIT's
+  39). 128x128 tiles (8 warps) where that grid fills the card, else 64x64
+  (``SMALL``: ``SMALL_PER_SM`` blocks an SM), split-K on the SMALL tile
+  where it shortens the busiest SM's time (``split_count``), copies of 16,
+  8 (the SMALL tile's f32 kernels only) or 4 bytes (``copy_bytes``).
 
-The bf16 ``mma.sync`` loop shares the tiles and ``BK``; its split weighs
-the fixed cost of a block against its three times cheaper steps.
-
-``route`` names the kernel. ``WGMMA`` (``csrc/wgmma_gemm.cuh``: TMA loads
-into a warp-specialised ring, ``wgmma``, no split; 128x256 tiles for the
-bf16 ``matmul_act``, else 128x128 ones on a persistent grid, whose two
-consumer warpgroups take turns) is taken where the element size has such a route
-(``WGMMA_ELEMS``), every operand TMA reads has a row pitch that is a
-multiple of 16 bytes, and every such operand and every output written in
-wide accesses (``out_ptrs``: y of ``matmul_act``; p and v of the weight
-gradient) has a 16-byte aligned base. For 2-byte elements (bf16: one
-``wgmma`` pass, ``BK`` 64) that is the whole rule. For 4-byte ones (f32:
-3xTF32 on ``wgmma``, ``csrc/tf32_wgmma.cuh``, ``BK`` 32) the operand split
-by the pre-pass, whose pitch is ``K``, counts among the operands, and the
-product must be one whose 128x128 tiles fill the card (``tile_count(M, N,
-BIG) >= SM_COUNT``, where the ``MMA_SYNC`` plan takes its BIG tile): the
-production stack's 1024x{1024,4096}->4096 forward and its weight
-gradients. Every other shape is ``MMA_SYNC`` (``tile_gemm.cuh``), with the
-plan it had, but those of ``CP_WGMMA`` (below: the bf16 forward off TMA,
-every f32 shape on the SMALL tile): the bf16 weight gradients at MLP3's
-rows of 598 and 135 elements (1,196 and 270 bytes) that no TMA map
-describes, bf16 rows of odd pitch, and the f32 products of the BIG tile's
-size whose rows TMA cannot read. ``blocks`` is the kernel's grid: on ``WGMMA``, but for
-the bf16 forward, a persistent grid of ``min(tiles, SM_COUNT)`` blocks
-walking the tiles, two at a time. Pure Python, so the CPU tests
-hold every main-path shape to its plan; ``BIG``/``SMALL``, ``BK``,
-``STAGES`` and ``smem_bytes`` match ``BigTile``/``SmallTile`` and
-``smem_bytes`` there, ``WIDE``, ``WGMMA_BK`` and ``wgmma_smem_bytes`` match
-``wgmma_gemm.cuh`` and ``tf32_wgmma.cuh``, ``CP_STAGES``, ``CP_BK`` and
-``cp_smem_bytes`` match ``CpPlanned`` of ``matmul_act.cu`` and ``cp_wgmma.cuh``.
-
-``CP_WGMMA`` (``wgmma`` fed by ``cp.async`` copies that write the swizzled
-layout the descriptors read) has a kernel for each element size of
-``CP_WGMMA_ELEMS``, taken wherever every row pitch and base pointer, the
-output's too, is a whole number of 4-byte units:
-
-- bf16 (``csrc/cp_wgmma.cuh``), the forward only, wherever TMA cannot read
-  the rows: MLP3's x at 598 columns (1,196-byte rows, 4-byte copies),
-  TIMIT's W and y at 500 (1,000-byte rows, 8-byte copies), one tmpe
-  utterance's and a mesh rank's rows. Its tile is 64x64 on one warpgroup, a
-  ring of ``CP_STAGES`` stages of ``CP_BK`` = 64, split-K as ``cp_splits``
-  says (``HALF`` 64x128, ``TALL`` 128x64 and ``BIG`` 128x128 are the tiles
-  it was measured against, ``tools/gemm_ceiling.py --small``). A bf16 row
-  of odd pitch (135 columns), or a base off a 4-byte boundary, has no such
-  copy and stays on ``MMA_SYNC``.
-- f32 (``csrc/cp_tf32_wgmma.cuh``: 3xTF32, x split into hi and lo in the
-  block), the forward and the weight gradient, at every shape the f32
-  WGMMA route leaves whose BIG ``mma.sync`` tiles would not fill the card
-  (``tile_count(M, N, BIG) < SM_COUNT``; an f32 pitch is always whole
-  4-byte units): every f32 product of the recipes (MLP3's 960x598->1024
-  and its weight gradients 960x598->1024 and 960x1024->135, TIMIT's
-  1024x368->500 and its output weight, the RBM recipe's 960x1024->1024,
-  one tmpe utterance's and a mesh rank's rows). Its tile is ``CP_F32_TILE``
-  (64 rows of x by 128 columns of W or e, two warpgroups of 64 columns
-  each sharing x's split), a ring of ``CP_F32_STAGES`` stages of ``BK`` =
-  32 floats (88 KB for the forward, 96 for the weight gradient: two blocks
-  an SM), split as ``cp_f32_splits`` says, copies of 16, 8 or 4 bytes
-  (64x64 on one warpgroup and 128x64 are the tiles it was measured
-  against). Products of the
-  BIG tile's size that TMA cannot read keep their ``MMA_SYNC`` BIG plan,
-  and so does one recipe shape of the SMALL tile (``cp_f32_keeps_mma_sync``):
-  the weight gradient of an odd number of outputs, MLP3's 960x1024->135.
-  ``mma_sync_f32`` of ``tools/gemm_ceiling.py`` takes 4 out of this tuple
-  and of ``WGMMA_ELEMS`` to force the f32 plans this route replaced.
+On ``MMA_SYNC`` and ``CP_WGMMA`` each split writes its f32 partial tile to
+a scratch of ``blocks * bm * bn`` floats, and the block that arrives last
+at a tile (an int counter per tile, kept zeroed) sums the partials in split
+order and runs the epilogue, in the same launch. ``blocks`` is the
+kernel's grid. Each rule's docstring says what ``tools/gemm_ceiling.py``
+measured of it on the card. ``mma_sync_f32``, ``mma_sync_bf16`` and
+``without_ws`` there switch routes off by element size (``WGMMA_ELEMS``,
+``CP_WGMMA_ELEMS``, ``WS_ELEMS``) to force the plans the routes replaced.
 """
 
 from __future__ import annotations
@@ -109,10 +67,11 @@ SM_COUNT = 132           # H100 SXM
 SM_SMEM = 233_472        # bytes of shared memory an SM gives its blocks (228 KB)
 BLOCK_SMEM_RESERVED = 1024   # bytes of it the runtime keeps for each block
 BK = 32                  # contraction step of both tiles
-BIG, SMALL, WIDE, TALL, HALF = 0, 1, 2, 3, 4
-TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256), TALL: (128, 64), HALF: (64, 128)}
+BIG, SMALL, WIDE, TALL, HALF, ROWS = 0, 1, 2, 3, 4, 5
+TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256), TALL: (128, 64), HALF: (64, 128),
+         ROWS: (64, 136)}
 STAGES = {BIG: 3, SMALL: 4}   # depth of the cp.async ring
-MMA_SYNC, WGMMA, CP_WGMMA = 0, 1, 2
+MMA_SYNC, WGMMA, CP_WGMMA, WS_WGMMA = 0, 1, 2, 3
 WGMMA_ELEMS = (2, 4)     # element sizes with a WGMMA route (bf16, f32)
 WGMMA_BK = {2: 64, 4: 32}   # contraction step of the WGMMA ring: one 128-byte line
 CP_WGMMA_ELEMS = (2, 4)  # element sizes with a CP_WGMMA route (the bf16 forward, f32 both)
@@ -123,6 +82,11 @@ CP_MIN_K_STEPS = 4       # CP_BK steps a CP_WGMMA split keeps at least
 CP_F32_TILE = HALF       # the f32 CP_WGMMA tile: 64 rows of x by 128 of W's (or e's) columns
 CP_F32_STAGES = 4        # the f32 CP_WGMMA ring (88 KB forward, 96 wgrad: two blocks an SM)
 CP_F32_PER_SM = 2        # f32 CP_WGMMA blocks an SM holds
+WS_ELEMS = (4,)          # element sizes with a WS_WGMMA route (f32)
+WS_ROWS_WIDTHS = (136,)  # Out rounded up to 8 that the WS weight gradient is built for
+WS_ROWS_STAGES = 4       # its ring (168 KB, and 51 KB of raw e rows: one block an SM)
+WS_MAX_SPLITS = 6        # a WS tile's splits are one cluster (ws_splits)
+WS_SPLIT_COST = 0.5      # BK steps a WS split adds to the cluster's reduction
 SMALL_PER_SM = 3         # SMALL blocks an SM holds (f32: 72 KB, <= 168 registers a thread)
 MIN_K_STEPS = 4          # BK steps a split keeps at least
 MAX_SPLITS = 16
@@ -130,14 +94,14 @@ BLOCK_COST = {4: 3, 2: 9}   # a block's fixed cost in BK steps, by element size
 
 
 class Plan(NamedTuple):
-    tile: int            # BIG or SMALL
+    tile: int            # a key of TILES
     bm: int
     bn: int
     splits: int          # 1: no split-K
     k_chunk: int         # rows of the contraction per split
     a_bytes: int         # copy width of A: 16, 8, 4 or (2-byte elements) 2
     b_bytes: int         # copy width of B
-    route: int           # MMA_SYNC, WGMMA or CP_WGMMA
+    route: int           # MMA_SYNC, WGMMA, CP_WGMMA or WS_WGMMA
     blocks: int          # blocks of the GEMM kernel's grid
 
 
@@ -219,15 +183,26 @@ def cp_f32_smem_bytes(wgrad: bool, tile: int = HALF, stages: int = CP_F32_STAGES
     return (stages - 2) * a + ((3 + 3 + stages - 2) if wgrad else (stages + 3)) * b + 1024
 
 
+def ws_f32_smem_bytes(nb: int = TILES[ROWS][1], stages: int = WS_ROWS_STAGES) -> int:
+    """Dynamic shared memory of a WS_WGMMA block (``SMEM_BYTES`` of its
+    ``WsF32Tile``): ``stages`` slots of A's raw ``BK`` k-lines of 64
+    columns and B's hi and lo (nb rows of ``BK`` floats), ``stages - 1``
+    raw slots of e's rows, a full and an empty barrier a slot, 1024 bytes
+    of slack; by default the tile the kernel is built with."""
+    b_slot = nb * 4 * BK
+    return stages * (4 * BK * 64 + 2 * b_slot) + (stages - 1) * b_slot + 16 * stages + 1024
+
+
 def cp_f32_keeps_mma_sync(wgrad: bool, b_pitch: int) -> bool:
     """Whether an f32 product the CP_WGMMA route could take stays on
-    MMA_SYNC: the weight gradient whose e rows are no whole 8-byte units
-    (an odd Out: MLP3's 135 senones, TIMIT's 39). There e arrives in 4-byte
-    copies, p and v are updated one element at a time, and 57 of the 192
-    columns of the last 64-wide tiles are empty; ``tools/gemm_ceiling.py
-    --small --f32`` measured the CP_WGMMA kernel at 960x1024->135 slower
-    than mma.sync under every split (its plan's 5: 20.86-21.16 us against
-    17.70-17.79, NVIDIA H100 80GB HBM3, 700 W)."""
+    MMA_SYNC (where ``ws_f32_takes`` does not send it to WS_WGMMA first):
+    the weight gradient whose e rows are no whole 8-byte units (an odd Out:
+    TIMIT's 39). There e arrives in 4-byte copies, p and v are updated one
+    element at a time, and most columns of the last 64-wide tiles are
+    empty; ``tools/gemm_ceiling.py --small --f32`` measured the CP_WGMMA
+    kernel at 960x1024->135 slower than mma.sync under every split (its
+    plan's 5: 32.64-33.30 us against 17.67-18.08, NVIDIA H100 80GB HBM3,
+    700 W)."""
     return wgrad and b_pitch % 2 == 1
 
 
@@ -272,7 +247,7 @@ def cp_f32_splits(M: int, N: int, K: int) -> int:
     shapes, and this rule picks the fastest of each at each: MLP3's forward
     and the RBM recipe's 960x1024->1024 whole, TIMIT's and a mesh rank's 2
     ways, one tmpe utterance's 3, MLP3's 598->1024 weight gradient 3 (and
-    960x1024->135, which stays on MMA_SYNC, 5)."""
+    960x1024->135, which goes to WS_WGMMA, 5)."""
     tiles, steps = tile_count(M, N, SMALL), _cdiv(K, BK)
 
     def cost(s):
@@ -284,15 +259,69 @@ def cp_f32_splits(M: int, N: int, K: int) -> int:
 
 
 def cp_fixed(M: int, N: int, K: int, tile: int, splits: int, a_bytes: int,
-             b_bytes: int, elem: int = 2) -> Plan:
-    """The CP_WGMMA plan of an (M, K) x (K, N) product on ``tile`` with K
-    cut into ``splits`` chunks of whole steps (``CP_BK`` for bf16, ``BK``
-    for f32; fewer where K has fewer steps) and the given copy widths."""
+             b_bytes: int, elem: int = 2, route: int = CP_WGMMA) -> Plan:
+    """The CP_WGMMA (or ``route``'s) plan of an (M, K) x (K, N) product on
+    ``tile`` with K cut into ``splits`` chunks of whole steps (``CP_BK`` for
+    bf16, ``BK`` for f32; fewer where K has fewer steps) and the given copy
+    widths."""
     step = CP_BK if elem == 2 else BK
     k_chunk = _cdiv(_cdiv(K, step), splits) * step if splits > 1 else K
     n = _cdiv(K, k_chunk)
-    return Plan(tile, *TILES[tile], n, k_chunk if n > 1 else K, a_bytes, b_bytes, CP_WGMMA,
+    return Plan(tile, *TILES[tile], n, k_chunk if n > 1 else K, a_bytes, b_bytes, route,
                 tile_count(M, N, tile) * n)
+
+
+def ws_splits(M: int, N: int, K: int) -> int:
+    """Splits of a WS_WGMMA product (In = M, Out = N, the bunch K) on the
+    ``ROWS`` tile: the fewest of the least ``W * (steps / S +
+    BLOCK_COST[4])`` BK steps for ``W = ceil(tiles * S / SM_COUNT)`` waves
+    of one block an SM, plus, split, a block's fixed cost for the
+    cluster's stash and barriers and ``WS_SPLIT_COST`` a split for the
+    partials each block reads; at most ``WS_MAX_SPLITS``, and
+    ``MIN_K_STEPS`` steps a split at least. ``tools/gemm_ceiling.py --small
+    --f32 --ws`` measured every split at 960x1024->135 (NVIDIA H100 80GB
+    HBM3, 700 W): fastest at 6 (14.35-14.43 us; 5: 15.67-15.82, 4:
+    18.72-18.94, 3: 21.90-22.18, 8: 23.02-23.03, its 16 clusters of 8
+    blocks of 225 KB not all resident at once)."""
+    tiles, steps = tile_count(M, N, ROWS), _cdiv(K, BK)
+
+    def cost(s):
+        return (_cdiv(tiles * s, SM_COUNT) * (steps / s + BLOCK_COST[4])
+                + ((BLOCK_COST[4] + s * WS_SPLIT_COST) if s > 1 else 0))
+
+    return min(range(1, max(1, min(WS_MAX_SPLITS, steps // MIN_K_STEPS)) + 1),
+               key=lambda s: (cost(s), s))
+
+
+def ws_rows_e_bytes(out: int, e_ptr: int) -> int:
+    """The copy width of e in the WS weight gradient: one ROWS tile spans
+    every column, so a stage is ``BK`` whole rows, one run of memory that
+    starts at a multiple of 128 bytes from e's base, which alone decides."""
+    return copy_bytes(BK * out, e_ptr)
+
+
+def ws_rows_width(out: int) -> int:
+    """The N width of the WS weight gradient for ``out`` outputs: ``out``
+    rounded up to a multiple of 8, wgmma's N step for TF32."""
+    return _cdiv(out, 8) * 8
+
+
+def ws_f32_takes(M: int, N: int, K: int, wgrad: bool, b_pitch: int) -> bool:
+    """Whether an f32 product goes to the WS_WGMMA route: the weight
+    gradient of an odd Out whose N width (``ws_rows_width``) the kernel is
+    built for, MLP3's 960x1024->135, in place of mma.sync; no forward (the
+    kernel has none: a forward on the ring lost to the CP_WGMMA loop at
+    every recipe shape, PERF.md). At 960x1024->135, 6 splits (NVIDIA H100
+    80GB HBM3, 700 W), the kernel as built (232 registers a thread) ran
+    14.31-14.44 and 14.51-14.56 us alone (two runs) against mma.sync's
+    18.05, 18.21 and cuBLAS's (addmm_ + add_) 20.30-20.78
+    (``tools/gemm_ceiling.py --small --f32 --ws``), and 14.99 in turns
+    with cuBLAS against mma.sync's 19.97 and cuBLAS's 17.83, alone 13.39
+    against mma.sync's 17.18 (chip_smoke.py phase 3). A first
+    build that also carried column tiles for Out > 136 (255 registers)
+    only tied mma.sync alone (17.58-17.82 against 17.64-17.85 over four
+    runs) and led it in turns (18.66, 18.77 against 19.93, 19.92)."""
+    return wgrad and b_pitch % 2 == 1 and ws_rows_width(N) in WS_ROWS_WIDTHS
 
 
 def wgmma_route(elem: int, pitches, ptrs) -> bool:
@@ -325,6 +354,11 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
         tiles = tile_count(M, N, tile)
         return Plan(tile, *TILES[tile], 1, K, 16, 16, WGMMA,
                     min(tiles, SM_COUNT) if persistent else tiles)
+    if (elem in WS_ELEMS and tile_count(M, N, BIG) < SM_COUNT
+            and all(p % 4 == 0 for p in (a_ptr, b_ptr, *out_ptrs))
+            and ws_f32_takes(M, N, K, wgrad, b_pitch)):   # Out on wgmma's N
+        return cp_fixed(M, N, K, ROWS, ws_splits(M, N, K), copy_bytes(a_pitch, a_ptr),
+                        ws_rows_e_bytes(N, b_ptr), elem, WS_WGMMA)
     if (cp_wgmma_route(elem, (a_pitch, b_pitch), (a_ptr, b_ptr, *out_ptrs))
             and (not wgrad if elem == 2 else tile_count(M, N, BIG) < SM_COUNT
                  and not cp_f32_keeps_mma_sync(wgrad, b_pitch))):

@@ -135,6 +135,18 @@ place of three), ``cp_f32_nosplit`` (x used raw, no split in the block),
 the loop), and ``cp_f32_3blk`` (64x64 with registers capped for three
 blocks an SM). ``--small --f32`` times these alone.
 
+With ``--small --f32 --ws`` it times the WS_WGMMA route (the
+warp-specialised ring of ``csrc/cp_tf32_wgmma.cuh``) instead, in two
+turns (``gemm_ceiling ws ...`` lines): the weight gradient at
+960x1024->135 on the plan's split and each split forced, beside (the
+``ws`` build) the route it had before (mma.sync), the f32 CP_WGMMA
+kernel forced and the library, with each build of ``WS_VARIANTS``: ``ws``
+the kernel as it is (a 4-slot ring), ``ws_rows_ring3`` with 3,
+``ws_batch2`` its epilogue with 2 slots a thread in flight in place of 4,
+``ws_mainloop`` the split epilogue compiled but never run. With ``--turns`` (before or without
+``--ws``) it times the kernels PERF.md lists as slower in turns with the
+library than alone after each kind of preceding kernel (``turns``).
+
 For f32 on MMA_SYNC, the gap between the first two is the hi/lo split's
 cost, the second against the 3xTF32 bound what mma.sync's issue rate
 allows; on WGMMA, the variants split the kernel's time into the pre-pass,
@@ -224,13 +236,14 @@ def _without(elem):
     inside."""
     from ..ops.kernels import tile_plan
 
-    saved = tile_plan.WGMMA_ELEMS, tile_plan.CP_WGMMA_ELEMS
+    saved = tile_plan.WGMMA_ELEMS, tile_plan.CP_WGMMA_ELEMS, tile_plan.WS_ELEMS
     tile_plan.WGMMA_ELEMS = tuple(e for e in saved[0] if e != elem)
     tile_plan.CP_WGMMA_ELEMS = tuple(e for e in saved[1] if e != elem)
+    tile_plan.WS_ELEMS = tuple(e for e in saved[2] if e != elem)
     try:
         yield
     finally:
-        tile_plan.WGMMA_ELEMS, tile_plan.CP_WGMMA_ELEMS = saved
+        tile_plan.WGMMA_ELEMS, tile_plan.CP_WGMMA_ELEMS, tile_plan.WS_ELEMS = saved
 
 
 def mma_sync_f32():
@@ -239,6 +252,21 @@ def mma_sync_f32():
     those routes: the mma.sync rows here and in chip_smoke.py, at the
     production shapes and at the recipes'."""
     return _without(4)
+
+
+@contextlib.contextmanager
+def without_ws():
+    """Every f32 GEMM off the WS_WGMMA route while inside, on the route it
+    had before that one: the f32 CP_WGMMA route, or MMA_SYNC for the weight
+    gradient of an odd Out (``tile_plan.cp_f32_keeps_mma_sync``)."""
+    from ..ops.kernels import tile_plan
+
+    saved = tile_plan.WS_ELEMS
+    tile_plan.WS_ELEMS = ()
+    try:
+        yield
+    finally:
+        tile_plan.WS_ELEMS = saved
 
 
 @contextlib.contextmanager
@@ -333,6 +361,18 @@ CP_F32_VARIANTS = {
                       "constexpr int CHAINS = 2;")], "HALF", ()),
     "cp_f32_3blk": (_cp_f32_tile(1, 64, 4) + [("cp_tf32_wgmma.cuh", "MIN_BLOCKS = 1;",
                                                "MIN_BLOCKS = 3;")], "SMALL", ())}
+
+WS_ROWS_TILE = "using WsF32Rows = WsF32Tile<136, 4>;"
+WS_BATCH = "constexpr int WS_BATCH = 4;"
+WS_UPDATE = "    nnet_cpf::ws_update_pv<T, V>(ring, p, v, a, m, In, Out, in0);"
+
+# name: text substitutions of the WS kernel's build
+WS_VARIANTS = {
+    "ws": [],
+    "ws_rows_ring3": [("cp_tf32_wgmma.cuh", WS_ROWS_TILE, WS_ROWS_TILE.replace("4>", "3>"))],
+    "ws_batch2": [("cp_tf32_wgmma.cuh", WS_BATCH, WS_BATCH.replace("4", "2"))],
+    "ws_mainloop": [("sgd_fused.cu", WS_UPDATE, f"    if (In < 0)\n  {WS_UPDATE}")],
+}
 
 # name: (text substitutions, the tile compiled in)
 CP_VARIANTS = {"cp": ([], "SMALL"), "cp_ring4": (_cp_tile(1, 64, 4), "SMALL"),
@@ -521,8 +561,13 @@ def main(argv=None) -> int:
     ap.add_argument("--f32", action="store_true",
                     help="with --small, time only the f32 CP_WGMMA candidates")
     ap.add_argument("--builds", default="",
-                    help="with --small --f32, the CP_F32_VARIANTS to build (comma-separated; "
-                         "default all)")
+                    help="with --small --f32, the CP_F32_VARIANTS (with --ws: WS_VARIANTS) to "
+                         "build (comma-separated; default all)")
+    ap.add_argument("--ws", action="store_true",
+                    help="with --small --f32, time the WS_WGMMA candidates (WS_VARIANTS) instead")
+    ap.add_argument("--turns", action="store_true",
+                    help="with --small --f32, first the kernels slower in turns with the library "
+                         "than alone, after each prelude (turns())")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_ceiling: needs a CUDA device", file=sys.stderr)
@@ -532,8 +577,15 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
     torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "gemm_ceiling")
+    builds = [b for b in args.builds.split(",") if b]
+    if args.small and args.f32 and (args.turns or args.ws):
+        if args.turns:
+            turns(args.reps, turn_libs(root))
+        if args.ws:
+            ws_only(root, args.reps, builds)
+        return 0
     if args.small:
-        return small(root, args.reps, args.f32, [b for b in args.builds.split(",") if b])
+        return small(root, args.reps, args.f32, builds)
     builds = {name: build_variant(name, subs, root, EXTRA.get(name, ()))
               for name, subs in VARIANTS.items()}
     libs = {}
@@ -706,6 +758,30 @@ def small(root, reps, f32_only=False, f32_builds=()) -> int:
     return 0
 
 
+def ws_only(root, reps, names=()) -> None:
+    """Build the WS_VARIANTS named in ``names`` (all if empty), in parallel,
+    and time them (ws_designs)."""
+    variants = {n: v for n, v in WS_VARIANTS.items() if not names or n in names}
+    libs = {}
+    for name, subs in variants.items():
+        libs[repr((subs, ()))] = build_variant(name, subs, root)
+    for key, (so, proc) in libs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{out}")
+        for line in out.splitlines():
+            if ("registers" in line or "spill" in line
+                    or ("Compiling entry" in line and "ws_wgmma" in line)):
+                print(f"  ptxas [{os.path.basename(os.path.dirname(so))}] "
+                      f"{line.split(':', 1)[-1].strip()}")
+        libs[key] = load(so)
+    saved = _build._lib
+    try:
+        ws_designs(libs, reps, variants)
+    finally:
+        _build._lib = saved
+
+
 def bf16_designs(libs, reps) -> None:
     """Time bf16_candidates with each build of CP_VARIANTS, in two turns,
     and print each candidate's range over the turns beside the library's."""
@@ -791,7 +867,7 @@ def f32_candidates(dev, tile_name, prepass):
         pl_, vl = p.clone(), v.clone()
         plan = tp.plan(In, Out, B, In, Out, x.data_ptr(), e.data_ptr(), wgrad=True,
                        out_ptrs=(p.data_ptr(), v.data_ptr()))
-        if plan.route != tp.CP_WGMMA:   # kept on mma.sync: the plan the route would take
+        if plan.route != tp.CP_WGMMA:   # an odd Out, off the route: the plan it would take
             assert tp.cp_f32_keeps_mma_sync(True, Out)
             plan = tp.cp_fixed(In, Out, B, tp.CP_F32_TILE, tp.cp_f32_splits(In, Out, B),
                                tp.copy_bytes(In, x.data_ptr()), tp.copy_bytes(Out, e.data_ptr()),
@@ -858,6 +934,264 @@ def f32_designs(libs, reps, variants) -> None:
     if (MA.matmul_act.launches_f32_cp_wgmma, SF.wgrad_momentum_update.launches_f32_cp_wgmma) \
             == before:
         raise RuntimeError("the f32 CP_WGMMA route was not taken by its candidates")
+
+
+def ws_candidates(dev, full):
+    """(shape, library, [(candidate, fn)]) for a build of the WS kernel: at
+    960x1024->135 the WS weight gradient under ``tile_plan.ws_splits``
+    ("ws") and 2 to 8 splits forced. With ``full``, beside them the route
+    it had before WS_WGMMA ("mma.sync") and the CP_WGMMA kernel forced."""
+    from ..ops.kernels import tile_plan as tp
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    stream = torch.cuda.current_stream(dev)
+    B, In, Out = 960, 1024, 135
+    x = torch.randn((B, In), generator=gen, device=dev)
+    e = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)
+    p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
+    pl_, vl = p.clone(), v.clone()
+    ab, bb = tp.copy_bytes(In, x.data_ptr()), tp.ws_rows_e_bytes(Out, e.data_ptr())
+
+    def wsw(q):
+        return lambda: SF._launch_f32_ws_wgmma(_build._lib, x, e, p, v, 1e-3, 0.9, q, stream)
+
+    cands = [("ws", wsw(tp.cp_fixed(In, Out, B, tp.ROWS, tp.ws_splits(In, Out, B), ab, bb, 4,
+                                    tp.WS_WGMMA)))]
+    cands += [(f"ws {s}", wsw(tp.cp_fixed(In, Out, B, tp.ROWS, s, ab, bb, 4, tp.WS_WGMMA)))
+              for s in (2, 3, 4, 5, 6, 8)]
+    if full:
+        def replaced():
+            with without_ws():
+                SF.wgrad_momentum_update(x, e, p, v, 1e-3, 0.9)
+
+        cpq = tp.cp_fixed(In, Out, B, tp.CP_F32_TILE, tp.cp_f32_splits(In, Out, B), ab,
+                          tp.copy_bytes(Out, e.data_ptr()), elem=4)
+        cands += [("mma.sync", replaced),
+                  ("cp", lambda: SF._launch_f32_cp_wgmma(_build._lib, x, e, p, v, 1e-3, 0.9,
+                                                         cpq, stream))]
+    return [(f"wgrad {B}x{In}->{Out}",
+             lambda: pl_.add_(vl.addmm_(x.T, e, beta=0.9), alpha=-1e-3), cands)]
+
+
+def ws_designs(libs, reps, variants) -> None:
+    """Time ws_candidates with each build of ``variants`` (of WS_VARIANTS),
+    in two turns (each candidate in a window of its own calls, beside the
+    library's), and print each candidate's range over the turns."""
+    dev = torch.device("cuda", 0)
+    shapes = {name: ws_candidates(dev, name == "ws") for name in variants}
+    before = SF.wgrad_momentum_update.launches_f32_ws_wgmma
+    seen = {}
+    for turn in range(2):
+        order = list(variants.items())
+        for name, subs in (order if turn == 0 else reversed(order)):
+            _build._lib = libs[repr((subs, ()))]
+            for shape, library, cands in shapes[name]:
+                lib_us = event_us(library, reps)
+                seen.setdefault((name, shape, "library"), []).append(lib_us)
+                row = [f"library {lib_us:.2f}"]
+                for what, fn in (cands if turn == 0 else reversed(cands)):
+                    us = event_us(fn, reps)
+                    seen.setdefault((name, shape, what), []).append(us)
+                    row.append(f"{what} {us:.2f}")
+                print(f"gemm_ceiling ws turn {turn} {name} {shape}: " + "; ".join(row),
+                      flush=True)
+    for (name, shape, what), us in seen.items():
+        print(f"gemm_ceiling ws {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
+    if SF.wgrad_momentum_update.launches_f32_ws_wgmma == before:
+        raise RuntimeError("the WS_WGMMA route was not taken by its candidates")
+
+
+def profiled_us(fns, pattern, reps):
+    """Device us a call of the kernels whose name matches ``pattern``, by
+    torch.profiler over ``reps`` rounds of ``fns`` called in order (after a
+    warm-up round of the same); None where the profiler recorded none."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a window with no device time at all is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+        if rows:
+            mine = [e for e in rows if re.search(pattern, e.key)]
+            total = sum(e.self_device_time_total for e in mine)
+            return total / reps if total else None
+    return None
+
+
+CARVEOUT = "  return static_cast<int>(cudaFuncSetAttribute(\n      kernel, cudaFuncAttributeMax"
+# the builds turns() times each window with, in turns: the kernels as they
+# are (tile_gemm.cuh allow_smem sets no shared-memory carveout: CUDA picks
+# one a kernel), and asking for the largest carveout, as cuBLAS's GEMMs run
+# with
+TURN_BUILDS = {"as built": [],
+               "carveout max": [("tile_gemm.cuh", CARVEOUT,
+                                 "  cudaFuncSetAttribute(kernel, "
+                                 "cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
+                                 + CARVEOUT)]}
+
+
+def turn_libs(root):
+    """TURN_BUILDS built in parallel and loaded: {name: lib}."""
+    procs = {name: build_variant(f"turns_{i}", subs, root)
+             for i, (name, subs) in enumerate(TURN_BUILDS.items())}
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        libs[name] = load(so)
+    return libs
+
+
+def events_us(fns, reps):
+    """Device us a round of ``fns`` called in order, by CUDA events over
+    ``reps`` rounds queued behind a sleep kernel (event_us's method)."""
+    return event_us(lambda: [fn() for fn in fns], reps)
+
+
+def turns(reps, libs, rounds=3) -> None:
+    """Where a kernel that runs alone at t us runs slower in turns with its
+    library call (chip_smoke.py phase 3's windows): each kernel of
+    ``TURNS_CASES``, on its plan's route, timed by the profiler (device us
+    a call) after each prelude: none (alone), the library call, its cuBLAS
+    GEMM alone, a cuBLAS GEMM of 64x64 floats (shared memory in use, next
+    to nothing in L2), a 4 KB elementwise pass, 256 MB written (L2
+    flushed); then alone and after the library with one split forced and,
+    on the CP_WGMMA route, with its split-K scratch held from call to call
+    (no torch.empty a call); the library alone and after the kernel; the 4
+    KB pass alone (the floor of a launch); and by CUDA events, the kernel
+    alone, the library alone and the two in turns, whose difference is what
+    the kernel adds to the pair. Each window with each build of ``libs``
+    ({name: lib}, turn_libs), ``rounds`` times, builds and windows in
+    rotation; each line the range over the rounds."""
+    from ..ops.kernels import tile_plan as tp
+
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    small = torch.randn((1024,), generator=gen, device=dev)
+    tiny = torch.randn((64, 64), generator=gen, device=dev)
+    big = torch.empty(FLUSH_FLOATS, device=dev)
+    saved = _build._lib
+    try:
+        for what, M, K, N, wgrad in TURNS_CASES:
+            _turn_case(reps, rounds, libs, what, M, K, N, wgrad, tp, dev, stream, gen, small,
+                       tiny, big)
+    finally:
+        _build._lib = saved
+
+
+def _turn_case(reps, rounds, libs, what, M, K, N, wgrad, tp, dev, stream, gen, small, tiny,
+               big) -> None:
+    if wgrad:
+        B, In, Out = M, K, N
+        x = torch.randn((B, In), generator=gen, device=dev)
+        e = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)
+        p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
+        pl_, vl = p.clone(), v.clone()
+        plan = tp.plan(In, Out, B, In, Out, x.data_ptr(), e.data_ptr(), wgrad=True,
+                       out_ptrs=(p.data_ptr(), v.data_ptr()))
+        one = tp.cp_fixed(In, Out, B, plan.tile, 1, plan.a_bytes, plan.b_bytes, 4, plan.route)
+        launch = {tp.CP_WGMMA: SF._launch_f32_cp_wgmma, tp.WS_WGMMA: SF._launch_f32_ws_wgmma}
+
+        def kernel(q=plan):
+            launch[q.route](_build._lib, x, e, p, v, 1e-3, 0.9, q, stream)
+
+        def library():
+            pl_.add_(vl.addmm_(x.T, e, beta=0.9), alpha=-1e-3)
+
+        def cublas():
+            vl.addmm_(x.T, e, beta=0.9)
+
+        name = "wgrad_momentum"
+        held = torch.empty(plan.blocks * plan.bm * plan.bn, device=dev)
+
+        def kernel_held(q=plan):
+            _build.check(_build._lib.wgrad_momentum_update_f32_cp_wgmma(
+                x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), held.data_ptr(),
+                _build.counters(dev, stream).data_ptr(), 1e-3, 0.9, B, In, Out, 0,
+                q.splits, q.k_chunk, q.a_bytes, q.b_bytes, stream.cuda_stream), "held")
+    else:
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+        b = torch.randn((N,), generator=gen, device=dev)
+        y = torch.empty((M, N), device=dev)
+        plan = tp.plan(M, N, K, K, N, x.data_ptr(), w.data_ptr(), out_ptrs=(y.data_ptr(),))
+        one = tp.cp_fixed(M, N, K, plan.tile, 1, plan.a_bytes, plan.b_bytes, 4, plan.route)
+        def kernel(q=plan):
+            MA._launch_cp_wgmma(_build._lib, x, w, b, y, "sigmoid", q, stream)
+
+        def library():
+            torch.addmm(b, x, w).sigmoid_()
+
+        def cublas():
+            torch.addmm(b, x, w)
+
+        name = "matmul_act"
+        held = torch.empty(plan.blocks * plan.bm * plan.bn, device=dev)
+
+        def kernel_held(q=plan):
+            _build.check(_build._lib.matmul_act_f32_cp_wgmma(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, 1,
+                q.a_bytes, q.b_bytes, q.splits, q.k_chunk, held.data_ptr(),
+                _build.counters(dev, stream).data_ptr(), stream.cuda_stream), "held")
+
+    windows = {"alone": ([kernel], name), "after the library": ([library, kernel], name),
+               "after its cuBLAS GEMM alone": ([cublas, kernel], name),
+               "after a 64x64 cuBLAS GEMM": ([lambda: tiny @ tiny, kernel], name),
+               "after a 4 KB elementwise pass": ([lambda: small.sigmoid_(), kernel], name),
+               "after 256 MB written": ([lambda: big.fill_(1.0), kernel], name),
+               "1 split, alone": ([lambda: kernel(one)], name),
+               "1 split, after the library": ([library, lambda: kernel(one)], name),
+               "library alone": ([library], NOT_OURS),
+               "library after the kernel": ([kernel, library], NOT_OURS),
+               "4 KB elementwise pass alone": ([lambda: small.sigmoid_()], NOT_OURS)}
+    if plan.route == tp.CP_WGMMA and plan.splits > 1:
+        windows["after the library, scratch held"] = ([library, kernel_held], name)
+    timed = {"events: kernel alone": [kernel], "events: library alone": [library],
+             "events: library + kernel": [library, kernel]}
+    share = "events: the kernel's share of the pair"
+    seen = {}
+    builds = list(libs)
+    for r in range(rounds):
+        for build in builds[r % len(builds):] + builds[:r % len(builds)]:
+            _build._lib = libs[build]
+            order = list(windows.items())
+            for label, (fns, pattern) in order[r % len(order):] + order[:r % len(order)]:
+                us = profiled_us(fns, pattern, reps)
+                if us is not None:
+                    seen.setdefault((build, label), []).append(us)
+            for label, fns in timed.items():
+                seen.setdefault((build, label), []).append(events_us(fns, reps))
+            seen.setdefault((build, share), []).append(
+                seen[(build, "events: library + kernel")][-1]
+                - seen[(build, "events: library alone")][-1])
+    print(f"gemm_ceiling turns {what}: plan route {plan.route}, {plan.bm}x{plan.bn}, "
+          f"{plan.splits} splits", flush=True)
+    for build in builds:
+        for label in [*windows, *timed, share]:
+            us = seen.get((build, label))
+            rng = "not measured" if not us else f"{min(us):.2f}-{max(us):.2f} us"
+            print(f"gemm_ceiling turns [{build}] {what} {label}: {rng}", flush=True)
+
+
+# (what, M, K, N, wgrad) of turns(): the rows PERF.md lists as slower in
+# turns with the library than alone: TIMIT's forward, MLP3's 598->1024
+# weight gradient, and the weight gradient of 135 outputs
+TURNS_CASES = (("affine 1024x368->500", 1024, 368, 500, False),
+               ("wgrad 960x598->1024", 960, 598, 1024, True),
+               ("wgrad 960x1024->135", 960, 1024, 135, True))
+FLUSH_FLOATS = 64 << 20   # 256 MB written between calls: more than L2 holds
+NOT_OURS = "^(?!.*(matmul_act|wgrad_momentum))"   # the library's kernels
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ The kernels run only on the card; what surrounds them is held here:
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from nnet_asr_torch.tools.gemm_ceiling import mma_sync_f32
 torch.set_num_threads(2)
 
 SMALL, HALF, CP, MMA_SYNC = tile_plan.SMALL, tile_plan.HALF, tile_plan.CP_WGMMA, tile_plan.MMA_SYNC
+WS = tile_plan.WS_WGMMA
 BK, A_LINE, B_ROW = 32, 256, 128       # cp_tf32_wgmma.cuh BK, A_LINE, B_ROW
 
 
@@ -84,7 +86,8 @@ def test_f32_cp_plan_of_recipe_shapes(shape):
 
 # the route: f32 products whose BIG tiles would leave SMs idle, forward and
 # weight gradient, whatever their pitches, but the weight gradient of an
-# odd Out (e rows of no whole 8-byte units), which keeps its mma.sync plan;
+# odd Out (e rows of no whole 8-byte units), which takes the WS_WGMMA route
+# where its N width is built (135) and else keeps its mma.sync plan;
 # f32 products the BIG tile fills keep the f32 WGMMA route or, off TMA, the
 # BIG mma.sync plan; mma_sync_f32 forces the MMA_SYNC plans of all
 @pytest.mark.parametrize("shape,route", [
@@ -98,10 +101,14 @@ def test_f32_cp_route_rule(shape, route, wgrad):
     p = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad)
     kept = tile_plan.cp_f32_keeps_mma_sync(wgrad, bp)
     assert kept == (wgrad and bp % 2 == 1)
-    assert p.route == (MMA_SYNC if kept and route == CP else route)
+    # an odd Out the WS_WGMMA route takes (135 rounds up to its 136), else
+    # the mma.sync plan it had
+    ws = kept and route == CP and tile_plan.ws_f32_takes(M, N, K, wgrad, bp)
+    kept = kept and not ws
+    assert p.route == (WS if ws else MMA_SYNC if kept and route == CP else route)
     assert (p.route == CP) == (tile_plan.tile_count(M, N, tile_plan.BIG) < tile_plan.SM_COUNT
-                               and not kept)
-    if kept:   # the plan it had: the SMALL mma.sync tile and its split rule
+                               and not kept and not ws)
+    if kept and route == CP:   # the plan it had: the SMALL mma.sync tile and its split rule
         tiles = tile_plan.tile_count(M, N, SMALL)
         assert (p.tile, p.splits) == (SMALL, tile_plan.split_count(tiles, -(-K // BK)))
     with mma_sync_f32():
@@ -383,3 +390,231 @@ def test_term_order_within_phase3_tolerance(depth):
         assert (corr - ref).abs().max().item() <= 1e-5 * ref.abs().max().item() / 5
     if p.splits > 1:   # the split order is part of the sum: one chunk differs
         assert p.k_chunk < K
+
+
+# --------------------------------------------------------------------------
+# the WS_WGMMA route: the warp-specialised ring (cp_tf32_wgmma.cuh)
+# --------------------------------------------------------------------------
+
+WS_NB = 136   # the weight gradient's N width (tile_plan.WS_ROWS_WIDTHS)
+
+
+# the ring as built (4 stages) and gemm_ceiling's ws_rows_ring3 candidate
+@pytest.mark.parametrize("stages", [tile_plan.WS_ROWS_STAGES, 3])
+def test_ws_ring_fits_a_block_and_one_an_sm(stages):
+    smem = tile_plan.ws_f32_smem_bytes(WS_NB, stages)
+    nb = WS_NB
+    stage = BK * A_LINE + 2 * nb * B_ROW
+    assert smem == stages * stage + (stages - 1) * nb * B_ROW + 16 * stages + 1024
+    assert smem <= 227 * 1024
+    assert smem + 16 + tile_plan.BLOCK_SMEM_RESERVED <= tile_plan.SM_SMEM
+    # the consumers' stash of partials (128 threads x nb / 2 floats) fits
+    # the ring; every slot starts on a 1024-byte boundary
+    assert 128 * (nb // 2) * 4 <= stages * stage
+    assert stage % 1024 == 0 and (nb * B_ROW) % 1024 == 0
+    assert tile_plan.ws_f32_smem_bytes() == tile_plan.ws_f32_smem_bytes(
+        tile_plan.TILES[tile_plan.ROWS][1], tile_plan.WS_ROWS_STAGES)
+
+
+# each substitution of gemm_ceiling's WS builds finds its text once in the
+# sources, and the ring candidate swaps the stage count the plan knows
+@pytest.mark.parametrize("name", ["ws", "ws_rows_ring3", "ws_batch2", "ws_mainloop"])
+def test_ws_variants_find_their_lines(name):
+    from nnet_asr_torch.tools.gemm_ceiling import WS_ROWS_TILE, WS_VARIANTS
+
+    for fname, old, new in WS_VARIANTS[name]:
+        with open(os.path.join(_build.CSRC, fname)) as f:
+            assert f.read().count(old) == 1 and new != old
+    assert WS_ROWS_TILE == (f"using WsF32Rows = WsF32Tile<{WS_NB}, "
+                            f"{tile_plan.WS_ROWS_STAGES}>;")
+
+
+def copy_rows(smem, src, ncols, k0, k_end, width):
+    """load_b_rows: k-lines k0 .. k0 + BK of src (ncols floats a row, no
+    padding) as one run of bytes in units of ``width``, the rest of the
+    stage zero (a unit past k_end keeps none of its bytes)."""
+    units = BK * ncols * 4 // width
+    run = (min(k_end, k0 + BK) - k0) * ncols * 4
+    base = k0 * ncols
+    for u in range(units):
+        off = u * width
+        valid = max(0, min(width, run - off))
+        seg = np.zeros(width // 4, np.float32)
+        seg[:valid // 4] = src[base + off // 4:base + off // 4 + valid // 4]
+        smem[off // 4:off // 4 + width // 4] = seg
+
+
+def ws_split_rows(sh, sl, sr, pitch, nb, producers=128):
+    """ws_split in ROWS: the producer's thread idx takes unit u of B row j
+    (k 4u .. 4u + 3 of raw column j, raw k-lines at ``pitch``); returns,
+    for each warp's pass, the (u, raw words) of each lane, for the banks."""
+    units = nb * 8
+    reads = []
+    for l in range(-(-units // producers)):
+        for warp in range(producers // 32):
+            rw = []
+            for lane in range(32):
+                idx = warp * 32 + lane + l * producers
+                if idx >= units:
+                    continue
+                j, u = idx % nb, idx // nb
+                words = [(4 * u + q) * pitch + j for q in range(4)]
+                rw.append((u, words))
+                hi, lo = split_tf32(sr[words])
+                off = j * B_ROW + ((u ^ (j & 7)) << 4)
+                sh[off // 4:off // 4 + 4] = hi
+                sl[off // 4:off // 4 + 4] = lo
+            reads.append(rw)
+    return reads
+
+
+# e (B, Out) of the weight gradient, one tile of 136 columns: a whole stage,
+# the bunch's last 32 rows, a stage the bunch ends inside (283 - 256 = 27
+# rows), 4-byte units (an unaligned base); Out 135, 39 and 130
+@pytest.mark.parametrize("B,Out,k0,width", [(960, 135, 0, 16), (960, 135, 928, 16),
+                                            (283, 39, 256, 16), (300, 130, 288, 4),
+                                            (67, 135, 64, 8)])
+def test_ws_rows_run_and_transposing_split_give_the_prepass_bits(B, Out, k0, width):
+    e = _tile_data(B, Out, B + Out)
+    sr = np.full(WS_NB * BK, np.nan, np.float32)   # the raw slot: 136 k-lines' worth
+    copy_rows(sr, e.ravel(), Out, k0, B, width)
+    sh, sl = np.full(WS_NB * BK, np.nan, np.float32), np.full(WS_NB * BK, np.nan, np.float32)
+    reads = ws_split_rows(sh, sl, sr, Out, WS_NB)
+    # every word read lies in the raw slot; a warp's loads fall in 32
+    # distinct banks (neighbouring columns of one k-line), but where its 32
+    # units straddle two k-groups (136 columns are no multiple of 32): at
+    # most two lanes a bank there
+    assert max(w for rw in reads for _, words in rw for w in words) < WS_NB * BK
+    for rw in (rw for rw in reads if rw):
+        straddles = len({u for u, _ in rw}) > 1
+        for q in range(4):
+            banks = [words[q] % 32 for _, words in rw]
+            worst = max(banks.count(b) for b in banks)
+            assert worst == 1 or (straddles and worst <= 2)
+    # the pre-pass's bits, e^T split, zero past the bunch; columns past Out
+    # (the padded N) read whatever lies there and are dropped by the epilogue
+    rows = min(BK, B - k0)
+    want = np.zeros((Out, BK), np.float32)
+    want[:, :rows] = e[k0:k0 + rows].T
+    hi, lo = split_tf32(want)
+    np.testing.assert_array_equal(read_kmajor(sh, WS_NB)[:Out], hi)
+    np.testing.assert_array_equal(read_kmajor(sl, WS_NB)[:Out], lo)
+
+
+def test_ws_stash_slots_are_the_fragments(nb=WS_NB):
+    """ws_stash writes float4 i of consumer thread tid at i * 128 + tid, and
+    the thread's acc[4i + 2h + e] is out^T at A row (as col_of deals them)
+    16 w + 2 g + h, B column 8 i + 2 t + e; ws_sum's slot of row pair q and
+    (i, t) must read that same element."""
+    consumers = 128
+    frag = {}
+    for tid in range(consumers):
+        w, g, t = tid // 32, (tid % 32) // 4, tid % 4
+        for i in range(nb // 8):
+            for h in (0, 1):
+                for e in (0, 1):
+                    frag[(i * consumers + tid) * 4 + 2 * h + e] = (16 * w + 2 * g + h,
+                                                                  8 * i + 2 * t + e)
+    epi = {}
+    for q in range(32):
+        for i in range(nb // 8):
+            for t in range(4):
+                for h in (0, 1):
+                    for e in (0, 1):
+                        epi[(i * consumers + 4 * q + t) * 4 + 2 * h + e] = (2 * q + h,
+                                                                           8 * i + 2 * t + e)
+    assert epi == frag and len(frag) == consumers * nb // 2
+    assert len(set(frag.values())) == len(frag)   # every element of the tile once
+
+
+@pytest.mark.parametrize("lines", [32, 68])
+def test_ws_cluster_shares_cover_every_line_once(lines):
+    """Each of a cluster's S blocks writes lines [r per, min(L, (r + 1)
+    per)), per = ceil(L / S): together every line once, for 1 to 8 splits."""
+    for splits in range(1, 9):
+        per = -(-lines // splits)
+        got = [k for r in range(splits) for k in range(r * per, min(lines, (r + 1) * per))]
+        assert got == list(range(lines))
+
+
+# ws_update_pv over a cluster of S blocks: block r takes row pairs [r per,
+# min(32, (r + 1) per)) of the tile's 64 rows of p, each across the 68
+# column pairs of 136 columns; every element of p within In x Out once, the
+# columns past Out (and rows past In) dropped
+@pytest.mark.parametrize("In,Out", [(1024, 135), (500, 39), (61, 129), (1, 1), (300, 136)])
+def test_ws_update_writes_every_element_of_p_once(In, Out):
+    pairs, slots = 32, WS_NB // 2
+    for splits in (1, 2, 6):
+        seen = []
+        per = -(-pairs // splits)
+        for in0 in range(0, In, 64):
+            for rank in range(splits):
+                lo = rank * per
+                for k in range(max(0, min(pairs, lo + per) - lo) * slots):
+                    q, slot = lo + k // slots, k % slots
+                    r0, c0 = in0 + 2 * q, 2 * slot
+                    seen += [(r0 + c // 2, c0 + c % 2) for c in range(4)
+                             if r0 + c // 2 < In and c0 + c % 2 < Out]
+        assert sorted(seen) == [(r, c) for r in range(In) for c in range(Out)]
+
+
+# (M, N, K, wgrad) -> (route, tile, splits, N width) of every recipe shape
+# of the f32 kernels: MLP3's forward and both weight gradients, TIMIT's
+# forward and weight gradients, a 2x2 mesh rank's and one tmpe utterance's
+# rows, the RBM recipe's 960x1024->1024. The weight gradient of 135 outputs
+# takes the WS_WGMMA route with Out on wgmma's N, 135 rounded up to 136;
+# TIMIT's 39 (40 wide: no kernel built for it) keeps mma.sync
+RECIPE_ROUTES = {
+    (960, 1024, 598, False): (CP, HALF, 1, None),
+    (598, 1024, 960, True): (CP, HALF, 3, None),
+    (1024, 135, 960, True): (WS, tile_plan.ROWS, 6, 136),
+    (1024, 500, 368, False): (CP, HALF, 2, None),
+    (368, 500, 1024, True): (CP, HALF, 5, None),
+    (500, 39, 1024, True): (MMA_SYNC, SMALL, 8, None),
+    (480, 1024, 598, False): (CP, HALF, 2, None),
+    (284, 1024, 598, False): (CP, HALF, 3, None),
+    (960, 1024, 1024, False): (CP, HALF, 1, None),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(RECIPE_ROUTES))
+def test_ws_route_rule_at_recipe_shapes(shape):
+    from nnet_asr_torch.tools.gemm_ceiling import without_ws
+
+    M, N, K, wgrad = shape
+    a_pitch = M if wgrad else K
+    p = tile_plan.plan(M, N, K, a_pitch, N, 1 << 20, 1 << 21, wgrad=wgrad,
+                       out_ptrs=(1 << 22, 1 << 23))
+    route, tile, splits, width = RECIPE_ROUTES[shape]
+    assert (p.route, p.tile, p.splits) == (route, tile, splits)
+    assert (p.route == WS) == tile_plan.ws_f32_takes(M, N, K, wgrad, N)
+    with without_ws():
+        q = tile_plan.plan(M, N, K, a_pitch, N, 1 << 20, 1 << 21, wgrad=wgrad,
+                           out_ptrs=(1 << 22, 1 << 23))
+    if p.route != WS:   # a shape the route refuses keeps its plan
+        assert q == p
+        return
+    # an odd Out: N rounded up to a multiple of 8, one tile across it; the
+    # route it replaces is the mma.sync plan it had
+    assert N % 2 == 1 and p.bn == width == tile_plan.ws_rows_width(N) and width % 8 == 0
+    assert width - 8 < N <= width and tile_plan.tile_count(M, N, p.tile) == -(-M // 64)
+    assert q.route == MMA_SYNC and tile_plan.cp_f32_keeps_mma_sync(wgrad, N)
+    assert p.splits == tile_plan.ws_splits(M, N, K) <= tile_plan.WS_MAX_SPLITS
+    assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
+    assert p.k_chunk % BK == 0 and p.k_chunk * (p.splits - 1) < K <= p.k_chunk * p.splits
+    # e's stage is BK whole rows, one run from a 16-byte aligned base
+    assert p.b_bytes == tile_plan.ws_rows_e_bytes(N, 1 << 21) == 16
+
+
+@pytest.mark.parametrize("out", [1, 7, 8, 9, 39, 127, 129, 135, 136, 137, 1024])
+def test_ws_rows_width_and_copy(out):
+    width = tile_plan.ws_rows_width(out)
+    assert width % 8 == 0 and width - 8 < out <= width
+    takes = tile_plan.ws_f32_takes(1024, out, 960, True, out)
+    assert takes == (out % 2 == 1 and width in tile_plan.WS_ROWS_WIDTHS)
+    assert not tile_plan.ws_f32_takes(1024, out, 960, False, out)   # never the forward
+    # the route only where one 136-wide tile spans Out; e's copy width by
+    # the base alone (the stage is one run starting on a 128-byte multiple)
+    assert not takes or out <= WS_NB
+    for base, want in ((1 << 20, 16), ((1 << 20) + 8, 8), ((1 << 20) + 4, 4)):
+        assert tile_plan.ws_rows_e_bytes(out, base) == want

@@ -97,6 +97,9 @@ KERNEL_NAMES = {
     "void (anonymous namespace)::wgrad_momentum_f32_cp_wgmma_kernel<nnet_cpf::CpF32Tile<2, 64, 4, "
     "1>, __nv_bfloat16>(float const*, float const*, float*, __nv_bfloat16*, float*, int*, float, "
     "float, int, int, int, int, int, int)": "wgrad_momentum_update f32 CP_WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_f32_ws_wgmma_kernel<nnet_cpf::WsF32Tile<136, 4>, "
+    "float>(float const*, float const*, float*, float*, float, float, int, int, int, int, int, "
+    "int)": "wgrad_momentum_update f32 WS_WGMMA (ours)",
     "void (anonymous namespace)::matmul_act_cp_wgmma_kernel<nnet_cpw::CpTile<1, 64, 3> >("
     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, "
     "int*, int, int, int, int, int, int, int)": "affine_sigmoid bf16 (ours)",
@@ -163,5 +166,6 @@ def test_wgmma_spills_from_ptxas_report():
         "_ZN46_GLOBAL__N__x_matmul_act_f32_cp_wgmma_kernelIN8nnet_cpf9CpF32TileILi2ELi64ELi4ELi0EE"
         "EEEvPKf": 8}
     # 3 bf16 TMA instances, 3 f32 ones, the bf16 CP_WGMMA forward, the f32
-    # CP_WGMMA forward and its wgrad at f32 and bf16 velocity
-    assert chip_smoke.WGMMA_KERNELS == 10
+    # CP_WGMMA forward and its wgrad at f32 and bf16 velocity, the f32
+    # WS_WGMMA wgrad at both
+    assert chip_smoke.WGMMA_KERNELS == 12

@@ -469,8 +469,8 @@ def test_cuda_cp_wgmma_layouts_exact(cuda, shape, splits):
 
 
 # The weight gradient's split-K reduced in its one launch: no second kernel
-# (f32 on the f32 CP_WGMMA route but at Out = 135, which the plan keeps on
-# mma.sync; bf16 on mma.sync)
+# (f32 on the f32 CP_WGMMA route but at Out = 135, which the plan sends to
+# the WS_WGMMA route; bf16 on mma.sync)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(960, 598, 1024), (960, 1024, 135), (598, 598, 1024)])
@@ -485,8 +485,9 @@ def test_cuda_wgrad_split_k_one_launch(cuda, shape, dtype):
     p = torch.zeros((In, Out), device=cuda)
     v = torch.zeros((In, Out), device=cuda)
     names = _kernels_of(lambda: SF.wgrad_momentum_update(xs, es, p, v, 1e-3, 0.9))
-    kernel = ("wgrad_momentum_f32_cp_wgmma_kernel" if pl.route == tile_plan.CP_WGMMA
-              else "wgrad_momentum_kernel")
+    kernel = {tile_plan.CP_WGMMA: "wgrad_momentum_f32_cp_wgmma_kernel",
+              tile_plan.WS_WGMMA: "wgrad_momentum_f32_ws_wgmma_kernel"}.get(
+                  pl.route, "wgrad_momentum_kernel")
     assert (pl.route == tile_plan.CP_WGMMA) == (dtype == torch.float32 and Out % 2 == 0)
     assert len(names) == 1 and kernel in names[0]
 
@@ -1012,13 +1013,15 @@ F32_CP_SHAPES = [(960, 598, 1024), (1024, 368, 500), (284, 598, 1024), (480, 598
 
 def _f32_cp_plan(M, N, K, splits, xs, ws, wgrad=False):
     """The f32 CP_WGMMA plan of ``tile_plan.plan`` or, at a shape the plan
-    keeps on mma.sync (a weight gradient of an odd Out), the one the route
-    would take there; with the split forced unless None."""
+    sends elsewhere (a weight gradient of an odd Out: the WS_WGMMA route,
+    or mma.sync), the one the route would take there; with the split
+    forced unless None."""
     a_pitch = K if not wgrad else M
     pl = tile_plan.plan(M, N, K, a_pitch=a_pitch, b_pitch=N, a_ptr=xs.data_ptr(),
                         b_ptr=ws.data_ptr(), wgrad=wgrad)
     if pl.route != tile_plan.CP_WGMMA:
-        assert tile_plan.cp_f32_keeps_mma_sync(wgrad, N) and pl.route == tile_plan.MMA_SYNC
+        assert (pl.route == tile_plan.WS_WGMMA
+                or tile_plan.cp_f32_keeps_mma_sync(wgrad, N) and pl.route == tile_plan.MMA_SYNC)
         pl = tile_plan.cp_fixed(M, N, K, tile_plan.CP_F32_TILE, tile_plan.cp_f32_splits(M, N, K),
                                 tile_plan.copy_bytes(a_pitch, xs.data_ptr()),
                                 tile_plan.copy_bytes(N, ws.data_ptr()), elem=4)
@@ -1148,3 +1151,104 @@ def test_cuda_f32_cp_wgmma_layouts_exact(cuda, which, shape, splits):
         torch.cuda.synchronize()
         g = (x.double().T @ e.double()).float()
         assert torch.equal(v, g) and torch.equal(p, -g)
+
+
+# The f32 WS_WGMMA route (csrc/cp_tf32_wgmma.cuh's warp-specialised ring:
+# a producer warpgroup copying e's rows and transposing and splitting them,
+# a consumer warpgroup issuing wgmma) against the plain version: the weight
+# gradient with Out on wgmma's N, one tile of 136 columns (MLP3's 135
+# outputs, TIMIT's 39, 129 to 136, ragged In and B, a 1-element offset:
+# 4-byte copies of x and of e's rows), f32 and bf16 velocity, under its plan
+# and 1 to 8 splits forced. Tolerances as the CP_WGMMA route's above; two
+# launches equal bit for bit (the splits of a tile, one cluster, summed in
+# split order); the route's counter once a call. An Out past the tile
+# raises.
+def _ws_plan(In, Out, B, splits, xs, es):
+    """The WS_WGMMA plan of the weight gradient g = x^T e (In, Out, the
+    bunch B) whether or not tile_plan.plan routes the shape there; the
+    split forced unless None."""
+    s = tile_plan.ws_splits(In, Out, B) if splits is None else splits
+    return tile_plan.cp_fixed(In, Out, B, tile_plan.ROWS, s,
+                              tile_plan.copy_bytes(In, xs.data_ptr()),
+                              tile_plan.ws_rows_e_bytes(Out, es.data_ptr()), 4,
+                              tile_plan.WS_WGMMA)
+
+
+F32_WS_WGRAD = [(960, 1024, 135), (1024, 500, 39), (67, 61, 135), (300, 256, 130, 1),
+                (284, 1024, 135), (1, 1, 1), (960, 598, 136), (300, 256, 129, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, 1, 2, 3, 5, 8])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", F32_WS_WGRAD)
+def test_cuda_wgrad_f32_ws_wgmma_matches_plain(cuda, shape, vdt, forced):
+    from nnet_asr_torch.ops.kernels import _build
+
+    B, In, Out, offset = (*shape, 0)[:4]
+    rng = np.random.default_rng(14)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
+    xs, es = (_on_card(a, cuda, offset) for a in (x, e))
+    pl = _ws_plan(In, Out, B, forced, xs, es)
+    routed = tile_plan.plan(In, Out, B, In, Out, xs.data_ptr(), es.data_ptr(), wgrad=True)
+    stream = torch.cuda.current_stream(cuda)
+
+    def run(pk, vk):
+        if forced is None and routed.route == tile_plan.WS_WGMMA:
+            assert routed == pl
+            SF.wgrad_momentum_update(xs, es, pk, vk, 0.003, 0.9)
+        else:
+            SF._launch_f32_ws_wgmma(_build.load_library(), xs, es, pk, vk, 0.003, 0.9, pl, stream)
+
+    pk, pp, pk2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
+    vk, vp, vk2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
+    before = SF.wgrad_momentum_update.launches_f32_ws_wgmma
+    run(pk, vk)
+    run(pk2, vk2)
+    assert SF.wgrad_momentum_update.launches_f32_ws_wgmma == before + 2
+    SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pk2) and torch.equal(vk, vk2)
+    assert (pk - pp).abs().max().item() <= 1e-5 * pp.abs().max().item()
+    tol = 1e-5 * vp.float().abs().max()
+    if vdt == torch.bfloat16:
+        tol = tol + bf16_ulp(torch.maximum(vk.float().abs(), vp.float().abs()))
+    assert bool(((vk.float() - vp.float()).abs() <= tol).all())
+
+
+# Small integers make every 3xTF32 sum exact: the WS kernel's swizzles,
+# fragments, descriptors, the producer's transposing split, the run copies
+# of e's rows (zero past the bunch, the padded columns dropped), zero fill
+# and the split sums move whole elements if wrong.
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(960, 1024, 135), (283, 300, 39), (300, 598, 136),
+                                   (200, 598, 129), (300, 368, 135)])
+def test_cuda_f32_ws_wgmma_layouts_exact(cuda, shape, splits):
+    from nnet_asr_torch.ops.kernels import _build
+
+    rng = np.random.default_rng(29)
+    B, In, Out = shape
+    x = torch.from_numpy(rng.integers(-2, 3, (B, In)).astype(np.float32)).to(cuda)
+    e = torch.from_numpy(rng.integers(-2, 3, (B, Out)).astype(np.float32)).to(cuda)
+    p, v = torch.zeros((In, Out), device=cuda), torch.zeros((In, Out), device=cuda)
+    SF._launch_f32_ws_wgmma(_build.load_library(), x, e, p, v, 1.0, 0.0,
+                            _ws_plan(In, Out, B, splits, x, e), torch.cuda.current_stream(cuda))
+    torch.cuda.synchronize()
+    g = (x.double().T @ e.double()).float()
+    assert torch.equal(v, g) and torch.equal(p, -g)
+
+
+# The kernel holds one tile of 136 columns: a wider Out is refused by the
+# launch, not computed in part
+@pytest.mark.cuda
+def test_cuda_f32_ws_wgmma_refuses_wide_out(cuda):
+    from nnet_asr_torch.ops.kernels import _build
+
+    B, In, Out = 64, 64, 137
+    x, e = torch.ones((B, In), device=cuda), torch.ones((B, Out), device=cuda)
+    p, v = torch.zeros((In, Out), device=cuda), torch.zeros((In, Out), device=cuda)
+    with pytest.raises(RuntimeError):
+        SF._launch_f32_ws_wgmma(_build.load_library(), x, e, p, v, 1.0, 0.0,
+                                _ws_plan(In, Out, B, 1, x, e), torch.cuda.current_stream(cuda))

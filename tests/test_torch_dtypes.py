@@ -178,9 +178,9 @@ def test_bf16_plan_of_main_path_shapes(name):
     # f32 operands: the f32 WGMMA route at the production shapes (128x128
     # tiles on a persistent grid, the forward's too), the f32 CP_WGMMA one
     # at MLP3's forward and 598->1024 weight gradient (where bf16's weight
-    # gradients keep mma.sync); mma.sync at 960x1024->135, an odd Out
+    # gradients keep mma.sync); the WS_WGMMA one at 960x1024->135, an odd Out
     f = tile_plan.plan(M, N, K, a_pitch=ap, b_pitch=bp, a_ptr=256, b_ptr=512, wgrad=split)
-    assert f.route == (W if p.route == W else MS if split and bp % 2 else CP)
+    assert f.route == (W if p.route == W else tile_plan.WS_WGMMA if split and bp % 2 else CP)
     if f.route == tile_plan.WGMMA:
         assert (f.tile, f.splits, f.blocks) == (tile_plan.BIG, 1, tile_plan.SM_COUNT)
     if p.route == CP:
@@ -190,11 +190,14 @@ def test_bf16_plan_of_main_path_shapes(name):
         # the mma.sync split weighs a block's fixed cost against the steps
         # of its own type; the f32 CP_WGMMA one takes two blocks an SM
         tiles = tile_plan.tile_count(M, N, p.tile)
-        assert f.tile == (p.tile if f.route == MS else tile_plan.CP_F32_TILE)
         assert p.splits == tile_plan.split_count(tiles, -(-K // tile_plan.BK), elem=2)
-        assert f.splits == (tile_plan.split_count(tiles, -(-K // tile_plan.BK))
-                            if f.route == MS else tile_plan.cp_f32_splits(M, N, K))
         assert p.blocks == tiles * p.splits
+        if f.route == tile_plan.WS_WGMMA:   # Out on wgmma's N, the route's own split
+            assert (f.tile, f.splits) == (tile_plan.ROWS, tile_plan.ws_splits(M, N, K))
+        else:
+            assert f.tile == (p.tile if f.route == MS else tile_plan.CP_F32_TILE)
+            assert f.splits == (tile_plan.split_count(tiles, -(-K // tile_plan.BK))
+                                if f.route == MS else tile_plan.cp_f32_splits(M, N, K))
     else:
         # one block a 128x256 tile; the weight gradient's grid persistent
         tiles = tile_plan.tile_count(M, N, p.tile)
@@ -308,8 +311,9 @@ def test_two_byte_pitches_stay_on_mma_sync(args):
 
 # f32 operands take the route (csrc/cp_tf32_wgmma.cuh), forward and weight
 # gradient, at every shape of the main paths whose 128x128 tiles leave the
-# card idle, but the weight gradient of an odd Out (cp_f32_keeps_mma_sync),
-# whose plan does not change; with the route switched off for 4-byte
+# card idle, but the weight gradient of an odd Out, on the WS_WGMMA route
+# where its N width is built (ws_f32_takes: 135) and else on its mma.sync
+# plan (cp_f32_keeps_mma_sync), neither changed; with the route switched off for 4-byte
 # elements the plan is the MMA_SYNC one it was, on the 64x64 tile and the
 # same copy widths (its split rule takes three blocks an SM at a time, the
 # route's waves of two); the production shapes keep the f32 WGMMA plan,
@@ -328,6 +332,10 @@ def test_f32_plans_unchanged_by_the_cp_wgmma_route(shape, wgrad):
         tile_plan.CP_WGMMA_ELEMS = saved
     if tile_plan.tile_count(M, N, tile_plan.BIG) >= tile_plan.SM_COUNT:
         assert p == q and p.route == tile_plan.WGMMA
+    elif tile_plan.ws_f32_takes(M, N, K, wgrad, N):
+        # the WS_WGMMA route's plan (an odd Out it is built for), the
+        # CP_WGMMA route on or off
+        assert p == q and p.route == tile_plan.WS_WGMMA and N % 2 == 1
     elif tile_plan.cp_f32_keeps_mma_sync(wgrad, N):
         assert p == q and p.route == tile_plan.MMA_SYNC and N % 2 == 1
     else:

@@ -151,6 +151,7 @@ def test_f32_wgmma_route_terms_within_phase3_tolerance(which):
 
 BIG, SMALL, WIDE, HALF = tile_plan.BIG, tile_plan.SMALL, tile_plan.WIDE, tile_plan.HALF
 MMA_SYNC, WGMMA, CP_WGMMA = tile_plan.MMA_SYNC, tile_plan.WGMMA, tile_plan.CP_WGMMA
+ROWS, WS_WGMMA = tile_plan.ROWS, tile_plan.WS_WGMMA
 
 # (M, N, K, a_pitch, b_pitch, wgrad) -> (tile, splits, k_chunk, a_bytes,
 # b_bytes, route)
@@ -177,12 +178,13 @@ MAIN_PATH_PLANS = {
                                (BIG, 1, 4096, 16, 16, WGMMA)),
     # wgrad x^T e: M = In, N = Out, K = bunch; pitches In and Out; the f32
     # CP_WGMMA route splits the bunch 3 ways at 160 tiles (4 on mma.sync,
-    # whose blocks fit 3 an SM); 960x1024->135 (an odd Out) keeps its
-    # mma.sync plan, which the card measured faster
+    # whose blocks fit 3 an SM); 960x1024->135 (an odd Out) takes the
+    # WS_WGMMA route, Out on wgmma's N (136 wide), 16 tiles of In each cut
+    # 6 ways, e's rows copied as one 16-byte run a stage
     "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
                                    (HALF, 3, 320, 8, 16, CP_WGMMA)),
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
-                                   (SMALL, 5, 192, 16, 4, MMA_SYNC)),
+                                   (ROWS, 6, 160, 16, 16, WS_WGMMA)),
     # the production weight gradients: the ping-pong 128x128 tiles of the
     # f32 WGMMA route on a persistent grid (the BIG mma.sync tile before)
     "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
@@ -207,7 +209,7 @@ def test_plan_of_main_path_shapes(name):
     else:
         assert p.blocks == tiles * p.splits
     # BIG and WGMMA plans only where the 128x128 tiles fill the card
-    assert tile_plan.tile_count(M, N, BIG) >= tile_plan.SM_COUNT or p.tile in (SMALL, HALF)
+    assert tile_plan.tile_count(M, N, BIG) >= tile_plan.SM_COUNT or p.tile in (SMALL, HALF, ROWS)
     if p.tile != BIG:
         # the split leaves the busiest SM no more work than the whole tiles
         busiest = -(-p.blocks // tile_plan.SM_COUNT) / p.splits
@@ -279,12 +281,12 @@ def test_f32_wgmma_route_needs_tma_pitches(shape):
 # forward and output weight, the RBM recipe's 960x1024->1024, a 2x1 mesh
 # rank's production rows (128 BIG tiles, under the 132 SMs), MLP3's and
 # tmpe's rows, TIMIT's output layer, but for the weight gradients of an
-# odd Out (MLP3's 135, TIMIT's 39), which keep their MMA_SYNC plan
-# (tile_plan.cp_f32_keeps_mma_sync). Its split (cp_f32_splits: waves of two
+# odd Out: MLP3's 135 takes the WS_WGMMA route (tile_plan.ws_f32_takes),
+# TIMIT's 39 keeps its MMA_SYNC plan (tile_plan.cp_f32_keeps_mma_sync). Its split (cp_f32_splits: waves of two
 # blocks an SM) is the mma.sync plan's but at MLP3's 598->1024 weight
 # gradient (3 splits, 4 before) and the 128-tile forwards (TIMIT's and a
-# mesh rank's: 2, whole before); copy widths and grids follow. With the
-# route switched off (mma_sync_f32) each keeps the MMA_SYNC plan it had.
+# mesh rank's: 2, whole before); copy widths and grids follow. With both
+# routes switched off each keeps the MMA_SYNC plan it had.
 # Plan fields: tile, bm, bn, splits, k_chunk, a_bytes, b_bytes, route,
 # blocks.
 SMALL_PLANS = {
@@ -296,7 +298,7 @@ SMALL_PLANS = {
     (512, 4096, 4096, 4096, 4096, False): (HALF, 64, 128, 1, 4096, 16, 16, CP_WGMMA, 256),
     (960, 1024, 598, 598, 1024, False): (HALF, 64, 128, 1, 598, 8, 16, CP_WGMMA, 120),
     (598, 1024, 960, 598, 1024, True): (HALF, 64, 128, 3, 320, 8, 16, CP_WGMMA, 240),
-    (1024, 135, 960, 1024, 135, True): (SMALL, 64, 64, 5, 192, 16, 4, MMA_SYNC, 240),
+    (1024, 135, 960, 1024, 135, True): (ROWS, 64, 136, 6, 160, 16, 16, WS_WGMMA, 96),
     (284, 1024, 598, 598, 1024, False): (HALF, 64, 128, 3, 224, 8, 16, CP_WGMMA, 120),
     (480, 1024, 598, 598, 1024, False): (HALF, 64, 128, 2, 320, 8, 16, CP_WGMMA, 128),
     (1024, 39, 500, 500, 39, False): (HALF, 64, 128, 4, 128, 16, 4, CP_WGMMA, 64),
@@ -326,15 +328,17 @@ def test_small_route_shapes_keep_their_plan(shape):
     M, N, K, ap, bp, wgrad = shape
     p = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
     assert tuple(p) == SMALL_PLANS[shape]
-    saved = tile_plan.CP_WGMMA_ELEMS
+    saved = tile_plan.CP_WGMMA_ELEMS, tile_plan.WS_ELEMS
     try:
-        tile_plan.CP_WGMMA_ELEMS = (2,)
+        tile_plan.CP_WGMMA_ELEMS, tile_plan.WS_ELEMS = (2,), ()
         q = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, out_ptrs=(1 << 22,))
     finally:
-        tile_plan.CP_WGMMA_ELEMS = saved
+        tile_plan.CP_WGMMA_ELEMS, tile_plan.WS_ELEMS = saved
     assert tuple(q) == MMA_SYNC_SMALL_PLANS[shape]
-    # the same copy widths either way
-    assert (q.a_bytes, q.b_bytes) == (p.a_bytes, p.b_bytes)
+    # the same copy widths either way, but e's on the WS_WGMMA route: its
+    # stage is whole rows, one run, so the base alone decides
+    assert q.a_bytes == p.a_bytes
+    assert q.b_bytes == p.b_bytes or (p.route == WS_WGMMA and p.b_bytes == 16)
 
 
 # the WGMMA tiles' shared memory (each schedule's SMEM_BYTES) fits a block's
@@ -392,9 +396,10 @@ def test_planned_blocks_fit_the_shared_memory_of_an_sm(elem, a_kmajor):
 def test_plan_splits_only_when_asked_and_idle():
     # both kernels split a SMALL grid whose load a split evens: the forward
     # as the weight gradient (48 tiles: 5 splits leave 2 blocks of 6 steps
-    # on the busiest SM, against one of 30)
+    # on the busiest SM, against one of 30); the weight gradient on its
+    # WS_WGMMA route by that route's rule (16 tiles of 136 columns, 6 ways)
     assert tile_plan.plan(1024, 135, 960, 1024, 135).splits == 5
-    assert tile_plan.plan(1024, 135, 960, 1024, 135, wgrad=True).splits == 5
+    assert tile_plan.plan(1024, 135, 960, 1024, 135, wgrad=True).splits == 6
     assert tile_plan.split_count(48, 30) == 5
     # one tile an SM, or two, stays whole: no split evens 128 or 264 tiles
     assert [tile_plan.split_count(t, 30) for t in (128, 132, 240, 264)] == [1, 1, 1, 1]
