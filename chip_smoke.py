@@ -32,10 +32,11 @@ final line):
      taken against that time, and torch.softmax and a copy at the same
      shape as same-bytes yardsticks; each bf16 shape's route (WGMMA: TMA +
      wgmma, the production shapes; CP_WGMMA: wgmma fed by cp.async, the
-     forward at the recipes' rows of 598 and 500) held by the per-route
-     launch counters, the CP_WGMMA rows also with act "none" and beside the
-     mma.sync kernel they replaced (forced, gemm_ceiling.mma_sync_bf16: in
-     turns with the library, and alone), and the wrappers' host us per call
+     forward at the recipes' rows of 598 and 500, the weight gradient at
+     MLP3's two weights) held by the per-route launch counters, the
+     CP_WGMMA rows (the forward's also with act "none") beside the mma.sync
+     kernel they replaced (forced, gemm_ceiling.mma_sync_bf16: in turns with
+     the library, and alone), and the wrappers' host us per call
      on WGMMA and MMA_SYNC at the production shapes; the f32 rows of both kernels at every shape on
      the MMA_SYNC route (gemm_ceiling.mma_sync_f32), then rows of their own
      for the f32 WGMMA route (3xTF32 wgmma: a pre-pass kernel and the GEMM
@@ -88,8 +89,8 @@ final line):
      --COMPUTEDTYPE=bf16|int8|int8pf|int8pfsr|int8full on cuda:0, an epoch
      and a CV of its model each (bf16 also with --MOMENTUM), each with exact
      launch counts per dtype (bf16: the bf16 affine_sigmoid once a bunch, on
-     the CP_WGMMA route, and the bf16 wgrad twice a momentum bunch; int8: no
-     GEMM kernel); the bf16
+     the CP_WGMMA route, and the bf16 wgrad twice a momentum bunch, on its
+     CP_WGMMA route too; int8: no GEMM kernel); the bf16
      and int8 epochs again on the CPU must agree; the scheduler with
      --compute-dtype=bf16 for 2 newbob iterations; tfeacat --BF16 and --INT8
      on cuda:0 against the CPU;
@@ -165,8 +166,9 @@ final line):
 Phase 2 also fails on a ptxas spill in a wgmma kernel (the WGMMA and
 CP_WGMMA routes, bf16 or f32). The line before the last is the kernels'
 JSON record (the four WGMMA-route kernels, bf16 and f32, as entries of
-their own, launched by phase 6; the bf16 CP_WGMMA forward as an entry of
-its own, launched by phases 8 and 12, every bunch of the bf16 MLP3 runs;
+their own, launched by phase 6; the bf16 CP_WGMMA forward and weight
+gradient as entries of their own, launched by phases 8 and 12, every bunch
+of the bf16 MLP3 runs;
 the f32 CP_WGMMA forward and wgrad as entries of their own, and the
 others, their launches summed over phases 4, 5, 7, 8, 9, 11, 12 and 13,
 every rank, where every f32 launch must be on the CP_WGMMA route, checked
@@ -916,12 +918,16 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
                           b_ptr=e.data_ptr(), wgrad=True, elem=2,
                           out_ptrs=(pk.data_ptr(), vk.data_ptr()))
     route = route_name(tile_plan, plan)
-    check(route == ("MMA_SYNC" if B == BUNCH else "WGMMA"), f"{what}: route {route}")
-    before = (SF.wgrad_momentum_update.launches_bf16,
-              SF.wgrad_momentum_update.launches_bf16_wgmma)
+    # MLP3's rows (598 and 135 bf16) are off TMA: CP_WGMMA; the production
+    # shapes WGMMA
+    check(route == ("CP_WGMMA" if B == BUNCH else "WGMMA"), f"{what}: route {route}")
+    counters = (lambda: (SF.wgrad_momentum_update.launches_bf16,
+                         SF.wgrad_momentum_update.launches_bf16_wgmma,
+                         SF.wgrad_momentum_update.launches_bf16_cp_wgmma))
+    before = counters()
     SF.wgrad_momentum_update(x, e, pk, vk, a, m)
-    check((SF.wgrad_momentum_update.launches_bf16, SF.wgrad_momentum_update.launches_bf16_wgmma)
-          == (before[0] + 1, before[1] + (route == "WGMMA")),
+    check(counters() == (before[0] + 1, before[1] + (route == "WGMMA"),
+                         before[2] + (route == "CP_WGMMA")),
           f"{what}: not one bf16 launch on the {route} route")
     SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m)
     torch.cuda.synchronize()
@@ -962,6 +968,32 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
     r["route"] = route
     r["plan"] = plan_dict(tile_plan, plan)
     log(f"plan {what}: {json.dumps(r['plan'])}")
+    if route == "CP_WGMMA":
+        # the mma.sync kernel this route replaced, forced at the same shape:
+        # in turns with the library, and alone
+        from nnet_asr_torch.tools.gemm_ceiling import mma_sync_bf16
+
+        pm, vm, pq, vq = p.clone(), v.clone(), p.clone(), v.clone()
+
+        def mma_sync():
+            with mma_sync_bf16():
+                SF.wgrad_momentum_update(x, e, pm, vm, a, m)
+
+        mma_sync()
+        SF.wgrad_momentum_update_plain(x, e, pq, vq, a, m)
+        torch.cuda.synchronize()
+        tol_q = bf16_ulp(torch, g) + 1e-5 * vq.float().abs().max()
+        if vdt == "bf16":
+            tol_q = tol_q + bf16_ulp(torch, torch.maximum(vm.float().abs(), vq.float().abs()))
+        check(bool(((vm.float() - vq.float()).abs() <= tol_q).all()),
+              f"{what}: the mma.sync kernel beyond one bf16 step of g")
+        r["mma_sync_device_us"], r["mma_sync_library_us"] = paired_device_us(
+            torch, mma_sync, fns[2], "wgrad_momentum", 2.0 * B * In * Out)
+        r["mma_sync_alone_us"] = device_us(torch, mma_sync)
+        log(f"time {what} on mma.sync (forced): device {_us(r['mma_sync_device_us'])} in turns "
+            f"with the library ({_us(r['mma_sync_library_us'])}), alone "
+            f"{_us(r['mma_sync_alone_us'])}; CP_WGMMA {_us(k_us)} in turns, alone "
+            f"{_us(r['device_alone_us'])}; bound {r['bound_us']:.2f} us ({r['bound_by']})")
     if route == "WGMMA" and vdt == "f32" and In == 1024:   # as for affine_sigmoid bf16
         xm = misaligned_copy(torch, x)
         r["host_us"] = host_us(torch, lambda: SF.wgrad_momentum_update(x, e, pk, vk, a, m))
@@ -1392,7 +1424,8 @@ COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma", "ma
             "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma", "wgrad_momentum_update",
             "wgrad_momentum_update_f32_wgmma", "wgrad_momentum_update_f32_cp_wgmma",
             "wgrad_momentum_update_f32_ws_wgmma", "wgrad_momentum_update_bf16",
-            "wgrad_momentum_update_bf16_wgmma", "softmax_xent")
+            "wgrad_momentum_update_bf16_wgmma", "wgrad_momentum_update_bf16_cp_wgmma",
+            "softmax_xent")
 
 
 def _counters():
@@ -1416,6 +1449,8 @@ def _counters():
             "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
             "wgrad_momentum_update_bf16_wgmma": (SF.wgrad_momentum_update,
                                                  "launches_bf16_wgmma"),
+            "wgrad_momentum_update_bf16_cp_wgmma": (SF.wgrad_momentum_update,
+                                                    "launches_bf16_cp_wgmma"),
             "softmax_xent": (SC.softmax_xent, "launches")}
 
 
@@ -1496,9 +1531,12 @@ def dtypes_path(torch, card: str, d: str, n: dict):
                     j(dt + ".mmf"), *cv, flag)
         check(c["acc"] > cv0["acc"], f"{flag}: cv accuracy {cv0['acc']}% -> {c['acc']}%")
         runs[dt] = e
+    # both of MLP3's bf16 weight gradients (598->1024, 1024->135) on the
+    # CP_WGMMA route
     counted("--COMPUTEDTYPE=bf16 --MOMENTUM=0.5 epoch 1", n_train,
             {"matmul_act_bf16": n_train, "matmul_act_bf16_cp_wgmma": n_train,
-             "wgrad_momentum_update_bf16": 2 * n_train},
+             "wgrad_momentum_update_bf16": 2 * n_train,
+             "wgrad_momentum_update_bf16_cp_wgmma": 2 * n_train},
             j("init.mmf"), *train, "--COMPUTEDTYPE=bf16", "--MOMENTUM=0.5",
             f"--TARGETMMF={j('bf16_mom.mmf')}")
 
@@ -1536,6 +1574,7 @@ def dtypes_path(torch, card: str, d: str, n: dict):
     want.update(matmul_act_bf16=iters * n_train + (iters + 1) * n_cv,
                 matmul_act_bf16_cp_wgmma=iters * n_train + (iters + 1) * n_cv,
                 wgrad_momentum_update_bf16=2 * iters * n_train,
+                wgrad_momentum_update_bf16_cp_wgmma=2 * iters * n_train,
                 softmax_xent=iters * n_train + (iters + 1) * n_cv)
     check(got == want, f"scheduler bf16: launches {got}, want {want}")
     check(float(best_m.group(2)) > float(init_m.group(1)), "scheduler bf16: cv did not rise")
@@ -2950,6 +2989,7 @@ KERNEL_GROUPS = (("affine_sigmoid f32 CP_WGMMA (ours)", "matmul_act_f32_cp_"),
                  ("wgrad_momentum_update f32 CP_WGMMA (ours)", "wgrad_momentum_f32_cp_"),
                  ("wgrad_momentum_update f32 WS_WGMMA (ours)", "wgrad_momentum_f32_ws_"),
                  ("wgrad_momentum_update f32 WGMMA (ours)", "wgrad_momentum_f32_"),
+                 ("wgrad_momentum_update bf16 CP_WGMMA (ours)", "wgrad_momentum_bf16_cp_"),
                  ("wgrad_momentum_update bf16 (ours)",
                   r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|wgrad_momentum_wgmma_kernel"),
                  ("wgrad_momentum_update (ours)", "wgrad_"),
@@ -2958,9 +2998,10 @@ KERNEL_GROUPS = (("affine_sigmoid f32 CP_WGMMA (ours)", "matmul_act_f32_cp_"),
 
 
 # the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32; the
-# bf16 CP_WGMMA forward; the f32 CP_WGMMA forward, its wgrad at f32 and
-# bf16 v; the f32 WS_WGMMA wgrad at f32 and bf16 v
-WGMMA_KERNELS = 12
+# bf16 CP_WGMMA forward, its wgrad on column tiles and on the ROWS tile at
+# f32 and bf16 v; the f32 CP_WGMMA forward, its wgrad at f32 and bf16 v;
+# the f32 WS_WGMMA wgrad at f32 and bf16 v
+WGMMA_KERNELS = 16
 
 
 def wgmma_spills(build_log: str) -> dict:
@@ -3185,8 +3226,8 @@ def main() -> int:
     for name in ("affine_sigmoid_bf16", "wgrad_momentum_update_bf16"):
         shapes[f"{name}_wgmma"] = [r for r in shapes[name] if r["route"] == "WGMMA"]
     # the CP_WGMMA route at the recipes' shapes, launched by phases 8 and 12
-    shapes["affine_sigmoid_bf16_cp_wgmma"] = [r for r in shapes["affine_sigmoid_bf16"]
-                                              if r["route"] == "CP_WGMMA"]
+    for name in ("affine_sigmoid_bf16", "wgrad_momentum_update_bf16"):
+        shapes[f"{name}_cp_wgmma"] = [r for r in shapes[name] if r["route"] == "CP_WGMMA"]
     bf16 = {k: launches[f"matmul_act_bf16{k}"] for k in ("", "_cp_wgmma", "_wgmma")}
     log(f"bf16 affine_sigmoid launches on the recipes' paths: {bf16['']}, of them CP_WGMMA "
         f"{bf16['_cp_wgmma']}, WGMMA {bf16['_wgmma']}, mma.sync "
@@ -3214,6 +3255,9 @@ def main() -> int:
                                            "wgrad_momentum_update_bf16", launches, 0),
             "affine_sigmoid_bf16_cp_wgmma": ("matmul_act.cu", "matmul_act.py:86",
                                              "matmul_act_bf16_cp_wgmma", launches, 0),
+            "wgrad_momentum_update_bf16_cp_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",
+                                                    "wgrad_momentum_update_bf16_cp_wgmma",
+                                                    launches, 0),
             "affine_sigmoid_bf16_wgmma": ("matmul_act.cu", "matmul_act.py:86",
                                           "matmul_act_bf16_wgmma", launches_prod, -1),
             "wgrad_momentum_update_bf16_wgmma": ("sgd_fused.cu", "sgd_fused.py:105",

@@ -857,17 +857,9 @@ constexpr int WS_BLOCK_BAR = 3;
 
 __device__ __forceinline__ void ws_sync(int splits) {
   if (splits > 1)
-    asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
-                 ::: "memory");
+    nnet_cpw::cluster_barrier();
   else
     W::named_sync(WS_BLOCK_BAR, blockDim.x);
-}
-
-// p in the shared memory of the cluster's block `rank`
-__device__ __forceinline__ const float* cluster_ptr(const float* p, int rank) {
-  uint64_t r;
-  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
-  return reinterpret_cast<const float*>(r);
 }
 
 // the consumers' fragments into the ring: float4 j of thread t at j *
@@ -891,22 +883,7 @@ __device__ __forceinline__ float4 ws_sum(const float4* stash, int q, int i, int 
   constexpr int MAX = 8;   // the largest portable cluster
   const int idx = i * 128 + 4 * q + t;
   if (splits == 1) return stash[idx];
-  float4 v[MAX];
-#pragma unroll
-  for (int r = 0; r < MAX; ++r)
-    v[r] = r < splits ? reinterpret_cast<const float4*>(cluster_ptr(
-                            reinterpret_cast<const float*>(stash), r))[idx]
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 sum = v[0];
-#pragma unroll
-  for (int r = 1; r < MAX; ++r)
-    if (r < splits) {
-      sum.x = __fadd_rn(sum.x, v[r].x);
-      sum.y = __fadd_rn(sum.y, v[r].y);
-      sum.z = __fadd_rn(sum.z, v[r].z);
-      sum.w = __fadd_rn(sum.w, v[r].w);
-    }
-  return sum;
+  return nnet_cpw::cluster_sum4<MAX>(reinterpret_cast<const float*>(stash), 4 * idx, splits);
 }
 
 __device__ __forceinline__ float comp(const float4& v, int c) {

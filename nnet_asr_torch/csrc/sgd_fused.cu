@@ -64,6 +64,22 @@
 // is the mma.sync epilogue's. It never splits the bunch (the production
 // shapes have >= 256 tiles).
 //
+// bf16 x and e off TMA whose rows cp.async can copy (x's pitch and base in
+// whole 4-byte units; e's too, or e's base 16-byte aligned where one tile
+// spans Out <= 136: MLP3's 960x598->1024 and 960x1024->135, the plan's
+// CP_WGMMA route) take cp_wgmma.cuh's wgrad_mainloop instead of mma.sync
+// (wgrad_momentum_bf16_cp_wgmma_kernel): g = x^T e by bf16 wgmma with In on
+// its M and Out on its N, x read M-major and e N-major (the trans bits; no
+// transpose), 64x64 tiles, or one 64x136 tile across Out whose e stage of
+// 64 whole rows (17,280 bytes at Out = 135) is copied as one run and
+// realigned into the swizzled boxes by the block; the bunch split (3 ways
+// at 598->1024, 5 at 1024->135: tile_plan.cp_wgrad_splits), a tile's
+// splits one cluster whose blocks stash their f32 partials and each sum a
+// share of the tile's elements in split order through distributed shared
+// memory (no scratch, no float atomics), round g to bf16 once and update
+// p and v in whole rows, 16 bytes an access (the ROWS tile's rows of p and
+// v are one run).
+//
 // f32 x and e on the same route (pitches of 16-byte multiples, a bunch
 // that is a multiple of 4, x, e, p and v 16-byte aligned, and the 128x128
 // tiles filling the card: the production stack's weight gradients) take
@@ -532,6 +548,157 @@ int launch_f32_cp_wgmma(const float* x, const float* e, float* p, V* v, float* p
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 CP_WGMMA route's update of chunks lo + threadIdx.x, ... < hi
+// of 4 elements of the tile at rows m0.., columns n0.. of p and v (In,
+// Out): g the sum of the f32 stashes of the cluster's `nsum` blocks
+// (nnet_cpw::cluster_sum4, in rank order), rounded once to bf16
+// (grad_at<bf16>), then the mma.sync epilogue's arithmetic. A column
+// tile's chunk k is row k / (BN / 4), columns 4 (k % (BN / 4)) .. + 3;
+// the ROWS tile spans every column, so
+// its rows of p and v are one run and chunk k is its elements 4k .. 4k + 3,
+// as in the flat stash. Whole chunks of aligned rows move 16 bytes of p
+// (and of f32 v, 8 of bf16 v) an access, the rest one element; R chunks'
+// p and v are loaded before the first store.
+template <class T, class V>
+__device__ __forceinline__ void cp_update(const float* st, int nsum, float* __restrict__ p,
+                                          V* __restrict__ v, float a, float m, int In, int Out,
+                                          int m0, int n0, int lo, int hi) {
+  constexpr int CPR = T::BN / 4, R = 4;
+  const int rows = min(T::BM, In - m0), cols = min(T::BN, Out - n0);
+  const bool vec = (T::ROWS || Out % 4 == 0) && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % (4 * sizeof(V)) == 0;
+  for (int k0 = lo + threadIdx.x; k0 < hi; k0 += R * T::THREADS) {
+    int so[R], n[R];
+    size_t go[R];
+    float4 pv[R], vv[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int k = k0 + u * T::THREADS;
+      n[u] = 0;
+      so[u] = 0;
+      go[u] = 0;
+      if (k < hi) {
+        if constexpr (T::ROWS) {
+          so[u] = 4 * k;
+          go[u] = (size_t)m0 * Out + 4 * k;
+          n[u] = min(4, rows * Out - 4 * k);
+        } else {
+          const int r = k / CPR, c = 4 * (k % CPR);
+          if (r < rows && c < cols) {
+            so[u] = r * T::SP + c;
+            go[u] = (size_t)(m0 + r) * Out + n0 + c;
+            n[u] = min(4, cols - c);
+          }
+        }
+      }
+      pv[u] = vv[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (n[u] == 4 && vec) {
+        pv[u] = load4(p + go[u]);
+        vv[u] = load4(v + go[u]);
+      } else {
+        float* pf = &pv[u].x;
+        float* vf = &vv[u].x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < n[u]) {
+            pf[j] = p[go[u] + j];
+            vf[j] = to_f32(v[go[u] + j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      if (n[u] == 0) continue;
+      const float4 g = nnet_cpw::cluster_sum4<nnet_cpw::MAX_CLUSTER>(st, so[u], nsum);
+      momentum(grad_at<bf16>(g.x), pv[u].x, vv[u].x, a, m);
+      momentum(grad_at<bf16>(g.y), pv[u].y, vv[u].y, a, m);
+      momentum(grad_at<bf16>(g.z), pv[u].z, vv[u].z, a, m);
+      momentum(grad_at<bf16>(g.w), pv[u].w, vv[u].w, a, m);
+      if (n[u] == 4 && vec) {
+        store4(v + go[u], vv[u]);
+        store4(p + go[u], pv[u]);
+      } else {
+        const float* pf = &pv[u].x;
+        const float* vf = &vv[u].x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < n[u]) {
+            store_rn(v + go[u] + j, vf[j]);
+            p[go[u] + j] = pf[j];
+          }
+      }
+    }
+  }
+}
+
+// g = x^T e, bf16, on the CP_WGMMA route (cp_wgmma.cuh wgrad_mainloop): a
+// T::BM x T::BN tile of p and v a block, In on wgmma's M and Out on its N;
+// with gridDim.z > 1, split blockIdx.z of the bunch (k_chunk rows), the
+// tile's splits one cluster, each block updating a share of the tile from
+// every split's stash; then v, p updated in place
+template <class T, class V>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+wgrad_momentum_bf16_cp_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
+                                    float* __restrict__ p, V* __restrict__ v, float a, float m,
+                                    int B, int In, int Out, int k_chunk, int x_bytes,
+                                    int e_bytes) {
+  extern __shared__ uint8_t cpw_smem[];
+  uint8_t* ring = nnet_cpf::ring_of(cpw_smem);
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  float acc[T::NACC];
+  nnet_cpw::wgrad_mainloop<T>(ring, x, e, In, Out, m0, n0, k_begin, min(B, k_begin + k_chunk),
+                              x_bytes, e_bytes, acc);
+  float* st = reinterpret_cast<float*>(ring);
+  const int chunks = T::ROWS ? (min(T::BM, In - m0) * Out + 3) / 4 : T::BM * (T::BN / 4);
+  const int splits = gridDim.z, per = (chunks + splits - 1) / splits;
+  const auto meet = [splits] {   // the cluster's barrier, or the block's for one split
+    if (splits > 1)
+      nnet_cpw::cluster_barrier();
+    else
+      __syncthreads();
+  };
+  nnet_cpw::stash_acc<T>(st, acc, Out);
+  meet();   // every split's partial stashed
+  const int lo = min(chunks, (int)blockIdx.z * per);
+  cp_update<T, V>(st, splits, p, v, a, m, In, Out, m0, n0, lo, min(chunks, lo + per));
+  meet();   // and read before any block exits
+}
+
+template <class T, class V>
+int launch_bf16_cp_wgmma(const bf16* x, const bf16* e, float* p, V* v, float a, float m, int B,
+                         int In, int Out, int splits, int k_chunk, int x_bytes, int e_bytes,
+                         cudaStream_t stream) {
+  if (T::ROWS && (Out > T::BN || reinterpret_cast<uintptr_t>(e) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > nnet_cpw::MAX_CLUSTER) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = allow_smem(wgrad_momentum_bf16_cp_wgmma_kernel<T, V>, T::SMEM_BYTES);
+  if (err != 0) return err;
+  const dim3 grid((Out + T::BN - 1) / T::BN, (In + T::BM - 1) / T::BM, splits);
+  return nnet_cpf::launch_ws(wgrad_momentum_bf16_cp_wgmma_kernel<T, V>, grid, T::THREADS,
+                             T::SMEM_BYTES, stream, x, e, p, v, a, m, B, In, Out, k_chunk,
+                             x_bytes, e_bytes);
+}
+
+// The tiles the bf16 CP_WGMMA weight gradient is built with
+// (tile_plan.CP_WGRAD_TILE and CP_WGRAD_STAGES; tools/gemm_ceiling.py
+// --small --bf16-wgrad's cpw_* builds swap these lines): column tiles of
+// 64 x 64 for Out > 136 on a 3-stage ring, the ROWS tile for Out <= 136 on
+// a 4-stage ring, both with split-K as a cluster (the measurements that
+// chose them over 64 x 128 tiles and tickets: tile_plan.cp_wgrad_splits)
+using CpWgradCols = nnet_cpw::CpWgradTile<64, 3>;
+using CpWgradRows = nnet_cpw::CpWgradTile<136, 4>;
+
+template <class V>
+int dispatch_bf16_cp_wgmma(const bf16* x, const bf16* e, float* p, V* v, float a, float m,
+                           int B, int In, int Out, int rows, int splits, int k_chunk, int x_bytes,
+                           int e_bytes, cudaStream_t s) {
+  return rows ? launch_bf16_cp_wgmma<CpWgradRows>(x, e, p, v, a, m, B, In, Out, splits, k_chunk,
+                                                  x_bytes, e_bytes, s)
+              : launch_bf16_cp_wgmma<CpWgradCols>(x, e, p, v, a, m, B, In, Out, splits, k_chunk,
+                                                  x_bytes, e_bytes, s);
+}
+
 }  // namespace
 
 // v is float* (v_is_bf16 = 0) or __nv_bfloat16* (v_is_bf16 = 1). tile:
@@ -597,6 +764,28 @@ extern "C" int wgrad_momentum_update_f32_ws_wgmma(const float* x, const float* e
                                          k_chunk, x_bytes, e_bytes, s)
                    : launch_f32_ws_wgmma(x, e, p, static_cast<float*>(v), a, m, B, In, Out,
                                          splits, k_chunk, x_bytes, e_bytes, s);
+}
+
+// The CP_WGMMA route of wgrad_momentum_update_bf16: x with row pitch and
+// base in whole 4-byte units; rows = 0: column tiles (CpWgradCols), e
+// likewise, e_bytes its copy width (16, 8 or 4); rows = 1: the ROWS tile,
+// Out at most 136 and e 16-byte aligned (else cudaErrorInvalidValue), its
+// stages copied as runs. x_bytes: x's copy width, 16, 8 or 4. splits > 1:
+// the bunch cut into chunks of k_chunk rows (a multiple of 64), a tile's
+// splits one cluster, at most MAX_CLUSTER (6) of them (else
+// cudaErrorInvalidValue). Returns the CUDA error code of the launch.
+extern "C" int wgrad_momentum_update_bf16_cp_wgmma(const void* x, const void* e, float* p,
+                                                   void* v, float a, float m, int B, int In,
+                                                   int Out, int v_is_bf16, int rows, int splits,
+                                                   int k_chunk, int x_bytes, int e_bytes,
+                                                   void* stream) {
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* eb = static_cast<const bf16*>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return v_is_bf16 ? dispatch_bf16_cp_wgmma(xb, eb, p, static_cast<bf16*>(v), a, m, B, In, Out,
+                                            rows, splits, k_chunk, x_bytes, e_bytes, s)
+                   : dispatch_bf16_cp_wgmma(xb, eb, p, static_cast<float*>(v), a, m, B, In, Out,
+                                            rows, splits, k_chunk, x_bytes, e_bytes, s);
 }
 
 // The WGMMA route of wgrad_momentum_update_bf16: x, e with row pitches of

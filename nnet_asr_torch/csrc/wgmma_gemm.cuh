@@ -3,9 +3,10 @@
 // sgd_fused.cu (x^T e) use it for bf16 operands whose row pitches are
 // multiples of 16 bytes and whose bases (and the outputs') are 16-byte
 // aligned: the WGMMA route of ops/kernels/tile_plan.py. The bf16 forward
-// at rows TMA cannot describe but whole 4-byte units (MLP3's 598 columns)
-// takes cp_wgmma.cuh's loop; every other bf16 shape (rows of 135 elements,
-// the weight gradients off TMA) keeps tile_gemm.cuh's mma.sync loop.
+// and weight gradient at rows TMA cannot describe but whole 4-byte units
+// (MLP3's 598 columns; for the weight gradient e's 135 too, a stage of
+// whole rows copied as one run) take cp_wgmma.cuh's loops; the rest (rows
+// of 135 elements in the forward) keeps tile_gemm.cuh's mma.sync loop.
 //
 // The f32 operands take wgmma too, at the shapes where the 128 x 128 tile
 // fills the card (tf32_wgmma.cuh: 3xTF32, the A operand split in

@@ -69,6 +69,10 @@ SIGNATURES = {
     # the same, bf16 x and e
     "wgrad_momentum_update_bf16": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
+    # bf16 x and e on the CP_WGMMA route: x, e, p, v, a, m, B, In, Out,
+    # v_is_bf16, rows, splits, k_chunk, x_bytes, e_bytes, stream
+    "wgrad_momentum_update_bf16_cp_wgmma": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                            _I, _I, _P],
     # bf16 x and e on the WGMMA route: x, e, p, v, a, m, B, In, Out,
     # v_is_bf16, blocks, stream
     "wgrad_momentum_update_bf16_wgmma": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],

@@ -34,10 +34,19 @@ route) from the shapes, pointers and element size:
   two launches a call;
 - bf16 ``x`` and ``e`` that TMA can read: ``csrc/wgmma_gemm.cuh``, the same
   schedule with one bf16 pass;
-- the rest (bf16 at MLP3's rows, f32 off TMA at the BIG tile's size):
-  ``csrc/tile_gemm.cuh``'s ``mma.sync`` loop (3xTF32 for f32, one bf16 pass
-  for bf16), split-K on its 64x64 tile with the partials in scratch
-  allocated here, the last block of a tile summing them in a fixed order.
+- bf16 ``x`` and ``e`` off TMA in whole 4-byte units (MLP3's 960x598->1024,
+  and 960x1024->135, whose e rows of 270 bytes are copied a stage of whole
+  rows at a time; the plan's CP_WGMMA route, ``tile_plan.cp_wgrad_tile``):
+  ``csrc/cp_wgmma.cuh``'s weight-gradient loop, ``g = x^T e`` by bf16
+  ``wgmma`` fed by ``cp.async`` with In on its M and Out on its N (64x64
+  column tiles, or one 64x136 tile across an Out of at most 136), each
+  tile's splits one cluster that sums their partials through distributed
+  shared memory, with no scratch;
+- the rest (bf16 rows of odd pitch in 2-byte units, f32 off TMA at the BIG
+  tile's size): ``csrc/tile_gemm.cuh``'s ``mma.sync`` loop (3xTF32 for f32,
+  one bf16 pass for bf16), split-K on its 64x64 tile with the partials in
+  scratch allocated here, the last block of a tile summing them in a fixed
+  order.
 
 bf16 ``x`` and ``e`` (the bf16 compute mode's) accumulate g in f32 and
 round it to bf16 once after the whole sum, as JAX's bf16 ``dW``, before the
@@ -57,7 +66,8 @@ route, ``wgrad_momentum_update.launches_f32_cp_wgmma`` those on the
 CP_WGMMA route, ``wgrad_momentum_update.launches_f32_ws_wgmma`` those on
 the WS_WGMMA route, ``wgrad_momentum_update.launches_bf16`` those with
 bf16 ones (every route), ``wgrad_momentum_update.launches_bf16_wgmma``
-those of them on the WGMMA route.
+those of them on the WGMMA route, ``launches_bf16_cp_wgmma`` those on the
+CP_WGMMA route.
 """
 
 from __future__ import annotations
@@ -134,6 +144,8 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
             split[1].data_ptr(), float(a), float(m), B, In, Out, v_is_bf16, pl.blocks,
             stream.cuda_stream), "wgrad_momentum_update_f32_wgmma")
         wgrad_momentum_update.launches_f32_wgmma += 1
+    elif pl.route == tile_plan.CP_WGMMA and bf16:
+        _launch_bf16_cp_wgmma(lib, x, e, p, v, a, m, pl, stream)
     elif pl.route == tile_plan.CP_WGMMA:
         _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream)
     elif pl.route == tile_plan.WS_WGMMA:
@@ -166,6 +178,7 @@ wgrad_momentum_update.launches_f32_cp_wgmma = 0
 wgrad_momentum_update.launches_f32_ws_wgmma = 0
 wgrad_momentum_update.launches_bf16 = 0
 wgrad_momentum_update.launches_bf16_wgmma = 0
+wgrad_momentum_update.launches_bf16_cp_wgmma = 0
 
 
 def _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream):
@@ -192,3 +205,18 @@ def _launch_f32_ws_wgmma(lib, x, e, p, v, a, m, pl, stream):
         e.shape[1], int(v.dtype == torch.bfloat16), pl.splits, pl.k_chunk, pl.a_bytes,
         pl.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_ws_wgmma")
     wgrad_momentum_update.launches_f32_ws_wgmma += 1
+
+
+def _launch_bf16_cp_wgmma(lib, x, e, p, v, a, m, pl, stream):
+    """Launch the bf16 CP_WGMMA kernel (g = x^T e with In on wgmma's M) by
+    plan ``pl`` (``tile_plan.plan``'s, or one a measurement forces: its
+    tile ROWS or the column tile the library was built with); a tile's
+    splits are one cluster, so no scratch; counted in
+    ``launches_bf16_cp_wgmma``, and by the caller in ``launches_bf16``."""
+    B, In = x.shape
+    _build.check(lib.wgrad_momentum_update_bf16_cp_wgmma(
+        x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
+        e.shape[1], int(v.dtype == torch.bfloat16), int(pl.tile == tile_plan.ROWS), pl.splits,
+        pl.k_chunk, pl.a_bytes, pl.b_bytes, stream.cuda_stream),
+        "wgrad_momentum_update_bf16_cp_wgmma")
+    wgrad_momentum_update.launches_bf16_cp_wgmma += 1

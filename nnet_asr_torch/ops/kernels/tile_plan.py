@@ -29,9 +29,14 @@ The routes, in the order ``plan`` tries them:
 - ``CP_WGMMA``: ``wgmma`` fed by ``cp.async`` copies of 16, 8 or 4 bytes
   into the swizzled layout its descriptors read, wherever every row pitch
   and base, the output's too, is a whole number of 4-byte units. bf16
-  (``csrc/cp_wgmma.cuh``): the forward only, where TMA cannot read the rows
+  (``csrc/cp_wgmma.cuh``), where TMA cannot read the rows: the forward
   (MLP3's x at 598 columns, TIMIT's W and y at 500), 64x64 tiles, a ring of
-  ``CP_STAGES`` stages of ``CP_BK``, split as ``cp_splits``. f32
+  ``CP_STAGES`` stages of ``CP_BK``, split as ``cp_splits``; the weight
+  gradient ``g = x^T e`` with In on ``wgmma``'s M and Out on its N
+  (``cp_wgrad_tile``: MLP3's 960x598->1024 on 64x64 column tiles, and
+  960x1024->135 on the ``ROWS`` tile across Out, where e's 270-byte rows
+  need only a 16-byte aligned base: a stage of 64 whole rows is one run),
+  split as ``cp_wgrad_splits``, a tile's splits one cluster. f32
   (``csrc/cp_tf32_wgmma.cuh``, 3xTF32, x split into hi and lo by the block):
   the forward and the weight gradient at every shape the routes above
   leave whose BIG tiles would not fill the card (every f32 product of the
@@ -39,9 +44,9 @@ The routes, in the order ``plan`` tries them:
   columns of W or e (``CP_F32_TILE``), ``CP_F32_STAGES`` stages, split as
   ``cp_f32_splits``.
 - ``MMA_SYNC``: ``csrc/tile_gemm.cuh``'s loop (3xTF32 or one bf16
-  ``mma.sync`` pass fed by a ``cp.async`` ring), everything else: the bf16
-  weight gradients off TMA (MLP3's rows of 598 and 135 elements), bf16 rows
-  of odd pitch (2-byte loads: ``cp.async`` has no 2-byte size), f32
+  ``mma.sync`` pass fed by a ``cp.async`` ring), everything else: bf16 rows
+  of odd pitch the routes above refuse (2-byte loads: ``cp.async`` has no
+  2-byte size), f32
   products of the BIG tile's size off TMA, and the f32 weight gradient of
   an odd Out no WS_WGMMA width covers (``cp_f32_keeps_mma_sync``: TIMIT's
   39). 128x128 tiles (8 warps) where that grid fills the card, else 64x64
@@ -52,9 +57,11 @@ The routes, in the order ``plan`` tries them:
 On ``MMA_SYNC`` and ``CP_WGMMA`` each split writes its f32 partial tile to
 a scratch of ``blocks * bm * bn`` floats, and the block that arrives last
 at a tile (an int counter per tile, kept zeroed) sums the partials in split
-order and runs the epilogue, in the same launch. ``blocks`` is the
-kernel's grid. Each rule's docstring says what ``tools/gemm_ceiling.py``
-measured of it on the card. ``mma_sync_f32``, ``mma_sync_bf16`` and
+order and runs the epilogue, in the same launch (the bf16 CP_WGMMA weight
+gradient's splits and WS_WGMMA's are instead one cluster a tile, summed
+through distributed shared memory). ``blocks`` is the kernel's grid. Each
+rule's docstring says what ``tools/gemm_ceiling.py`` measured of it on the
+card. ``mma_sync_f32``, ``mma_sync_bf16`` and
 ``without_ws`` there switch routes off by element size (``WGMMA_ELEMS``,
 ``CP_WGMMA_ELEMS``, ``WS_ELEMS``) to force the plans the routes replaced.
 """
@@ -82,6 +89,10 @@ CP_MIN_K_STEPS = 4       # CP_BK steps a CP_WGMMA split keeps at least
 CP_F32_TILE = HALF       # the f32 CP_WGMMA tile: 64 rows of x by 128 of W's (or e's) columns
 CP_F32_STAGES = 4        # the f32 CP_WGMMA ring (88 KB forward, 96 wgrad: two blocks an SM)
 CP_F32_PER_SM = 2        # f32 CP_WGMMA blocks an SM holds
+CP_WGRAD_TILE = SMALL    # the bf16 CP_WGMMA weight gradient's column tile (Out > 136)
+CP_WGRAD_ROWS = 136      # the widest Out its ROWS tile spans (wgmma's N)
+CP_WGRAD_STAGES = {SMALL: 3, ROWS: 4}   # its rings (csrc/sgd_fused.cu CpWgrad*)
+CP_WGRAD_MAX_CLUSTER = 6   # splits of one tile, one cluster, at most (cp_wgrad_splits)
 WS_ELEMS = (4,)          # element sizes with a WS_WGMMA route (f32)
 WS_ROWS_WIDTHS = (136,)  # Out rounded up to 8 that the WS weight gradient is built for
 WS_ROWS_STAGES = 4       # its ring (168 KB, and 51 KB of raw e rows: one block an SM)
@@ -169,6 +180,63 @@ def cp_smem_bytes(tile: int = SMALL, stages: int = CP_STAGES) -> int:
     slack to align the ring."""
     bm, bn = TILES[tile]
     return stages * 2 * CP_BK * (bm + bn) + 1024
+
+
+def cp_wgrad_smem_bytes(tile: int, stages: int = 0) -> int:
+    """Dynamic shared memory of a bf16 CP_WGMMA weight-gradient block
+    (``SMEM_BYTES`` of its ``CpWgradTile``): ``stages`` stages (by default
+    ``CP_WGRAD_STAGES``) of x's 64 k-lines of 64 In and e's bn columns in
+    boxes of 64 (the ROWS tile's 136 in three), the ROWS tile's ``stages -
+    2`` raw slots of ``CP_BK`` rows of e, 1024 bytes of slack to align the
+    ring."""
+    bm, bn = TILES[tile]
+    stages = stages or CP_WGRAD_STAGES[tile]
+    raw = (stages - 2) * CP_BK * bn * 2 if tile == ROWS else 0
+    return stages * (bm * 128 + _cdiv(bn, 64) * 64 * 128) + raw + 1024
+
+
+def cp_wgrad_tile(N: int, a_pitch: int, b_pitch: int, a_ptr: int, b_ptr: int,
+                  out_ptrs=()):
+    """The tile of the bf16 CP_WGMMA weight gradient g = x^T e (x's pitch
+    ``a_pitch`` In, e's ``b_pitch`` = N = Out), or None where the route
+    cannot take it: x's rows and every base but e's in whole 4-byte units;
+    ``ROWS`` where one tile spans Out (``CP_WGRAD_ROWS``) and e's base is
+    16-byte aligned (a stage of whole rows is one run copied 16 bytes at a
+    time: e's 270-byte rows at Out = 135), else ``CP_WGRAD_TILE`` where e's
+    rows and base are whole 4-byte units too."""
+    if not (a_pitch % 2 == 0 and all(p % 4 == 0 for p in (a_ptr, *out_ptrs))):
+        return None
+    if N <= CP_WGRAD_ROWS and b_ptr % 16 == 0:
+        return ROWS
+    if b_pitch % 2 == 0 and b_ptr % 4 == 0:
+        return CP_WGRAD_TILE
+    return None
+
+
+def cp_wgrad_splits(M: int, N: int, K: int, tile: int) -> int:
+    """Splits of the bf16 CP_WGMMA weight gradient (In = M, Out = N, the
+    bunch K) on ``tile``: K cut into the most splits whose blocks still fit
+    one wave of as many blocks an SM as their shared memory allows, two
+    CP_BK steps a split at least, at most ``CP_WGRAD_MAX_CLUSTER``: a
+    tile's splits are one cluster. ``tools/gemm_ceiling.py --small
+    --bf16-wgrad`` measured every split at MLP3's two weights (f32 v, alone
+    by events, NVIDIA H100 80GB HBM3, 700 W): 960x598->1024 on 64x64 tiles
+    as clusters fastest at 3 (15.76-15.89 us; 2: 17.40-17.48, 4:
+    19.37-19.48); 960x1024->135 on the ROWS tile as clusters 11.70-11.77 us
+    at 5 splits of 3 steps (6 forced gives the same 5; 4: 13.61-13.72),
+    19.15-19.25 at 8 of 2 in a first build (16 clusters of 8 blocks of 135
+    KB do not fit one wave); mma.sync 20.71-20.79 and 14.57-14.71. Builds
+    since removed lost there: split-K by tickets through scratch (17.13-17.19
+    at 3 splits and 16.41-17.02 at 5) and 64x128 column tiles (19.93-20.11
+    at 4 splits as clusters, 23.95-23.98 at 3 by tickets, both spilling at
+    three blocks' 168 registers)."""
+    tiles, steps = tile_count(M, N, tile), _cdiv(K, CP_BK)
+    per_sm = SM_SMEM // (cp_wgrad_smem_bytes(tile) + BLOCK_SMEM_RESERVED)
+    splits = 1
+    while (splits < CP_WGRAD_MAX_CLUSTER and tiles * (splits + 1) <= per_sm * SM_COUNT
+           and _cdiv(steps, splits + 1) >= 2):
+        splits += 1
+    return splits
 
 
 def cp_f32_smem_bytes(wgrad: bool, tile: int = HALF, stages: int = CP_F32_STAGES) -> int:
@@ -354,6 +422,12 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
         tiles = tile_count(M, N, tile)
         return Plan(tile, *TILES[tile], 1, K, 16, 16, WGMMA,
                     min(tiles, SM_COUNT) if persistent else tiles)
+    if elem == 2 and wgrad and elem in CP_WGMMA_ELEMS:   # x on wgmma's M, e on its N
+        tile = cp_wgrad_tile(N, a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs)
+        if tile is not None:
+            return cp_fixed(M, N, K, tile, cp_wgrad_splits(M, N, K, tile),
+                            copy_bytes(a_pitch, a_ptr, 2),
+                            16 if tile == ROWS else copy_bytes(b_pitch, b_ptr, 2))
     if (elem in WS_ELEMS and tile_count(M, N, BIG) < SM_COUNT
             and all(p % 4 == 0 for p in (a_ptr, b_ptr, *out_ptrs))
             and ws_f32_takes(M, N, K, wgrad, b_pitch)):   # Out on wgmma's N

@@ -1,6 +1,6 @@
 """What holds the GEMM main loops back: the kernels beside variants of them.
 
-    python -m nnet_asr_torch.tools.gemm_ceiling [--reps N] [--small]
+    python -m nnet_asr_torch.tools.gemm_ceiling [--reps N] [--small [--f32 | --bf16-wgrad]]
 
 Builds ``csrc/`` twelve times, each into its own directory under
 ``build/gemm_ceiling/``, and times, with f32 operands on both routes (the
@@ -134,6 +134,15 @@ place of three), ``cp_f32_nosplit`` (x used raw, no split in the block),
 ``cp_f32_acc2`` (odd k8 steps into a second accumulator chain, added after
 the loop), and ``cp_f32_3blk`` (64x64 with registers capped for three
 blocks an SM). ``--small --f32`` times these alone.
+
+With ``--small --bf16-wgrad`` it times the bf16 CP_WGMMA weight gradient
+(``cp_wgmma.cuh`` ``wgrad_mainloop``) alone, in two turns (``gemm_ceiling
+cpw ...`` lines), at MLP3's 960x598->1024 and 960x1024->135 (f32 v): the
+library (bf16 ``x.T @ e``, then the f32 update passes), mma.sync forced
+(``mma_sync_bf16``), the plan, and the plan's tile with each split forced,
+with each build of ``cpw_variants`` (as built, the ROWS tile on a 5-stage
+ring; the update or the realignment of e's rows cut out); ``--builds``
+picks some.
 
 With ``--small --f32 --ws`` it times the WS_WGMMA route (the
 warp-specialised ring of ``csrc/cp_tf32_wgmma.cuh``) instead, in two
@@ -271,9 +280,9 @@ def without_ws():
 
 @contextlib.contextmanager
 def mma_sync_bf16():
-    """Every bf16 forward off the CP_WGMMA route while inside (the route's
-    element sizes without 2), as before that route: the mma.sync rows of
-    the recipes' bf16 shapes here and in chip_smoke.py."""
+    """Every bf16 forward and weight gradient off the CP_WGMMA route while
+    inside (the route's element sizes without 2), as before that route: the
+    mma.sync rows of the recipes' bf16 shapes here and in chip_smoke.py."""
     from ..ops.kernels import tile_plan
 
     saved = tile_plan.CP_WGMMA_ELEMS
@@ -373,6 +382,33 @@ WS_VARIANTS = {
     "ws_batch2": [("cp_tf32_wgmma.cuh", WS_BATCH, WS_BATCH.replace("4", "2"))],
     "ws_mainloop": [("sgd_fused.cu", WS_UPDATE, f"    if (In < 0)\n  {WS_UPDATE}")],
 }
+
+CPW_ROWS = "using CpWgradRows = nnet_cpw::CpWgradTile<136, 4>;"
+CPW_SHAPES = ((960, 598, 1024), (960, 1024, 135))
+CPW_UPDATE = ("  cp_update<T, V>(st, splits, p, v, a, m, In, Out, m0, n0, lo, "
+              "min(chunks, lo + per));")
+CPW_REALIGN = ("realign_rows<T>(stage(0) + T::A_BYTES, raw(0), Out);",
+               "realign_rows<T>(stage(kt + 1) + T::A_BYTES, raw(kt + 1), Out);")
+
+
+def cpw_variants():
+    """name: (text substitutions, tile_plan attributes while it is timed) of
+    the bf16 CP_WGMMA weight gradient's builds: ``cpw`` as built (64x64
+    column tiles on 3 stages, the ROWS tile on 4), ``cpw_rows_ring5`` the
+    ROWS tile on 5 stages; and two that take the kernel apart (their
+    results are wrong): ``cpw_mainloop`` the cluster's update compiled but
+    never run (the loop, the stash and the cluster's barriers),
+    ``cpw_norealign`` the ROWS tile's realignment of e's stage cut (the run
+    copies still land)."""
+    from ..ops.kernels import tile_plan as tp
+
+    return {"cpw": ([], {}),
+            "cpw_rows_ring5": ([("sgd_fused.cu", CPW_ROWS, CPW_ROWS.replace("4>", "5>"))],
+                               {"CP_WGRAD_STAGES": {**tp.CP_WGRAD_STAGES, tp.ROWS: 5}}),
+            "cpw_mainloop": ([("sgd_fused.cu", CPW_UPDATE, f"  if (In < 0)\n  {CPW_UPDATE}")],
+                             {}),
+            "cpw_norealign": ([("cp_wgmma.cuh", line, "") for line in CPW_REALIGN], {})}
+
 
 # name: (text substitutions, the tile compiled in)
 CP_VARIANTS = {"cp": ([], "SMALL"), "cp_ring4": (_cp_tile(1, 64, 4), "SMALL"),
@@ -561,10 +597,14 @@ def main(argv=None) -> int:
     ap.add_argument("--f32", action="store_true",
                     help="with --small, time only the f32 CP_WGMMA candidates")
     ap.add_argument("--builds", default="",
-                    help="with --small --f32, the CP_F32_VARIANTS (with --ws: WS_VARIANTS) to "
-                         "build (comma-separated; default all)")
+                    help="with --small --f32, the CP_F32_VARIANTS (with --ws: WS_VARIANTS; with "
+                         "--small --bf16-wgrad: cpw_variants) to build (comma-separated; "
+                         "default all)")
     ap.add_argument("--ws", action="store_true",
                     help="with --small --f32, time the WS_WGMMA candidates (WS_VARIANTS) instead")
+    ap.add_argument("--bf16-wgrad", action="store_true",
+                    help="with --small, time only the bf16 CP_WGMMA weight gradient's "
+                         "candidates (cpw_variants; --builds picks some)")
     ap.add_argument("--turns", action="store_true",
                     help="with --small --f32, first the kernels slower in turns with the library "
                          "than alone, after each prelude (turns())")
@@ -578,6 +618,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "gemm_ceiling")
     builds = [b for b in args.builds.split(",") if b]
+    if args.small and args.bf16_wgrad:
+        cpw_only(root, args.reps, builds)
+        return 0
     if args.small and args.f32 and (args.turns or args.ws):
         if args.turns:
             turns(args.reps, turn_libs(root))
@@ -780,6 +823,99 @@ def ws_only(root, reps, names=()) -> None:
         ws_designs(libs, reps, variants)
     finally:
         _build._lib = saved
+
+
+def cpw_candidates(dev):
+    """(shape, library, [(candidate, fn)]) of the bf16 weight gradient at
+    CPW_SHAPES, f32 velocity, under the tile_plan attributes in force: the
+    library (bf16 x.T @ e, then the f32 update passes), mma.sync (the route
+    the CP_WGMMA one replaced, forced: ``mma_sync_bf16``), the plan, and
+    the plan's tile with 1 to ``CP_WGRAD_MAX_CLUSTER`` splits forced."""
+    from ..ops.kernels import tile_plan as tp
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream(dev)
+    out = []
+    for B, In, Out in CPW_SHAPES:
+        x = torch.randn((B, In), generator=gen, device=dev).to(bf)
+        e = (torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(B)).to(bf)
+        p, v = torch.zeros((In, Out), device=dev), torch.zeros((In, Out), device=dev)
+        pl_, vl = p.clone(), v.clone()
+        plan = tp.plan(In, Out, B, In, Out, x.data_ptr(), e.data_ptr(), wgrad=True, elem=2,
+                       out_ptrs=(p.data_ptr(), v.data_ptr()))
+        assert plan.route == tp.CP_WGMMA
+
+        def cpw(q, x=x, e=e, p=p, v=v):
+            return lambda: SF._launch_bf16_cp_wgmma(_build._lib, x, e, p, v, 1e-3, 0.9, q,
+                                                    stream)
+
+        def on_mma_sync(x=x, e=e, p=p, v=v):
+            with mma_sync_bf16():
+                SF.wgrad_momentum_update(x, e, p, v, 1e-3, 0.9)
+
+        def library(x=x, e=e, pl_=pl_, vl=vl):
+            corr = (x.T @ e).float().add_(vl, alpha=0.9)
+            vl.copy_(corr)
+            pl_.sub_(corr, alpha=1e-3)
+
+        bm, bn = tp.TILES[plan.tile]
+        cands = [("mma.sync", on_mma_sync), ("plan", cpw(plan))]
+        cands += [(f"cpw {bm}x{bn}/{k}", cpw(tp.cp_fixed(In, Out, B, plan.tile, k, plan.a_bytes,
+                                                          plan.b_bytes)))
+                  for k in range(1, tp.CP_WGRAD_MAX_CLUSTER + 1)]
+        out.append((f"wgrad {B}x{In}->{Out}", library, cands))
+    return out
+
+
+def cpw_only(root, reps, names=()) -> None:
+    """Build the cpw_variants named in ``names`` (all if empty), in
+    parallel, and time cpw_candidates with each, in two turns (each
+    candidate in a window of its own calls, beside the library's); print
+    each candidate's range over the turns."""
+    from ..ops.kernels import tile_plan as tp
+
+    variants = {n: v for n, v in cpw_variants().items() if not names or n in names}
+    procs = {name: build_variant(name, subs, root) for name, (subs, _) in variants.items()}
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{out}")
+        for line in out.splitlines():
+            if ("registers" in line or "spill" in line
+                    or ("Compiling entry" in line and "bf16_cp_wgmma" in line)):
+                print(f"  ptxas [{name}] {line.split(':', 1)[-1].strip()}")
+        libs[name] = load(so)
+    dev = torch.device("cuda", 0)
+    saved = _build._lib, {k: getattr(tp, k) for _, attrs in variants.values() for k in attrs}
+    before = SF.wgrad_momentum_update.launches_bf16_cp_wgmma
+    seen = {}
+    try:
+        for turn in range(2):
+            order = list(variants.items())
+            for name, (_, attrs) in (order if turn == 0 else reversed(order)):
+                _build._lib = libs[name]
+                for k, val in {**saved[1], **attrs}.items():
+                    setattr(tp, k, val)
+                for shape, library, cands in cpw_candidates(dev):
+                    lib_us = event_us(library, reps)
+                    seen.setdefault((name, shape, "library"), []).append(lib_us)
+                    row = [f"library {lib_us:.2f}"]
+                    for what, fn in (cands if turn == 0 else reversed(cands)):
+                        us = event_us(fn, reps)
+                        seen.setdefault((name, shape, what), []).append(us)
+                        row.append(f"{what} {us:.2f}")
+                    print(f"gemm_ceiling cpw turn {turn} {name} {shape}: " + "; ".join(row),
+                          flush=True)
+    finally:
+        _build._lib = saved[0]
+        for k, val in saved[1].items():
+            setattr(tp, k, val)
+    for (name, shape, what), us in seen.items():
+        print(f"gemm_ceiling cpw {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
+    if SF.wgrad_momentum_update.launches_bf16_cp_wgmma == before:
+        raise RuntimeError("the bf16 CP_WGMMA weight gradient was not taken by its candidates")
 
 
 def bf16_designs(libs, reps) -> None:

@@ -115,9 +115,12 @@ def test_f32_cp_route_rule(shape, route, wgrad):
         q = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad)
     assert q.route == MMA_SYNC
     assert tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad) == p   # restored
-    # bf16 operands keep their own rule: the forward off TMA, never the wgrad
+    # bf16 operands keep their own rule: the forward off TMA on 64x64 tiles,
+    # the weight gradient on the tile of its own rule
     b = tile_plan.plan(M, N, K, ap, bp, 1 << 20, 1 << 21, wgrad=wgrad, elem=2)
-    assert b.route != CP or not wgrad
+    if b.route == CP:
+        assert b.tile == (tile_plan.cp_wgrad_tile(N, ap, bp, 1 << 20, 1 << 21) if wgrad
+                          else SMALL)
 
 
 # --------------------------------------------------------------------------

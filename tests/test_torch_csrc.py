@@ -100,6 +100,13 @@ KERNEL_NAMES = {
     "void (anonymous namespace)::wgrad_momentum_f32_ws_wgmma_kernel<nnet_cpf::WsF32Tile<136, 4>, "
     "float>(float const*, float const*, float*, float*, float, float, int, int, int, int, int, "
     "int)": "wgrad_momentum_update f32 WS_WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_bf16_cp_wgmma_kernel<nnet_cpw::CpWgradTile<64, 3>, "
+    "float>(__nv_bfloat16 const*, __nv_bfloat16 const*, float*, float*, float, float, int, int, "
+    "int, int, int, int)": "wgrad_momentum_update bf16 CP_WGMMA (ours)",
+    "void (anonymous namespace)::wgrad_momentum_bf16_cp_wgmma_kernel<nnet_cpw::CpWgradTile<136, "
+    "4>, __nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16 const*, float*, __nv_bfloat16*, "
+    "float, float, int, int, int, int, int, int)":
+        "wgrad_momentum_update bf16 CP_WGMMA (ours)",
     "void (anonymous namespace)::matmul_act_cp_wgmma_kernel<nnet_cpw::CpTile<1, 64, 3> >("
     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, "
     "int*, int, int, int, int, int, int, int)": "affine_sigmoid bf16 (ours)",
@@ -155,7 +162,11 @@ def test_wgmma_spills_from_ptxas_report():
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__x_matmul_act_f32_cp_wgmma_"
            "kernelIN8nnet_cpf9CpF32TileILi2ELi64ELi4ELi0EEEEEvPKf' for 'sm_90a'\n"
-           "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n")
+           "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__x_wgrad_momentum_bf16_cp_"
+           "wgmma_kernelIN8nnet_cpw11CpWgradTileILi136ELi4EEEfEEvPK13__nv_bfloat16' for "
+           "'sm_90a'\n"
+           "    392 bytes stack frame, 400 bytes spill stores, 488 bytes spill loads\n")
     assert chip_smoke.wgmma_spills(log) == {
         "_ZN46_GLOBAL__N__x_matmul_act_wgmma_kernelE14CUtensorMap_st": 0,
         "_ZN45_wgrad_momentum_wgmma_kernelIfEEv": 16,
@@ -164,8 +175,10 @@ def test_wgmma_spills_from_ptxas_report():
         "_ZN46_GLOBAL__N__x_matmul_act_cp_wgmma_kernelIN8nnet_cpw6CpTileILi1ELi64ELi3EEEEEvPK13__"
         "nv_bfloat16": 0,
         "_ZN46_GLOBAL__N__x_matmul_act_f32_cp_wgmma_kernelIN8nnet_cpf9CpF32TileILi2ELi64ELi4ELi0EE"
-        "EEEvPKf": 8}
-    # 3 bf16 TMA instances, 3 f32 ones, the bf16 CP_WGMMA forward, the f32
-    # CP_WGMMA forward and its wgrad at f32 and bf16 velocity, the f32
-    # WS_WGMMA wgrad at both
-    assert chip_smoke.WGMMA_KERNELS == 12
+        "EEEvPKf": 8,
+        "_ZN45_GLOBAL__N__x_wgrad_momentum_bf16_cp_wgmma_kernelIN8nnet_cpw11CpWgradTileILi136ELi4"
+        "EEEfEEvPK13__nv_bfloat16": 888}
+    # 3 bf16 TMA instances, 3 f32 ones, the bf16 CP_WGMMA forward and its
+    # wgrad on both tiles at f32 and bf16 velocity, the f32 CP_WGMMA forward
+    # and its wgrad at f32 and bf16 velocity, the f32 WS_WGMMA wgrad at both
+    assert chip_smoke.WGMMA_KERNELS == 16

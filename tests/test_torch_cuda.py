@@ -332,18 +332,25 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         assert pl.splits > 1
 
 
-def _kernels_of(fn, calls=1):
-    """The names of the device kernels ``calls`` calls of ``fn`` launch."""
+def _kernels_of(fn, calls=1, tries=3):
+    """The names of the device kernels ``calls`` calls of ``fn`` launch. A
+    window in which the profiler recorded no device event at all (it
+    happens now and then on the card; chip_smoke.device_rows) is taken
+    again, up to ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if getattr(e, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
 
 
 # The forward at the recipes' small shapes (TIMIT's hidden layer, one tmpe
@@ -470,7 +477,7 @@ def test_cuda_cp_wgmma_layouts_exact(cuda, shape, splits):
 
 # The weight gradient's split-K reduced in its one launch: no second kernel
 # (f32 on the f32 CP_WGMMA route but at Out = 135, which the plan sends to
-# the WS_WGMMA route; bf16 on mma.sync)
+# the WS_WGMMA route; bf16 on the bf16 CP_WGMMA route)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(960, 598, 1024), (960, 1024, 135), (598, 598, 1024)])
@@ -485,10 +492,12 @@ def test_cuda_wgrad_split_k_one_launch(cuda, shape, dtype):
     p = torch.zeros((In, Out), device=cuda)
     v = torch.zeros((In, Out), device=cuda)
     names = _kernels_of(lambda: SF.wgrad_momentum_update(xs, es, p, v, 1e-3, 0.9))
-    kernel = {tile_plan.CP_WGMMA: "wgrad_momentum_f32_cp_wgmma_kernel",
+    bf16 = dtype == torch.bfloat16
+    kernel = {tile_plan.CP_WGMMA: ("wgrad_momentum_bf16_cp_wgmma_kernel" if bf16
+                                   else "wgrad_momentum_f32_cp_wgmma_kernel"),
               tile_plan.WS_WGMMA: "wgrad_momentum_f32_ws_wgmma_kernel"}.get(
                   pl.route, "wgrad_momentum_kernel")
-    assert (pl.route == tile_plan.CP_WGMMA) == (dtype == torch.float32 and Out % 2 == 0)
+    assert (pl.route == tile_plan.CP_WGMMA) == (bf16 or Out % 2 == 0)
     assert len(names) == 1 and kernel in names[0]
 
 
@@ -543,8 +552,8 @@ def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
     xs, es = (_on_card(a, cuda, offset, dtype=torch.bfloat16) for a in (x, e))
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
                         b_ptr=es.data_ptr(), wgrad=True, elem=2)
-    if Out == 135:
-        assert pl.b_bytes == 2
+    if Out == 135:   # a stage of whole rows as one run, or mma.sync's 2-byte loads
+        assert pl.b_bytes == (16 if pl.route == tile_plan.CP_WGMMA else 2)
     wgmma = shape in WGMMA_WGRAD
     assert (pl.route == tile_plan.WGMMA) == wgmma
     pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
@@ -659,6 +668,122 @@ def test_cuda_wgrad_bf16_wgmma_persistent_exact_and_repeatable(cuda):
     assert torch.equal(runs[0][1], exact) and torch.equal(runs[0][0], -exact)
     for p, v in runs[1:]:
         assert torch.equal(p, runs[0][0]) and torch.equal(v, runs[0][1])
+
+
+# The bf16 CP_WGMMA weight gradient (csrc/cp_wgmma.cuh's wgrad_mainloop: g =
+# x^T e by bf16 wgmma fed by cp.async, In on its M and Out on its N) against
+# the plain version: MLP3's two weights, then ragged In (598, 1000), Out (1,
+# 8, 135, 136 on the ROWS tile; 1024 on column tiles) and bunches (64, 100,
+# 960, 961), all off TMA, f32 and bf16 velocity, momentum 0 and 0.9, under
+# the plan's split and every split the rule can pick, forced (a cluster of
+# at most CP_WGRAD_MAX_CLUSTER). Tolerance as
+# check_wgrad_momentum_bf16's (v within one bf16 step of g, plus its own
+# step for bf16 v; p within a times that); two launches equal bit for bit;
+# one launch a call on the route's counter.
+BF16_CP_WGRAD = [(960, 598, 1024), (960, 1024, 135), (64, 598, 1), (100, 598, 8),
+                 (961, 1000, 135), (960, 598, 136), (100, 598, 1024), (961, 1000, 1)]
+
+
+def _bf16_cp_wgrad_plan(In, Out, B, splits, xs, es):
+    """The bf16 CP_WGMMA plan of g = x^T e (In, Out, the bunch B): the
+    plan's, with ``splits`` forced unless None."""
+    pl = tile_plan.plan(In, Out, B, In, Out, xs.data_ptr(), es.data_ptr(), wgrad=True, elem=2)
+    assert pl.route == tile_plan.CP_WGMMA
+    if splits is None:
+        return pl
+    return tile_plan.cp_fixed(In, Out, B, pl.tile, splits, pl.a_bytes, pl.b_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [0.0, 0.9])
+@pytest.mark.parametrize("forced", [None, 1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BF16_CP_WGRAD)
+def test_cuda_wgrad_bf16_cp_wgmma_matches_plain(cuda, shape, vdt, forced, m):
+    from nnet_asr_torch.ops.kernels import _build
+
+    B, In, Out = shape
+    rng = np.random.default_rng(B + In + Out)
+    x, e = (rng.standard_normal((B, n)).astype(np.float32) for n in (In, Out))
+    p, v = (rng.standard_normal((In, Out)).astype(np.float32) for _ in range(2))
+    xs, es = (_on_card(t, cuda, dtype=torch.bfloat16) for t in (x, e))
+    pl = _bf16_cp_wgrad_plan(In, Out, B, forced, xs, es)
+    assert pl.tile == (tile_plan.ROWS if Out <= 136 else tile_plan.CP_WGRAD_TILE)
+    stream = torch.cuda.current_stream(cuda)
+    a = 0.003
+
+    def run(pk, vk):
+        if forced is None:
+            SF.wgrad_momentum_update(xs, es, pk, vk, a, m)
+        else:
+            SF._launch_bf16_cp_wgmma(_build.load_library(), xs, es, pk, vk, a, m, pl, stream)
+
+    pk, pp, pk2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
+    vk, vp, vk2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
+    counters = ("launches_bf16", "launches_bf16_cp_wgmma", "launches_bf16_wgmma")
+    before = [getattr(SF.wgrad_momentum_update, k) for k in counters]
+    run(pk, vk)
+    assert [getattr(SF.wgrad_momentum_update, k) - b for k, b in zip(counters, before)] == [
+        forced is None, 1, 0]
+    run(pk2, vk2)
+    SF.wgrad_momentum_update_plain(xs, es, pp, vp, a, m)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pk2) and torch.equal(vk, vk2)
+    g = xs.float().T @ es.float()
+    tol_v = bf16_ulp(g) + 1e-5 * vp.float().abs().max()
+    if vdt == torch.bfloat16:
+        tol_v = tol_v + bf16_ulp(torch.maximum(vk.float().abs(), vp.float().abs()))
+    assert bool(((vk.float() - vp.float()).abs() <= tol_v).all())
+    assert bool(((pk - pp).abs() <= a * tol_v + 1e-6 * pp.abs().max()).all())
+    assert not _build.counters(cuda, stream).any().item()
+
+
+# Small integers make every f32 sum exact in any order, so g (read back
+# from an f32 velocity at momentum 0) is the exact sum rounded once to
+# bf16, bit for bit: a wrong swizzle, descriptor, transpose of e's run,
+# zero fill, stash slot or split sum moves whole elements. Column tiles
+# (x at 4- and 16-byte copies, e at 16 and 4, p's rows of 4,008 bytes
+# an element at a time) and the ROWS tile (135
+# columns, odd: the run's rows straddle 4-byte words; 129; 8), whole and
+# split, the bunch ragged.
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+@pytest.mark.parametrize("shape", [(960, 1024, 135), (300, 598, 1024), (283, 1000, 1002),
+                                   (200, 598, 129), (700, 66, 8), (961, 598, 136)])
+def test_cuda_bf16_cp_wgmma_layouts_exact(cuda, shape, splits):
+    from nnet_asr_torch.ops.kernels import _build
+
+    rng = np.random.default_rng(31)
+    B, In, Out = shape
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.integers(-2, 3, (B, In)).astype(np.float32)).to(cuda, bf)
+    e = torch.from_numpy(rng.integers(-2, 3, (B, Out)).astype(np.float32)).to(cuda, bf)
+    p, v = torch.zeros((In, Out), device=cuda), torch.zeros((In, Out), device=cuda)
+    SF._launch_bf16_cp_wgmma(_build.load_library(), x, e, p, v, 1.0, 0.0,
+                             _bf16_cp_wgrad_plan(In, Out, B, splits, x, e),
+                             torch.cuda.current_stream(cuda))
+    torch.cuda.synchronize()
+    g = (x.double().T @ e.double()).float().to(bf).float()
+    assert torch.equal(v, g) and torch.equal(p, -g)
+
+
+# The ROWS tile spans at most 136 columns from a 16-byte aligned e, and a
+# tile's splits are a cluster of at most CP_WGRAD_MAX_CLUSTER: a wider Out,
+# e off 16 bytes or 8 splits is refused by the launch, not computed in part
+@pytest.mark.cuda
+@pytest.mark.parametrize("Out,offset,splits", [(137, 0, 1), (135, 4, 1), (135, 0, 8)])
+def test_cuda_bf16_cp_wgmma_rows_refuses(cuda, Out, offset, splits):
+    from nnet_asr_torch.ops.kernels import _build
+
+    B, In = 960, 64
+    x = torch.ones((B, In), device=cuda, dtype=torch.bfloat16)
+    e = _on_card(np.ones((B, Out), np.float32), cuda, offset, dtype=torch.bfloat16)
+    p, v = torch.zeros((In, Out), device=cuda), torch.zeros((In, Out), device=cuda)
+    pl = tile_plan.cp_fixed(In, Out, B, tile_plan.ROWS, splits, 16, 16)
+    assert pl.splits == splits
+    with pytest.raises(RuntimeError):
+        SF._launch_bf16_cp_wgmma(_build.load_library(), x, e, p, v, 1.0, 0.0, pl,
+                                 torch.cuda.current_stream(cuda))
 
 
 # (M, K, N) of the f32 forward on the f32 WGMMA route: the production

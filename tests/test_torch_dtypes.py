@@ -144,9 +144,11 @@ def test_wgrad_momentum_bf16_plain_matches_jax_apply_updates(vdt):
 # b_bytes, route): MLP3's rows of 598 and 135 bf16 are no multiple of 16
 # bytes, so TMA reads neither; its forward (x at 1,196-byte rows, whole
 # 4-byte units) takes CP_WGMMA (64x64 tiles, 4-byte copies of x, no split),
-# its weight gradients keep mma.sync; every production shape takes WGMMA
-# (no split; 128x256 tiles for the forward, 128x128 for the ping-pong
-# weight gradient)
+# and so do its weight gradients: 598->1024 on 64x64 tiles, 3 splits of 5
+# steps as clusters (4-byte copies of x, 16-byte of e), 1024->135 on the
+# 64x136 ROWS tile, 5 splits of 3 steps (e's stage of 64 rows of 270 bytes
+# one run, 16 bytes a copy); every production shape takes WGMMA (no split;
+# 128x256 tiles for the forward, 128x128 for the ping-pong weight gradient)
 W, MS, CP = tile_plan.WGMMA, tile_plan.MMA_SYNC, tile_plan.CP_WGMMA
 BF16_PLANS = {
     "affine 960x598->1024 (MLP3)": ((960, 1024, 598, 598, 1024, False),
@@ -156,10 +158,11 @@ BF16_PLANS = {
     "affine 1024x4096->4096": ((1024, 4096, 4096, 4096, 4096, False),
                                (tile_plan.WIDE, 1, 4096, 16, 16, W)),
     "wgrad 960x598->1024 (MLP3)": ((598, 1024, 960, 598, 1024, True),
-                                   (tile_plan.SMALL, 2, 480, 4, 16, MS)),
-    # e's rows of 135 bf16 are 270 bytes: an odd pitch in 4-byte words
+                                   (tile_plan.SMALL, 3, 320, 4, 16, CP)),
+    # e's rows of 135 bf16 are 270 bytes: an odd pitch in 4-byte words, but
+    # a stage of 64 whole rows is 17,280 bytes, a whole number of 16
     "wgrad 960x1024->135 (MLP3)": ((1024, 135, 960, 1024, 135, True),
-                                   (tile_plan.SMALL, 5, 192, 16, 2, MS)),
+                                   (tile_plan.ROWS, 5, 192, 16, 16, CP)),
     "wgrad 1024x1024->4096": ((1024, 4096, 1024, 1024, 4096, True),
                               (tile_plan.BIG, 1, 1024, 16, 16, W)),
     "wgrad 1024x4096->4096": ((4096, 4096, 1024, 4096, 4096, True),
@@ -183,21 +186,22 @@ def test_bf16_plan_of_main_path_shapes(name):
     assert f.route == (W if p.route == W else tile_plan.WS_WGMMA if split and bp % 2 else CP)
     if f.route == tile_plan.WGMMA:
         assert (f.tile, f.splits, f.blocks) == (tile_plan.BIG, 1, tile_plan.SM_COUNT)
-    if p.route == CP:
+    elif f.route == tile_plan.WS_WGMMA:   # Out on wgmma's N, the route's own split
+        assert (f.tile, f.splits) == (tile_plan.ROWS, tile_plan.ws_splits(M, N, K))
+    else:   # the f32 CP_WGMMA tile and split rule, which the bf16 routes leave alone
+        assert (f.tile, f.splits) == (tile_plan.CP_F32_TILE, tile_plan.cp_f32_splits(M, N, K))
+    if p.route == CP and split:
+        # In on wgmma's M, Out on its N: the ROWS tile across an Out of at
+        # most 136, else the column tile; the route's own split rule
+        assert p.tile == (tile_plan.ROWS if N <= tile_plan.CP_WGRAD_ROWS
+                          else tile_plan.CP_WGRAD_TILE)
+        assert p == tile_plan.cp_fixed(M, N, K, p.tile,
+                                       tile_plan.cp_wgrad_splits(M, N, K, p.tile),
+                                       p.a_bytes, p.b_bytes)
+        assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
+    elif p.route == CP:
         assert (p.tile, p.splits) == (tile_plan.SMALL, tile_plan.cp_splits(M, N, K))
         assert p.blocks == tile_plan.tile_count(M, N, p.tile) * p.splits
-    elif p.route == tile_plan.MMA_SYNC:
-        # the mma.sync split weighs a block's fixed cost against the steps
-        # of its own type; the f32 CP_WGMMA one takes two blocks an SM
-        tiles = tile_plan.tile_count(M, N, p.tile)
-        assert p.splits == tile_plan.split_count(tiles, -(-K // tile_plan.BK), elem=2)
-        assert p.blocks == tiles * p.splits
-        if f.route == tile_plan.WS_WGMMA:   # Out on wgmma's N, the route's own split
-            assert (f.tile, f.splits) == (tile_plan.ROWS, tile_plan.ws_splits(M, N, K))
-        else:
-            assert f.tile == (p.tile if f.route == MS else tile_plan.CP_F32_TILE)
-            assert f.splits == (tile_plan.split_count(tiles, -(-K // tile_plan.BK))
-                                if f.route == MS else tile_plan.cp_f32_splits(M, N, K))
     else:
         # one block a 128x256 tile; the weight gradient's grid persistent
         tiles = tile_plan.tile_count(M, N, p.tile)
@@ -241,11 +245,16 @@ def test_wgmma_route_rule(args, wgmma):
             assert (p.tile, p.bm, p.bn, p.splits, p.k_chunk) == (*want, 1, K)
             assert (p.a_bytes, p.b_bytes) == (16, 16)
         elif p.route == tile_plan.CP_WGMMA:
-            # off TMA but in whole 4-byte units: the bf16 forward's cp.async
-            # route, never the bf16 weight gradient's; f32 products of too
-            # few BIG tiles, the forward and the weight gradient
-            assert (elem == 2 and not split or elem == 4 and few_tiles)
-            assert p.tile == (tile_plan.SMALL if elem == 2 else tile_plan.CP_F32_TILE)
+            # off TMA but in whole 4-byte units (e's base 16-byte aligned
+            # where one ROWS tile spans Out): the bf16 cp.async routes, the
+            # forward on 64x64 tiles, the weight gradient on its own; f32
+            # products of too few BIG tiles, the forward and the weight
+            # gradient
+            assert elem == 2 or few_tiles
+            want = (tile_plan.CP_F32_TILE if elem == 4 else
+                    tile_plan.cp_wgrad_tile(N, ap, bp, a_ptr, b_ptr, outs) if split else
+                    tile_plan.SMALL)
+            assert p.tile == want
         else:
             assert p.tile in (tile_plan.BIG, tile_plan.SMALL)
 
@@ -283,8 +292,10 @@ def test_cp_wgmma_plan_of_recipe_shapes(shape):
 
 # Rows the route cannot copy stay on MMA_SYNC with the plan they had: a
 # 2-byte pitch (K = 135, N = 135, K = 33), a base or output 2 bytes off a
-# 4-byte boundary; the weight gradient never takes the route. (M, N, K,
-# a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs, wgrad)
+# 4-byte boundary; the weight gradient's refusals: e's rows of 135 (a
+# 2-byte pitch) from a base off 16 bytes, so a stage of whole rows is no
+# run of 16-byte copies; x's rows of 61 (odd 2-byte units) or its base 2
+# bytes off. (M, N, K, a_pitch, b_pitch, a_ptr, b_ptr, out_ptrs, wgrad)
 @pytest.mark.parametrize("args", [
     (960, 1024, 135, 135, 1024, 0, 0, (), False),
     (67, 135, 598, 598, 135, 0, 0, (), False),
@@ -292,14 +303,19 @@ def test_cp_wgmma_plan_of_recipe_shapes(shape):
     (200, 132, 256, 256, 132, 2, 0, (), False),
     (200, 132, 256, 256, 132, 0, 6, (), False),
     (960, 1024, 598, 598, 1024, 0, 0, (2,), False),
-    (598, 1024, 960, 598, 1024, 0, 0, (), True),
-    (1024, 135, 960, 1024, 135, 0, 0, (), True),
+    (1024, 135, 960, 1024, 135, 0, 4, (), True),
+    (1024, 135, 960, 1024, 135, 0, 8, (), True),
+    (61, 1024, 960, 61, 1024, 0, 0, (), True),
+    (598, 1024, 960, 598, 1024, 2, 0, (), True),
 ])
 def test_two_byte_pitches_stay_on_mma_sync(args):
     M, N, K, ap, bp, a_ptr, b_ptr, outs, wgrad = args
     p = tile_plan.plan(M, N, K, ap, bp, a_ptr, b_ptr, wgrad=wgrad, elem=2, out_ptrs=outs)
     assert p.route == tile_plan.MMA_SYNC
-    assert not tile_plan.cp_wgmma_route(2, (ap, bp), (a_ptr, b_ptr, *outs)) or wgrad
+    if wgrad:
+        assert tile_plan.cp_wgrad_tile(N, ap, bp, a_ptr, b_ptr, outs) is None
+    else:
+        assert not tile_plan.cp_wgmma_route(2, (ap, bp), (a_ptr, b_ptr, *outs))
     saved = tile_plan.CP_WGMMA_ELEMS
     try:
         tile_plan.CP_WGMMA_ELEMS = ()
