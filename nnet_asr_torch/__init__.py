@@ -14,11 +14,12 @@ its layout so each module's counterpart is easy to find:
 
 The host code it shares with the JAX package is copied, never imported:
 ``io/{htk,mmf,scp,labels,mlf,native,htk_hmm,slf,dictionary}.py``,
-``native/{htkio,mpefb}.cc``, ``utils/{config,prefetch,profiler,rand48}.py``,
+``native/{htkio,mpefb}.cc``, ``utils/{config,prefetch,rand48}.py``,
 ``train/{newbob,rbm_scheduler,mpe,mpe_native,lattice_expand}.py``,
 ``tools/{gen_mlp_init,generators,gen_gmmbypass}.py`` are copies at the
-original's relative path. This package imports ``torch``
-and nothing of ``jax`` or ``nnet_asr_tpu``.
+original's relative path; ``utils/profiler.py`` keeps the original's
+phases and report and adds spans timed on the card. This package imports
+``torch`` and nothing of ``jax`` or ``nnet_asr_tpu``.
 """
 
 __version__ = "0.1.0"

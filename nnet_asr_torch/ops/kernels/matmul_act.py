@@ -56,13 +56,18 @@ through ``bf16_matmul``, f32 accumulation), ``db`` summed from the f32
 weight-update hook, which launches the fused wgrad+momentum kernel
 (``ops/kernels/sgd_fused.py``), and forms no ``dW``; ``affine`` is the
 same for a BiasedLinearity without a sigmoid (at bf16 ``x @ w`` and ``+ b``
-each rounded, as XLA computes the JAX bf16 mode's output layer).
+each rounded, as XLA computes the JAX bf16 mode's output layer). The
+profiler's spans name the backward's products by purpose, whatever kernel
+forms them: ``backward.dgrad`` around ``dx`` and ``backward.wgrad`` around
+``dW`` or the weight-update hook (the Trainer's ``forward_body`` opens
+``forward.output`` around the output layer's ``affine``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils.profiler import profiler
 from . import _build, tile_plan
 
 ACTS = {"none": 0, "sigmoid": 1}
@@ -201,13 +206,24 @@ def _affine_backward(ctx, x, w, dz):
     gradient."""
     dzc = dz.to(x.dtype)
     mm = bf16_matmul if x.dtype == torch.bfloat16 else torch.matmul
-    dx = mm(dzc, w.T) if ctx.needs_input_grad[0] else None
+    run = _in_span if profiler.recording() else _bare
+    dx = run("backward.dgrad", mm, dzc, w.T) if ctx.needs_input_grad[0] else None
     db = dz.sum(0).to(x.dtype) if ctx.needs_input_grad[2] else None
     if ctx.update is not None:
-        ctx.update(x, dzc)
+        run("backward.wgrad", ctx.update, x, dzc)
         return dx, None, db, None
-    dw = mm(x.T, dzc) if ctx.needs_input_grad[1] else None
+    dw = run("backward.wgrad", mm, x.T, dzc) if ctx.needs_input_grad[1] else None
     return dx, dw, db, None
+
+
+def _in_span(name, fn, a, b):
+    """``fn(a, b)`` inside the profiler's span ``name``, timed on the card."""
+    with profiler.phase(name, a.device, timed_in_trace=True):
+        return fn(a, b)
+
+
+def _bare(name, fn, a, b):
+    return fn(a, b)
 
 
 class AffineSigmoid(torch.autograd.Function):

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiler import profiler
 from ..utils.rand48 import Rand48
 
 
@@ -94,18 +95,20 @@ class DeviceFrameCache:
         labels, self._labels = self._labels[:n], self._labels[n:]
         dev = self._buf.device
         if self.randomize:
-            perm = self.rng.permutation(n)
-            labels = labels[perm]
+            with profiler.phase("intake.shuffle"):
+                perm = self.rng.permutation(n)
+                labels = labels[perm]
             rows = torch.from_numpy(perm[:nb * B]).to(dev)
         else:
             rows = torch.arange(nb * B, device=dev)
         out = None
         if nb > 0:
-            # a gather makes a fresh tensor, so the roll below cannot touch it
-            feats = self._buf.index_select(0, rows)
-            out = (feats.reshape(nb, B, self._buf.shape[1]),
-                   torch.from_numpy(np.ascontiguousarray(
-                       labels[:nb * B].reshape(nb, B))).to(dev))
+            with profiler.phase("intake.gather", dev):
+                # a gather makes a fresh tensor, so the roll below cannot touch it
+                feats = self._buf.index_select(0, rows)
+                out = (feats.reshape(nb, B, self._buf.shape[1]),
+                       torch.from_numpy(np.ascontiguousarray(
+                           labels[:nb * B].reshape(nb, B))).to(dev))
         if max_bunches is None:
             self.discarded += n - nb * B
         if self._rows > n:

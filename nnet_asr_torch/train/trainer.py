@@ -60,7 +60,10 @@ The compute dtypes of JAX ``TrainerConfig.compute_dtype``
 
 Statistics accumulate per cache in f32/int32 device tensors and merge into
 float64 host totals at the end of the epoch (ObjFun.h:16-54), so the loop
-never waits for the device.
+never waits for the device. The profiler's spans (``utils/profiler.py``)
+mark each bunch's step and its forward, loss, backward and update, and the
+intake: the reader threads' reads and label lookups, the wait for the next
+utterance, the transform, the cache fill and its shuffle and gather.
 """
 
 from __future__ import annotations
@@ -103,7 +106,8 @@ def forward_body(body, x: torch.Tensor, updates: Optional[dict] = None,
     """The forward of ``body`` (a network's layers without its softmax
     head), as the JAX package's Pallas path computes it: every
     BiasedLinearity → Sigmoid pair through ``affine_sigmoid``, any other
-    BiasedLinearity through ``affine``, every other layer plain.
+    BiasedLinearity through ``affine`` (the last, the output layer, in the
+    profiler's span ``forward.output``), every other layer plain.
     ``updates`` maps a layer index to its weight-update hook (the momentum
     step through the fused wgrad+momentum kernel); ``weights(i, spec)``
     gives a BiasedLinearity's (w, b), by default its own f32 tensors;
@@ -117,9 +121,14 @@ def forward_body(body, x: torch.Tensor, updates: Optional[dict] = None,
             if i + 1 < len(body) and isinstance(body[i + 1], Sigmoid):
                 x = affine_sigmoid(x, w, b, updates.get(i))
                 i += 2
+                continue
+            if i + 1 == len(body):
+                # the output layer, timed on the card under torch.profiler too
+                with profiler.phase("forward.output", x.device, timed_in_trace=True):
+                    x = affine(x, w, b, updates.get(i))
             else:
                 x = affine(x, w, b, updates.get(i))
-                i += 1
+            i += 1
             continue
         x = spec(x) if layer is None else layer(spec, x)
         i += 1
@@ -154,10 +163,15 @@ def read_utterances(reader, entries, labels_repo, start_frm_ext: int = 0,
         rd = getattr(tls, "reader", None)
         if rd is None:
             rd = tls.reader = copy.copy(reader)
-        feats = rd.read(e.physical, e.logical)
+        with profiler.phase("intake.read"):
+            feats = rd.read(e.physical, e.logical)
         n_real = feats.shape[0] - start_frm_ext - end_frm_ext
-        return feats, labels_repo.get_frame_labels(n_real, rd.last_header.sample_period,
-                                                   e.logical)
+        with profiler.phase("intake.labels"):
+            labels = labels_repo.get_frame_labels(n_real, rd.last_header.sample_period,
+                                                  e.logical)
+        profiler.count("intake.utterances", 1)
+        profiler.count("intake.frames", n_real)
+        return feats, labels
 
     return prefetch_map(read_one, entries, workers=workers)
 
@@ -321,16 +335,44 @@ class Trainer:
 
     def _train_step(self, feats: torch.Tensor, labels: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
-        updates = self._weight_updates(feats.shape[0])
-        loss, stats = self._loss(self._forward_logits(feats, updates, train=True), labels)
+        if profiler.recording():
+            return self._train_step_in_spans(feats, labels)
+        n = feats.shape[0]
+        loss, stats = self._loss(
+            self._forward_logits(feats, self._weight_updates(n), train=True), labels)
+        self._update(self._grads(loss), n)
+        return stats
+
+    def _train_step_in_spans(self, feats: torch.Tensor, labels: torch.Tensor
+                             ) -> Dict[str, torch.Tensor]:
+        """``_train_step`` inside the profiler's spans: the step, then its
+        forward, loss, backward and update (the update timed on the card
+        under a ``torch.profiler`` session too)."""
+        dev, n = self.device, feats.shape[0]
+        with profiler.phase("step", dev):
+            profiler.count("step.frames", n)
+            updates = self._weight_updates(n)
+            with profiler.phase("step.forward", dev):
+                logits = self._forward_logits(feats, updates, train=True)
+            with profiler.phase("step.loss", dev):
+                loss, stats = self._loss(logits, labels)
+            with profiler.phase("step.backward", dev):
+                gs = self._grads(loss)
+            with profiler.phase("step.update", dev, timed_in_trace=True):
+                self._update(gs, n)
+        return stats
+
+    def _grads(self, loss: torch.Tensor) -> List[torch.Tensor]:
+        """The loss's gradients of the trainable parameters, in order."""
         ts = [self.params[i][k] for i, k in self._trainable]
-        gs = torch.autograd.grad(loss, ts) if ts else []
+        return torch.autograd.grad(loss, ts) if ts else []
+
+    def _update(self, gs: List[torch.Tensor], n_frames: int) -> None:
         grads = [{} for _ in self.params]
         for (i, k), g in zip(self._trainable, gs):
             grads[i][k] = g
         apply_updates(self.net, self.params, self.velocity, grads, self.cfg.sgd,
-                      feats.shape[0], self.factors, learning_rate=self._lr)
-        return stats
+                      n_frames, self.factors, learning_rate=self._lr)
 
     @torch.no_grad()
     def _eval_step(self, feats: torch.Tensor, labels: torch.Tensor
@@ -351,14 +393,14 @@ class Trainer:
         """Train on every bunch of a stack ((nb, bunch, D) feats, (nb,
         bunch) labels, on the Trainer's device) in order; the per-stack
         device stats (JAX ``Trainer._drain_train``)."""
-        with profiler.phase("train-step"):
+        with profiler.phase("train-step", self.device):
             return self._drain(self._train_step, feats_all, labels_all)
 
     def drain_eval(self, feats_all: torch.Tensor, labels_all: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
         """Evaluate every bunch of a stack with the current parameters; the
         per-stack device stats (JAX ``Trainer._drain_eval``)."""
-        with profiler.phase("eval-step"):
+        with profiler.phase("eval-step", self.device):
             return self._drain(self._eval_step, feats_all, labels_all)
 
     def merge_acc(self, stats, acc: Dict[str, torch.Tensor], frames: int) -> None:
@@ -399,18 +441,19 @@ class Trainer:
         def flush_pending():
             if not pend_feats:
                 return
-            with profiler.phase("transform"):
+            with profiler.phase("transform", self.device):
                 rows, valid = self.pipeline.transform_block(pend_feats)
             labels_block = np.concatenate(pend_labels)
             if labels_block.shape[0] != valid:
                 raise ValueError(f"{labels_block.shape[0]} labels for {valid} frames")
             self.total_frames += valid
-            cache.add_block(rows, valid, labels_block)
+            with profiler.phase("intake.fill", self.device):
+                cache.add_block(rows, valid, labels_block)
             pend_feats.clear()
             pend_labels.clear()
 
         def take():
-            with profiler.phase("cache-randomize"):
+            with profiler.phase("cache-randomize", self.device):
                 stacked = cache.take_stacked()
             if stacked is not None:
                 yield stacked
@@ -419,7 +462,14 @@ class Trainer:
             while cache.full:
                 yield from take()
 
-        for ext_feats, labels in utterances:
+        utterances = iter(utterances)
+        while True:
+            # the wait for the next utterance (the readers run ahead of it)
+            with profiler.phase("intake.wait"):
+                item = next(utterances, None)
+            if item is None:
+                break
+            ext_feats, labels = item
             pend_feats.append(np.asarray(ext_feats, dtype=np.float32))
             pend_labels.append(np.asarray(labels, dtype=np.int32))
             if len(pend_feats) >= batch_utts:
