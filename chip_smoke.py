@@ -49,7 +49,11 @@ final line):
      the library, and alone), and for the f32 WS_WGMMA route (the
      warp-specialised 3xTF32 ring, split-K as a cluster: the weight
      gradient of an odd Out) at F32_CP_WGRAD's 960x1024->135, beside the
-     mma.sync kernel it replaced (forced) and the library;
+     mma.sync kernel it replaced (forced) and the library; and rows for the
+     f32 input gradient dx = dz W^T on its WGMMA kernel (csrc/dgrad.cu: W
+     read K-major, dz split by a pre-pass) at the production stack's two
+     dgrad shapes (DGRAD_SHAPES), against an f64 product and beside
+     cuBLAS's FFMA product (the library yardstick, the route it replaced);
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -73,7 +77,8 @@ final line):
      at momentum 0 and 0.9, device time summed by kernel name; every
      window holds exact per-route launches (4 WGMMA affine_sigmoid a step,
      5 WGMMA wgrad a momentum step, f32 on the f32 WGMMA route, bf16 on the
-     bf16 one, none on MMA_SYNC); two f32 steps at momentum 0 and 0.9 from
+     bf16 one, none on MMA_SYNC; 4 f32 dgrads a f32 step, none at bf16 nor
+     in any other phase); two f32 steps at momentum 0 and 0.9 from
      the same weights on the f32 WGMMA route and on MMA_SYNC agree within
      1e-5;
   7. objectives and tags, on phase 4's corpus (run before phase 6): tnet
@@ -219,6 +224,11 @@ AFFINE_SHAPES = ((BUNCH, 598, 1024), (1024, 1024, 4096), (1024, 4096, 4096),
 F32_WGMMA_AFFINE = ((1024, 1024, 4096), (1024, 4096, 4096))
 F32_WGMMA_WGRAD = ((1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf16")),
                    (1024, 4096, 8192, ("f32", "bf16")))
+# (B, In, Out) of the f32 input gradient dx = dz W^T on its WGMMA kernel
+# (csrc/dgrad.cu): the production stack's hidden and output layers, whose
+# four dgrads a step it forms (phase 6); every other dx stays on cuBLAS
+DGRAD_SHAPES = ((1024, 4096, 4096), (1024, 4096, 8192))
+DGRAD_PER_STEP = len(PROD_DIMS) - 2
 # the recipes' shapes of the f32 CP_WGMMA route (3xTF32 wgmma fed by
 # cp.async; phase 3 rows of their own, each beside the mma.sync kernel
 # forced): affine_sigmoid (M, K, N) at MLP3's, TIMIT's, a 2x2 mesh rank's,
@@ -555,6 +565,51 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
         f"(the f32 WGMMA route: pre-pass + GEMM), two launches equal bit for bit")
     log_times(f"affine_sigmoid {M}x{K}->{N} (plain: cuBLAS f32 + bias + sigmoid; library: "
               f"addmm + sigmoid_)", r, 2.0 * M * N * K / (ms * 1e-3) / 1e12)
+    return r
+
+
+def check_dgrad(torch, dev, B, In, Out, seed):
+    """The f32 input gradient dx = dz W^T on its WGMMA kernel against an f64
+    product (within 1e-5 of its largest element) and cuBLAS's FFMA product
+    (torch.matmul, the library yardstick and the route it replaced), three
+    calls equal bit for bit, two kernels a call (the pre-pass and the
+    GEMM), its counter one a call; device times in turns with the library
+    and alone, beside the bound."""
+    from nnet_asr_torch.ops.kernels import matmul_act as MA
+    from nnet_asr_torch.ops.kernels import tile_plan
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dz = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(Out)
+    w = torch.randn((In, Out), generator=gen, device=dev)
+    pl = tile_plan.dgrad_plan(B, In, Out, dz.data_ptr(), w.data_ptr())
+    check(pl is not None and pl.route == tile_plan.WGMMA,
+          f"dgrad {B}x{In}->{Out}: the plan leaves it to the library")
+    plan = plan_dict(tile_plan, pl)
+    log(f"plan dgrad {B}x{In}->{Out}: {json.dumps(plan)}")
+    before = MA.dgrad.launches
+    dx = [MA.dgrad(dz, w) for _ in range(3)]
+    check(MA.dgrad.launches == before + 3, f"dgrad {B}x{In}->{Out}: not one launch a call")
+    ref = dz.double() @ w.double().T
+    lib = torch.matmul(dz, w.T)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    err, err_lib = ((t.double() - ref).abs().max().item() for t in (dx[0], lib))
+    check(err <= 1e-5 * scale, f"dgrad {B}x{In}->{Out}: |dx - f64| {err} > 1e-5 * {scale}")
+    check(all(torch.equal(dx[0], t) for t in dx[1:]),
+          f"dgrad {B}x{In}->{Out}: a second launch differs")
+    fns = (lambda: MA.dgrad(dz, w), lambda: torch.matmul(dz, w.T))
+    flops = 2.0 * B * In * Out
+    ms, lib_ms = (cuda_ms(torch, f) for f in fns)
+    k_us, lib_us = paired_device_us(torch, fns[0], fns[1], "dgrad_f32_", flops)
+    per_call = launches_a_call(torch, fns[0], lambda: 2 * MA.dgrad.launches)
+    check(per_call == 2, f"dgrad {B}x{In}->{Out}: {per_call} kernels a call, want 2")
+    r = record(f"{B}x{In}->{Out}", err, ms, lib_ms, lib_ms, (k_us, lib_us, lib_us), flops,
+               4.0 * (B * Out + In * Out + B * In), PEAK_3XTF32, device_us(torch, fns[0]))
+    r["plan"], r["route"], r["library_err"] = plan, "WGMMA", err_lib
+    log(f"kernel dgrad {B}x{In}->{Out} (WGMMA): max|dx-f64| {err:.3e} (cuBLAS {err_lib:.3e}) of "
+        f"max {scale:.3e}; 2 kernels a call (pre-pass + GEMM), three launches equal bit for bit")
+    log_times(f"dgrad {B}x{In}->{Out} (plain and library: cuBLAS f32 dz @ W.T)", r,
+              flops / (ms * 1e-3) / 1e12)
     return r
 
 
@@ -1425,7 +1480,7 @@ COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma", "ma
             "wgrad_momentum_update_f32_wgmma", "wgrad_momentum_update_f32_cp_wgmma",
             "wgrad_momentum_update_f32_ws_wgmma", "wgrad_momentum_update_bf16",
             "wgrad_momentum_update_bf16_wgmma", "wgrad_momentum_update_bf16_cp_wgmma",
-            "softmax_xent")
+            "softmax_xent", "dgrad")
 
 
 def _counters():
@@ -1451,7 +1506,8 @@ def _counters():
                                                  "launches_bf16_wgmma"),
             "wgrad_momentum_update_bf16_cp_wgmma": (SF.wgrad_momentum_update,
                                                     "launches_bf16_cp_wgmma"),
-            "softmax_xent": (SC.softmax_xent, "launches")}
+            "softmax_xent": (SC.softmax_xent, "launches"),
+            "dgrad": (MA.dgrad, "launches")}
 
 
 def zero_counts():
@@ -2924,10 +2980,11 @@ def production(torch, dev, card: str):
     momentum_step_routes(torch, dev, feats, labels, card)
     # per step in the profiler window: every GEMM kernel of a step on the
     # WGMMA route of its operand type (4 affine_sigmoid; at momentum 0.9 5
-    # wgrad), none on MMA_SYNC
+    # wgrad; at f32 the 4 dgrads), none on MMA_SYNC
     hidden, weights = len(PROD_DIMS) - 2, len(PROD_DIMS) - 1
     forward = {t: {f"matmul_act{t}": hidden, f"matmul_act_{t[1:] or 'f32'}_wgmma": hidden}
                for t in ("", "_bf16")}
+    forward[""]["dgrad"] = DGRAD_PER_STEP
     update = {t: {f"wgrad_momentum_update{t}": weights,
                   f"wgrad_momentum_update_{t[1:] or 'f32'}_wgmma": weights} for t in ("", "_bf16")}
     routes = {"momentum 0": forward[""], "mse momentum 0": forward[""],
@@ -2994,14 +3051,15 @@ KERNEL_GROUPS = (("affine_sigmoid f32 CP_WGMMA (ours)", "matmul_act_f32_cp_"),
                   r"wgrad_momentum_kernel.*Tile<[^>]*>, __nv_bfloat16|wgrad_momentum_wgmma_kernel"),
                  ("wgrad_momentum_update (ours)", "wgrad_"),
                  ("softmax_xent (ours)", "softmax_xent_"),
+                 ("dgrad f32 WGMMA (ours)", "dgrad_f32_"),
                  ("cuBLAS GEMM", "gemm|xmma|cutlass|nvjet"))
 
 
 # the bf16 forward, the bf16 wgrad at f32 and bf16 v; the same in f32; the
 # bf16 CP_WGMMA forward, its wgrad on column tiles and on the ROWS tile at
 # f32 and bf16 v; the f32 CP_WGMMA forward, its wgrad at f32 and bf16 v;
-# the f32 WS_WGMMA wgrad at f32 and bf16 v
-WGMMA_KERNELS = 16
+# the f32 WS_WGMMA wgrad at f32 and bf16 v; the f32 dgrad
+WGMMA_KERNELS = 17
 
 
 def wgmma_spills(build_log: str) -> dict:
@@ -3149,6 +3207,8 @@ def main() -> int:
             check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed=B + In + Out + 2)
             for B, In, Out, vdts in F32_CP_WGRAD if (B, In, Out) in F32_CP_ELSEWHERE
             for vdt in vdts],
+        "dgrad_f32_wgmma": [check_dgrad(torch, dev, B, In, Out, seed=B + In + Out + 3)
+                            for B, In, Out in DGRAD_SHAPES],
         "affine_sigmoid_bf16": [check_matmul_act_bf16(torch, dev, M, K, N, seed=M + K + 1)
                                 for M, K, N in AFFINE_SHAPES],
         "wgrad_momentum_update_bf16": [
@@ -3220,6 +3280,9 @@ def main() -> int:
         check(all([ws, every - cp - ws] == want[fn] and wg == 0
                   for fn, (every, cp, ws, wg) in f32.items()),
               f"phase {phase}: f32 launches off their routes: {json.dumps(f32)}")
+        # the recipes' widths, a mesh rank's rows and bf16 leave every dx to
+        # cuBLAS
+        check(got.get("dgrad", 0) == 0, f"phase {phase}: {got.get('dgrad')} dgrad launches")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
     # of phase 3, launched by phase 6
@@ -3277,7 +3340,9 @@ def main() -> int:
             "wgrad_momentum_update_f32_wgmma": (
                 "sgd_fused.cu", "sgd_fused.py:105", "wgrad_momentum_update_f32_wgmma",
                 launches_prod, [r["shape"] for r in shapes["wgrad_momentum_update_f32_wgmma"]]
-                .index(f32_main))}
+                .index(f32_main)),
+            # the dx of affine_sigmoid's VJP, which the JAX package leaves to XLA
+            "dgrad_f32_wgmma": ("dgrad.cu", "matmul_act.py:128", "dgrad", launches_prod, 0)}
     kernels = []
     for name, (src, tpu, counter, counts, main) in meta.items():
         main_shape = shapes[name][main]

@@ -5,14 +5,19 @@
 // outputs') are 16-byte aligned, at the shapes where the 128 x 128 tile
 // fills the card (the f32 WGMMA route of ops/kernels/tile_plan.py: the
 // production stack's 1024 x {1024, 4096} -> 4096 forward and its weight
-// gradients). Every other f32 shape keeps tile_gemm.cuh's mma.sync loop.
+// gradients). dgrad.cu (dz W^T, the input gradient of the same layers)
+// builds its own schedule from the pieces here. Every other f32 shape keeps
+// the other routes of tile_plan.py.
 //
 // Arithmetic: tile_gemm.cuh's, f32-accurate. Each f32 element is split
 // into hi = rna_tf32(a) and lo = rna_tf32(a - hi), and every k8 step
 // accumulates a_lo*b_hi, a_hi*b_lo, then a_hi*b_hi (small terms first)
 // into one f32 accumulator. The tensor core reads an f32 bit pattern as
 // TF32 by ignoring its low 13 bits, so the rounding must happen before the
-// operand reaches wgmma.
+// operand reaches wgmma. It adds into the accumulator by truncation, so
+// these sums land low by about 8e-8 of their size a k8 step (4.3e-5 at K =
+// 4096 of positive operands); dgrad.cu adds short partial sums by FADD
+// instead (its promotion).
 //
 // What holds TF32 wgmma back here: it has no transpose bits, so an operand
 // read from shared memory must be K-major, and these products have
@@ -106,14 +111,14 @@ struct PingPong {
 using S = PingPong;
 
 // d (64 x 128, f32) += A (64 x 8, TF32 from registers) * B (8 x 128, TF32,
-// K-major in shared memory). Fragment of d as in wgmma_gemm.cuh:
-// d[4i + 2h + e] at row 16w + g + 8h, column 8i + 2t + e.
+// K-major in shared memory); scale_d = 0: d = A * B. Fragment of d as in
+// wgmma_gemm.cuh: d[4i + 2h + e] at row 16w + g + 8h, column 8i + 2t + e.
 #define NNET_D8(i)                                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
 __device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_t* a,
-                                                   uint64_t db) {
+                                                   uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -124,7 +129,7 @@ __device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : NNET_D8(0), NNET_D8(8), NNET_D8(16), NNET_D8(24), NNET_D8(32), NNET_D8(40), NNET_D8(48),
         NNET_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 #undef NNET_D8

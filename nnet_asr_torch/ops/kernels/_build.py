@@ -88,6 +88,9 @@ SIGNATURES = {
     # Out, v_is_bf16, blocks, stream
     "wgrad_momentum_update_f32_wgmma": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,
                                         _P],
+    # the f32 input gradient dx = dz w^T on the WGMMA route: dz, w, dx, dzhi,
+    # dzlo, M, In, Out, blocks, stream
+    "dgrad_f32_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

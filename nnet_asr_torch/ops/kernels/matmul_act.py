@@ -50,10 +50,17 @@ not match or a non-contiguous operand (``ValueError``).
 counted in ``launches``). ``affine_sigmoid`` is the
 ``autograd.Function``; its backward is the JAX ``_bwd``, roundings
 included: the elementwise ``dz`` in f32, rounded to x's dtype, then ``dx``
-and ``dW`` by ``torch.matmul`` (which JAX also left outside Pallas; at bf16
-through ``bf16_matmul``, f32 accumulation), ``db`` summed from the f32
-``dz``. On the momentum path the backward instead hands ``(x, dz)`` to a
-weight-update hook, which launches the fused wgrad+momentum kernel
+by ``dgrad`` and ``dW`` by ``torch.matmul`` (which JAX also left outside
+Pallas; at bf16 both through ``bf16_matmul``, f32 accumulation), ``db``
+summed from the f32 ``dz``. ``dgrad`` sends an f32 ``dx = dz W^T`` on the
+card to the hand-written kernel of ``csrc/dgrad.cu`` (3xTF32 ``wgmma``, W
+read K-major and split in registers, dz split by a pre-pass kernel into
+scratch allocated here; two launches a call) where
+``tile_plan.dgrad_plan`` takes the shape (the production stack's layers),
+and leaves every other ``dx`` to ``torch.matmul`` as before;
+``dgrad.launches`` counts its kernel's calls. On the momentum path the
+backward instead hands ``(x, dz)`` to a weight-update hook, which
+launches the fused wgrad+momentum kernel
 (``ops/kernels/sgd_fused.py``), and forms no ``dW``; ``affine`` is the
 same for a BiasedLinearity without a sigmoid (at bf16 ``x @ w`` and ``+ b``
 each rounded, as XLA computes the JAX bf16 mode's output layer). The
@@ -197,6 +204,40 @@ def _launch_cp_wgmma(lib, x, w, b, y, act, p, stream):
         matmul_act.launches_f32_cp_wgmma += 1
 
 
+def dgrad(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The input gradient ``dz @ w.T`` of a layer with weight ``w`` (In,
+    Out) from its pre-activation error ``dz`` (M, Out), at their dtype:
+    bf16 through ``bf16_matmul``; f32 on the card through
+    ``dgrad_f32_wgmma`` where ``tile_plan.dgrad_plan`` takes the shape and
+    both operands are contiguous (dx is allocated here, 512-byte aligned by
+    the caching allocator), else ``torch.matmul``."""
+    if dz.dtype == torch.bfloat16:
+        return bf16_matmul(dz, w.T)
+    p = None
+    if (dz.device.type == "cuda" and dz.dtype == w.dtype == torch.float32
+            and dz.dim() == w.dim() == 2 and dz.shape[1] == w.shape[1]
+            and dz.is_contiguous() and w.is_contiguous() and w.device == dz.device):
+        p = tile_plan.dgrad_plan(dz.shape[0], w.shape[0], w.shape[1], dz.data_ptr(),
+                                 w.data_ptr())
+    if p is None:
+        return torch.matmul(dz, w.T)
+    (M, Out), In = dz.shape, w.shape[0]
+    dx = torch.empty((M, In), dtype=torch.float32, device=dz.device)
+    # dz's hi and lo copies, written by the pre-pass (M * Out is a multiple
+    # of 4 on this route: both halves 16-byte aligned), by address: no
+    # tensor op more on the host's path
+    split = torch.empty(2 * M * Out, dtype=torch.float32, device=dz.device)
+    hi = split.data_ptr()
+    _build.check(_build.load_library().dgrad_f32_wgmma(
+        dz.data_ptr(), w.data_ptr(), dx.data_ptr(), hi, hi + 4 * M * Out, M, In, Out,
+        p.blocks, torch.cuda.current_stream(dz.device).cuda_stream), "dgrad_f32_wgmma")
+    dgrad.launches += 1
+    return dx
+
+
+dgrad.launches = 0
+
+
 def _affine_backward(ctx, x, w, dz):
     """(dx, dw, db, None) of ``z = x @ w + b`` from the pre-activation
     error ``dz``, rounded as JAX ``_bwd`` rounds: ``dz`` to x's dtype for
@@ -207,7 +248,7 @@ def _affine_backward(ctx, x, w, dz):
     dzc = dz.to(x.dtype)
     mm = bf16_matmul if x.dtype == torch.bfloat16 else torch.matmul
     run = _in_span if profiler.recording() else _bare
-    dx = run("backward.dgrad", mm, dzc, w.T) if ctx.needs_input_grad[0] else None
+    dx = run("backward.dgrad", dgrad, dzc, w) if ctx.needs_input_grad[0] else None
     db = dz.sum(0).to(x.dtype) if ctx.needs_input_grad[2] else None
     if ctx.update is not None:
         run("backward.wgrad", ctx.update, x, dzc)

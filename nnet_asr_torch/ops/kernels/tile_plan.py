@@ -54,6 +54,10 @@ The routes, in the order ``plan`` tries them:
   where it shortens the busiest SM's time (``split_count``), copies of 16,
   8 (the SMALL tile's f32 kernels only) or 4 bytes (``copy_bytes``).
 
+The f32 input gradient ``dx = dz W^T`` has a plan of its own
+(``dgrad_plan``): the WGMMA route's rule at f32 (``csrc/dgrad.cu``, W read
+K-major as A, dz split by a pre-pass as B), else None: ``torch.matmul``.
+
 On ``MMA_SYNC`` and ``CP_WGMMA`` each split writes its f32 partial tile to
 a scratch of ``blocks * bm * bn`` floats, and the block that arrives last
 at a tile (an int counter per tile, kept zeroed) sums the partials in split
@@ -68,7 +72,7 @@ card. ``mma_sync_f32``, ``mma_sync_bf16`` and
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 SM_COUNT = 132           # H100 SXM
 SM_SMEM = 233_472        # bytes of shared memory an SM gives its blocks (228 KB)
@@ -94,6 +98,7 @@ CP_WGRAD_ROWS = 136      # the widest Out its ROWS tile spans (wgmma's N)
 CP_WGRAD_STAGES = {SMALL: 3, ROWS: 4}   # its rings (csrc/sgd_fused.cu CpWgrad*)
 CP_WGRAD_MAX_CLUSTER = 6   # splits of one tile, one cluster, at most (cp_wgrad_splits)
 WS_ELEMS = (4,)          # element sizes with a WS_WGMMA route (f32)
+DGRAD_ELEMS = (4,)       # element sizes with a dgrad route (f32; dgrad_plan)
 WS_ROWS_WIDTHS = (136,)  # Out rounded up to 8 that the WS weight gradient is built for
 WS_ROWS_STAGES = 4       # its ring (168 KB, and 51 KB of raw e rows: one block an SM)
 WS_MAX_SPLITS = 6        # a WS tile's splits are one cluster (ws_splits)
@@ -452,3 +457,25 @@ def plan(M: int, N: int, K: int, a_pitch: int, b_pitch: int, a_ptr: int = 0,
     widths = (16, 8, 4) if tile == SMALL and elem == 4 else (16, 4)
     return Plan(tile, bm, bn, splits, k_chunk, copy_bytes(a_pitch, a_ptr, elem, widths),
                 copy_bytes(b_pitch, b_ptr, elem, widths), MMA_SYNC, tiles * splits)
+
+
+def dgrad_plan(M: int, In: int, Out: int, dz_ptr: int = 0, w_ptr: int = 0, out_ptrs=(),
+               elem: int = 4) -> Optional[Plan]:
+    """The plan of the input gradient ``dx = dz W^T`` of a layer In -> Out
+    at a bunch of M rows (dz (M, Out), W (In, Out), dx (M, In), row-major,
+    ``elem`` bytes an element) on the f32 WGMMA route (``csrc/dgrad.cu``:
+    ``dx^T = W dz^T`` on the persistent grid of 128x128 tiles, W read
+    K-major, dz split into hi and lo by a pre-pass), or None where
+    ``torch.matmul`` forms it. The route's rule is the f32 WGMMA route's:
+    an element size in ``DGRAD_ELEMS`` and ``WGMMA_ELEMS``, pitches (Out for
+    dz, W and the split copies, In for dx) of 16-byte multiples, 16-byte
+    aligned operands and outputs (``out_ptrs``), and 128x128 tiles of dx^T
+    that fill the card: the production stack's 1024x4096->4096 and
+    4096->8192 layers, not MLP3's or TIMIT's widths, a mesh rank's rows, a
+    tmpe utterance's or any bf16 step."""
+    if min(M, In, Out) < 1 or elem not in DGRAD_ELEMS:
+        return None
+    tiles = tile_count(In, M, BIG)
+    if not (wgmma_route(elem, (Out, In), (dz_ptr, w_ptr, *out_ptrs)) and tiles >= SM_COUNT):
+        return None
+    return Plan(BIG, *TILES[BIG], 1, Out, 16, 16, WGMMA, min(tiles, SM_COUNT))

@@ -264,6 +264,21 @@ def mma_sync_f32():
 
 
 @contextlib.contextmanager
+def library_dgrad():
+    """Every f32 input gradient on ``torch.matmul`` (cuBLAS) while inside,
+    as before its WGMMA kernel (``tile_plan.DGRAD_ELEMS`` without 4); the
+    other routes stay as they are."""
+    from ..ops.kernels import tile_plan
+
+    saved = tile_plan.DGRAD_ELEMS
+    tile_plan.DGRAD_ELEMS = ()
+    try:
+        yield
+    finally:
+        tile_plan.DGRAD_ELEMS = saved
+
+
+@contextlib.contextmanager
 def without_ws():
     """Every f32 GEMM off the WS_WGMMA route while inside, on the route it
     had before that one: the f32 CP_WGMMA route, or MMA_SYNC for the weight

@@ -124,6 +124,10 @@ KERNEL_NAMES = {
     "float, __nv_bfloat16>(float const*)": "wgrad_momentum_update (ours)",
     "void (anonymous namespace)::softmax_xent_rows<16, 4, false>((anonymous namespace)::Args)":
         "softmax_xent (ours)",
+    "(anonymous namespace)::dgrad_f32_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, "
+    "CUtensorMap_st, float*, int, int, int)": "dgrad f32 WGMMA (ours)",
+    "(anonymous namespace)::dgrad_f32_split_kernel(float4 const*, uint4*, uint4*, "
+    "unsigned long)": "dgrad f32 WGMMA (ours)",
     "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT": "cuBLAS GEMM",
     "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize256x128x8_stage3": "cuBLAS GEMM",
     "void cutlass::Kernel2<cutlass_80_simt_sgemm_128x256_8x4_nt_align1>(Params)": "cuBLAS GEMM",
@@ -134,6 +138,20 @@ KERNEL_NAMES = {
 def test_profiler_groups_attribute_each_kernel(key):
     group = next((g for g, pat in chip_smoke.KERNEL_GROUPS if re.search(pat, key)), "other")
     assert group == KERNEL_NAMES[key]
+
+
+# The dgrad's kernels through the benchmark's groups (benchmark/trace.py):
+# none takes them, so neither the forward's roofline (every name holding
+# "matmul_act") nor cuBLAS's group counts their time
+DGRAD_KERNELS = [k for k, g in KERNEL_NAMES.items() if g == "dgrad f32 WGMMA (ours)"]
+
+
+@pytest.mark.parametrize("name", DGRAD_KERNELS)
+def test_benchmark_trace_groups_none_of_the_dgrad_kernels(name):
+    from benchmark import trace
+
+    assert trace.group_of(name) == name[:80]
+    assert "matmul_act" not in name and "wgrad_momentum" not in name
 
 
 # ptxas's report of WGMMA-route kernels (bf16 and f32; the f32 route's
@@ -180,5 +198,6 @@ def test_wgmma_spills_from_ptxas_report():
         "EEEfEEvPK13__nv_bfloat16": 888}
     # 3 bf16 TMA instances, 3 f32 ones, the bf16 CP_WGMMA forward and its
     # wgrad on both tiles at f32 and bf16 velocity, the f32 CP_WGMMA forward
-    # and its wgrad at f32 and bf16 velocity, the f32 WS_WGMMA wgrad at both
-    assert chip_smoke.WGMMA_KERNELS == 16
+    # and its wgrad at f32 and bf16 velocity, the f32 WS_WGMMA wgrad at both,
+    # the f32 dgrad
+    assert chip_smoke.WGMMA_KERNELS == 17

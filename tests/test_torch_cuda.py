@@ -29,6 +29,17 @@ velocity at momentum 0 and 0.9, its launches asserted by
 ``launches_f32_wgmma``; small integers make every sum exact, so a wrong
 fragment, descriptor or swizzle shows as a wrong element.
 
+The f32 input gradient ``dx = dz W^T`` on its WGMMA kernel (``csrc/dgrad.cu``:
+W read K-major by ldmatrix and split in registers, dz split by a pre-pass)
+is held to an f64 product within 1e-5 of its largest element (cuBLAS's
+FFMA product meets it too; one TF32 pass would not, nor the route's sums
+without their promotion) at the production stack's two dgrad shapes and at
+ragged ones, three calls equal bit for bit, small integers exact, and its
+launches counted by ``dgrad.launches``: 4 a production f32 step, none at
+bf16 or at the shapes and operands the plan leaves to ``torch.matmul``; a
+production step's gradients through autograd within the benchmark's
+``grad_diff`` lower reading of the same step with every dgrad on cuBLAS.
+
 The bf16 variants (one bf16 ``mma.sync`` pass, f32 accumulation) are held to
 their plain versions within one bf16 step: both round an f32 value that
 differs only by summation order. Their shapes add the 2-byte copy path (an
@@ -40,6 +51,8 @@ multiple of 64, ragged M and N, a persistent grid walking several tiles a
 block, and each operand layout alone with small integers, where every sum
 is exact.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -909,6 +922,167 @@ def test_cuda_f32_wgmma_kernels_a_call(cuda):
     p, v = torch.zeros((1024, 4096), device=cuda), torch.zeros((1024, 4096), device=cuda)
     assert per_call(lambda: SF.wgrad_momentum_update(xw, ew, p, v, 1e-3, 0.9),
                     "wgrad_momentum_f32_") == (2, 2)
+
+
+# (B, In, Out) of the f32 input gradient on its WGMMA kernel: the
+# production stack's 4096->4096 and 4096->8192 layers, then ragged bunch,
+# In and Out (multiples of 4 floats, not of the 128x128 tile or the 32-deep
+# stage), and a contraction of one stage and a tail
+DGRAD_SHAPES = ((1024, 4096, 4096), (1024, 4096, 8192), (1000, 4100, 4104), (516, 4228, 36))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DGRAD_SHAPES)
+def test_cuda_dgrad_f32_wgmma_matches_f64(cuda, shape):
+    B, In, Out = shape
+    rng = np.random.default_rng(30)
+    dz = _on_card((rng.standard_normal((B, Out)) / np.sqrt(Out)).astype(np.float32), cuda)
+    w = _on_card(rng.standard_normal((In, Out)).astype(np.float32), cuda)
+    p = tile_plan.dgrad_plan(B, In, Out, dz.data_ptr(), w.data_ptr())
+    assert p.route == tile_plan.WGMMA and p.blocks == tile_plan.SM_COUNT
+    before = MA.dgrad.launches
+    dx = [MA.dgrad(dz, w) for _ in range(3)]
+    assert MA.dgrad.launches == before + 3
+    ref = dz.double() @ w.double().T
+    torch.cuda.synchronize()
+    # chip_smoke.py phase 3's tolerance, which cuBLAS's FFMA product meets
+    # too; the tensor cores' truncating sums without the kernel's promotion
+    # (3-6e-5 of the largest element at these depths) do not
+    tol = 1e-5 * ref.abs().max().item()
+    assert (dx[0].double() - ref).abs().max().item() <= tol
+    assert (torch.matmul(dz, w.T).double() - ref).abs().max().item() <= tol
+    assert torch.equal(dx[0], dx[1]) and torch.equal(dx[0], dx[2])
+
+
+# small integers: every product and sum exact in f32 (each integer's lo
+# half 0), so dx equals the exact product bit for bit; a wrong ldmatrix
+# address, swizzle, B descriptor or epilogue row would move whole blocks
+@pytest.mark.cuda
+def test_cuda_dgrad_f32_wgmma_layouts_exact(cuda):
+    rng = np.random.default_rng(31)
+    B, In, Out = 512, 4224, 520                 # 132 tiles, a stage's tail
+    dz, w = (torch.from_numpy(rng.integers(-3, 4, s).astype(np.float32)).to(cuda)
+             for s in ((B, Out), (In, Out)))
+    before = MA.dgrad.launches
+    dx = MA.dgrad(dz, w)
+    assert MA.dgrad.launches == before + 1
+    assert torch.equal(dx.double(), dz.double() @ w.double().T)
+
+
+# One call launches the pre-pass and the GEMM, both named dgrad_f32_ (no
+# profiler group of the forward, the weight gradient or the library takes
+# them); counted over 10 calls
+@pytest.mark.cuda
+def test_cuda_dgrad_kernels_a_call(cuda):
+    rng = np.random.default_rng(32)
+    dz, w = (_on_card(rng.standard_normal(s).astype(np.float32), cuda)
+             for s in ((1024, 4096), (4096, 4096)))
+    names = _kernels_of(lambda: MA.dgrad(dz, w), calls=10)
+    assert all("dgrad_f32_" in n and "matmul_act" not in n for n in names)
+    assert (round(len(names) / 10), len(set(names))) == (2, 2)
+
+
+# the shapes and operands the plan leaves to torch.matmul: MLP3's
+# 960x1024->135 (a 540-byte pitch), TIMIT's 1024x500->39, a 2x2 mesh rank's
+# 480 rows of MLP3 and 512 of the production stack (128 tiles: under the
+# card), a production shape one float off a 16-byte boundary, a
+# non-contiguous dz, and bf16 operands: no launch, cuBLAS's product exactly
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp3", "timit", "mesh_mlp3", "mesh_prod", "unaligned",
+                                  "strided", "bf16"])
+def test_cuda_dgrad_bypass_launches_nothing(cuda, case):
+    B, In, Out = {"mlp3": (960, 1024, 135), "timit": (1024, 500, 39),
+                  "mesh_mlp3": (480, 1024, 135), "mesh_prod": (512, 4096, 4096)}.get(
+                      case, (1024, 4096, 4096))
+    rng = np.random.default_rng(33)
+    dz = _on_card(rng.standard_normal((B, Out)).astype(np.float32), cuda,
+                  offset=1 if case == "unaligned" else 0)
+    w = _on_card(rng.standard_normal((In, Out)).astype(np.float32), cuda)
+    if case == "strided":
+        dz = torch.cat([dz, dz], 1)[:, :Out]
+        assert not dz.is_contiguous()
+    if case == "bf16":
+        dz, w = dz.bfloat16(), w.bfloat16()
+    before = MA.dgrad.launches
+    dx = MA.dgrad(dz, w)
+    assert MA.dgrad.launches == before
+    want = MA.bf16_matmul(dz, w.T) if case == "bf16" else torch.matmul(dz, w.T)
+    assert torch.equal(dx, want)
+
+
+def _production_trainer(dev, momentum, dtype=None):
+    """The production-width stack 1024->4096x4->8192 + softmax (weights
+    0.05 N(0, 1) from numpy seed 7, zero biases) in a Trainer, bunch 1024."""
+    from nnet_asr_torch.models import components as TC
+    from nnet_asr_torch.models.network import Network
+    from nnet_asr_torch.train.sgd import SgdConfig
+    from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
+
+    dims = [1024, 4096, 4096, 4096, 4096, 8192]
+    rng = np.random.default_rng(7)
+    layers, params = [], []
+    for i in range(len(dims) - 1):
+        layers.append(TC.BiasedLinearity(dims[i], dims[i + 1]))
+        params.append({"weight": 0.05 * rng.standard_normal((dims[i], dims[i + 1]),
+                                                            dtype=np.float32),
+                       "bias": np.zeros(dims[i + 1], np.float32)})
+        if i < len(dims) - 2:
+            layers.append(TC.Sigmoid(dims[i + 1], dims[i + 1]))
+            params.append({})
+    layers.append(TC.Softmax(dims[-1], dims[-1]))
+    params.append({})
+    cfg = TrainerConfig(bunchsize=1024, cachesize=1024, compute_dtype=dtype,
+                        sgd=SgdConfig(learning_rate=0.01, momentum=momentum))
+    return Trainer(Network(layers).from_numpy_params(params), cfg, device=dev)
+
+
+# the route engages for every layer whose input needs a gradient: 4 a f32
+# production step (not the first layer's), at momentum 0 and 0.9, none
+# under the bf16 compute dtype
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum,dtype,want", [(0.0, None, 4), (0.9, None, 4),
+                                                 (0.0, "bf16", 0), (0.9, "bf16", 0)])
+def test_cuda_dgrad_launches_a_production_step(cuda, momentum, dtype, want):
+    tr = _production_trainer(cuda, momentum, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    feats = 0.1 * torch.randn((1024, 1024), generator=gen, device=cuda)
+    labels = torch.randint(0, 8192, (1024,), generator=gen, device=cuda, dtype=torch.int32)
+    before = MA.dgrad.launches
+    for _ in range(2):
+        tr._train_step(feats, labels)
+    torch.cuda.synchronize()
+    assert MA.dgrad.launches - before == 2 * want
+
+
+# one production step's gradients through autograd (momentum 0: every
+# weight and bias gradient formed) with the dgrads on their kernel against
+# the same step with every dgrad on cuBLAS (tools/gemm_ceiling.py
+# library_dgrad): by the worst leaf, the norm of the difference over the
+# larger of the leaf's and the median leaf's norm, as benchmark/check.py's
+# grad_diff, within that number's lower reading in prod_tnetcu.resident
+# (4.50e-5: the program against the plain reference with every dgrad on
+# cuBLAS; the kernel without its promotion read 1.08e-4 here)
+@pytest.mark.cuda
+def test_cuda_dgrad_production_gradients_agree_with_library(cuda):
+    from nnet_asr_torch.tools.gemm_ceiling import library_dgrad
+
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    feats = 0.1 * torch.randn((1024, 1024), generator=gen, device=cuda)
+    labels = torch.randint(0, 8192, (1024,), generator=gen, device=cuda, dtype=torch.int32)
+    grads = []
+    for library in (False, True):
+        tr = _production_trainer(cuda, 0.0)
+        before = MA.dgrad.launches
+        with library_dgrad() if library else contextlib.nullcontext():
+            loss, _ = tr._loss(tr._forward_logits(feats, {}, train=True), labels)
+            grads.append([g.double() for g in tr._grads(loss)])
+        torch.cuda.synchronize()
+        assert MA.dgrad.launches - before == (0 if library else 4)
+    norms = [g.norm().item() for g in grads[1]]
+    med = float(np.median(norms))
+    diff = max((a - b).norm().item() / max(n, med)
+               for a, b, n in zip(grads[0], grads[1], norms) if n >= 1e-3 * med)
+    assert 0 < diff <= 4.5e-5
 
 
 @pytest.mark.cuda
