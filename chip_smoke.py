@@ -1128,6 +1128,11 @@ def main_path(torch, card: str, d: str, n: dict):
         log(f"tnet cuda:0 {name}: Xent {r['xent']:.10g} frames {r['frames']} "
             f"correct {r['acc']:.4f}% FPS {r['fps']}")
     log(f"main-path launches (4 tnet runs): {json.dumps(launches)}")
+    graphs = _graph_launches()
+    log(f"of them, by the Trainer's count: captured {json.dumps(graphs['captured'])}, "
+        f"replayed from CUDA graphs {json.dumps(graphs['replayed'])}")
+    check(graphs["replayed"]["softmax_xent.launches"] > 0,
+          "main path: no training step was replayed from a CUDA graph")
     want_train = drained_frames(n["train"], CACHE, BUNCH)
     want_cv = drained_frames(n["cv"], CACHE, BUNCH)
     check(e1["frames"] == e2["frames"] == want_train,
@@ -1510,13 +1515,28 @@ def _counters():
             "dgrad": (MA.dgrad, "launches")}
 
 
+def _graph_launches() -> dict:
+    """The Trainer's own count of the launches of steps replayed from CUDA
+    graphs: "captured" (the wrappers counted them, nothing ran) and
+    "replayed" (they ran, no wrapper was called), by "<wrapper>.<counter>"."""
+    from nnet_asr_torch.train.trainer import GRAPH_LAUNCHES
+
+    return GRAPH_LAUNCHES
+
+
 def zero_counts():
     for f, k in _counters().values():
         setattr(f, k, 0)
+    for c in _graph_launches().values():
+        c.clear()
 
 
 def read_counts() -> dict:
-    return {name: getattr(f, k) for name, (f, k) in _counters().items()}
+    """The launches that ran, by counter: each wrapper's own count, less
+    the launches captures recorded, plus those graph replays made."""
+    g = _graph_launches()
+    return {name: getattr(f, k) - g["captured"][f"{f.__name__}.{k}"]
+            + g["replayed"][f"{f.__name__}.{k}"] for name, (f, k) in _counters().items()}
 
 
 def compare_posteriors(what, post, post_cpu, tol):
@@ -2567,6 +2587,8 @@ def restore_counts(counts: dict) -> None:
     """Set the launch counters back (launches made to compare paths do not count)."""
     for name, (f, k) in _counters().items():
         setattr(f, k, counts[name])
+    for c in _graph_launches().values():
+        c.clear()
 
 
 def mesh_case_production(torch, data: int, model: int) -> dict:

@@ -67,7 +67,11 @@ each rounded, as XLA computes the JAX bf16 mode's output layer). The
 profiler's spans name the backward's products by purpose, whatever kernel
 forms them: ``backward.dgrad`` around ``dx`` and ``backward.wgrad`` around
 ``dW`` or the weight-update hook (the Trainer's ``forward_body`` opens
-``forward.output`` around the output layer's ``affine``).
+``forward.output`` around the output layer's ``affine``). Where a
+product's route is chosen (here, and in ``sgd_fused``), its operations
+2·M·N·K go to the profiler's counter of that route,
+``tile_plan.ROUTE_FLOPS``, or ``gemm.flops.library`` where the library
+forms it.
 """
 
 from __future__ import annotations
@@ -133,16 +137,18 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """act(x @ w + b): x (M,K), w (K,N), b (N,), all float32 or all
     bfloat16; y at their dtype."""
     _check(x, w, b, act)
+    M, K = x.shape
+    N = w.shape[1]
     if x.device.type == "cpu":
+        profiler.count(tile_plan.LIBRARY_FLOPS, 2.0 * M * N * K)
         return matmul_act_plain(x, w, b, act)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_act: unsupported device {x.device}")
     lib = _build.load_library()
-    M, K = x.shape
-    N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     p = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=x.data_ptr(),
                        b_ptr=w.data_ptr(), elem=x.element_size(), out_ptrs=(y.data_ptr(),))
+    profiler.count(tile_plan.ROUTE_FLOPS[p.route], 2.0 * M * N * K)
     stream = torch.cuda.current_stream(x.device)
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act])
     bf16 = x.dtype == torch.bfloat16
@@ -211,7 +217,9 @@ def dgrad(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``dgrad_f32_wgmma`` where ``tile_plan.dgrad_plan`` takes the shape and
     both operands are contiguous (dx is allocated here, 512-byte aligned by
     the caching allocator), else ``torch.matmul``."""
+    flops = 2.0 * dz.shape[0] * dz.shape[-1] * w.shape[0]
     if dz.dtype == torch.bfloat16:
+        profiler.count(tile_plan.LIBRARY_FLOPS, flops)
         return bf16_matmul(dz, w.T)
     p = None
     if (dz.device.type == "cuda" and dz.dtype == w.dtype == torch.float32
@@ -220,7 +228,9 @@ def dgrad(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         p = tile_plan.dgrad_plan(dz.shape[0], w.shape[0], w.shape[1], dz.data_ptr(),
                                  w.data_ptr())
     if p is None:
+        profiler.count(tile_plan.LIBRARY_FLOPS, flops)
         return torch.matmul(dz, w.T)
+    profiler.count(tile_plan.ROUTE_FLOPS[p.route], flops)
     (M, Out), In = dz.shape, w.shape[0]
     dx = torch.empty((M, In), dtype=torch.float32, device=dz.device)
     # dz's hi and lo copies, written by the pre-pass (M * Out is a multiple
@@ -253,7 +263,10 @@ def _affine_backward(ctx, x, w, dz):
     if ctx.update is not None:
         run("backward.wgrad", ctx.update, x, dzc)
         return dx, None, db, None
-    dw = run("backward.wgrad", mm, x.T, dzc) if ctx.needs_input_grad[1] else None
+    dw = None
+    if ctx.needs_input_grad[1]:
+        profiler.count(tile_plan.LIBRARY_FLOPS, 2.0 * x.shape[0] * x.shape[1] * dzc.shape[1])
+        dw = run("backward.wgrad", mm, x.T, dzc)
     return dx, dw, db, None
 
 
@@ -299,6 +312,7 @@ class Affine(torch.autograd.Function):
     def forward(ctx, x, w, b, update):
         ctx.save_for_backward(x, w)
         ctx.update = update
+        profiler.count(tile_plan.LIBRARY_FLOPS, 2.0 * x.shape[0] * w.shape[0] * w.shape[1])
         if x.dtype == torch.bfloat16:
             return bf16_matmul(x, w) + b
         return x @ w + b

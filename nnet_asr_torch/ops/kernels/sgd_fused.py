@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiler import profiler
 from . import _build, tile_plan
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -122,7 +123,9 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     (then x^T e is rounded to bfloat16 first); p (In,Out) float32; v
     (In,Out) float32 or bfloat16."""
     _check(x, e, p, v)
+    flops = 2.0 * x.shape[0] * x.shape[1] * e.shape[1]
     if p.device.type == "cpu":
+        profiler.count(tile_plan.LIBRARY_FLOPS, flops)
         return wgrad_momentum_update_plain(x, e, p, v, a, m)
     if p.device.type != "cuda":
         raise ValueError(f"wgrad_momentum_update: unsupported device {p.device}")
@@ -132,6 +135,7 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=x.data_ptr(),
                         b_ptr=e.data_ptr(), wgrad=True, elem=x.element_size(),
                         out_ptrs=(p.data_ptr(), v.data_ptr()))
+    profiler.count(tile_plan.ROUTE_FLOPS[pl.route], flops)
     stream = torch.cuda.current_stream(p.device)
     v_is_bf16 = int(v.dtype == torch.bfloat16)
     bf16 = x.dtype == torch.bfloat16

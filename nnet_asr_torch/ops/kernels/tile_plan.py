@@ -83,6 +83,12 @@ TILES = {BIG: (128, 128), SMALL: (64, 64), WIDE: (128, 256), TALL: (128, 64), HA
          ROWS: (64, 136)}
 STAGES = {BIG: 3, SMALL: 4}   # depth of the cp.async ring
 MMA_SYNC, WGMMA, CP_WGMMA, WS_WGMMA = 0, 1, 2, 3
+# the profiler's counter of the operations (2·M·N·K a product) each route
+# forms, added where the route is chosen; the library's products (cuBLAS,
+# and every product on the CPU) count in LIBRARY_FLOPS
+ROUTE_FLOPS = {MMA_SYNC: "gemm.flops.mma_sync", WGMMA: "gemm.flops.wgmma",
+               CP_WGMMA: "gemm.flops.cp_wgmma", WS_WGMMA: "gemm.flops.ws_wgmma"}
+LIBRARY_FLOPS = "gemm.flops.library"
 WGMMA_ELEMS = (2, 4)     # element sizes with a WGMMA route (bf16, f32)
 WGMMA_BK = {2: 64, 4: 32}   # contraction step of the WGMMA ring: one 128-byte line
 CP_WGMMA_ELEMS = (2, 4)  # element sizes with a CP_WGMMA route (the bf16 forward, f32 both)

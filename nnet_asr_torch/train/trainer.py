@@ -58,16 +58,24 @@ The compute dtypes of JAX ``TrainerConfig.compute_dtype``
   path has none): every weight takes autograd and ``apply_updates``.
   ``fused_softmax_xent`` still takes the f32 logits.
 
+On a CUDA card an f32 CE step through ``fused_softmax_xent`` is replayed
+from a CUDA graph (``Trainer._graph_step``): the first step of a bunch
+shape, learning rate and set of state tensors runs eagerly, the next is
+captured, the rest replay it, with the eager step's kernels and results.
 Statistics accumulate per cache in f32/int32 device tensors and merge into
 float64 host totals at the end of the epoch (ObjFun.h:16-54), so the loop
 never waits for the device. The profiler's spans (``utils/profiler.py``)
-mark each bunch's step and its forward, loss, backward and update, and the
-intake: the reader threads' reads and label lookups, the wait for the next
-utterance, the transform, the cache fill and its shuffle and gather.
+mark each bunch's step and its forward (the output layer's too), loss (the
+fused softmax-CE too), backward and update (under ``-T 4`` every step runs
+eagerly; under a ``torch.profiler`` session a graphed step replays graphs
+that hold its spans), and the intake: the reader threads' reads and label
+lookups, the wait for the next utterance, the transform, the cache fill
+and its shuffle and gather.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import functools
 import itertools
@@ -80,14 +88,15 @@ import numpy as np
 import torch
 
 from ..utils.prefetch import prefetch_map
-from ..utils.profiler import profiler
+from ..utils.profiler import GraphSpans, profiler
 
 from ..device import DeviceLike, resolve_device
 from ..models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
 from ..models.network import Network
-from ..ops.kernels.matmul_act import affine, affine_sigmoid
+from ..ops.kernels.matmul_act import affine, affine_sigmoid, dgrad, matmul_act
 from ..ops.int8_train import fake_quant_ste, qmatmul
-from ..ops.kernels.softmax_ce import fused_softmax_xent
+from ..ops.kernels.sgd_fused import wgrad_momentum_update
+from ..ops.kernels.softmax_ce import fused_softmax_xent, softmax_xent
 from ..ops.objectives import (MseStats, XentStats, mse_loss_and_stats, one_hot,
                               softmax_identity_backward, xent_loss_and_stats)
 from .cache import DeviceFrameCache
@@ -176,6 +185,70 @@ def read_utterances(reader, entries, labels_repo, start_frm_ext: int = 0,
     return prefetch_map(read_one, entries, workers=workers)
 
 
+# the kernel wrappers whose ``launches*`` attributes count their launches
+_COUNTED = (matmul_act, dgrad, wgrad_momentum_update, softmax_xent)
+# the launches of steps replayed from CUDA graphs, by "<wrapper>.<counter>"
+# of those wrappers: "captured", the launches the wrappers counted while a
+# capture recorded them (they ran nothing), and "replayed", each replay's
+# captured launches again (they ran, with no call of the wrapper)
+GRAPH_LAUNCHES: Dict[str, collections.Counter] = {"captured": collections.Counter(),
+                                                  "replayed": collections.Counter()}
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {f"{f.__name__}.{k}": v for f in _COUNTED for k, v in vars(f).items()
+            if k.startswith("launches")}
+
+
+class _Captured:
+    """One capture of a train step ``fn(x, y)`` as a CUDA graph on
+    ``stream``, in the profiler's spans where ``spans`` is given: the
+    graph, the stats it writes and the wrappers' launches it recorded."""
+
+    def __init__(self, fn: Callable, x: torch.Tensor, y: torch.Tensor, stream,
+                 spans: Optional[GraphSpans] = None):
+        before = _launch_counts()
+        self.graph, self.spans = torch.cuda.CUDAGraph(), spans
+        with profiler.capturing(spans):
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.stats = fn(x, y)
+        self.launches = {k: v - before.get(k, 0) for k, v in _launch_counts().items()
+                         if v != before.get(k, 0)}
+        GRAPH_LAUNCHES["captured"].update(self.launches)
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        if self.spans is None:
+            self.graph.replay()
+        else:
+            profiler.replay(self.spans, self.graph.replay)
+        GRAPH_LAUNCHES["replayed"].update(self.launches)
+        return {k: v.clone() for k, v in self.stats.items()}
+
+
+class _StepGraph:
+    """A train step captured as CUDA graphs (``Trainer._graph_step``): its
+    key, its input buffers ``x`` and ``y``, the step's graph, and two
+    graphs of the step in the profiler's spans, replayed in turns while a
+    ``torch.profiler`` session records (a graph's span events keep one
+    replay's times: the turns let the card run one replay while the host
+    reads the other's)."""
+
+    def __init__(self, tr: "Trainer", key, feats: torch.Tensor, labels: torch.Tensor,
+                 stream):
+        self.key = key
+        self.x, self.y = torch.empty_like(feats), torch.empty_like(labels)
+        self.plain = _Captured(tr._eager_step, self.x, self.y, stream)
+        self.traced = [_Captured(tr._train_step_in_spans, self.x, self.y, stream, GraphSpans())
+                       for _ in range(2)]
+        self.turn = 0
+
+    def replay(self, traced: bool) -> Dict[str, torch.Tensor]:
+        if not traced:
+            return self.plain.replay()
+        self.turn ^= 1
+        return self.traced[self.turn].replay()
+
+
 @dataclass
 class TrainerConfig:
     bunchsize: int = 256
@@ -239,6 +312,15 @@ class Trainer:
                            if spec.updatable and f != 0.0 for k in spec.trainable_keys
                            if not (k == "weight" and i in self._fused)]
         self._lr = cfg.sgd.learning_rate
+        # f32 CE steps through the fused softmax-CE on a card replay a CUDA
+        # graph of the step (``_graph_step``); the last capture, the key
+        # whose eager step ran last on the capture's stream, and that stream
+        self._graphable = (self.device.type == "cuda" and mode is None
+                           and cfg.objective == "xent" and self._block_dims is None
+                           and cfg.confusion_mode == "no")
+        self._graph: Optional[_StepGraph] = None
+        self._graph_warm = None
+        self._graph_stream = None
         # int8pfsr's rounding noise: one stream for the Trainer's lifetime
         self._sr_gen = (torch.Generator(device=self.device).manual_seed(cfg.seed or 1)
                         if mode == "int8pfsr" else None)
@@ -320,7 +402,8 @@ class Trainer:
             loss, stats = mse_loss_and_stats(y, one_hot(labels, logits.shape[1], y.dtype))
             return loss, {"mse": stats["mse"]}
         if self._block_dims is None and cfg.confusion_mode == "no":
-            loss, correct = fused_softmax_xent(logits, labels)
+            with profiler.phase("loss.softmax_ce", logits.device, timed_in_trace=True):
+                loss, correct = fused_softmax_xent(logits, labels)
             return loss, {"xent": loss.detach(), "correct": correct}
         loss, stats = xent_loss_and_stats(logits, labels, self._block_dims)
         stats = {"xent": stats["xent"], "correct": stats["correct"]}
@@ -335,13 +418,63 @@ class Trainer:
 
     def _train_step(self, feats: torch.Tensor, labels: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
+        if self._graphable and not profiler.enabled:
+            return self._graph_step(feats, labels)
         if profiler.recording():
             return self._train_step_in_spans(feats, labels)
+        return self._eager_step(feats, labels)
+
+    def _eager_step(self, feats: torch.Tensor, labels: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
         n = feats.shape[0]
         loss, stats = self._loss(
             self._forward_logits(feats, self._weight_updates(n), train=True), labels)
         self._update(self._grads(loss), n)
         return stats
+
+    def _graph_step(self, feats: torch.Tensor, labels: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+        """``_eager_step`` replayed from a CUDA graph, so that the host's
+        enqueue (a few ms a step of Python and launches at eight layers)
+        does not pace the card; while a ``torch.profiler`` session records,
+        ``_train_step_in_spans`` replayed from its own graphs, whose spans
+        the graphs time. The first step of a bunch shape, learning rate and
+        set of state tensors (a graph reads and writes the parameters and
+        velocities it was captured with: resident newbob gives every epoch
+        new velocities) runs eagerly on the capture's side stream (whatever
+        capture needs is then set up there), the next one is captured and
+        every later one replays it, its bunch copied into the graphs'
+        inputs first. The graphs launch the eager step's kernels with the
+        same arguments, so the results are the eager step's bit for bit."""
+        key = (tuple(feats.shape), tuple(labels.shape), feats.dtype, self._lr,
+               self._state_ptrs())
+        traced = profiler.recording()
+        g = self._graph
+        if g is None or g.key != key:
+            cur = torch.cuda.current_stream(self.device)
+            if g is not None:
+                cur.synchronize()            # no replay in flight on the old pools
+                self._graph = g = None
+            if self._graph_stream is None:
+                self._graph_stream = torch.cuda.Stream(self.device)
+            s = self._graph_stream
+            s.wait_stream(cur)
+            if self._graph_warm != key:
+                self._graph_warm = key
+                with torch.cuda.stream(s):
+                    stats = (self._train_step_in_spans if traced else self._eager_step)(
+                        feats, labels)
+                cur.wait_stream(s)
+                return stats
+            self._graph = g = _StepGraph(self, key, feats, labels, s)
+        g.x.copy_(feats)
+        g.y.copy_(labels)
+        return g.replay(traced)
+
+    def _state_ptrs(self) -> Tuple[int, ...]:
+        """The addresses of every parameter and velocity tensor."""
+        return tuple(u.data_ptr() for group in (self.params, self.velocity) for p in group
+                     for t in p.values() for u in (t if isinstance(t, list) else (t,)))
 
     def _train_step_in_spans(self, feats: torch.Tensor, labels: torch.Tensor
                              ) -> Dict[str, torch.Tensor]:

@@ -36,6 +36,17 @@ event the card has not reached (``Event.query``): recording never waits
 for the card, and memory stays bounded by the spans the host runs ahead.
 Only ``totals()`` and ``report()`` wait for the card. Self time is a
 span's time less what its child spans cover.
+
+A step replayed from a CUDA graph runs none of its host code, so the
+graph holds its spans: while ``capturing(spans)`` is open, what the
+capturing stream's threads record goes into ``spans`` (a ``GraphSpans``;
+nothing where it is None) and not into the totals, whatever else records,
+each span timed in a trace timed in the graph by two event nodes of its
+own. ``replay(spans, launch)`` launches the graph and
+adds its spans (each with no host time) and its counters once more; a
+graph's events hold its last replay's times alone, so the next replay of
+the same graph folds the last one first, waiting for the card to finish
+it.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ import collections
 import contextlib
 import threading
 import time
-from typing import Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 from torch._C._autograd import _profiler_enabled
@@ -54,13 +65,25 @@ _Range = torch._C._profiler._RecordFunctionFast
 _NULL = contextlib.nullcontext()
 
 
+class GraphSpans:
+    """The spans (in the order they closed) and the counters' adds that a
+    step recorded while a CUDA graph captured it; ``live`` while a replay's
+    spans wait for their fold."""
+
+    def __init__(self):
+        self.spans: List["_Open"] = []
+        self.counts: List[Tuple[str, float]] = []
+        self.live = False
+
+
 class _Open:
     """A span from its opening to its fold."""
     __slots__ = ("prof", "name", "device", "parent", "rf", "ev0", "ev1",
-                 "t0", "t1", "child_host", "child_dev")
+                 "t0", "t1", "child_host", "child_dev", "graph")
 
-    def __init__(self, prof: "Profiler", name: str, device, timed: bool):
-        self.prof, self.name = prof, name
+    def __init__(self, prof: "Profiler", name: str, device, timed: bool,
+                 graph: Optional[GraphSpans] = None):
+        self.prof, self.name, self.graph = prof, name, graph
         # the CUDA device's index, or None where the span times no device
         self.device = None
         if timed and device is not None and device.type == "cuda":
@@ -77,7 +100,7 @@ class _Open:
             self.rf = _Range(self.name)
             self.rf.__enter__()
         if self.device is not None:
-            self.ev0 = prof._event(self.device)
+            self.ev0 = prof._event(self.device, self.graph is not None)
         stack.append(self)
         self.t0 = time.perf_counter()
         return self
@@ -86,7 +109,7 @@ class _Open:
         self.t1 = time.perf_counter()
         prof = self.prof
         if self.device is not None:
-            self.ev1 = prof._event(self.device)
+            self.ev1 = prof._event(self.device, self.graph is not None)
         if self.rf is not None:
             self.rf.__exit__(*exc)
             self.rf = None
@@ -94,6 +117,9 @@ class _Open:
         if self.parent is not None:
             self.parent.child_host += self.t1 - self.t0
         with prof._lock:
+            if self.graph is not None:
+                self.graph.spans.append(self)
+                return False
             prof._pending.append(self)
             if len(prof._pending) >= prof._fold_at:
                 prof._fold(wait=False)
@@ -112,6 +138,9 @@ class Profiler:
         # device ones None until a span of the name times the card
         self._totals: Dict[str, list] = {}
         self._counters: Dict[str, List[float]] = {}     # name -> [adds, sum]
+        self._capturing = False                         # a capture is open
+        self._graph: Optional[GraphSpans] = None        # what it records into
+        self._live: List[GraphSpans] = []               # replays not folded
 
     def reset(self) -> None:
         with self._lock:
@@ -119,29 +148,71 @@ class Profiler:
             self._fold_at = FOLD_AT
             self._totals.clear()
             self._counters.clear()
+            for g in self._live:
+                g.live = False
+            self._live.clear()
 
     def recording(self) -> bool:
         """Whether spans and counters record (``-T 4`` or a
-        ``torch.profiler`` session)."""
+        ``torch.profiler`` session; on the stream of an open capture, where
+        it captures into spans)."""
+        if self._capturing and torch.cuda.is_current_stream_capturing():
+            return self._graph is not None
         return self.enabled or _profiler_enabled()
 
     def phase(self, name: str, device: Optional[torch.device] = None,
               timed_in_trace: bool = False):
         """A span named ``name``; with a CUDA ``device``, also timed on
         that device's current stream (under a ``torch.profiler`` session
-        alone only with ``timed_in_trace``)."""
+        alone only with ``timed_in_trace``, as in a capture)."""
+        if self._capturing and torch.cuda.is_current_stream_capturing():
+            g = self._graph
+            return _NULL if g is None else _Open(self, name, device, timed_in_trace, g)
         if not (self.enabled or _profiler_enabled()):
             return _NULL
         return _Open(self, name, device, self.enabled or timed_in_trace)
 
     def count(self, name: str, n: float) -> None:
         """Add ``n`` to the counter ``name`` (one add a call)."""
+        if self._capturing and torch.cuda.is_current_stream_capturing():
+            if self._graph is not None:
+                with self._lock:
+                    self._graph.counts.append((name, n))
+            return
         if not (self.enabled or _profiler_enabled()):
             return
+        self._add(name, n)
+
+    def _add(self, name: str, n: float) -> None:
         with self._lock:
             row = self._counters.setdefault(name, [0, 0])
             row[0] += 1
             row[1] += n
+
+    @contextlib.contextmanager
+    def capturing(self, spans: Optional[GraphSpans]):
+        """Record into ``spans`` what the threads whose stream captures a
+        CUDA graph record (the step's own thread and autograd's); with
+        None, record nothing of theirs."""
+        self._capturing, self._graph = True, spans
+        try:
+            yield spans
+        finally:
+            self._capturing, self._graph = False, None
+
+    def replay(self, spans: GraphSpans, launch: Callable[[], None]) -> None:
+        """``launch()`` a replay of the graph captured into ``spans``, then
+        record its spans and counters once more (its last replay's spans
+        folded first)."""
+        with self._lock:
+            if spans.live:
+                self._fold_graph(spans)
+        launch()
+        with self._lock:
+            spans.live = True
+            self._live.append(spans)
+        for name, n in spans.counts:
+            self._add(name, n)
 
     # -- recording ---------------------------------------------------------
     def _stack(self) -> List[_Open]:
@@ -150,9 +221,14 @@ class Profiler:
             stack = self._tls.stack = []
         return stack
 
-    def _event(self, index: int) -> torch.cuda.Event:
+    def _event(self, index: int, graph: bool = False) -> torch.cuda.Event:
         """A timing event, reused from spans already folded, recorded on
-        the current stream of CUDA device ``index``."""
+        the current stream of CUDA device ``index``; with ``graph`` a new
+        one, captured as an event node of the graph."""
+        if graph:
+            ev = torch.cuda.Event(enable_timing=True, external=True)
+            ev.record(torch.cuda.current_stream(index))
+            return ev
         with self._lock:
             spare = self._spare.setdefault(index, [])
             ev = spare.pop() if spare else None
@@ -192,6 +268,25 @@ class Profiler:
             sp.parent = None
         self._fold_at = len(pending) + FOLD_AT
 
+    def _fold_graph(self, g: GraphSpans) -> None:
+        """Fold the spans of ``g``'s last replay, waiting for the card to
+        finish it (no host time: the host ran none of it). Holds the lock."""
+        child: Dict[int, float] = {}
+        for sp in g.spans:
+            dev = None
+            if sp.ev1 is not None:
+                sp.ev1.synchronize()
+                dev = sp.ev0.elapsed_time(sp.ev1) * 1e-3
+                if sp.parent is not None:
+                    child[id(sp.parent)] = child.get(id(sp.parent), 0.0) + dev
+            row = self._totals.setdefault(sp.name, [0, 0.0, 0.0, None, None])
+            row[0] += 1
+            if dev is not None:
+                row[3] = (row[3] or 0.0) + dev
+                row[4] = (row[4] or 0.0) + dev - child.get(id(sp), 0.0)
+        g.live = False
+        self._live.remove(g)
+
     # -- reading -----------------------------------------------------------
     def totals(self) -> Dict[str, Dict[str, Optional[float]]]:
         """Per span name, after waiting for the card: ``calls``, ``host_s``,
@@ -199,6 +294,8 @@ class Profiler:
         ones None where the span recorded no device time)."""
         with self._lock:
             self._fold(wait=True)
+            for g in list(self._live):
+                self._fold_graph(g)
             return {name: {"calls": calls, "host_s": host, "host_self_s": host_self,
                            "device_s": dev, "device_self_s": dev_self}
                     for name, (calls, host, host_self, dev, dev_self) in self._totals.items()}

@@ -1036,6 +1036,16 @@ def _production_trainer(dev, momentum, dtype=None):
     return Trainer(Network(layers).from_numpy_params(params), cfg, device=dev)
 
 
+def _ran(f, k: str = "launches") -> int:
+    """A wrapper's launches that ran: its own count (captures of the
+    Trainer's step as CUDA graphs included, which run nothing), less what
+    captures recorded, plus what replays of the graphs launched."""
+    from nnet_asr_torch.train.trainer import GRAPH_LAUNCHES
+
+    key = f"{f.__name__}.{k}"
+    return getattr(f, k) - GRAPH_LAUNCHES["captured"][key] + GRAPH_LAUNCHES["replayed"][key]
+
+
 # the route engages for every layer whose input needs a gradient: 4 a f32
 # production step (not the first layer's), at momentum 0 and 0.9, none
 # under the bf16 compute dtype
@@ -1047,11 +1057,11 @@ def test_cuda_dgrad_launches_a_production_step(cuda, momentum, dtype, want):
     gen = torch.Generator(device=cuda).manual_seed(34)
     feats = 0.1 * torch.randn((1024, 1024), generator=gen, device=cuda)
     labels = torch.randint(0, 8192, (1024,), generator=gen, device=cuda, dtype=torch.int32)
-    before = MA.dgrad.launches
+    before = _ran(MA.dgrad)
     for _ in range(2):
         tr._train_step(feats, labels)
     torch.cuda.synchronize()
-    assert MA.dgrad.launches - before == 2 * want
+    assert _ran(MA.dgrad) - before == 2 * want
 
 
 # one production step's gradients through autograd (momentum 0: every
@@ -1140,8 +1150,8 @@ def _routing_net(head, sparse):
     return Network(layers).from_numpy_params(params)
 
 
-# the loss routing of trainer.py:200-216, read from the wrappers' launch
-# counts over two train steps and one eval step: affine_sigmoid on every
+# the loss routing of trainer.py:200-216, read from the wrappers' launches that ran
+# (``_ran``) over two train steps and one eval step: affine_sigmoid on every
 # BiasedLinearity -> Sigmoid pair under every objective (none for a
 # SparseLinearity pair), fused_softmax_xent only for a Softmax head with CE
 # and no confusion mode; stats finite, and the step's CE, MSE and
@@ -1165,12 +1175,12 @@ def test_cuda_trainer_loss_routing_by_launch_count(cuda, objective, head, mode, 
                             confusion_mode=mode, sgd=SgdConfig(learning_rate=0.01, l1=1e-4))
         tr = Trainer(_routing_net(head, sparse), cfg, device=dev)
         x, y = torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
-        before = (MA.matmul_act.launches, SC.softmax_xent.launches)
+        before = (_ran(MA.matmul_act), _ran(SC.softmax_xent))
         out = [tr._train_step(x, y), tr._train_step(x, y), tr._eval_step(x, y)]
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert MA.matmul_act.launches - before[0] == (0 if sparse else 3)
-            assert SC.softmax_xent.launches - before[1] == (3 if fused else 0)
+            assert _ran(MA.matmul_act) - before[0] == (0 if sparse else 3)
+            assert _ran(SC.softmax_xent) - before[1] == (3 if fused else 0)
         stats[dev.type] = [{k: v.double().cpu().numpy() for k, v in s.items()} for s in out]
     for g, c in zip(stats["cuda"], stats["cpu"]):
         assert sorted(g) == sorted(c)

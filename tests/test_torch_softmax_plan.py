@@ -74,8 +74,11 @@ def test_main_path_shapes_get_their_variants():
     p = SP.plan(1024, 8192, ALIGNED)
     assert (p.variant, p.threads, p.vpt, p.vec, p.blocks) == (SP.ROWS, 512, 16, True, 264)
     assert not SP.plan(1024, 8192, ALIGNED + 4).vec
-    # past the register limit: two walks
+    # past the register limit: two walks (the SWB CD-DNN's 9,304 senones
+    # too, 16-byte accesses, two blocks of 512 threads an SM)
     assert SP.plan(1024, 16384, ALIGNED).variant == SP.WIDE
+    p = SP.plan(1024, 9304, ALIGNED)
+    assert (p.variant, p.threads, p.vpt, p.vec, p.blocks) == (SP.WIDE, 512, 16, True, 264)
     assert SP.plan(1000, 3001, ALIGNED).variant == SP.ROWS
 
 

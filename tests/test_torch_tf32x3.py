@@ -233,6 +233,22 @@ MAIN_PATH_PLANS = {
                               (BIG, 1, 1024, 16, 16, WGMMA)),
     "wgrad 1024x4096->8192": ((4096, 8192, 1024, 4096, 8192, True),
                               (BIG, 1, 1024, 16, 16, WGMMA)),
+    # Seide et al.'s Switchboard CD-DNN (429->2048x7->9304, bunch 1024): its
+    # 2048-wide forwards make 8x16 = 128 BIG tiles, one short of a wave of
+    # 132 SMs, so they take the f32 CP_WGMMA route (256 blocks of 64x128),
+    # the first layer's 429-float rows by 4-byte copies; its 2048->2048 and
+    # 2048->9304 weight gradients fill the card on the WGMMA route, the
+    # first layer's 429x2048 takes CP_WGMMA
+    "affine 1024x429->2048 (SWB CD-DNN input)": ((1024, 2048, 429, 429, 2048, False),
+                                                 (HALF, 1, 429, 4, 16, CP_WGMMA)),
+    "affine 1024x2048->2048 (SWB CD-DNN hidden)": ((1024, 2048, 2048, 2048, 2048, False),
+                                                   (HALF, 1, 2048, 16, 16, CP_WGMMA)),
+    "wgrad 1024x429->2048 (SWB CD-DNN input)": ((429, 2048, 1024, 429, 2048, True),
+                                                (HALF, 1, 1024, 4, 16, CP_WGMMA)),
+    "wgrad 1024x2048->2048 (SWB CD-DNN hidden)": ((2048, 2048, 1024, 2048, 2048, True),
+                                                  (BIG, 1, 1024, 16, 16, WGMMA)),
+    "wgrad 1024x2048->9304 (SWB CD-DNN output)": ((2048, 9304, 1024, 2048, 9304, True),
+                                                  (BIG, 1, 1024, 16, 16, WGMMA)),
 }
 
 
@@ -483,7 +499,10 @@ DGRAD_LIBRARY = {"MLP3 960x1024->135": (960, 1024, 135), "TIMIT 1024x500->39": (
                  "production mesh rank 512x4096->4096": (512, 4096, 4096),
                  "production mesh rank 512x4096->8192": (512, 4096, 8192),
                  "tmpe utterance 284x1024->135": (284, 1024, 135),
-                 "RBM recipe 960x1024->1024": (960, 1024, 1024)}
+                 "RBM recipe 960x1024->1024": (960, 1024, 1024),
+                 # the SWB CD-DNN's: 128 tiles of dx^T, one short of a wave
+                 "SWB CD-DNN hidden 1024x2048->2048": (1024, 2048, 2048),
+                 "SWB CD-DNN output 1024x2048->9304": (1024, 2048, 9304)}
 
 
 @pytest.mark.parametrize("name", sorted(DGRAD_ROUTED))

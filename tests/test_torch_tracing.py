@@ -19,12 +19,13 @@ DIMS = [24, 32, 32, 32, 32, 40]       # five affine layers, four sigmoids
 B, NB = 16, 3
 MOMENTA = [0.0, 0.9]
 STEP_CALLS = {"step": 1, "step.forward": 1, "step.loss": 1, "step.backward": 1,
-              "step.update": 1, "forward.output": 1, "backward.dgrad": 4,
-              "backward.wgrad": 5}
+              "step.update": 1, "forward.output": 1, "loss.softmax_ce": 1, "backward.dgrad": 4, "backward.wgrad": 5}
 PARENT = {"train-step": None, "step": "train-step", "step.forward": "step",
           "step.loss": "step", "step.backward": "step", "step.update": "step",
-          "forward.output": "step.forward", "backward.dgrad": "step.backward",
+          "forward.output": "step.forward",
+          "loss.softmax_ce": "step.loss", "backward.dgrad": "step.backward",
           "backward.wgrad": "step.backward"}
+LAYERS = list(zip(DIMS[:-1], DIMS[1:]))
 
 
 @pytest.fixture
@@ -80,6 +81,21 @@ def test_calls_and_counters_per_step(prof, momentum):
     assert prof.counters()["step.frames"] == {"adds": NB, "sum": NB * B}
     # on the CPU no span times a device
     assert all(r["device_s"] is None and r["device_self_s"] is None for r in tot.values())
+
+
+@pytest.mark.parametrize("momentum", MOMENTA)
+def test_gemm_operations_are_counted_by_route(prof, momentum):
+    """Every product of a step adds its 2·M·N·K operations where its route
+    is chosen: the forward and the weight gradient of each layer and the
+    input gradient of every layer but the first. On the CPU the library
+    forms them all."""
+    prof.enabled = True
+    _trainer(momentum).drain_train(*_stack())
+    flops = {k: c for k, c in prof.counters().items() if k.startswith("gemm.flops.")}
+    fwd = sum(2 * B * i * o for i, o in LAYERS)
+    dgrad = sum(2 * B * i * o for i, o in LAYERS[1:])
+    assert flops == {"gemm.flops.library": {"adds": NB * (2 * len(LAYERS) + len(LAYERS) - 1),
+                                            "sum": NB * (2 * fwd + dgrad)}}
 
 
 @pytest.mark.parametrize("momentum", MOMENTA)
@@ -141,14 +157,15 @@ def test_tracing_off_records_nothing(prof, monkeypatch):
     monkeypatch.setattr(profiler_module, "_Range", Range)
     assert not prof.recording()
     assert prof.phase("a") is prof.phase("b")          # the shared null context
-    # off, the step and the backward skip their spans: the drain's and the
-    # output layer's null contexts are all that is asked for
+    # off, the step and the backward skip their spans: the drain's, the
+    # output layer's and the softmax-CE's null contexts are all that is asked for
     asked = []
     phase = prof.phase
     monkeypatch.setattr(prof, "phase", lambda name, *a, **k: asked.append(name) or phase(
         name, *a, **k))
     _trainer(0.9).drain_train(*_stack())
-    assert sorted(asked) == ["forward.output"] * NB + ["train-step"]
+    assert sorted(asked) == (["forward.output"] * NB + ["loss.softmax_ce"] * NB
+                             + ["train-step"])
     assert prof.totals() == {} and prof.counters() == {}
     assert ranges == []
     # on, but no torch.profiler session: spans and no ranges
@@ -266,3 +283,68 @@ def test_intake_spans_from_reader_threads_count_once(prof):
     assert take["host_self_s"] == pytest.approx(
         take["host_s"] - tot["intake.shuffle"]["host_s"] - tot["intake.gather"]["host_s"],
         rel=1e-9, abs=1e-12)
+
+
+class _GraphEvent:
+    """A stand-in for a CUDA event captured into a graph: its time (ms) is
+    the one the card stamps at each replay."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end) -> float:
+        return end.t - self.t
+
+
+def test_a_captured_step_records_its_spans_once_a_replay(prof, monkeypatch):
+    """What a step records while a CUDA graph captures it goes into the
+    capture's ``GraphSpans``, not the totals; each replay adds its spans
+    (device time from the graph's events, no host time) and its counters
+    once, and folds the last replay of the same graph before it launches."""
+    from types import SimpleNamespace
+
+    times = iter([0.0, 1.0, 3.0, 4.0])       # step opens, inner opens, closes, step closes
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    monkeypatch.setattr(prof, "_event", lambda index, graph=False: _GraphEvent(next(times)))
+    dev = SimpleNamespace(type="cuda", index=0)
+    spans = profiler_module.GraphSpans()
+    assert not prof.recording()
+    with prof.capturing(spans):
+        assert prof.recording()
+        with prof.phase("step", dev, timed_in_trace=True):
+            prof.count("step.frames", 16)
+            with prof.phase("inner", dev, timed_in_trace=True):
+                pass
+            with prof.phase("host-only", dev):
+                pass
+    assert not prof.recording()
+    assert prof.totals() == {} and prof.counters() == {}
+    assert [s.name for s in spans.spans] == ["inner", "host-only", "step"]
+    assert spans.counts == [("step.frames", 16)]
+    # a replay while the graph's last replay waits for its fold folds it first
+    live_at_launch = []
+    for _ in range(3):
+        prof.replay(spans, lambda: live_at_launch.append(spans.live))
+    assert live_at_launch == [False, False, False] and spans.live
+    tot = prof.totals()
+    assert not spans.live
+    assert tot["inner"] == {"calls": 3, "host_s": 0.0, "host_self_s": 0.0,
+                            "device_s": pytest.approx(0.006), "device_self_s": pytest.approx(0.006)}
+    assert tot["step"]["device_s"] == pytest.approx(0.012)
+    assert tot["step"]["device_self_s"] == pytest.approx(0.006)
+    assert tot["host-only"] == {"calls": 3, "host_s": 0.0, "host_self_s": 0.0,
+                                "device_s": None, "device_self_s": None}
+    assert prof.counters() == {"step.frames": {"adds": 3, "sum": 48}}
+    prof.replay(spans, lambda: None)
+    prof.reset()
+    assert not spans.live and prof.totals() == {}
+    # a capture into no spans records nothing, even under -T 4
+    prof.enabled = True
+    with prof.capturing(None):
+        assert not prof.recording()
+        assert prof.phase("step", dev) is prof.phase("inner", dev)
+        prof.count("step.frames", 16)
+    assert prof.totals() == {} and prof.counters() == {}
