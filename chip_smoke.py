@@ -52,8 +52,9 @@ final line):
      mma.sync kernel it replaced (forced) and the library; and rows for the
      f32 input gradient dx = dz W^T on its WGMMA kernel (csrc/dgrad.cu: W
      read K-major, dz split by a pre-pass) at the production stack's two
-     dgrad shapes (DGRAD_SHAPES), against an f64 product and beside
-     cuBLAS's FFMA product (the library yardstick, the route it replaced);
+     dgrad shapes and the SWB CD-DNN's two one-wave ones (DGRAD_SHAPES),
+     against an f64 product and beside cuBLAS's FFMA product (the library
+     yardstick, the route it replaced);
   4. the frame-CE path: the port's tnet CLI on cuda:0 trains example-01's
      MLP3 (598->1024->135, bunch 960, cache 14400, 51-frame Hamming-DCT
      transform) for two epochs on a synthetic HTK corpus made from a seed,
@@ -167,7 +168,9 @@ final line):
      of the single-device Trainer fed the replayed global bunches) and
      tmpe --MESH=2x1 (its update within MPE_UPDATE_TOL of phase 11's).
      Launches exact per rank: affine_sigmoid on every mesh step,
-     fused_softmax_xent only at model 1, wgrad_momentum_update never.
+     fused_softmax_xent only at model 1, wgrad_momentum_update never, the
+     f32 dgrad kernel on the production mesh's 4 layers after the first
+     (512 rows: one wave of 128 tiles) and nowhere else.
 Phase 2 also fails on a ptxas spill in a wgmma kernel (the WGMMA and
 CP_WGMMA routes, bf16 or f32). The line before the last is the kernels'
 JSON record (the four WGMMA-route kernels, bf16 and f32, as entries of
@@ -226,8 +229,10 @@ F32_WGMMA_WGRAD = ((1024, 1024, 4096, ("f32",)), (1024, 4096, 4096, ("f32", "bf1
                    (1024, 4096, 8192, ("f32", "bf16")))
 # (B, In, Out) of the f32 input gradient dx = dz W^T on its WGMMA kernel
 # (csrc/dgrad.cu): the production stack's hidden and output layers, whose
-# four dgrads a step it forms (phase 6); every other dx stays on cuBLAS
-DGRAD_SHAPES = ((1024, 4096, 4096), (1024, 4096, 8192))
+# four dgrads a step it forms (phase 6; at a 2x2 mesh rank's 512 rows too,
+# phase 13), and the SWB CD-DNN's 2048-wide hidden and 9,304-wide output
+# layers (one wave of 128 tiles); every other dx stays on cuBLAS
+DGRAD_SHAPES = ((1024, 4096, 4096), (1024, 4096, 8192), (1024, 2048, 2048), (1024, 2048, 9304))
 DGRAD_PER_STEP = len(PROD_DIMS) - 2
 # the recipes' shapes of the f32 CP_WGMMA route (3xTF32 wgmma fed by
 # cp.async; phase 3 rows of their own, each beside the mma.sync kernel
@@ -2462,6 +2467,10 @@ def resident_reruns(torch, card: str, d: str, want_mom: dict, want_bf16: dict):
 MESH_TIMEOUT = 420          # seconds a fleet may run before its ranks are killed
 MESH_COLLECTIVE_S = 180     # init_process_group's timeout: a lost rank raises
 MESH_PROD_STEPS = 3         # timed production steps after one warm-up step
+# the f32 dgrads a rank of the 2x2 production mesh launches: 512 rows of
+# every layer after the first (the output layer's 4096-wide stripe too) are
+# one wave of 128 tiles of dx^T
+MESH_PROD_DGRADS = DGRAD_PER_STEP * (1 + MESH_PROD_STEPS)
 MESH_REC_B, MESH_CD1_B = 32, 256
 
 
@@ -2845,7 +2854,8 @@ def mesh_path(torch, card: str, d: str, n: dict, resident_mom: dict) -> dict:
     check(prod[0]["rel"] <= 1e-4, f"production mesh: parameters rel {prod[0]['rel']}")
     check(prod[0]["frames"] == PROD_BUNCH * (1 + MESH_PROD_STEPS), "production mesh: frames")
     launched(r4, "prod", {"matmul_act": (len(PROD_DIMS) - 2) * (1 + MESH_PROD_STEPS),
-                          "softmax_xent": 0, "wgrad_momentum_update": 0}, "production mesh")
+                          "softmax_xent": 0, "wgrad_momentum_update": 0,
+                          "dgrad": MESH_PROD_DGRADS}, "production mesh")
     rec, cd1 = r4[0]["rec"], r4[0]["cd1"]
     log(f"RecurrentTrainer batch 368->500->rec 500->39, T {ROOFLINE_T}, B {MESH_REC_B} over "
         f"data=2 of the 2x2 mesh, {card}: {rec['ms']:.1f} ms (host clock), max rel "
@@ -3302,9 +3312,11 @@ def main() -> int:
         check(all([ws, every - cp - ws] == want[fn] and wg == 0
                   for fn, (every, cp, ws, wg) in f32.items()),
               f"phase {phase}: f32 launches off their routes: {json.dumps(f32)}")
-        # the recipes' widths, a mesh rank's rows and bf16 leave every dx to
-        # cuBLAS
-        check(got.get("dgrad", 0) == 0, f"phase {phase}: {got.get('dgrad')} dgrad launches")
+        # the recipes' widths, their mesh rank's rows and bf16 leave every dx
+        # to cuBLAS; phase 13's 4 ranks of the production mesh take theirs
+        want_dgrad = 4 * MESH_PROD_DGRADS if phase == "13" else 0
+        check(got.get("dgrad", 0) == want_dgrad,
+              f"phase {phase}: {got.get('dgrad')} dgrad launches, want {want_dgrad}")
 
     # the WGMMA-route kernels as entries of their own: the production shapes
     # of phase 3, launched by phase 6

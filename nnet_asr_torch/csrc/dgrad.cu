@@ -4,10 +4,14 @@
 // (ops/kernels/matmul_act.py dgrad) launches it for every layer whose input
 // needs a gradient where tile_plan.py's dgrad_plan takes the shape: f32
 // operands that TMA reads (pitches of 16-byte multiples, 16-byte aligned
-// bases) and 128 x 128 tiles of dx^T that fill the card, i.e. the
-// production stack's 1024 x 4096 -> 4096 layers and its 4096 -> 8192
-// output layer. Every other shape stays with torch.matmul (cuBLAS). The
-// JAX package leaves this product to XLA (ops/pallas/matmul_act.py _bwd).
+// bases) and 128 x 128 tiles of dx^T that fill the card or all but 1/16 of
+// one wave (tile_plan.ONE_WAVE_MIN), i.e. the production stack's 1024 x
+// 4096 -> 4096 layers and its 4096 -> 8192 output layer (256 tiles), and
+// the one-wave grids of 128 tiles, a block each: the SWB CD-DNN's 1024 x
+// 2048 -> 2048 layers and its 2048 -> 9304 output layer (K: 290 stages of
+// 32 and a tail of 24), a 2 x 2 mesh rank's 512 rows of the production
+// stack. Every other shape stays with torch.matmul (cuBLAS). The JAX
+// package leaves this product to XLA (ops/pallas/matmul_act.py _bwd).
 //
 // What bounds it: operations. At 1024 x 4096 -> 4096 the product is 34
 // GFLOP, 208 us at the 165 TFLOP/s of 3xTF32, over 100 MB of f32 operands

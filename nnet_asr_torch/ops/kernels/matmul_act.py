@@ -56,7 +56,8 @@ summed from the f32 ``dz``. ``dgrad`` sends an f32 ``dx = dz W^T`` on the
 card to the hand-written kernel of ``csrc/dgrad.cu`` (3xTF32 ``wgmma``, W
 read K-major and split in registers, dz split by a pre-pass kernel into
 scratch allocated here; two launches a call) where
-``tile_plan.dgrad_plan`` takes the shape (the production stack's layers),
+``tile_plan.dgrad_plan`` takes the shape (the production stack's layers,
+the SWB CD-DNN's one-wave grids),
 and leaves every other ``dx`` to ``torch.matmul`` as before;
 ``dgrad.launches`` counts its kernel's calls. On the momentum path the
 backward instead hands ``(x, dz)`` to a weight-update hook, which
@@ -214,9 +215,10 @@ def dgrad(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The input gradient ``dz @ w.T`` of a layer with weight ``w`` (In,
     Out) from its pre-activation error ``dz`` (M, Out), at their dtype:
     bf16 through ``bf16_matmul``; f32 on the card through
-    ``dgrad_f32_wgmma`` where ``tile_plan.dgrad_plan`` takes the shape and
-    both operands are contiguous (dx is allocated here, 512-byte aligned by
-    the caching allocator), else ``torch.matmul``."""
+    ``dgrad_f32_wgmma`` where ``tile_plan.dgrad_plan`` takes the shape (the
+    production stack's layers, the SWB CD-DNN's one-wave ones) and both
+    operands are contiguous (dx is allocated here, 512-byte aligned by the
+    caching allocator), else ``torch.matmul``."""
     flops = 2.0 * dz.shape[0] * dz.shape[-1] * w.shape[0]
     if dz.dtype == torch.bfloat16:
         profiler.count(tile_plan.LIBRARY_FLOPS, flops)

@@ -55,8 +55,9 @@ The routes, in the order ``plan`` tries them:
   8 (the SMALL tile's f32 kernels only) or 4 bytes (``copy_bytes``).
 
 The f32 input gradient ``dx = dz W^T`` has a plan of its own
-(``dgrad_plan``): the WGMMA route's rule at f32 (``csrc/dgrad.cu``, W read
-K-major as A, dz split by a pre-pass as B), else None: ``torch.matmul``.
+(``dgrad_plan``): the WGMMA route's pitches at f32 (``csrc/dgrad.cu``, W
+read K-major as A, dz split by a pre-pass as B) on grids that fill the
+card or all but 1/16 of one wave, else None: ``torch.matmul``.
 
 On ``MMA_SYNC`` and ``CP_WGMMA`` each split writes its f32 partial tile to
 a scratch of ``blocks * bm * bn`` floats, and the block that arrives last
@@ -105,6 +106,12 @@ CP_WGRAD_STAGES = {SMALL: 3, ROWS: 4}   # its rings (csrc/sgd_fused.cu CpWgrad*)
 CP_WGRAD_MAX_CLUSTER = 6   # splits of one tile, one cluster, at most (cp_wgrad_splits)
 WS_ELEMS = (4,)          # element sizes with a WS_WGMMA route (f32)
 DGRAD_ELEMS = (4,)       # element sizes with a dgrad route (f32; dgrad_plan)
+# the fewest BIG tiles the dgrad route takes: its two consumer warpgroups
+# share each tile (Cooperative), so a block of one tile idles neither, and
+# a grid of one wave loses only the SMs it leaves empty, taken where that
+# is at most 1/16 of them (128 tiles leave 4 of 132, as the production
+# grid's two waves of 256 tiles leave 8 slots of 264)
+ONE_WAVE_MIN = -(-15 * SM_COUNT // 16)
 WS_ROWS_WIDTHS = (136,)  # Out rounded up to 8 that the WS weight gradient is built for
 WS_ROWS_STAGES = 4       # its ring (168 KB, and 51 KB of raw e rows: one block an SM)
 WS_MAX_SPLITS = 6        # a WS tile's splits are one cluster (ws_splits)
@@ -472,16 +479,20 @@ def dgrad_plan(M: int, In: int, Out: int, dz_ptr: int = 0, w_ptr: int = 0, out_p
     ``elem`` bytes an element) on the f32 WGMMA route (``csrc/dgrad.cu``:
     ``dx^T = W dz^T`` on the persistent grid of 128x128 tiles, W read
     K-major, dz split into hi and lo by a pre-pass), or None where
-    ``torch.matmul`` forms it. The route's rule is the f32 WGMMA route's:
-    an element size in ``DGRAD_ELEMS`` and ``WGMMA_ELEMS``, pitches (Out for
-    dz, W and the split copies, In for dx) of 16-byte multiples, 16-byte
-    aligned operands and outputs (``out_ptrs``), and 128x128 tiles of dx^T
-    that fill the card: the production stack's 1024x4096->4096 and
-    4096->8192 layers, not MLP3's or TIMIT's widths, a mesh rank's rows, a
-    tmpe utterance's or any bf16 step."""
+    ``torch.matmul`` forms it. The route takes an element size in
+    ``DGRAD_ELEMS`` and ``WGMMA_ELEMS``, pitches (Out for dz, W and the
+    split copies, In for dx) of 16-byte multiples, 16-byte aligned operands
+    and outputs (``out_ptrs``), and a grid of 128x128 tiles of dx^T that
+    needs two waves or more, or fills one wave but for at most 1/16 of the
+    SMs (``ONE_WAVE_MIN`` tiles): the production stack's 1024x4096->4096
+    and 4096->8192 layers (256 tiles), the SWB CD-DNN's 1024x2048->2048 and
+    2048->9304 and a 2x2 mesh rank's 512 rows of the production stack (128
+    tiles, one a block); not MLP3's or TIMIT's widths, their mesh rank's
+    rows, a tmpe utterance's, the RBM recipe's 64 tiles or any bf16 step."""
     if min(M, In, Out) < 1 or elem not in DGRAD_ELEMS:
         return None
     tiles = tile_count(In, M, BIG)
-    if not (wgmma_route(elem, (Out, In), (dz_ptr, w_ptr, *out_ptrs)) and tiles >= SM_COUNT):
+    if not (wgmma_route(elem, (Out, In), (dz_ptr, w_ptr, *out_ptrs))
+            and tiles >= ONE_WAVE_MIN):
         return None
     return Plan(BIG, *TILES[BIG], 1, Out, 16, 16, WGMMA, min(tiles, SM_COUNT))

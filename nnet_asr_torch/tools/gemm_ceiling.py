@@ -1,6 +1,7 @@
 """What holds the GEMM main loops back: the kernels beside variants of them.
 
     python -m nnet_asr_torch.tools.gemm_ceiling [--reps N] [--small [--f32 | --bf16-wgrad]]
+    python -m nnet_asr_torch.tools.gemm_ceiling --dgrad [--reps N]
 
 Builds ``csrc/`` twelve times, each into its own directory under
 ``build/gemm_ceiling/``, and times, with f32 operands on both routes (the
@@ -155,6 +156,15 @@ the kernel as it is (a 4-slot ring), ``ws_rows_ring3`` with 3,
 ``ws_mainloop`` the split epilogue compiled but never run. With ``--turns`` (before or without
 ``--ws``) it times the kernels PERF.md lists as slower in turns with the
 library than alone after each kind of preceding kernel (``turns``).
+
+With ``--dgrad`` it builds ``csrc/`` once and times the f32 input
+gradient ``dgrad`` on its WGMMA kernel (``csrc/dgrad.cu``) at
+``DGRAD_CASES`` (the production stack's two shapes, the SWB CD-DNN's two
+one-wave ones, a 2x2 mesh rank's 512 rows) beside cuBLAS's FFMA product
+(``torch.matmul``, the route it replaced): each against float64, then,
+over three rounds, the kernel (its pre-pass and GEMM apart) and the
+library in turns by the profiler, and each alone by CUDA events, beside
+the bound (operations at 165 TFLOP/s).
 
 For f32 on MMA_SYNC, the gap between the first two is the hi/lo split's
 cost, the second against the 3xTF32 bound what mma.sync's issue rate
@@ -623,6 +633,8 @@ def main(argv=None) -> int:
     ap.add_argument("--turns", action="store_true",
                     help="with --small --f32, first the kernels slower in turns with the library "
                          "than alone, after each prelude (turns())")
+    ap.add_argument("--dgrad", action="store_true",
+                    help="time the f32 dgrad kernel against cuBLAS at DGRAD_CASES (dgrads())")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_ceiling: needs a CUDA device", file=sys.stderr)
@@ -633,6 +645,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "gemm_ceiling")
     builds = [b for b in args.builds.split(",") if b]
+    if args.dgrad:
+        dgrads(args.reps)
+        return 0
     if args.small and args.bf16_wgrad:
         cpw_only(root, args.reps, builds)
         return 0
@@ -1333,6 +1348,77 @@ def _turn_case(reps, rounds, libs, what, M, K, N, wgrad, tp, dev, stream, gen, s
             us = seen.get((build, label))
             rng = "not measured" if not us else f"{min(us):.2f}-{max(us):.2f} us"
             print(f"gemm_ceiling turns [{build}] {what} {label}: {rng}", flush=True)
+
+
+def dgrads(reps, rounds=3) -> None:
+    """``--dgrad``: at each of ``DGRAD_CASES`` the f32 ``dgrad`` on its
+    plan (which must be the WGMMA route) against a float64 product, beside
+    ``torch.matmul``'s; then ``rounds`` rounds of the two in turns by the
+    profiler (device us a call: the kernel's pre-pass and GEMM, the
+    library's GEMM) and each alone by CUDA events; each line the range over
+    the rounds, beside the bound."""
+    from ..ops.kernels import tile_plan as tp
+
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for what, B, In, Out in DGRAD_CASES:
+        dz = torch.randn((B, Out), generator=gen, device=dev) / math.sqrt(Out)
+        w = torch.randn((In, Out), generator=gen, device=dev)
+        plan = tp.dgrad_plan(B, In, Out, dz.data_ptr(), w.data_ptr())
+        if plan is None or plan.route != tp.WGMMA:
+            raise RuntimeError(f"dgrad {what}: the plan leaves it to the library")
+        before = MA.dgrad.launches
+
+        def kernel():
+            MA.dgrad(dz, w)
+
+        def library():
+            torch.matmul(dz, w.T)
+
+        ref = dz.double() @ w.double().T
+        scale = ref.abs().max().item()
+        errs = [((t.double() - ref).abs().max().item() / scale)
+                for t in (MA.dgrad(dz, w), torch.matmul(dz, w.T))]
+        del ref
+        windows = {"kernel in turns": ([library, kernel], "dgrad_f32_"),
+                   "its pre-pass in turns": ([library, kernel], "dgrad_f32_split"),
+                   "its GEMM in turns": ([library, kernel], "dgrad_f32_wgmma_kernel"),
+                   "library in turns": ([kernel, library], "^(?!.*dgrad_f32_)")}
+        seen = {}
+        for r in range(rounds):
+            for label, (fns, pattern) in windows.items():
+                us = profiled_us(fns, pattern, reps)
+                if us is not None:
+                    seen.setdefault(label, []).append(us)
+            seen.setdefault("kernel alone (events)", []).append(event_us(kernel, reps))
+            seen.setdefault("library alone (events)", []).append(event_us(library, reps))
+        if MA.dgrad.launches == before:
+            raise RuntimeError(f"dgrad {what}: the kernel was not launched")
+        bound = 2.0 * B * In * Out / 165e12 * 1e6
+        # the pre-pass's own bound: dz read, its hi and lo written
+        split_bound = 12.0 * B * Out / 3.35e12 * 1e6
+        print(f"gemm_ceiling dgrad {what}: plan {plan.blocks} blocks of {plan.bm}x{plan.bn}, "
+              f"{tp.tile_count(In, B, tp.BIG)} tiles; max |dx - f64| / max {errs[0]:.3e} "
+              f"(cuBLAS {errs[1]:.3e}); bound {bound:.2f} us (ops), the pre-pass's "
+              f"{split_bound:.2f} us (bytes)", flush=True)
+        for label in [*windows, "kernel alone (events)", "library alone (events)"]:
+            us = seen.get(label)
+            b = split_bound if "pre-pass" in label else bound
+            rng = ("not measured" if not us else
+                   f"{min(us):.2f}-{max(us):.2f} us = {100 * b / max(us):.1f}-"
+                   f"{100 * b / min(us):.1f}% of its bound")
+            print(f"gemm_ceiling dgrad {what} {label}: {rng}", flush=True)
+
+
+# (what, B, In, Out) of dgrads(): the production stack's hidden and output
+# layers (two waves of 256 tiles), the SWB CD-DNN's (one wave of 128) and a
+# 2x2 mesh rank's 512 rows of the production output layer (128)
+DGRAD_CASES = (("production hidden 1024x4096->4096", 1024, 4096, 4096),
+               ("production output 1024x4096->8192", 1024, 4096, 8192),
+               ("SWB hidden 1024x2048->2048", 1024, 2048, 2048),
+               ("SWB output 1024x2048->9304", 1024, 2048, 9304),
+               ("mesh rank 512x4096->8192", 512, 4096, 8192))
 
 
 # (what, M, K, N, wgrad) of turns(): the rows PERF.md lists as slower in

@@ -33,10 +33,14 @@ The f32 input gradient ``dx = dz W^T`` on its WGMMA kernel (``csrc/dgrad.cu``:
 W read K-major by ldmatrix and split in registers, dz split by a pre-pass)
 is held to an f64 product within 1e-5 of its largest element (cuBLAS's
 FFMA product meets it too; one TF32 pass would not, nor the route's sums
-without their promotion) at the production stack's two dgrad shapes and at
-ragged ones, three calls equal bit for bit, small integers exact, and its
-launches counted by ``dgrad.launches``: 4 a production f32 step, none at
-bf16 or at the shapes and operands the plan leaves to ``torch.matmul``; a
+without their promotion) at the production stack's two dgrad shapes, at
+ragged ones and on one-wave grids of 128 tiles, a block each (the SWB
+CD-DNN's two shapes, K's tail at 9304 among them, and a 2x2 mesh rank's
+512 rows of the production output layer), three calls equal bit for bit,
+small integers exact, and its launches counted by ``dgrad.launches``: 4 a
+production f32 step, 7 an SWB step (whose products the profiler's
+counters show off the library but the output forward), none at bf16 or at
+the shapes and operands the plan leaves to ``torch.matmul``; a
 production step's gradients through autograd within the benchmark's
 ``grad_diff`` lower reading of the same step with every dgrad on cuBLAS.
 
@@ -931,15 +935,31 @@ def test_cuda_f32_wgmma_kernels_a_call(cuda):
 DGRAD_SHAPES = ((1024, 4096, 4096), (1024, 4096, 8192), (1000, 4100, 4104), (516, 4228, 36))
 
 
+# one-wave grids of 128 tiles of dx^T on 128 blocks: the SWB CD-DNN's
+# hidden layers and its output layer (Out = 9304: 290 stages of 32 and a
+# tail of 24 zero-filled by TMA, M * Out = 1024 * 9304 floats a split
+# half), a 2x2 mesh rank's 512 rows of the production output layer
+DGRAD_ONE_WAVE = ((1024, 2048, 2048), (1024, 2048, 9304), (512, 4096, 8192))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", DGRAD_SHAPES)
 def test_cuda_dgrad_f32_wgmma_matches_f64(cuda, shape):
-    B, In, Out = shape
+    _dgrad_matches_f64(cuda, *shape, tile_plan.SM_COUNT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DGRAD_ONE_WAVE)
+def test_cuda_dgrad_one_wave_grids_match_f64(cuda, shape):
+    _dgrad_matches_f64(cuda, *shape, 128)
+
+
+def _dgrad_matches_f64(cuda, B, In, Out, blocks):
     rng = np.random.default_rng(30)
     dz = _on_card((rng.standard_normal((B, Out)) / np.sqrt(Out)).astype(np.float32), cuda)
     w = _on_card(rng.standard_normal((In, Out)).astype(np.float32), cuda)
     p = tile_plan.dgrad_plan(B, In, Out, dz.data_ptr(), w.data_ptr())
-    assert p.route == tile_plan.WGMMA and p.blocks == tile_plan.SM_COUNT
+    assert p.route == tile_plan.WGMMA and p.blocks == blocks
     before = MA.dgrad.launches
     dx = [MA.dgrad(dz, w) for _ in range(3)]
     assert MA.dgrad.launches == before + 3
@@ -984,15 +1004,15 @@ def test_cuda_dgrad_kernels_a_call(cuda):
 
 # the shapes and operands the plan leaves to torch.matmul: MLP3's
 # 960x1024->135 (a 540-byte pitch), TIMIT's 1024x500->39, a 2x2 mesh rank's
-# 480 rows of MLP3 and 512 of the production stack (128 tiles: under the
-# card), a production shape one float off a 16-byte boundary, a
+# 480 rows of MLP3, a grid of 123 tiles (one under the one-wave rule's
+# 124), a production shape one float off a 16-byte boundary, a
 # non-contiguous dz, and bf16 operands: no launch, cuBLAS's product exactly
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mlp3", "timit", "mesh_mlp3", "mesh_prod", "unaligned",
+@pytest.mark.parametrize("case", ["mlp3", "timit", "mesh_mlp3", "under_wave", "unaligned",
                                   "strided", "bf16"])
 def test_cuda_dgrad_bypass_launches_nothing(cuda, case):
     B, In, Out = {"mlp3": (960, 1024, 135), "timit": (1024, 500, 39),
-                  "mesh_mlp3": (480, 1024, 135), "mesh_prod": (512, 4096, 4096)}.get(
+                  "mesh_mlp3": (480, 1024, 135), "under_wave": (384, 5248, 4096)}.get(
                       case, (1024, 4096, 4096))
     rng = np.random.default_rng(33)
     dz = _on_card(rng.standard_normal((B, Out)).astype(np.float32), cuda,
@@ -1010,15 +1030,15 @@ def test_cuda_dgrad_bypass_launches_nothing(cuda, case):
     assert torch.equal(dx, want)
 
 
-def _production_trainer(dev, momentum, dtype=None):
-    """The production-width stack 1024->4096x4->8192 + softmax (weights
-    0.05 N(0, 1) from numpy seed 7, zero biases) in a Trainer, bunch 1024."""
+def _production_trainer(dev, momentum, dtype=None, dims=(1024, 4096, 4096, 4096, 4096, 8192)):
+    """The production-width stack 1024->4096x4->8192 (or ``dims``) +
+    softmax (weights 0.05 N(0, 1) from numpy seed 7, zero biases) in a
+    Trainer, bunch 1024."""
     from nnet_asr_torch.models import components as TC
     from nnet_asr_torch.models.network import Network
     from nnet_asr_torch.train.sgd import SgdConfig
     from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
 
-    dims = [1024, 4096, 4096, 4096, 4096, 8192]
     rng = np.random.default_rng(7)
     layers, params = [], []
     for i in range(len(dims) - 1):
@@ -1062,6 +1082,38 @@ def test_cuda_dgrad_launches_a_production_step(cuda, momentum, dtype, want):
         tr._train_step(feats, labels)
     torch.cuda.synchronize()
     assert _ran(MA.dgrad) - before == 2 * want
+
+
+# Seide et al.'s SWB CD-DNN (429->2048x7->9304, bunch 1024) at momentum
+# 0.9, one step in the profiler's spans (eager): its seven dgrads (one wave
+# of 128 tiles each) launch the kernel and count on the WGMMA route, so the
+# library forms the output forward alone
+@pytest.mark.cuda
+def test_cuda_swb_step_leaves_only_the_output_forward_to_the_library(cuda):
+    from nnet_asr_torch.utils.profiler import profiler
+
+    B, dims = 1024, (429,) + (2048,) * 7 + (9304,)
+    tr = _production_trainer(cuda, 0.9, dims=dims)
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    feats = 0.1 * torch.randn((B, 429), generator=gen, device=cuda)
+    labels = torch.randint(0, 9304, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    was = profiler.enabled
+    profiler.reset()
+    profiler.enabled = True
+    try:
+        before = _ran(MA.dgrad)
+        tr._train_step(feats, labels)
+        torch.cuda.synchronize()
+        flops = {k: c["sum"] for k, c in profiler.counters().items()
+                 if k.startswith("gemm.flops.")}
+    finally:
+        profiler.enabled = was
+        profiler.reset()
+    assert _ran(MA.dgrad) - before == 7
+    later = 2 * B * (6 * 2048 * 2048 + 2048 * 9304)     # the dgrads, or the wgrads, of 2..8
+    assert flops == {"gemm.flops.library": 2 * B * 2048 * 9304,
+                     "gemm.flops.wgmma": 2 * later,
+                     "gemm.flops.cp_wgmma": 2 * B * (2 * 429 * 2048 + 6 * 2048 * 2048)}
 
 
 # one production step's gradients through autograd (momentum 0: every

@@ -487,22 +487,27 @@ def test_plan_splits_only_when_asked_and_idle():
 # The input gradient dx = dz W^T, (B, In, Out): the production stack's four
 # dgrads (3 of 4096->4096, the output layer's 4096->8192) take the f32
 # WGMMA route (csrc/dgrad.cu) on a persistent grid of a block an SM, no
-# split, K = Out; every other dx stays with torch.matmul (None): MLP3's
-# 960x1024->135 (540-byte pitches), TIMIT's 1024x500->39, a 2x2 mesh rank's
-# rows of MLP3 (480) and of the production stack (512: 128 tiles, under
-# the card), one tmpe utterance's, the RBM recipe's 960x1024->1024 (64
-# tiles)
+# split, K = Out; so do grids of one wave that leave at most 1/16 of the
+# SMs idle (DGRAD_ONE_WAVE); every other dx stays with torch.matmul (None):
+# MLP3's 960x1024->135 (540-byte pitches), TIMIT's 1024x500->39, a 2x2 mesh
+# rank's rows of MLP3 (480), one tmpe utterance's, the RBM recipe's
+# 960x1024->1024 (64 tiles)
 DGRAD_ROUTED = {"hidden 1024x4096->4096": (1024, 4096, 4096),
                 "output 1024x4096->8192": (1024, 4096, 8192)}
 DGRAD_LIBRARY = {"MLP3 960x1024->135": (960, 1024, 135), "TIMIT 1024x500->39": (1024, 500, 39),
                  "MLP3 mesh rank 480x1024->135": (480, 1024, 135),
-                 "production mesh rank 512x4096->4096": (512, 4096, 4096),
-                 "production mesh rank 512x4096->8192": (512, 4096, 8192),
                  "tmpe utterance 284x1024->135": (284, 1024, 135),
-                 "RBM recipe 960x1024->1024": (960, 1024, 1024),
-                 # the SWB CD-DNN's: 128 tiles of dx^T, one short of a wave
-                 "SWB CD-DNN hidden 1024x2048->2048": (1024, 2048, 2048),
-                 "SWB CD-DNN output 1024x2048->9304": (1024, 2048, 9304)}
+                 "RBM recipe 960x1024->1024": (960, 1024, 1024)}
+# (B, In, Out, tiles of dx^T): one wave of 128 tiles (the SWB CD-DNN's
+# layers, a 2x2 mesh rank's 512 rows of the production stack) and the
+# rule's edge, 124 tiles (15/16 of the 132 SMs, rounded up) taken and 123
+# left to the library
+DGRAD_ONE_WAVE = {"SWB CD-DNN hidden 1024x2048->2048": (1024, 2048, 2048, 128),
+                  "SWB CD-DNN output 1024x2048->9304": (1024, 2048, 9304, 128),
+                  "production mesh rank 512x4096->4096": (512, 4096, 4096, 128),
+                  "production mesh rank 512x4096->8192": (512, 4096, 8192, 128),
+                  "edge 512x3968->4096": (512, 3968, 4096, 124),
+                  "under the edge 384x5248->4096": (384, 5248, 4096, 123)}
 
 
 @pytest.mark.parametrize("name", sorted(DGRAD_ROUTED))
@@ -523,6 +528,18 @@ def test_dgrad_plan_of_production_shapes(name):
 def test_dgrad_plan_leaves_small_shapes_to_the_library(name):
     B, In, Out = DGRAD_LIBRARY[name]
     assert tile_plan.dgrad_plan(B, In, Out, 1 << 20, 1 << 21, out_ptrs=(1 << 22,)) is None
+
+
+@pytest.mark.parametrize("name", sorted(DGRAD_ONE_WAVE))
+def test_dgrad_plan_takes_one_wave_grids(name):
+    B, In, Out, tiles = DGRAD_ONE_WAVE[name]
+    assert tile_plan.tile_count(In, B, BIG) == tiles
+    p = tile_plan.dgrad_plan(B, In, Out, 1 << 20, 1 << 21, out_ptrs=(1 << 22,))
+    if tiles >= 124:
+        # one block a tile, the whole contraction (a K tail at Out = 9304)
+        assert p == tile_plan.Plan(BIG, 128, 128, 1, Out, 16, 16, WGMMA, tiles)
+    else:
+        assert p is None
 
 
 # pitches TMA cannot describe (Out or In not a multiple of 4 floats) keep
