@@ -445,8 +445,8 @@ def launches_a_call(torch, fn, counted, calls: int = 20, tries: int = 5) -> int:
     of ``calls`` calls, over ``calls``. The profiler may drop events of a
     short window (it never adds any), so a window whose count is not a
     positive multiple of ``calls`` is taken again, up to ``tries`` windows;
-    where none is whole, the launches the wrapper's counter (``counted()``)
-    saw, logged as such."""
+    where none is whole, the launches its entry points' count
+    (``counted()``) saw, logged as such."""
     fn()
     torch.cuda.synchronize()
     before = counted()
@@ -463,7 +463,7 @@ def launches_a_call(torch, fn, counted, calls: int = 20, tries: int = 5) -> int:
         if n and n % calls == 0:
             return n // calls
         seen.append(n)
-    log(f"  launches a call by the wrapper's counter: the profiler's {tries} windows of "
+    log(f"  launches a call by the entry points' count: the profiler's {tries} windows of "
         f"{calls} calls recorded {seen} kernels, none a whole window")
     return round((counted() - before) / made[0])
 
@@ -500,7 +500,7 @@ def misaligned_copy(torch, t):
 
 def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
     """affine_sigmoid against its plain version; ``profiled``: device times
-    and launches from profiler windows, else by the wrapper's counter and
+    and launches from profiler windows, else by the launch record and
     CUDA events alone (after a scheduled profiler window has run in this
     process, later windows record no device time)."""
     from nnet_asr_torch.ops.kernels import matmul_act as MA
@@ -518,11 +518,10 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
 
     ts = [t.clone().requires_grad_(True) for t in (x, w, b)]
     ps = [t.clone().requires_grad_(True) for t in (x, w, b)]
-    before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma,
-              MA.matmul_act.launches_f32_cp_wgmma)
+    counters = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma")
+    before = tuple(count_of(k) for k in counters)
     y = MA.affine_sigmoid(*ts)
-    check((MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma,
-           MA.matmul_act.launches_f32_cp_wgmma)
+    check(tuple(count_of(k) for k in counters)
           == (before[0] + 1, before[1] + (route == "WGMMA"), before[2] + (route == "CP_WGMMA")),
           f"affine_sigmoid {M}x{K}->{N}: not one f32 launch on the {route} route")
     y.backward(g)
@@ -550,12 +549,12 @@ def check_matmul_act(torch, dev, M, K, N, seed, profiled=True):
     want = kernels_a_call(tile_plan, pl)
     if profiled:
         k_us, lib_us = paired_device_us(torch, fns[0], fns[2], "matmul_act", 2.0 * M * N * K)
-        per_call = launches_a_call(torch, fns[0], lambda: want * MA.matmul_act.launches)
+        per_call = launches_a_call(torch, fns[0], lambda: want * count_of("matmul_act"))
         dev = (k_us, device_us(torch, fns[1]), lib_us)
     else:
-        before = MA.matmul_act.launches
+        before = count_of("matmul_act")
         fns[0]()
-        per_call, dev = want * (MA.matmul_act.launches - before), (None, None, None)
+        per_call, dev = want * (count_of("matmul_act") - before), (None, None, None)
     check(per_call == want, f"affine_sigmoid {M}x{K}->{N}: {per_call} kernels a call, want {want}")
     r = record(f"{M}x{K}->{N}", err_y, ms, plain_ms, lib_ms, dev, 2.0 * M * N * K,
                4.0 * (M * K + K * N + N + M * N), PEAK_3XTF32,
@@ -591,9 +590,9 @@ def check_dgrad(torch, dev, B, In, Out, seed):
           f"dgrad {B}x{In}->{Out}: the plan leaves it to the library")
     plan = plan_dict(tile_plan, pl)
     log(f"plan dgrad {B}x{In}->{Out}: {json.dumps(plan)}")
-    before = MA.dgrad.launches
+    before = count_of("dgrad")
     dx = [MA.dgrad(dz, w) for _ in range(3)]
-    check(MA.dgrad.launches == before + 3, f"dgrad {B}x{In}->{Out}: not one launch a call")
+    check(count_of("dgrad") == before + 3, f"dgrad {B}x{In}->{Out}: not one launch a call")
     ref = dz.double() @ w.double().T
     lib = torch.matmul(dz, w.T)
     torch.cuda.synchronize()
@@ -606,7 +605,7 @@ def check_dgrad(torch, dev, B, In, Out, seed):
     flops = 2.0 * B * In * Out
     ms, lib_ms = (cuda_ms(torch, f) for f in fns)
     k_us, lib_us = paired_device_us(torch, fns[0], fns[1], "dgrad_f32_", flops)
-    per_call = launches_a_call(torch, fns[0], lambda: 2 * MA.dgrad.launches)
+    per_call = launches_a_call(torch, fns[0], lambda: 2 * count_of("dgrad"))
     check(per_call == 2, f"dgrad {B}x{In}->{Out}: {per_call} kernels a call, want 2")
     r = record(f"{B}x{In}->{Out}", err, ms, lib_ms, lib_ms, (k_us, lib_us, lib_us), flops,
                4.0 * (B * Out + In * Out + B * In), PEAK_3XTF32, device_us(torch, fns[0]))
@@ -647,9 +646,9 @@ def compare_softmax_xent(torch, SC, logits, labels, what):
     finite and NaN where it is NaN; xent within 1e-5 relative, or NaN with
     plain's; correct equal; one launch a call; a second run equal bit for
     bit. Returns (max|err - plain|, xent rel err or None, correct)."""
-    before = SC.softmax_xent.launches
+    before = count_of("softmax_xent")
     err, xent, corr = SC.softmax_xent(logits, labels)
-    check(SC.softmax_xent.launches == before + 1, f"{what}: not one launch a call")
+    check(count_of("softmax_xent") == before + 1, f"{what}: not one launch a call")
     perr, pxent, pcorr = SC.softmax_xent_plain(logits, labels)
     torch.cuda.synchronize()
     nan = torch.isnan(perr)
@@ -767,14 +766,12 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed, force_cp=False):
 
         def update(x, e, p, v, a, m):
             SF._launch_f32_cp_wgmma(_build.load_library(), x, e, p, v, a, m, plan, stream)
-            SF.wgrad_momentum_update.launches += 1
     route = route_name(tile_plan, plan)
     what = (f"wgrad_momentum_update {B}x{In}->{Out} v {vdt}"
             f"{f' ({route} forced)' if force_cp else ''}")
-    counters = (lambda: (SF.wgrad_momentum_update.launches,
-                         SF.wgrad_momentum_update.launches_f32_wgmma,
-                         SF.wgrad_momentum_update.launches_f32_cp_wgmma,
-                         SF.wgrad_momentum_update.launches_f32_ws_wgmma))
+    counters = (lambda: tuple(count_of(k) for k in (
+        "wgrad_momentum_update", "wgrad_momentum_update_f32_wgmma",
+        "wgrad_momentum_update_f32_cp_wgmma", "wgrad_momentum_update_f32_ws_wgmma")))
     before = counters()
     update(x, e, pk, vk, a, m)
     check(counters() == (before[0] + 1, before[1] + (route == "WGMMA"),
@@ -822,7 +819,7 @@ def check_wgrad_momentum(torch, dev, B, In, Out, vdt, seed, force_cp=False):
     else:
         k_us, lib_us = device_us(torch, fns[0]), None
     want = kernels_a_call(tile_plan, plan)
-    per_call = launches_a_call(torch, fns[0], lambda: want * SF.wgrad_momentum_update.launches)
+    per_call = launches_a_call(torch, fns[0], lambda: want * count_of("wgrad_momentum_update"))
     check(per_call == want, f"{what}: {per_call} kernels a call, want {want}")
     dev = (k_us, device_us(torch, fns[1]), lib_us)
     check(bool(torch.isfinite(pk).all() and torch.isfinite(vk.float()).all()),
@@ -876,14 +873,13 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
     # not); the other shapes here have rows of whole 4-byte units: CP_WGMMA
     check(route == ("CP_WGMMA" if (2 * K) % 16 or (2 * N) % 16 else "WGMMA"),
           f"{what}: route {route}")
-    before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma,
-              MA.matmul_act.launches_bf16_cp_wgmma)
+    counters = ("matmul_act_bf16", "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma")
+    before = tuple(count_of(k) for k in counters)
     y = MA.affine_sigmoid(*ts)
     y.backward(g)
     yp = MA.matmul_act_plain(x, w, b)
     torch.cuda.synchronize()
-    check((MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_wgmma,
-           MA.matmul_act.launches_bf16_cp_wgmma)
+    check(tuple(count_of(k) for k in counters)
           == (before[0] + 1, before[1] + (route == "WGMMA"), before[2] + (route == "CP_WGMMA"))
           and y.dtype == bf, f"{what}: not one bf16 launch on the {route} route, or y not bf16")
     dy = (y.float() - yp.float()).abs()
@@ -909,9 +905,9 @@ def check_matmul_act_bf16(torch, dev, M, K, N, seed):
            lambda: torch.addmm(b, x, w).sigmoid_())      # library yardstick
     ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in fns)
     k_us, lib_us = paired_device_us(torch, fns[0], fns[2], "matmul_act", 2.0 * M * N * K)
-    counter = ("launches_bf16_cp_wgmma" if route == "CP_WGMMA" else
-               "launches_bf16_wgmma" if route == "WGMMA" else "launches_bf16")
-    per_call = launches_a_call(torch, fns[0], lambda: getattr(MA.matmul_act, counter))
+    counter = ("matmul_act_bf16_cp_wgmma" if route == "CP_WGMMA" else
+               "matmul_act_bf16_wgmma" if route == "WGMMA" else "matmul_act_bf16")
+    per_call = launches_a_call(torch, fns[0], lambda: count_of(counter))
     check(per_call == 1, f"{what}: {per_call} launches a call")
     devt = (k_us, device_us(torch, fns[1]), lib_us)
     r = record(f"{M}x{K}->{N} bf16", err_y, ms, plain_ms, lib_ms, devt, 2.0 * M * N * K,
@@ -981,9 +977,9 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
     # MLP3's rows (598 and 135 bf16) are off TMA: CP_WGMMA; the production
     # shapes WGMMA
     check(route == ("CP_WGMMA" if B == BUNCH else "WGMMA"), f"{what}: route {route}")
-    counters = (lambda: (SF.wgrad_momentum_update.launches_bf16,
-                         SF.wgrad_momentum_update.launches_bf16_wgmma,
-                         SF.wgrad_momentum_update.launches_bf16_cp_wgmma))
+    counters = (lambda: tuple(count_of(k) for k in (
+        "wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma",
+        "wgrad_momentum_update_bf16_cp_wgmma")))
     before = counters()
     SF.wgrad_momentum_update(x, e, pk, vk, a, m)
     check(counters() == (before[0] + 1, before[1] + (route == "WGMMA"),
@@ -1015,7 +1011,7 @@ def check_wgrad_momentum_bf16(torch, dev, B, In, Out, vdt, seed):
            lambda: SF.wgrad_momentum_update_plain(x, e, pp, vp, a, m), library)
     times = [cuda_ms(torch, f) for f in fns]
     k_us, lib_us = paired_device_us(torch, fns[0], fns[2], "wgrad_momentum", 2.0 * B * In * Out)
-    per_call = launches_a_call(torch, fns[0], lambda: SF.wgrad_momentum_update.launches_bf16)
+    per_call = launches_a_call(torch, fns[0], lambda: count_of("wgrad_momentum_update_bf16"))
     check(per_call == 1, f"{what}: {per_call} launches a call")
     devt = (k_us, device_us(torch, fns[1]), lib_us)
     check(bool(torch.isfinite(pk).all() and torch.isfinite(vk.float()).all()),
@@ -1122,10 +1118,12 @@ def main_path(torch, card: str, d: str, n: dict):
     cv = ("-S", j("cv.scp"), "-c")
 
     zero_counts()
-    e1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('e1.mmf')}")
-    e2 = run_tnet(d, j("e1.mmf"), *train, f"--TARGETMMF={j('e2.mmf')}")
-    cv0 = run_tnet(d, j("init.mmf"), *cv)
-    cv2 = run_tnet(d, j("e2.mmf"), *cv)
+    replays = []
+    with counting_replays(replays):
+        e1 = run_tnet(d, j("init.mmf"), *train, f"--TARGETMMF={j('e1.mmf')}")
+        e2 = run_tnet(d, j("e1.mmf"), *train, f"--TARGETMMF={j('e2.mmf')}")
+        cv0 = run_tnet(d, j("init.mmf"), *cv)
+        cv2 = run_tnet(d, j("e2.mmf"), *cv)
     launches = read_counts()
 
     for name, r in (("epoch 1", e1), ("epoch 2", e2), ("cv init", cv0),
@@ -1133,11 +1131,8 @@ def main_path(torch, card: str, d: str, n: dict):
         log(f"tnet cuda:0 {name}: Xent {r['xent']:.10g} frames {r['frames']} "
             f"correct {r['acc']:.4f}% FPS {r['fps']}")
     log(f"main-path launches (4 tnet runs): {json.dumps(launches)}")
-    graphs = _graph_launches()
-    log(f"of them, by the Trainer's count: captured {json.dumps(graphs['captured'])}, "
-        f"replayed from CUDA graphs {json.dumps(graphs['replayed'])}")
-    check(graphs["replayed"]["softmax_xent.launches"] > 0,
-          "main path: no training step was replayed from a CUDA graph")
+    log(f"of the training steps, {len(replays)} replayed from CUDA graphs")
+    check(replays, "main path: no training step was replayed from a CUDA graph")
     want_train = drained_frames(n["train"], CACHE, BUNCH)
     want_cv = drained_frames(n["cv"], CACHE, BUNCH)
     check(e1["frames"] == e2["frames"] == want_train,
@@ -1485,63 +1480,57 @@ def objectives_path(torch, card: str, d: str, n: dict):
 #    tfeacat --BF16/--INT8
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("matmul_act", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma", "matmul_act_bf16",
-            "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma", "wgrad_momentum_update",
-            "wgrad_momentum_update_f32_wgmma", "wgrad_momentum_update_f32_cp_wgmma",
-            "wgrad_momentum_update_f32_ws_wgmma", "wgrad_momentum_update_bf16",
-            "wgrad_momentum_update_bf16_wgmma", "wgrad_momentum_update_bf16_cp_wgmma",
-            "softmax_xent", "dgrad")
+# each launch counter of the log, and the kernels' entry points whose calls
+# that ran (``_build.LAUNCHES``) it sums: a wrapper's dtype over every route
+# (``matmul_act``, ``matmul_act_bf16``, ``wgrad_momentum_update``,
+# ``wgrad_momentum_update_bf16``), or one route
+_MA_F32 = ("matmul_act_f32", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma")
+_MA_BF16 = ("matmul_act_bf16", "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma")
+_WG_F32 = ("wgrad_momentum_update_f32", "wgrad_momentum_update_f32_wgmma",
+           "wgrad_momentum_update_f32_cp_wgmma", "wgrad_momentum_update_f32_ws_wgmma")
+_WG_BF16 = ("wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma",
+            "wgrad_momentum_update_bf16_cp_wgmma")
+COUNTED = {"matmul_act": _MA_F32, **{k: (k,) for k in _MA_F32[1:]},
+           "matmul_act_bf16": _MA_BF16, **{k: (k,) for k in _MA_BF16[1:]},
+           "wgrad_momentum_update": _WG_F32, **{k: (k,) for k in _WG_F32[1:]},
+           "wgrad_momentum_update_bf16": _WG_BF16, **{k: (k,) for k in _WG_BF16[1:]},
+           "softmax_xent": ("softmax_xent_f32",), "dgrad": ("dgrad_f32_wgmma",)}
+COUNTERS = tuple(COUNTED)
 
 
-def _counters():
-    """(wrapper, attribute) of each launch counter, by name."""
-    from nnet_asr_torch.ops.kernels import matmul_act as MA
-    from nnet_asr_torch.ops.kernels import sgd_fused as SF
-    from nnet_asr_torch.ops.kernels import softmax_ce as SC
+def _launches():
+    from nnet_asr_torch.ops.kernels._build import LAUNCHES
 
-    return {"matmul_act": (MA.matmul_act, "launches"),
-            "matmul_act_f32_wgmma": (MA.matmul_act, "launches_f32_wgmma"),
-            "matmul_act_f32_cp_wgmma": (MA.matmul_act, "launches_f32_cp_wgmma"),
-            "matmul_act_bf16": (MA.matmul_act, "launches_bf16"),
-            "matmul_act_bf16_wgmma": (MA.matmul_act, "launches_bf16_wgmma"),
-            "matmul_act_bf16_cp_wgmma": (MA.matmul_act, "launches_bf16_cp_wgmma"),
-            "wgrad_momentum_update": (SF.wgrad_momentum_update, "launches"),
-            "wgrad_momentum_update_f32_wgmma": (SF.wgrad_momentum_update, "launches_f32_wgmma"),
-            "wgrad_momentum_update_f32_cp_wgmma": (SF.wgrad_momentum_update,
-                                                   "launches_f32_cp_wgmma"),
-            "wgrad_momentum_update_f32_ws_wgmma": (SF.wgrad_momentum_update,
-                                                   "launches_f32_ws_wgmma"),
-            "wgrad_momentum_update_bf16": (SF.wgrad_momentum_update, "launches_bf16"),
-            "wgrad_momentum_update_bf16_wgmma": (SF.wgrad_momentum_update,
-                                                 "launches_bf16_wgmma"),
-            "wgrad_momentum_update_bf16_cp_wgmma": (SF.wgrad_momentum_update,
-                                                    "launches_bf16_cp_wgmma"),
-            "softmax_xent": (SC.softmax_xent, "launches"),
-            "dgrad": (MA.dgrad, "launches")}
+    return LAUNCHES
 
 
-def _graph_launches() -> dict:
-    """The Trainer's own count of the launches of steps replayed from CUDA
-    graphs: "captured" (the wrappers counted them, nothing ran) and
-    "replayed" (they ran, no wrapper was called), by "<wrapper>.<counter>"."""
-    from nnet_asr_torch.train.trainer import GRAPH_LAUNCHES
-
-    return GRAPH_LAUNCHES
+def count_of(name: str) -> int:
+    """The launches that ran of the counter ``name``."""
+    launches = _launches()
+    return sum(launches[e] for e in COUNTED[name])
 
 
 def zero_counts():
-    for f, k in _counters().values():
-        setattr(f, k, 0)
-    for c in _graph_launches().values():
-        c.clear()
+    _launches().clear()
 
 
 def read_counts() -> dict:
-    """The launches that ran, by counter: each wrapper's own count, less
-    the launches captures recorded, plus those graph replays made."""
-    g = _graph_launches()
-    return {name: getattr(f, k) - g["captured"][f"{f.__name__}.{k}"]
-            + g["replayed"][f"{f.__name__}.{k}"] for name, (f, k) in _counters().items()}
+    """The launches that ran, by counter (a replay of the Trainer's step
+    graph counts its launches, its capture none)."""
+    return {name: count_of(name) for name in COUNTERS}
+
+
+@contextlib.contextmanager
+def counting_replays(replays: list):
+    """Append to ``replays`` at each replay of the Trainer's step graphs."""
+    from nnet_asr_torch.train.trainer import _Captured
+
+    replay = _Captured.replay
+    _Captured.replay = lambda self: replays.append(self) or replay(self)
+    try:
+        yield
+    finally:
+        _Captured.replay = replay
 
 
 def compare_posteriors(what, post, post_cpu, tol):
@@ -2592,12 +2581,17 @@ def rel_max_diff(got: list, want: list) -> float:
                for a, b in zip(got, want) for k in b if np.abs(b[k]).max() > 0)
 
 
-def restore_counts(counts: dict) -> None:
-    """Set the launch counters back (launches made to compare paths do not count)."""
-    for name, (f, k) in _counters().items():
-        setattr(f, k, counts[name])
-    for c in _graph_launches().values():
-        c.clear()
+def saved_counts():
+    """A copy of the launch record, for ``restore_counts``."""
+    return _launches().copy()
+
+
+def restore_counts(saved) -> None:
+    """Set the launch record back to ``saved`` (launches made to compare
+    paths do not count)."""
+    launches = _launches()
+    launches.clear()
+    launches.update(saved)
 
 
 def mesh_case_production(torch, data: int, model: int) -> dict:
@@ -2633,7 +2627,7 @@ def mesh_case_production(torch, data: int, model: int) -> dict:
            "frames": int(acc["frames"])}
     got = state.host_params()
     if mesh.is_main:
-        before = read_counts()
+        before = saved_counts()
         tr = Trainer(production_network(), TrainerConfig(
             bunchsize=PROD_BUNCH, cachesize=PROD_BUNCH * PROD_CACHE_BUNCHES, sgd=sgd), device=dev)
         for X, y in bunches:
@@ -3043,7 +3037,7 @@ def momentum_step_routes(torch, dev, feats, labels, card):
     from nnet_asr_torch.train.sgd import SgdConfig
     from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
 
-    before = read_counts()
+    before = saved_counts()
     for m in (0.0, 0.9):
         nets = []
         for wgmma in (True, False):

@@ -12,15 +12,20 @@ raises; nothing is fetched and nothing but the package's own sources is
 compiled. ``build_log`` keeps ptxas's per-kernel register and spill report.
 
 Each C entry point returns ``cudaGetLastError()`` after its launches; the
-wrappers raise on a non-zero code. ``counters`` keeps the int32 counters
-of the kernels whose last block finishes a reduction (softmax-CE's
-ticket, the split-K GEMMs' one a tile): one zeroed buffer per (device,
-stream), which every such launch leaves at zero again, so launches on one
-stream share it and launches on other streams never do.
+wrappers pass the code and the entry point's name to ``check``, which
+raises on a non-zero code and otherwise counts the call in ``LAUNCHES``
+(entry point -> calls that returned 0: one a call, whatever number of
+kernels the entry point launches; the Trainer's CUDA graphs keep it to
+the calls that ran, ``train/trainer.py``). ``counters`` keeps the int32
+counters of the kernels whose last block finishes a reduction
+(softmax-CE's ticket, the split-K GEMMs' one a tile): one zeroed buffer
+per (device, stream), which every such launch leaves at zero again, so
+launches on one stream share it and launches on other streams never do.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -214,8 +219,15 @@ def split_args(p: tile_plan.Plan, dev, stream):
                   counters(dev, stream).data_ptr())
 
 
+LAUNCHES: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
+
+
 def check(code: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by an entry point."""
+    """Raise on a non-zero cudaError_t returned by the entry point ``what``;
+    else count the call in ``LAUNCHES[what]``."""
     if code != 0:
         name = load_library().nnet_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({name}) at launch")
+    with _launches_lock:
+        LAUNCHES[what] += 1

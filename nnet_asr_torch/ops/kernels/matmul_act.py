@@ -41,13 +41,10 @@ there is no fallback. Both devices refuse the same inputs: an unknown
 ``act`` (``ValueError``, as JAX's kernel raises), x, w and b of mixed or
 other dtypes than float32 and bfloat16 (``TypeError``), shapes that do
 not match or a non-contiguous operand (``ValueError``).
-``matmul_act.launches`` counts f32 calls (every route),
-``matmul_act.launches_f32_wgmma`` those of them on the WGMMA route,
-``matmul_act.launches_bf16`` bf16 ones (every route),
-``matmul_act.launches_bf16_wgmma`` those of them on the WGMMA route and
-``matmul_act.launches_bf16_cp_wgmma`` those on the CP_WGMMA route,
-``matmul_act.launches_f32_cp_wgmma`` the f32 calls on that route (also
-counted in ``launches``). ``affine_sigmoid`` is the
+Each launch counts in ``_build.LAUNCHES`` under its entry point's name,
+which names the dtype and the route (``matmul_act_f32``,
+``matmul_act_f32_wgmma``, ``matmul_act_f32_cp_wgmma`` and their bf16
+twins; ``dgrad_f32_wgmma``). ``affine_sigmoid`` is the
 ``autograd.Function``; its backward is the JAX ``_bwd``, roundings
 included: the elementwise ``dz`` in f32, rounded to x's dtype, then ``dx``
 by ``dgrad`` and ``dW`` by ``torch.matmul`` (which JAX also left outside
@@ -58,10 +55,9 @@ read K-major and split in registers, dz split by a pre-pass kernel into
 scratch allocated here; two launches a call) where
 ``tile_plan.dgrad_plan`` takes the shape (the production stack's layers,
 the SWB CD-DNN's one-wave grids),
-and leaves every other ``dx`` to ``torch.matmul`` as before;
-``dgrad.launches`` counts its kernel's calls. On the momentum path the
-backward instead hands ``(x, dz)`` to a weight-update hook, which
-launches the fused wgrad+momentum kernel
+and leaves every other ``dx`` to ``torch.matmul`` as before. On the
+momentum path the backward instead hands ``(x, dz)`` to a weight-update
+hook, which launches the fused wgrad+momentum kernel
 (``ops/kernels/sgd_fused.py``), and forms no ``dW``; ``affine`` is the
 same for a BiasedLinearity without a sigmoid (at bf16 ``x @ w`` and ``+ b``
 each rounded, as XLA computes the JAX bf16 mode's output layer). The
@@ -159,8 +155,6 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if p.route == tile_plan.WGMMA and bf16:
         _build.check(lib.matmul_act_bf16_wgmma(*args, stream.cuda_stream),
                      "matmul_act_bf16_wgmma")
-        matmul_act.launches_bf16 += 1
-        matmul_act.launches_bf16_wgmma += 1
         return y
     if p.route == tile_plan.WGMMA:
         # x's hi and lo copies, written by the pre-pass (M * K is a
@@ -169,26 +163,12 @@ def matmul_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         _build.check(lib.matmul_act_f32_wgmma(
             *args[:4], split[0].data_ptr(), split[1].data_ptr(), *args[4:], p.blocks,
             stream.cuda_stream), "matmul_act_f32_wgmma")
-        matmul_act.launches += 1
-        matmul_act.launches_f32_wgmma += 1
         return y
     fn, name = ((lib.matmul_act_bf16, "matmul_act_bf16") if bf16
                 else (lib.matmul_act_f32, "matmul_act_f32"))
     _scratch, split = _build.split_args(p, x.device, stream)
     _build.check(fn(*args, p.tile, p.a_bytes, p.b_bytes, *split, stream.cuda_stream), name)
-    if bf16:
-        matmul_act.launches_bf16 += 1
-    else:
-        matmul_act.launches += 1
     return y
-
-
-matmul_act.launches = 0
-matmul_act.launches_f32_wgmma = 0
-matmul_act.launches_bf16 = 0
-matmul_act.launches_bf16_wgmma = 0
-matmul_act.launches_bf16_cp_wgmma = 0
-matmul_act.launches_f32_cp_wgmma = 0
 
 
 def _launch_cp_wgmma(lib, x, w, b, y, act, p, stream):
@@ -203,12 +183,6 @@ def _launch_cp_wgmma(lib, x, w, b, y, act, p, stream):
     _build.check(getattr(lib, name)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, ACTS[act],
         p.a_bytes, p.b_bytes, *split, stream.cuda_stream), name)
-    if bf16:
-        matmul_act.launches_bf16 += 1
-        matmul_act.launches_bf16_cp_wgmma += 1
-    else:
-        matmul_act.launches += 1
-        matmul_act.launches_f32_cp_wgmma += 1
 
 
 def dgrad(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -243,11 +217,7 @@ def dgrad(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(_build.load_library().dgrad_f32_wgmma(
         dz.data_ptr(), w.data_ptr(), dx.data_ptr(), hi, hi + 4 * M * Out, M, In, Out,
         p.blocks, torch.cuda.current_stream(dz.device).cuda_stream), "dgrad_f32_wgmma")
-    dgrad.launches += 1
     return dx
-
-
-dgrad.launches = 0
 
 
 def _affine_backward(ctx, x, w, dz):
@@ -259,27 +229,21 @@ def _affine_backward(ctx, x, w, dz):
     gradient."""
     dzc = dz.to(x.dtype)
     mm = bf16_matmul if x.dtype == torch.bfloat16 else torch.matmul
-    run = _in_span if profiler.recording() else _bare
-    dx = run("backward.dgrad", dgrad, dzc, w) if ctx.needs_input_grad[0] else None
+    dx = None
+    if ctx.needs_input_grad[0]:
+        with profiler.phase("backward.dgrad", x.device, timed_in_trace=True):
+            dx = dgrad(dzc, w)
     db = dz.sum(0).to(x.dtype) if ctx.needs_input_grad[2] else None
     if ctx.update is not None:
-        run("backward.wgrad", ctx.update, x, dzc)
+        with profiler.phase("backward.wgrad", x.device, timed_in_trace=True):
+            ctx.update(x, dzc)
         return dx, None, db, None
     dw = None
     if ctx.needs_input_grad[1]:
         profiler.count(tile_plan.LIBRARY_FLOPS, 2.0 * x.shape[0] * x.shape[1] * dzc.shape[1])
-        dw = run("backward.wgrad", mm, x.T, dzc)
+        with profiler.phase("backward.wgrad", x.device, timed_in_trace=True):
+            dw = mm(x.T, dzc)
     return dx, dw, db, None
-
-
-def _in_span(name, fn, a, b):
-    """``fn(a, b)`` inside the profiler's span ``name``, timed on the card."""
-    with profiler.phase(name, a.device, timed_in_trace=True):
-        return fn(a, b)
-
-
-def _bare(name, fn, a, b):
-    return fn(a, b)
 
 
 class AffineSigmoid(torch.autograd.Function):

@@ -59,15 +59,10 @@ updates ``p`` and ``v`` IN PLACE, as the port's ``apply_updates`` does.
 ``wgrad_momentum_update`` checks its operands, then dispatches on their
 device: CPU tensors take the plain PyTorch version
 (``wgrad_momentum_update_plain``), CUDA tensors launch the kernel or raise —
-there is no fallback. ``wgrad_momentum_update.launches`` counts calls
-with f32 ``x`` and ``e`` (every route),
-``wgrad_momentum_update.launches_f32_wgmma`` those of them on the WGMMA
-route, ``wgrad_momentum_update.launches_f32_cp_wgmma`` those on the
-CP_WGMMA route, ``wgrad_momentum_update.launches_f32_ws_wgmma`` those on
-the WS_WGMMA route, ``wgrad_momentum_update.launches_bf16`` those with
-bf16 ones (every route), ``wgrad_momentum_update.launches_bf16_wgmma``
-those of them on the WGMMA route, ``launches_bf16_cp_wgmma`` those on the
-CP_WGMMA route.
+there is no fallback. Each launch counts in ``_build.LAUNCHES`` under its
+entry point's name, which names the dtype and the route
+(``wgrad_momentum_update_{f32,bf16}[_wgmma|_cp_wgmma]``,
+``wgrad_momentum_update_f32_ws_wgmma``).
 """
 
 from __future__ import annotations
@@ -147,7 +142,6 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
             x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), split[0].data_ptr(),
             split[1].data_ptr(), float(a), float(m), B, In, Out, v_is_bf16, pl.blocks,
             stream.cuda_stream), "wgrad_momentum_update_f32_wgmma")
-        wgrad_momentum_update.launches_f32_wgmma += 1
     elif pl.route == tile_plan.CP_WGMMA and bf16:
         _launch_bf16_cp_wgmma(lib, x, e, p, v, a, m, pl, stream)
     elif pl.route == tile_plan.CP_WGMMA:
@@ -158,7 +152,6 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
         _build.check(lib.wgrad_momentum_update_bf16_wgmma(
             x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
             Out, v_is_bf16, pl.blocks, stream.cuda_stream), "wgrad_momentum_update_bf16_wgmma")
-        wgrad_momentum_update.launches_bf16_wgmma += 1
     else:
         _scratch, (splits, k_chunk, part, counters) = _build.split_args(pl, p.device, stream)
         fn, name = ((lib.wgrad_momentum_update_bf16, "wgrad_momentum_update_bf16") if bf16
@@ -170,57 +163,38 @@ def wgrad_momentum_update(x: torch.Tensor, e: torch.Tensor, p: torch.Tensor,
     # would, so autograd refuses a saved copy of p or v from before
     for t in (p, v):
         torch.autograd.graph.increment_version(t)
-    if bf16:
-        wgrad_momentum_update.launches_bf16 += 1
-    else:
-        wgrad_momentum_update.launches += 1
-
-
-wgrad_momentum_update.launches = 0
-wgrad_momentum_update.launches_f32_wgmma = 0
-wgrad_momentum_update.launches_f32_cp_wgmma = 0
-wgrad_momentum_update.launches_f32_ws_wgmma = 0
-wgrad_momentum_update.launches_bf16 = 0
-wgrad_momentum_update.launches_bf16_wgmma = 0
-wgrad_momentum_update.launches_bf16_cp_wgmma = 0
 
 
 def _launch_f32_cp_wgmma(lib, x, e, p, v, a, m, pl, stream):
     """Launch the f32 CP_WGMMA kernel by plan ``pl`` (a CP_WGMMA plan of
     ``tile_plan.plan``, or one a measurement forces: its bm and bn those of
-    the tile the library was built with); counted in
-    ``launches_f32_cp_wgmma``, and by the caller in ``launches``."""
+    the tile the library was built with)."""
     B, In = x.shape
     _scratch, (splits, k_chunk, part, counters) = _build.split_args(pl, p.device, stream)
     _build.check(lib.wgrad_momentum_update_f32_cp_wgmma(
         x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), part, counters, float(a),
         float(m), B, In, e.shape[1], int(v.dtype == torch.bfloat16), splits, k_chunk,
         pl.a_bytes, pl.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_cp_wgmma")
-    wgrad_momentum_update.launches_f32_cp_wgmma += 1
 
 
 def _launch_f32_ws_wgmma(lib, x, e, p, v, a, m, pl, stream):
     """Launch the f32 WS_WGMMA kernel (g = x^T e with Out on wgmma's N) by
-    plan ``pl``, as ``_launch_f32_cp_wgmma``; counted in
-    ``launches_f32_ws_wgmma``, and by the caller in ``launches``."""
+    plan ``pl``, as ``_launch_f32_cp_wgmma``."""
     B, In = x.shape
     _build.check(lib.wgrad_momentum_update_f32_ws_wgmma(
         x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
         e.shape[1], int(v.dtype == torch.bfloat16), pl.splits, pl.k_chunk, pl.a_bytes,
         pl.b_bytes, stream.cuda_stream), "wgrad_momentum_update_f32_ws_wgmma")
-    wgrad_momentum_update.launches_f32_ws_wgmma += 1
 
 
 def _launch_bf16_cp_wgmma(lib, x, e, p, v, a, m, pl, stream):
     """Launch the bf16 CP_WGMMA kernel (g = x^T e with In on wgmma's M) by
     plan ``pl`` (``tile_plan.plan``'s, or one a measurement forces: its
     tile ROWS or the column tile the library was built with); a tile's
-    splits are one cluster, so no scratch; counted in
-    ``launches_bf16_cp_wgmma``, and by the caller in ``launches_bf16``."""
+    splits are one cluster, so no scratch."""
     B, In = x.shape
     _build.check(lib.wgrad_momentum_update_bf16_cp_wgmma(
         x.data_ptr(), e.data_ptr(), p.data_ptr(), v.data_ptr(), float(a), float(m), B, In,
         e.shape[1], int(v.dtype == torch.bfloat16), int(pl.tile == tile_plan.ROWS), pl.splits,
         pl.k_chunk, pl.a_bytes, pl.b_bytes, stream.cuda_stream),
         "wgrad_momentum_update_bf16_cp_wgmma")
-    wgrad_momentum_update.launches_bf16_cp_wgmma += 1

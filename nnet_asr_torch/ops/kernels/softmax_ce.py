@@ -17,7 +17,10 @@ device: a CPU tensor runs the plain PyTorch version
 there is no fallback. Both devices refuse the same inputs: logits other
 than float32 or labels other than int32 (``TypeError``), labels that are
 not one a row, or an operand that is not contiguous (``ValueError``).
-``softmax_xent.launches`` counts kernel launches. ``fused_softmax_xent`` is
+Each launch counts in ``_build.LAUNCHES["softmax_xent_f32"]``;
+``softmax_xent.launches`` also counts the wrapper's launches (a CUDA
+graph's capture included, its replays not), for the benchmark's card
+tests, which read it. ``fused_softmax_xent`` is
 the ``autograd.Function``: the loss is the summed Xent, its backward ``err
 * g_loss``, and ``correct`` is not differentiable.
 """

@@ -743,10 +743,9 @@ def main(argv=None) -> int:
               lambda: SF.wgrad_momentum_update(xsb, esb, p, v, 0.0, 0.0)),
              (f"wgrad_momentum_update bf16 {B}x{In}->4096", 2.0 * B * In * 4096,
               lambda: SF.wgrad_momentum_update(xsb, esb4, p4, v4, 0.0, 0.0))]
-    counters = ((MA.matmul_act, "launches_bf16_wgmma"), (MA.matmul_act, "launches_f32_wgmma"),
-                (SF.wgrad_momentum_update, "launches_bf16_wgmma"),
-                (SF.wgrad_momentum_update, "launches_f32_wgmma"))
-    before = [getattr(f, k) for f, k in counters]
+    counters = ("matmul_act_bf16_wgmma", "matmul_act_f32_wgmma",
+                "wgrad_momentum_update_bf16_wgmma", "wgrad_momentum_update_f32_wgmma")
+    before = [_build.LAUNCHES[k] for k in counters]
     saved = _build._lib
     try:
         for turn in range(2):
@@ -768,7 +767,7 @@ def main(argv=None) -> int:
                   f"{(y_ss - y_ref).abs().max().item():.3e}")
     finally:
         _build._lib = saved
-    if any(getattr(f, k) == n for (f, k), n in zip(counters, before)):
+    if any(_build.LAUNCHES[k] == n for k, n in zip(counters, before)):
         raise RuntimeError("a WGMMA route was not taken by its cases")
     return 0
 
@@ -919,7 +918,7 @@ def cpw_only(root, reps, names=()) -> None:
         libs[name] = load(so)
     dev = torch.device("cuda", 0)
     saved = _build._lib, {k: getattr(tp, k) for _, attrs in variants.values() for k in attrs}
-    before = SF.wgrad_momentum_update.launches_bf16_cp_wgmma
+    before = _build.LAUNCHES["wgrad_momentum_update_bf16_cp_wgmma"]
     seen = {}
     try:
         for turn in range(2):
@@ -944,7 +943,7 @@ def cpw_only(root, reps, names=()) -> None:
             setattr(tp, k, val)
     for (name, shape, what), us in seen.items():
         print(f"gemm_ceiling cpw {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
-    if SF.wgrad_momentum_update.launches_bf16_cp_wgmma == before:
+    if _build.LAUNCHES["wgrad_momentum_update_bf16_cp_wgmma"] == before:
         raise RuntimeError("the bf16 CP_WGMMA weight gradient was not taken by its candidates")
 
 
@@ -953,7 +952,7 @@ def bf16_designs(libs, reps) -> None:
     and print each candidate's range over the turns beside the library's."""
     dev = torch.device("cuda", 0)
     shapes = {tile: bf16_candidates(dev, tile) for _, tile in CP_VARIANTS.values()}
-    before = MA.matmul_act.launches_bf16_cp_wgmma
+    before = _build.LAUNCHES["matmul_act_bf16_cp_wgmma"]
     seen = {}
     for turn in range(2):
         order = list(CP_VARIANTS.items())
@@ -971,7 +970,7 @@ def bf16_designs(libs, reps) -> None:
                       flush=True)
     for (name, shape, what), us in seen.items():
         print(f"gemm_ceiling bf16 {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
-    if MA.matmul_act.launches_bf16_cp_wgmma == before:
+    if _build.LAUNCHES["matmul_act_bf16_cp_wgmma"] == before:
         raise RuntimeError("the CP_WGMMA route was not taken by its candidates")
 
 
@@ -1079,7 +1078,8 @@ def f32_designs(libs, reps, variants) -> None:
     builds = {name: (libs[repr((subs, extra))], tile, bool(extra))
               for name, (subs, tile, extra) in variants.items()}
     shapes = {name: f32_candidates(dev, tile, pre) for name, (_, tile, pre) in builds.items()}
-    before = (MA.matmul_act.launches_f32_cp_wgmma, SF.wgrad_momentum_update.launches_f32_cp_wgmma)
+    counters = ("matmul_act_f32_cp_wgmma", "wgrad_momentum_update_f32_cp_wgmma")
+    before = [_build.LAUNCHES[k] for k in counters]
     seen = {}
     for turn in range(2):
         order = list(builds.items())
@@ -1097,8 +1097,7 @@ def f32_designs(libs, reps, variants) -> None:
                       flush=True)
     for (name, shape, what), us in seen.items():
         print(f"gemm_ceiling f32 {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
-    if (MA.matmul_act.launches_f32_cp_wgmma, SF.wgrad_momentum_update.launches_f32_cp_wgmma) \
-            == before:
+    if [_build.LAUNCHES[k] for k in counters] == before:
         raise RuntimeError("the f32 CP_WGMMA route was not taken by its candidates")
 
 
@@ -1145,7 +1144,7 @@ def ws_designs(libs, reps, variants) -> None:
     library's), and print each candidate's range over the turns."""
     dev = torch.device("cuda", 0)
     shapes = {name: ws_candidates(dev, name == "ws") for name in variants}
-    before = SF.wgrad_momentum_update.launches_f32_ws_wgmma
+    before = _build.LAUNCHES["wgrad_momentum_update_f32_ws_wgmma"]
     seen = {}
     for turn in range(2):
         order = list(variants.items())
@@ -1163,7 +1162,7 @@ def ws_designs(libs, reps, variants) -> None:
                       flush=True)
     for (name, shape, what), us in seen.items():
         print(f"gemm_ceiling ws {name} {shape} {what}: {min(us):.2f}-{max(us):.2f} us")
-    if SF.wgrad_momentum_update.launches_f32_ws_wgmma == before:
+    if _build.LAUNCHES["wgrad_momentum_update_f32_ws_wgmma"] == before:
         raise RuntimeError("the WS_WGMMA route was not taken by its candidates")
 
 
@@ -1368,7 +1367,7 @@ def dgrads(reps, rounds=3) -> None:
         plan = tp.dgrad_plan(B, In, Out, dz.data_ptr(), w.data_ptr())
         if plan is None or plan.route != tp.WGMMA:
             raise RuntimeError(f"dgrad {what}: the plan leaves it to the library")
-        before = MA.dgrad.launches
+        before = _build.LAUNCHES["dgrad_f32_wgmma"]
 
         def kernel():
             MA.dgrad(dz, w)
@@ -1393,7 +1392,7 @@ def dgrads(reps, rounds=3) -> None:
                     seen.setdefault(label, []).append(us)
             seen.setdefault("kernel alone (events)", []).append(event_us(kernel, reps))
             seen.setdefault("library alone (events)", []).append(event_us(library, reps))
-        if MA.dgrad.launches == before:
+        if _build.LAUNCHES["dgrad_f32_wgmma"] == before:
             raise RuntimeError(f"dgrad {what}: the kernel was not launched")
         bound = 2.0 * B * In * Out / 165e12 * 1e6
         # the pre-pass's own bound: dz read, its hi and lo written

@@ -64,18 +64,23 @@ shape, learning rate and set of state tensors runs eagerly, the next is
 captured, the rest replay it, with the eager step's kernels and results.
 Statistics accumulate per cache in f32/int32 device tensors and merge into
 float64 host totals at the end of the epoch (ObjFun.h:16-54), so the loop
-never waits for the device. The profiler's spans (``utils/profiler.py``)
-mark each bunch's step and its forward (the output layer's too), loss (the
-fused softmax-CE too), backward and update (under ``-T 4`` every step runs
-eagerly; under a ``torch.profiler`` session a graphed step replays graphs
-that hold its spans), and the intake: the reader threads' reads and label
+never waits for the device. The step has one body (``Trainer._step``),
+eager or captured: the profiler's spans (``utils/profiler.py``) mark each
+bunch's step and its forward (the output layer's too), loss (the fused
+softmax-CE too), backward and update, and cost a shared null context
+where nothing records (under ``-T 4`` every step runs eagerly; under a
+``torch.profiler`` session a graphed step replays graphs that hold its
+spans). They also mark the intake: the reader threads' reads and label
 lookups, the wait for the next utterance, the transform, the cache fill
-and its shuffle and gather.
+and its shuffle and gather. ``_build.LAUNCHES`` counts the kernels' entry
+points that ran: a capture takes back what it counted, which ran nothing,
+and each replay adds it again.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import functools
 import itertools
@@ -93,10 +98,10 @@ from ..utils.profiler import GraphSpans, profiler
 from ..device import DeviceLike, resolve_device
 from ..models.components import BiasedLinearity, BlockSoftmax, Sigmoid, Softmax
 from ..models.network import Network
-from ..ops.kernels.matmul_act import affine, affine_sigmoid, dgrad, matmul_act
+from ..ops.kernels import _build
+from ..ops.kernels.matmul_act import affine, affine_sigmoid
 from ..ops.int8_train import fake_quant_ste, qmatmul
-from ..ops.kernels.sgd_fused import wgrad_momentum_update
-from ..ops.kernels.softmax_ce import fused_softmax_xent, softmax_xent
+from ..ops.kernels.softmax_ce import fused_softmax_xent
 from ..ops.objectives import (MseStats, XentStats, mse_loss_and_stats, one_hot,
                               softmax_identity_backward, xent_loss_and_stats)
 from .cache import DeviceFrameCache
@@ -131,11 +136,10 @@ def forward_body(body, x: torch.Tensor, updates: Optional[dict] = None,
                 x = affine_sigmoid(x, w, b, updates.get(i))
                 i += 2
                 continue
-            if i + 1 == len(body):
-                # the output layer, timed on the card under torch.profiler too
-                with profiler.phase("forward.output", x.device, timed_in_trace=True):
-                    x = affine(x, w, b, updates.get(i))
-            else:
+            # the output layer, timed on the card under torch.profiler too
+            span = (profiler.phase("forward.output", x.device, timed_in_trace=True)
+                    if i + 1 == len(body) else contextlib.nullcontext())
+            with span:
                 x = affine(x, w, b, updates.get(i))
             i += 1
             continue
@@ -185,43 +189,29 @@ def read_utterances(reader, entries, labels_repo, start_frm_ext: int = 0,
     return prefetch_map(read_one, entries, workers=workers)
 
 
-# the kernel wrappers whose ``launches*`` attributes count their launches
-_COUNTED = (matmul_act, dgrad, wgrad_momentum_update, softmax_xent)
-# the launches of steps replayed from CUDA graphs, by "<wrapper>.<counter>"
-# of those wrappers: "captured", the launches the wrappers counted while a
-# capture recorded them (they ran nothing), and "replayed", each replay's
-# captured launches again (they ran, with no call of the wrapper)
-GRAPH_LAUNCHES: Dict[str, collections.Counter] = {"captured": collections.Counter(),
-                                                  "replayed": collections.Counter()}
-
-
-def _launch_counts() -> Dict[str, int]:
-    return {f"{f.__name__}.{k}": v for f in _COUNTED for k, v in vars(f).items()
-            if k.startswith("launches")}
-
-
 class _Captured:
     """One capture of a train step ``fn(x, y)`` as a CUDA graph on
     ``stream``, in the profiler's spans where ``spans`` is given: the
-    graph, the stats it writes and the wrappers' launches it recorded."""
+    graph, the stats it writes and the entry-point calls it recorded,
+    which ``_build.LAUNCHES`` counted and which ran nothing, so they come
+    off it until a replay runs them."""
 
     def __init__(self, fn: Callable, x: torch.Tensor, y: torch.Tensor, stream,
                  spans: Optional[GraphSpans] = None):
-        before = _launch_counts()
+        before = _build.LAUNCHES.copy()
         self.graph, self.spans = torch.cuda.CUDAGraph(), spans
         with profiler.capturing(spans):
             with torch.cuda.graph(self.graph, stream=stream):
                 self.stats = fn(x, y)
-        self.launches = {k: v - before.get(k, 0) for k, v in _launch_counts().items()
-                         if v != before.get(k, 0)}
-        GRAPH_LAUNCHES["captured"].update(self.launches)
+        self.launches = _build.LAUNCHES - before
+        _build.LAUNCHES.subtract(self.launches)
 
     def replay(self) -> Dict[str, torch.Tensor]:
         if self.spans is None:
             self.graph.replay()
         else:
             profiler.replay(self.spans, self.graph.replay)
-        GRAPH_LAUNCHES["replayed"].update(self.launches)
+        _build.LAUNCHES.update(self.launches)
         return {k: v.clone() for k, v in self.stats.items()}
 
 
@@ -237,8 +227,8 @@ class _StepGraph:
                  stream):
         self.key = key
         self.x, self.y = torch.empty_like(feats), torch.empty_like(labels)
-        self.plain = _Captured(tr._eager_step, self.x, self.y, stream)
-        self.traced = [_Captured(tr._train_step_in_spans, self.x, self.y, stream, GraphSpans())
+        self.plain = _Captured(tr._step, self.x, self.y, stream)
+        self.traced = [_Captured(tr._step, self.x, self.y, stream, GraphSpans())
                        for _ in range(2)]
         self.turn = 0
 
@@ -420,31 +410,41 @@ class Trainer:
                     ) -> Dict[str, torch.Tensor]:
         if self._graphable and not profiler.enabled:
             return self._graph_step(feats, labels)
-        if profiler.recording():
-            return self._train_step_in_spans(feats, labels)
-        return self._eager_step(feats, labels)
+        return self._step(feats, labels)
 
-    def _eager_step(self, feats: torch.Tensor, labels: torch.Tensor
-                    ) -> Dict[str, torch.Tensor]:
-        n = feats.shape[0]
-        loss, stats = self._loss(
-            self._forward_logits(feats, self._weight_updates(n), train=True), labels)
-        self._update(self._grads(loss), n)
+    def _step(self, feats: torch.Tensor, labels: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+        """The train step in the profiler's spans: the step, then its
+        forward, loss, backward and update (the update timed on the card
+        under a ``torch.profiler`` session too); each a null context where
+        nothing records, as in a capture into no spans."""
+        dev, n = self.device, feats.shape[0]
+        with profiler.phase("step", dev):
+            profiler.count("step.frames", n)
+            updates = self._weight_updates(n)
+            with profiler.phase("step.forward", dev):
+                logits = self._forward_logits(feats, updates, train=True)
+            with profiler.phase("step.loss", dev):
+                loss, stats = self._loss(logits, labels)
+            with profiler.phase("step.backward", dev):
+                gs = self._grads(loss)
+            with profiler.phase("step.update", dev, timed_in_trace=True):
+                self._update(gs, n)
         return stats
 
     def _graph_step(self, feats: torch.Tensor, labels: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
-        """``_eager_step`` replayed from a CUDA graph, so that the host's
+        """``_step`` replayed from a CUDA graph, so that the host's
         enqueue (a few ms a step of Python and launches at eight layers)
-        does not pace the card; while a ``torch.profiler`` session records,
-        ``_train_step_in_spans`` replayed from its own graphs, whose spans
-        the graphs time. The first step of a bunch shape, learning rate and
-        set of state tensors (a graph reads and writes the parameters and
-        velocities it was captured with: resident newbob gives every epoch
-        new velocities) runs eagerly on the capture's side stream (whatever
-        capture needs is then set up there), the next one is captured and
-        every later one replays it, its bunch copied into the graphs'
-        inputs first. The graphs launch the eager step's kernels with the
+        does not pace the card: captured into no spans, or, while a
+        ``torch.profiler`` session records, into the spans of its own
+        graphs, which the graphs time. The first step of a bunch shape,
+        learning rate and set of state tensors (a graph reads and writes
+        the parameters and velocities it was captured with: resident newbob
+        gives every epoch new velocities) runs eagerly on the capture's side
+        stream (whatever capture needs is then set up there), the next one
+        is captured and every later one replays it, its bunch copied into
+        the graphs' inputs first. The graphs launch the eager step's kernels with the
         same arguments, so the results are the eager step's bit for bit."""
         key = (tuple(feats.shape), tuple(labels.shape), feats.dtype, self._lr,
                self._state_ptrs())
@@ -462,8 +462,7 @@ class Trainer:
             if self._graph_warm != key:
                 self._graph_warm = key
                 with torch.cuda.stream(s):
-                    stats = (self._train_step_in_spans if traced else self._eager_step)(
-                        feats, labels)
+                    stats = self._step(feats, labels)
                 cur.wait_stream(s)
                 return stats
             self._graph = g = _StepGraph(self, key, feats, labels, s)
@@ -475,25 +474,6 @@ class Trainer:
         """The addresses of every parameter and velocity tensor."""
         return tuple(u.data_ptr() for group in (self.params, self.velocity) for p in group
                      for t in p.values() for u in (t if isinstance(t, list) else (t,)))
-
-    def _train_step_in_spans(self, feats: torch.Tensor, labels: torch.Tensor
-                             ) -> Dict[str, torch.Tensor]:
-        """``_train_step`` inside the profiler's spans: the step, then its
-        forward, loss, backward and update (the update timed on the card
-        under a ``torch.profiler`` session too)."""
-        dev, n = self.device, feats.shape[0]
-        with profiler.phase("step", dev):
-            profiler.count("step.frames", n)
-            updates = self._weight_updates(n)
-            with profiler.phase("step.forward", dev):
-                logits = self._forward_logits(feats, updates, train=True)
-            with profiler.phase("step.loss", dev):
-                loss, stats = self._loss(logits, labels)
-            with profiler.phase("step.backward", dev):
-                gs = self._grads(loss)
-            with profiler.phase("step.update", dev, timed_in_trace=True):
-                self._update(gs, n)
-        return stats
 
     def _grads(self, loss: torch.Tensor) -> List[torch.Tensor]:
         """The loss's gradients of the trainable parameters, in order."""

@@ -19,8 +19,8 @@ record function (a ``cpu_op`` event on the host's timeline), which the
 profiler does not mirror onto the device's timeline as it mirrors
 ``record_function``'s user annotations: the device's events stay the
 card's own work. Otherwise ``phase`` returns a shared null context and
-``count`` returns at once; callers on the step's hot path check
-``recording()`` once and skip their spans' with-blocks.
+``count`` returns at once, so the step opens its spans whether or not
+anything records.
 
 A span keeps its name, its start and end on the host clock and its parent
 (the innermost span open on its thread when it opened). A span given a

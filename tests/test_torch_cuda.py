@@ -25,9 +25,9 @@ The f32 WGMMA route (``csrc/tf32_wgmma.cuh``: 3xTF32 on ``wgmma``, the
 production shapes and others whose 128x128 tiles fill the card and whose
 pitches are multiples of 4 floats) is held to the same tolerances at the
 production shapes and at ragged M, N and K tails, with f32 and bf16
-velocity at momentum 0 and 0.9, its launches asserted by
-``launches_f32_wgmma``; small integers make every sum exact, so a wrong
-fragment, descriptor or swizzle shows as a wrong element.
+velocity at momentum 0 and 0.9, its launches asserted by its entry
+points' counts in ``_build.LAUNCHES``; small integers make every sum
+exact, so a wrong fragment, descriptor or swizzle shows as a wrong element.
 
 The f32 input gradient ``dx = dz W^T`` on its WGMMA kernel (``csrc/dgrad.cu``:
 W read K-major by ldmatrix and split in registers, dz split by a pre-pass)
@@ -37,8 +37,8 @@ without their promotion) at the production stack's two dgrad shapes, at
 ragged ones and on one-wave grids of 128 tiles, a block each (the SWB
 CD-DNN's two shapes, K's tail at 9304 among them, and a 2x2 mesh rank's
 512 rows of the production output layer), three calls equal bit for bit,
-small integers exact, and its launches counted by ``dgrad.launches``: 4 a
-production f32 step, 7 an SWB step (whose products the profiler's
+small integers exact, and its launches counted under ``dgrad_f32_wgmma``:
+4 a production f32 step, 7 an SWB step (whose products the profiler's
 counters show off the library but the output forward), none at bf16 or at
 the shapes and operands the plan leaves to ``torch.matmul``; a
 production step's gradients through autograd within the benchmark's
@@ -49,7 +49,7 @@ their plain versions within one bf16 step: both round an f32 value that
 differs only by summation order. Their shapes add the 2-byte copy path (an
 odd bf16 pitch, or a base that is not 4-byte aligned), and the WGMMA route
 (``csrc/wgmma_gemm.cuh``: TMA and ``wgmma``, pitches of 16-byte multiples),
-asserted by the per-route launch counters: a minimal tile (128x256 for the
+asserted by the per-route entry points' counts: a minimal tile (128x256 for the
 forward, two 128x128 ones for the ping-pong weight gradient), K not a
 multiple of 64, ragged M and N, a persistent grid walking several tiles a
 block, and each operand layout alone with small integers, where every sum
@@ -62,12 +62,27 @@ import numpy as np
 import pytest
 import torch
 
+from nnet_asr_torch.ops.kernels import _build
 from nnet_asr_torch.ops.kernels import matmul_act as MA
 from nnet_asr_torch.ops.kernels import sgd_fused as SF
 from nnet_asr_torch.ops.kernels import softmax_ce as SC
 from nnet_asr_torch.ops.kernels import softmax_plan, tile_plan
 
 torch.set_num_threads(2)
+
+# the entry points of each wrapper and dtype, every route
+MA_F32 = ("matmul_act_f32", "matmul_act_f32_wgmma", "matmul_act_f32_cp_wgmma")
+MA_BF16 = ("matmul_act_bf16", "matmul_act_bf16_wgmma", "matmul_act_bf16_cp_wgmma")
+WG_F32 = ("wgrad_momentum_update_f32", "wgrad_momentum_update_f32_wgmma",
+          "wgrad_momentum_update_f32_cp_wgmma", "wgrad_momentum_update_f32_ws_wgmma")
+WG_BF16 = ("wgrad_momentum_update_bf16", "wgrad_momentum_update_bf16_wgmma",
+           "wgrad_momentum_update_bf16_cp_wgmma")
+
+
+def _count(*names: str) -> int:
+    """The calls of these entry points that ran (``_build.LAUNCHES``: a
+    replay of the Trainer's step graph counts, its capture does not)."""
+    return sum(_build.LAUNCHES[n] for n in names)
 
 
 def _affine_inputs(seed, M, K, N):
@@ -119,10 +134,10 @@ def test_cuda_matmul_act_matches_plain(cuda, shape):
     ts = [_on_card(a, cuda, offset).requires_grad_(True) for a in (x, w, b)]
     if offset:
         assert ts[0].data_ptr() % 16 and ts[1].data_ptr() % 16
-    before = MA.matmul_act.launches
+    before = _count(*MA_F32)
     y = MA.affine_sigmoid(*ts)
     y.backward(torch.from_numpy(g).to(cuda))
-    assert MA.matmul_act.launches == before + 1
+    assert _count(*MA_F32) == before + 1
     ps = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in (x, w, b)]
     yp = MA.matmul_act_plain(*ps)
     yp.backward(torch.from_numpy(g).to(cuda))
@@ -166,13 +181,13 @@ def test_cuda_matmul_act_bf16_matches_plain(cuda, shape):
              tile_plan.CP_WGMMA if K % 2 == N % 2 == offset % 2 == 0 else tile_plan.MMA_SYNC)
     assert pl.route == route
     wgmma, cp = route == tile_plan.WGMMA, route == tile_plan.CP_WGMMA
-    before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16,
-              MA.matmul_act.launches_bf16_wgmma, MA.matmul_act.launches_bf16_cp_wgmma)
+    before = (_count(*MA_F32), _count(*MA_BF16),
+              _count("matmul_act_bf16_wgmma"), _count("matmul_act_bf16_cp_wgmma"))
     y = MA.affine_sigmoid(*ts)
     gt = _on_card(g, cuda, dtype=torch.bfloat16)
     y.backward(gt)
-    assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16,
-            MA.matmul_act.launches_bf16_wgmma, MA.matmul_act.launches_bf16_cp_wgmma) == (
+    assert (_count(*MA_F32), _count(*MA_BF16),
+            _count("matmul_act_bf16_wgmma"), _count("matmul_act_bf16_cp_wgmma")) == (
         before[0], before[1] + 1, before[2] + wgmma, before[3] + cp)
     assert y.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in ts)
     xs, ws, bs = (t.detach() for t in ts)
@@ -211,9 +226,9 @@ def _check_softmax_xent(lt, lb, variant, nan_rows=()):
     launch a call; a second run equal bit for bit."""
     p = softmax_plan.plan(*lt.shape, lt.data_ptr())
     assert p.variant == variant
-    before = SC.softmax_xent.launches
+    before = _count("softmax_xent_f32")
     err, xent, corr = SC.softmax_xent(lt, lb)
-    assert SC.softmax_xent.launches == before + 1
+    assert _count("softmax_xent_f32") == before + 1
     perr, pxent, pcorr = SC.softmax_xent_plain(lt, lb)
     torch.cuda.synchronize()
     nan = torch.isnan(perr)
@@ -227,7 +242,7 @@ def _check_softmax_xent(lt, lb, variant, nan_rows=()):
     assert corr.item() == pcorr.item()
     # bit-for-bit repeatable: no float atomics, whichever block ends last
     err2, xent2, corr2 = SC.softmax_xent(lt, lb)
-    assert SC.softmax_xent.launches == before + 2
+    assert _count("softmax_xent_f32") == before + 2
     assert torch.equal(_bits(err), _bits(err2))
     assert torch.equal(_bits(xent), _bits(xent2)) and corr.item() == corr2.item()
     return err, xent, corr
@@ -327,9 +342,9 @@ def test_cuda_wgrad_momentum_update_matches_plain(cuda, shape, vdt):
         assert pl.a_bytes < 16 and pl.b_bytes < 16
     pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
     vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
-    before = SF.wgrad_momentum_update.launches
+    before = _count(*WG_F32)
     SF.wgrad_momentum_update(xs, es, pk, vk, 0.003, 0.9)
-    assert SF.wgrad_momentum_update.launches == before + 1
+    assert _count(*WG_F32) == before + 1
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, 0.9)
     torch.cuda.synchronize()
     assert vk.dtype == vdt and pk.dtype == torch.float32
@@ -453,11 +468,11 @@ def test_cuda_matmul_act_bf16_cp_wgmma_matches_plain(cuda, shape, forced):
         return y
 
     for act in ("sigmoid", "none"):
-        before = (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_cp_wgmma,
-                  MA.matmul_act.launches_bf16_wgmma)
+        before = (_count(*MA_BF16), _count("matmul_act_bf16_cp_wgmma"),
+                  _count("matmul_act_bf16_wgmma"))
         y1, y2 = run(act), run(act)
-        assert (MA.matmul_act.launches_bf16, MA.matmul_act.launches_bf16_cp_wgmma,
-                MA.matmul_act.launches_bf16_wgmma) == (before[0] + 2, before[1] + 2, before[2])
+        assert (_count(*MA_BF16), _count("matmul_act_bf16_cp_wgmma"),
+                _count("matmul_act_bf16_wgmma")) == (before[0] + 2, before[1] + 2, before[2])
         yp = MA.matmul_act_plain(xs, ws, bs, act)
         torch.cuda.synchronize()
         assert torch.equal(y1, y2)
@@ -575,12 +590,11 @@ def test_cuda_wgrad_momentum_update_bf16_matches_plain(cuda, shape, vdt):
     assert (pl.route == tile_plan.WGMMA) == wgmma
     pk, pp = (torch.from_numpy(p).to(cuda) for _ in range(2))
     vk, vp = (torch.from_numpy(v).to(cuda, vdt) for _ in range(2))
-    counters = ("launches", "launches_bf16", "launches_bf16_wgmma")
-    before = [getattr(SF.wgrad_momentum_update, k) for k in counters]
+    counters = (WG_F32, WG_BF16, ("wgrad_momentum_update_bf16_wgmma",))
+    before = [_count(*k) for k in counters]
     a, m = 0.003, 0.9
     SF.wgrad_momentum_update(xs, es, pk, vk, a, m)
-    assert [getattr(SF.wgrad_momentum_update, k) for k in counters] == [
-        before[0], before[1] + 1, before[2] + wgmma]
+    assert [_count(*k) for k in counters] == [before[0], before[1] + 1, before[2] + wgmma]
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, a, m)
     torch.cuda.synchronize()
     assert vk.dtype == vdt and pk.dtype == torch.float32
@@ -640,9 +654,9 @@ def test_cuda_wgmma_layouts_exact(cuda, which):
         x = torch.from_numpy(rng.integers(-1, 2, (M, K)).astype(np.float32)).to(cuda, bf)
         w = torch.from_numpy(rng.integers(-1, 2, (K, N)).astype(np.float32)).to(cuda, bf)
         b = torch.from_numpy(rng.integers(-2, 3, N).astype(np.float32)).to(cuda, bf)
-        before = MA.matmul_act.launches_bf16_wgmma
+        before = _count("matmul_act_bf16_wgmma")
         y = MA.matmul_act(x, w, b, "none")
-        assert MA.matmul_act.launches_bf16_wgmma == before + 1
+        assert _count("matmul_act_bf16_wgmma") == before + 1
         exact = x.double() @ w.double() + b.double()
         assert torch.equal(y.double(), exact)
     else:
@@ -651,9 +665,9 @@ def test_cuda_wgmma_layouts_exact(cuda, which):
         e = torch.from_numpy(rng.integers(-1, 2, (B, Out)).astype(np.float32)).to(cuda, bf)
         p = torch.zeros((In, Out), device=cuda)
         v = torch.zeros((In, Out), device=cuda)
-        before = SF.wgrad_momentum_update.launches_bf16_wgmma
+        before = _count("wgrad_momentum_update_bf16_wgmma")
         SF.wgrad_momentum_update(x, e, p, v, 1.0, 0.0)
-        assert SF.wgrad_momentum_update.launches_bf16_wgmma == before + 1
+        assert _count("wgrad_momentum_update_bf16_wgmma") == before + 1
         exact = x.double().T @ e.double()
         assert torch.equal(v.double(), exact) and torch.equal(p, -v)
 
@@ -737,11 +751,11 @@ def test_cuda_wgrad_bf16_cp_wgmma_matches_plain(cuda, shape, vdt, forced, m):
 
     pk, pp, pk2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
     vk, vp, vk2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
-    counters = ("launches_bf16", "launches_bf16_cp_wgmma", "launches_bf16_wgmma")
-    before = [getattr(SF.wgrad_momentum_update, k) for k in counters]
+    counters = (WG_BF16, ("wgrad_momentum_update_bf16_cp_wgmma",),
+                ("wgrad_momentum_update_bf16_wgmma",))
+    before = [_count(*k) for k in counters]
     run(pk, vk)
-    assert [getattr(SF.wgrad_momentum_update, k) - b for k, b in zip(counters, before)] == [
-        forced is None, 1, 0]
+    assert [_count(*k) - b for k, b in zip(counters, before)] == [1, 1, 0]
     run(pk2, vk2)
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, a, m)
     torch.cuda.synchronize()
@@ -818,9 +832,9 @@ def test_cuda_matmul_act_f32_wgmma_matches_plain(cuda, shape):
     xs, ws, bs = (_on_card(a, cuda) for a in (x, w, b))
     pl = tile_plan.plan(M, N, K, a_pitch=K, b_pitch=N, a_ptr=xs.data_ptr(), b_ptr=ws.data_ptr())
     assert pl.route == tile_plan.WGMMA and pl.blocks == tile_plan.SM_COUNT
-    before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma)
+    before = (_count(*MA_F32), _count("matmul_act_f32_wgmma"))
     y = MA.matmul_act(xs, ws, bs)
-    assert (MA.matmul_act.launches, MA.matmul_act.launches_f32_wgmma) == (before[0] + 1,
+    assert (_count(*MA_F32), _count("matmul_act_f32_wgmma")) == (before[0] + 1,
                                                                           before[1] + 1)
     y2 = MA.matmul_act(xs, ws, bs)
     z = MA.matmul_act(xs, ws, bs, "none")
@@ -855,10 +869,10 @@ def test_cuda_wgrad_f32_wgmma_matches_plain(cuda, shape, vdt, m):
     pl = tile_plan.plan(In, Out, B, a_pitch=In, b_pitch=Out, a_ptr=xs.data_ptr(),
                         b_ptr=es.data_ptr(), wgrad=True, out_ptrs=(pk.data_ptr(), vk.data_ptr()))
     assert pl.route == tile_plan.WGMMA
-    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_f32_wgmma)
+    before = (_count(*WG_F32), _count("wgrad_momentum_update_f32_wgmma"))
     SF.wgrad_momentum_update(xs, es, pk, vk, 0.003, m)
-    assert (SF.wgrad_momentum_update.launches,
-            SF.wgrad_momentum_update.launches_f32_wgmma) == (before[0] + 1, before[1] + 1)
+    assert (_count(*WG_F32),
+            _count("wgrad_momentum_update_f32_wgmma")) == (before[0] + 1, before[1] + 1)
     SF.wgrad_momentum_update(xs, es, p2, v2, 0.003, m)
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, m)
     torch.cuda.synchronize()
@@ -887,18 +901,18 @@ def test_cuda_f32_wgmma_layouts_exact(cuda, which):
     if which == "forward":
         M, K, N = 512, 520, 4224                   # 132 tiles, a stage's tail
         x, w, b = ints(M, K), ints(K, N), ints(N)
-        before = MA.matmul_act.launches_f32_wgmma
+        before = _count("matmul_act_f32_wgmma")
         y = MA.matmul_act(x, w, b, "none")
-        assert MA.matmul_act.launches_f32_wgmma == before + 1
+        assert _count("matmul_act_f32_wgmma") == before + 1
         assert torch.equal(y.double(), x.double() @ w.double() + b.double())
     else:
         B, In, Out = 264, 1028, 4224
         x, e = ints(B, In), ints(B, Out)
         p = torch.zeros((In, Out), device=cuda)
         v = torch.zeros((In, Out), device=cuda)
-        before = SF.wgrad_momentum_update.launches_f32_wgmma
+        before = _count("wgrad_momentum_update_f32_wgmma")
         SF.wgrad_momentum_update(x, e, p, v, 1.0, 0.0)
-        assert SF.wgrad_momentum_update.launches_f32_wgmma == before + 1
+        assert _count("wgrad_momentum_update_f32_wgmma") == before + 1
         assert torch.equal(v.double(), x.double().T @ e.double()) and torch.equal(p, -v)
 
 
@@ -960,9 +974,9 @@ def _dgrad_matches_f64(cuda, B, In, Out, blocks):
     w = _on_card(rng.standard_normal((In, Out)).astype(np.float32), cuda)
     p = tile_plan.dgrad_plan(B, In, Out, dz.data_ptr(), w.data_ptr())
     assert p.route == tile_plan.WGMMA and p.blocks == blocks
-    before = MA.dgrad.launches
+    before = _count("dgrad_f32_wgmma")
     dx = [MA.dgrad(dz, w) for _ in range(3)]
-    assert MA.dgrad.launches == before + 3
+    assert _count("dgrad_f32_wgmma") == before + 3
     ref = dz.double() @ w.double().T
     torch.cuda.synchronize()
     # chip_smoke.py phase 3's tolerance, which cuBLAS's FFMA product meets
@@ -983,9 +997,9 @@ def test_cuda_dgrad_f32_wgmma_layouts_exact(cuda):
     B, In, Out = 512, 4224, 520                 # 132 tiles, a stage's tail
     dz, w = (torch.from_numpy(rng.integers(-3, 4, s).astype(np.float32)).to(cuda)
              for s in ((B, Out), (In, Out)))
-    before = MA.dgrad.launches
+    before = _count("dgrad_f32_wgmma")
     dx = MA.dgrad(dz, w)
-    assert MA.dgrad.launches == before + 1
+    assert _count("dgrad_f32_wgmma") == before + 1
     assert torch.equal(dx.double(), dz.double() @ w.double().T)
 
 
@@ -1023,9 +1037,9 @@ def test_cuda_dgrad_bypass_launches_nothing(cuda, case):
         assert not dz.is_contiguous()
     if case == "bf16":
         dz, w = dz.bfloat16(), w.bfloat16()
-    before = MA.dgrad.launches
+    before = _count("dgrad_f32_wgmma")
     dx = MA.dgrad(dz, w)
-    assert MA.dgrad.launches == before
+    assert _count("dgrad_f32_wgmma") == before
     want = MA.bf16_matmul(dz, w.T) if case == "bf16" else torch.matmul(dz, w.T)
     assert torch.equal(dx, want)
 
@@ -1056,16 +1070,6 @@ def _production_trainer(dev, momentum, dtype=None, dims=(1024, 4096, 4096, 4096,
     return Trainer(Network(layers).from_numpy_params(params), cfg, device=dev)
 
 
-def _ran(f, k: str = "launches") -> int:
-    """A wrapper's launches that ran: its own count (captures of the
-    Trainer's step as CUDA graphs included, which run nothing), less what
-    captures recorded, plus what replays of the graphs launched."""
-    from nnet_asr_torch.train.trainer import GRAPH_LAUNCHES
-
-    key = f"{f.__name__}.{k}"
-    return getattr(f, k) - GRAPH_LAUNCHES["captured"][key] + GRAPH_LAUNCHES["replayed"][key]
-
-
 # the route engages for every layer whose input needs a gradient: 4 a f32
 # production step (not the first layer's), at momentum 0 and 0.9, none
 # under the bf16 compute dtype
@@ -1077,11 +1081,11 @@ def test_cuda_dgrad_launches_a_production_step(cuda, momentum, dtype, want):
     gen = torch.Generator(device=cuda).manual_seed(34)
     feats = 0.1 * torch.randn((1024, 1024), generator=gen, device=cuda)
     labels = torch.randint(0, 8192, (1024,), generator=gen, device=cuda, dtype=torch.int32)
-    before = _ran(MA.dgrad)
+    before = _count("dgrad_f32_wgmma")
     for _ in range(2):
         tr._train_step(feats, labels)
     torch.cuda.synchronize()
-    assert _ran(MA.dgrad) - before == 2 * want
+    assert _count("dgrad_f32_wgmma") - before == 2 * want
 
 
 # Seide et al.'s SWB CD-DNN (429->2048x7->9304, bunch 1024) at momentum
@@ -1101,7 +1105,7 @@ def test_cuda_swb_step_leaves_only_the_output_forward_to_the_library(cuda):
     profiler.reset()
     profiler.enabled = True
     try:
-        before = _ran(MA.dgrad)
+        before = _count("dgrad_f32_wgmma")
         tr._train_step(feats, labels)
         torch.cuda.synchronize()
         flops = {k: c["sum"] for k, c in profiler.counters().items()
@@ -1109,7 +1113,7 @@ def test_cuda_swb_step_leaves_only_the_output_forward_to_the_library(cuda):
     finally:
         profiler.enabled = was
         profiler.reset()
-    assert _ran(MA.dgrad) - before == 7
+    assert _count("dgrad_f32_wgmma") - before == 7
     later = 2 * B * (6 * 2048 * 2048 + 2048 * 9304)     # the dgrads, or the wgrads, of 2..8
     assert flops == {"gemm.flops.library": 2 * B * 2048 * 9304,
                      "gemm.flops.wgmma": 2 * later,
@@ -1134,12 +1138,12 @@ def test_cuda_dgrad_production_gradients_agree_with_library(cuda):
     grads = []
     for library in (False, True):
         tr = _production_trainer(cuda, 0.0)
-        before = MA.dgrad.launches
+        before = _count("dgrad_f32_wgmma")
         with library_dgrad() if library else contextlib.nullcontext():
             loss, _ = tr._loss(tr._forward_logits(feats, {}, train=True), labels)
             grads.append([g.double() for g in tr._grads(loss)])
         torch.cuda.synchronize()
-        assert MA.dgrad.launches - before == (0 if library else 4)
+        assert _count("dgrad_f32_wgmma") - before == (0 if library else 4)
     norms = [g.norm().item() for g in grads[1]]
     med = float(np.median(norms))
     diff = max((a - b).norm().item() / max(n, med)
@@ -1202,8 +1206,8 @@ def _routing_net(head, sparse):
     return Network(layers).from_numpy_params(params)
 
 
-# the loss routing of trainer.py:200-216, read from the wrappers' launches that ran
-# (``_ran``) over two train steps and one eval step: affine_sigmoid on every
+# the loss routing of trainer.py:200-216, read from the entry points' launches that
+# ran (``_count``) over two train steps and one eval step: affine_sigmoid on every
 # BiasedLinearity -> Sigmoid pair under every objective (none for a
 # SparseLinearity pair), fused_softmax_xent only for a Softmax head with CE
 # and no confusion mode; stats finite, and the step's CE, MSE and
@@ -1227,12 +1231,12 @@ def test_cuda_trainer_loss_routing_by_launch_count(cuda, objective, head, mode, 
                             confusion_mode=mode, sgd=SgdConfig(learning_rate=0.01, l1=1e-4))
         tr = Trainer(_routing_net(head, sparse), cfg, device=dev)
         x, y = torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
-        before = (_ran(MA.matmul_act), _ran(SC.softmax_xent))
+        before = (_count(*MA_F32), _count("softmax_xent_f32"))
         out = [tr._train_step(x, y), tr._train_step(x, y), tr._eval_step(x, y)]
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert _ran(MA.matmul_act) - before[0] == (0 if sparse else 3)
-            assert _ran(SC.softmax_xent) - before[1] == (3 if fused else 0)
+            assert _count(*MA_F32) - before[0] == (0 if sparse else 3)
+            assert _count("softmax_xent_f32") - before[1] == (3 if fused else 0)
         stats[dev.type] = [{k: v.double().cpu().numpy() for k, v in s.items()} for s in out]
     for g, c in zip(stats["cuda"], stats["cpu"]):
         assert sorted(g) == sorted(c)
@@ -1259,20 +1263,18 @@ def test_cuda_trainer_compute_dtype_launch_counts(cuda, dtype):
     rng = np.random.default_rng(14)
     feats = rng.standard_normal((64, 20)).astype(np.float32)
     labels = rng.integers(0, 10, 64).astype(np.int32)
-    counters = ((MA.matmul_act, "launches"), (MA.matmul_act, "launches_bf16"),
-                (SF.wgrad_momentum_update, "launches"),
-                (SF.wgrad_momentum_update, "launches_bf16"), (SC.softmax_xent, "launches"))
+    counters = (MA_F32, MA_BF16, WG_F32, WG_BF16, ("softmax_xent_f32",))
     stats = {}
     for dev in (cuda, torch.device("cpu")):
         cfg = TrainerConfig(bunchsize=64, cachesize=64, compute_dtype=dtype,
                             sgd=SgdConfig(learning_rate=0.01, momentum=0.5))
         tr = Trainer(_routing_net("softmax", False), cfg, device=dev)
         x, y = torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
-        before = [getattr(f, k) for f, k in counters]
+        before = [_count(*k) for k in counters]
         out = [tr._train_step(x, y), tr._train_step(x, y), tr._eval_step(x, y)]
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            got = [getattr(f, k) - b for (f, k), b in zip(counters, before)]
+            got = [_count(*k) - b for k, b in zip(counters, before)]
             assert got == ([0, 3, 0, 4, 3] if dtype == "bf16" else [0, 0, 0, 0, 3])
         stats[dev.type] = [{k: v.double().cpu().numpy() for k, v in s.items()} for s in out]
     rtol = 1e-3 if dtype == "bf16" else 1e-4
@@ -1412,11 +1414,11 @@ def test_cuda_matmul_act_f32_cp_wgmma_matches_plain(cuda, shape, forced):
         return y
 
     for act in ("sigmoid", "none"):
-        before = (MA.matmul_act.launches, MA.matmul_act.launches_f32_cp_wgmma,
-                  MA.matmul_act.launches_f32_wgmma)
+        before = (_count(*MA_F32), _count("matmul_act_f32_cp_wgmma"),
+                  _count("matmul_act_f32_wgmma"))
         y1, y2 = run(act), run(act)
-        assert (MA.matmul_act.launches, MA.matmul_act.launches_f32_cp_wgmma,
-                MA.matmul_act.launches_f32_wgmma) == (before[0] + 2, before[1] + 2, before[2])
+        assert (_count(*MA_F32), _count("matmul_act_f32_cp_wgmma"),
+                _count("matmul_act_f32_wgmma")) == (before[0] + 2, before[1] + 2, before[2])
         yp = MA.matmul_act_plain(xs, ws, bs, act)
         torch.cuda.synchronize()
         assert torch.equal(y1, y2)
@@ -1459,10 +1461,10 @@ def test_cuda_wgrad_f32_cp_wgmma_matches_plain(cuda, shape, vdt, forced):
 
     pk, pp, pk2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
     vk, vp, vk2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
-    before = SF.wgrad_momentum_update.launches_f32_cp_wgmma
+    before = _count("wgrad_momentum_update_f32_cp_wgmma")
     run(pk, vk)
     run(pk2, vk2)
-    assert SF.wgrad_momentum_update.launches_f32_cp_wgmma == before + 2
+    assert _count("wgrad_momentum_update_f32_cp_wgmma") == before + 2
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, 0.9)
     torch.cuda.synchronize()
     assert torch.equal(pk, pk2) and torch.equal(vk, vk2)
@@ -1564,10 +1566,10 @@ def test_cuda_wgrad_f32_ws_wgmma_matches_plain(cuda, shape, vdt, forced):
 
     pk, pp, pk2 = (torch.from_numpy(p).to(cuda) for _ in range(3))
     vk, vp, vk2 = (torch.from_numpy(v).to(cuda, vdt) for _ in range(3))
-    before = SF.wgrad_momentum_update.launches_f32_ws_wgmma
+    before = _count("wgrad_momentum_update_f32_ws_wgmma")
     run(pk, vk)
     run(pk2, vk2)
-    assert SF.wgrad_momentum_update.launches_f32_ws_wgmma == before + 2
+    assert _count("wgrad_momentum_update_f32_ws_wgmma") == before + 2
     SF.wgrad_momentum_update_plain(xs, es, pp, vp, 0.003, 0.9)
     torch.cuda.synchronize()
     assert torch.equal(pk, pk2) and torch.equal(vk, vk2)

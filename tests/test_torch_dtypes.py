@@ -71,10 +71,10 @@ def test_affine_sigmoid_bf16_plain_matches_pallas(shape):
     jy, vjp = jax.vjp(j_affine_sigmoid, *(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)))
     jgrads = vjp(jnp.asarray(g, jnp.bfloat16))
     ts = [torch.from_numpy(a).to(BF16).requires_grad_(True) for a in (x, w, b)]
-    before = (MA.matmul_act.launches, MA.matmul_act.launches_bf16)
+    before = _build.LAUNCHES.copy()
     y = MA.affine_sigmoid(*ts)
     y.backward(torch.from_numpy(g).to(BF16))
-    assert (MA.matmul_act.launches, MA.matmul_act.launches_bf16) == before
+    assert _build.LAUNCHES == before
     assert y.dtype == BF16 and jy.dtype == jnp.bfloat16
     ty, jyf = _f32(y), _f32(jy)
     assert (np.abs(ty - jyf) <= bf16_step(np.maximum(np.abs(ty), np.abs(jyf)))).all()
@@ -119,9 +119,9 @@ def test_wgrad_momentum_bf16_plain_matches_jax_apply_updates(vdt):
     tdt = BF16 if vdt == "bf16" else torch.float32
     xs, es = torch.from_numpy(x).to(BF16), torch.from_numpy(e).to(BF16)
     tp, tv = torch.from_numpy(p.copy()), torch.from_numpy(v).to(tdt)
-    before = (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_bf16)
+    before = _build.LAUNCHES.copy()
     SF.wgrad_momentum_update(xs, es, tp, tv, a, 0.9)
-    assert (SF.wgrad_momentum_update.launches, SF.wgrad_momentum_update.launches_bf16) == before
+    assert _build.LAUNCHES == before
     assert tp.dtype == torch.float32 and tv.dtype == tdt
     g = _f32(jg)
     tol_v = bf16_step(g) + (bf16_step(_f32(jv[0]["weight"])) if vdt == "bf16" else 1e-7)

@@ -1,16 +1,16 @@
 """The Trainer's train step replayed from a CUDA graph (``_graph_step``)
 against the same step run eagerly, on the card: the same weights, velocity
 and stats bit for bit after several bunches, the kernels the eager steps
-launch (the wrappers' launch counters less the launches captures recorded,
-plus those replays made), a new capture when the learning rate changes or
+launch (``_build.LAUNCHES``, which counts each replay's launches and none
+of a capture's), a new capture when the learning rate changes or
 the state tensors are replaced, under a ``torch.profiler`` session the
 graphs that hold the step's spans, and no graph where the step is not the
 fused softmax-CE one. The eager side runs under ``-T 4`` (the profiler's
 spans on), where the step takes its spans and no graph. Skips without a
 card (decided inside each test)."""
 
+import collections
 import contextlib
-
 
 import numpy as np
 import pytest
@@ -18,11 +18,9 @@ import torch
 
 from nnet_asr_torch.models.components import BiasedLinearity, Sigmoid, Softmax
 from nnet_asr_torch.models.network import Network
-from nnet_asr_torch.ops.kernels import matmul_act as MA
-from nnet_asr_torch.ops.kernels import sgd_fused as SF
-from nnet_asr_torch.ops.kernels import softmax_ce as SC
+from nnet_asr_torch.ops.kernels import _build
 from nnet_asr_torch.train.sgd import SgdConfig
-from nnet_asr_torch.train.trainer import GRAPH_LAUNCHES, Trainer, TrainerConfig
+from nnet_asr_torch.train.trainer import Trainer, TrainerConfig
 from nnet_asr_torch.utils.profiler import profiler
 
 torch.set_num_threads(2)
@@ -31,8 +29,6 @@ torch.set_num_threads(2)
 # of the step (the plans take CP_WGMMA at these widths) and the fused wgrad
 DIMS = [256, 1024, 1024, 2048]
 B, NB = 1024, 6
-COUNTERS = ((MA.matmul_act, "launches"), (MA.dgrad, "launches"),
-            (SF.wgrad_momentum_update, "launches"), (SC.softmax_xent, "launches"))
 
 
 @pytest.fixture
@@ -71,11 +67,14 @@ def _stack(dev):
             torch.randint(0, DIMS[-1], (NB, B), generator=gen, device=dev, dtype=torch.int32))
 
 
-def _launched():
-    """The wrappers' kernels that ran: their counters, less what captures
-    recorded, plus what replays launched."""
-    return [getattr(f, k) - GRAPH_LAUNCHES["captured"][f"{f.__name__}.{k}"]
-            + GRAPH_LAUNCHES["replayed"][f"{f.__name__}.{k}"] for f, k in COUNTERS]
+def _launched(before: collections.Counter) -> collections.Counter:
+    """The entry points that ran since ``before``, a copy of
+    ``_build.LAUNCHES``, by name."""
+    return _build.LAUNCHES - before
+
+
+def _forwards(launches: collections.Counter) -> int:
+    return sum(v for k, v in launches.items() if k.startswith("matmul_act_f32"))
 
 
 def _state(tr: Trainer):
@@ -91,10 +90,10 @@ def test_graph_replays_the_eager_step_bit_for_bit(card, momentum):
     for side in ("eager", "graph"):
         profiler.enabled = side == "eager"
         tr = _trainer(card, momentum)
-        before = _launched()
+        before = _build.LAUNCHES.copy()
         acc = tr.drain_train(feats, labels)
         torch.cuda.synchronize()
-        launches = [n - b for n, b in zip(_launched(), before)]
+        launches = _launched(before)
         out[side] = (_state(tr), {k: v.clone() for k, v in acc.items()}, launches)
         if side == "graph":
             # the first bunch ran eagerly, the second was captured, the rest replayed
@@ -104,7 +103,32 @@ def test_graph_replays_the_eager_step_bit_for_bit(card, momentum):
     (es, eacc, elaunch), (gs, gacc, glaunch) = out["eager"], out["graph"]
     assert all(torch.equal(a, b) for a, b in zip(es, gs))
     assert sorted(eacc) == sorted(gacc) and all(torch.equal(eacc[k], gacc[k]) for k in eacc)
-    assert elaunch == glaunch and elaunch[0] == 2 * NB and elaunch[3] == NB
+    assert elaunch == glaunch and _forwards(elaunch) == 2 * NB
+    assert elaunch["softmax_xent_f32"] == NB
+
+
+@pytest.mark.cuda
+def test_launches_count_each_replay_and_no_capture(card):
+    """Over one key, ``_build.LAUNCHES`` rises by the eager step's launches
+    at each replay, and by none for the three captures."""
+    feats, labels = _stack(card)
+    profiler.enabled = False
+    tr = _trainer(card, 0.9)
+    before = _build.LAUNCHES.copy()
+    tr.drain_train(feats[:1], labels[:1])            # eager
+    step = _launched(before)
+    assert tr._graph is None and _forwards(step) == 2 and step["softmax_xent_f32"] == 1
+    before = _build.LAUNCHES.copy()
+    tr.drain_train(feats[1:2], labels[1:2])          # the captures, then one replay
+    assert _launched(before) == step
+    g = tr._graph
+    assert g is not None and all(c.launches == step for c in (g.plain, *g.traced))
+    before = _build.LAUNCHES.copy()
+    tr.drain_train(feats[2:], labels[2:])            # replays alone
+    torch.cuda.synchronize()
+    assert tr._graph is g
+    assert _launched(before) == collections.Counter(
+        {k: (NB - 2) * v for k, v in step.items()})
 
 
 @pytest.mark.cuda

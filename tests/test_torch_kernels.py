@@ -15,6 +15,7 @@ import torch
 from nnet_asr_tpu.ops.objectives import xent_loss_and_stats as j_xent_loss_and_stats
 from nnet_asr_tpu.ops.pallas.matmul_act import affine_sigmoid as j_affine_sigmoid
 from nnet_asr_tpu.ops.pallas.softmax_ce import fused_softmax_xent as j_fused_softmax_xent
+from nnet_asr_torch.ops.kernels import _build
 from nnet_asr_torch.ops.kernels import matmul_act as MA
 from nnet_asr_torch.ops.kernels import softmax_ce as SC
 from nnet_asr_torch.ops.objectives import xent_loss_and_stats
@@ -39,10 +40,10 @@ def test_affine_sigmoid_plain_matches_pallas(shape):
     jgrads = vjp(jnp.asarray(g))
 
     ts = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, b)]
-    before = MA.matmul_act.launches
+    before = _build.LAUNCHES.copy()
     y = MA.affine_sigmoid(*ts)
     y.backward(torch.from_numpy(g))
-    assert MA.matmul_act.launches == before          # CPU tensors: no launch
+    assert _build.LAUNCHES == before                 # CPU tensors: no launch
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), rtol=1e-5, atol=1e-6)
     for t, jg in zip(ts, jgrads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-5)
@@ -178,3 +179,22 @@ def test_wrappers_reject_other_devices():
         MA.matmul_act(x, torch.empty((3, 2), device="meta"), torch.empty(2, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         SC.softmax_xent(x, torch.empty(4, dtype=torch.int32, device="meta"))
+
+
+# every launch returns through _build.check with its entry point's name:
+# a zero code counts one call under that name, an error raises and counts none
+def test_check_counts_each_launch_under_its_entry_point(monkeypatch):
+    class Lib:
+        @staticmethod
+        def nnet_cuda_error_string(code):
+            return b"cudaErrorInvalidValue"
+
+    monkeypatch.setattr(_build, "load_library", lambda: Lib)
+    before = _build.LAUNCHES.copy()
+    _build.check(0, "matmul_act_f32_wgmma")
+    assert _build.LAUNCHES - before == {"matmul_act_f32_wgmma": 1}
+    with pytest.raises(RuntimeError, match=r"dgrad_f32_wgmma: CUDA error 1 "
+                                           r"\(cudaErrorInvalidValue\)"):
+        _build.check(1, "dgrad_f32_wgmma")
+    assert _build.LAUNCHES - before == {"matmul_act_f32_wgmma": 1}
+    _build.LAUNCHES.subtract({"matmul_act_f32_wgmma": 1})

@@ -576,8 +576,8 @@ def test_dgrad_on_the_cpu_is_the_library_product(dtype):
     rng = np.random.default_rng(4)
     dz = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)).to(dtype)
     w = torch.from_numpy(rng.standard_normal((40, 48)).astype(np.float32)).to(dtype)
-    before = MA.dgrad.launches
+    before = _build.LAUNCHES.copy()
     dx = MA.dgrad(dz, w)
-    assert MA.dgrad.launches == before and dx.dtype == dtype
+    assert _build.LAUNCHES == before and dx.dtype == dtype
     want = MA.bf16_matmul(dz, w.T) if dtype == torch.bfloat16 else torch.matmul(dz, w.T)
     assert torch.equal(dx, want)

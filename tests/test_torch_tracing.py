@@ -157,15 +157,19 @@ def test_tracing_off_records_nothing(prof, monkeypatch):
     monkeypatch.setattr(profiler_module, "_Range", Range)
     assert not prof.recording()
     assert prof.phase("a") is prof.phase("b")          # the shared null context
-    # off, the step and the backward skip their spans: the drain's, the
-    # output layer's and the softmax-CE's null contexts are all that is asked for
+    # off, the step opens every span it opens when on, and each is the
+    # shared null context
     asked = []
     phase = prof.phase
-    monkeypatch.setattr(prof, "phase", lambda name, *a, **k: asked.append(name) or phase(
-        name, *a, **k))
+
+    def asking(name, *args, **kwargs):
+        asked.append((name, phase(name, *args, **kwargs)))
+        return asked[-1][1]
+
+    monkeypatch.setattr(prof, "phase", asking)
     _trainer(0.9).drain_train(*_stack())
-    assert sorted(asked) == (["forward.output"] * NB + ["loss.softmax_ce"] * NB
-                             + ["train-step"])
+    assert {n for n, _ in asked} == set(PARENT) | {"train-step"}
+    assert all(ctx is phase("x") for _, ctx in asked)
     assert prof.totals() == {} and prof.counters() == {}
     assert ranges == []
     # on, but no torch.profiler session: spans and no ranges
